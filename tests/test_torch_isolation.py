@@ -1,0 +1,117 @@
+"""The port stands alone: tpu_syncbn_torch (and chip_smoke.py) import no
+JAX, Flax, Optax or anything of the JAX package, and every entry point
+that defaults to the card refuses to run without one instead of falling
+back to the CPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_syncbn_torch import data, models, nn, parallel, runtime, train
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tpu_syncbn_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_syncbn")
+
+
+def _sources():
+    """The package's sources and chip_smoke.py, in a fixed order (every
+    test worker must collect the same parameters)."""
+    found = [os.path.join(d, f) for d, dirs, files in os.walk(PKG)
+             for f in files if f.endswith(".py") and "_build" not in d]
+    return sorted(found) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpu_syncbn_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'tpu_syncbn_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20  # every subpackage and module was imported
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, node.lineno, name)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+
+
+def test_entry_points_default_to_the_card_and_refuse_to_fall_back(no_card):
+    msg = "no CUDA device"
+    with pytest.raises(RuntimeError, match=msg):
+        models.resnet18(num_classes=10, small_input=True, width=8)
+    with pytest.raises(RuntimeError, match=msg):
+        nn.BatchNorm2d(4)
+    model = models.resnet18(num_classes=10, small_input=True, width=8, device="cpu")
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with pytest.raises(RuntimeError, match=msg):
+        parallel.DataParallel(model, opt, lambda m, b: m(b).sum())
+    with pytest.raises(RuntimeError, match=msg):
+        data.device_prefetch(iter([np.zeros(2)]))
+    with pytest.raises(RuntimeError, match=msg):
+        runtime.initialize()
+    with pytest.raises(RuntimeError, match=msg):
+        train.main(["--epochs", "1"])
+    # no silent CPU fallback anywhere: the CPU runs only when asked for
+    assert runtime.initialize("cpu") == torch.device("cpu")
+
+
+def test_train_script_runs_on_the_cpu_when_asked():
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_syncbn_torch.train", "--device", "cpu",
+         "--epochs", "1", "--dataset-size", "48", "--batch-size", "8",
+         "--arch", "resnet18"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "done: 6 steps, final loss" in r.stdout
+
+
+def test_chip_smoke_refuses_without_a_card_and_alone(no_card, tmp_path):
+    """chip_smoke.py prints no result without a card, and fails in a
+    directory that holds it and nothing else of the repository."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    for cwd, script in ((ROOT, "chip_smoke.py"), (tmp_path, str(alone))):
+        r = subprocess.run([sys.executable, script], cwd=cwd,
+                           env=dict(_env(), PYTHONPATH=""),
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+

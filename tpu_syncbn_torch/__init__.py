@@ -1,0 +1,16 @@
+"""tpu_syncbn_torch — the PyTorch / CUDA port of ``tpu_syncbn``.
+
+Synchronized BatchNorm for data-parallel training, one process per GPU,
+with the BatchNorm hot ops as hand-written Triton kernels for Hopper
+(:mod:`tpu_syncbn_torch.ops.triton_bn`). The package imports ``torch`` and
+numpy only; it never imports JAX or the JAX package, which stays in the
+repository as the reference the port is tested against.
+
+Entry points default to ``device="cuda"`` and raise without a card; pass
+``device="cpu"`` to run on the CPU (the kernels' plain versions run there).
+"""
+
+from tpu_syncbn_torch import data, models, nn, ops, parallel, runtime
+from tpu_syncbn_torch.mesh_axes import DATA_AXIS
+
+__all__ = ["DATA_AXIS", "data", "models", "nn", "ops", "parallel", "runtime"]
