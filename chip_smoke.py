@@ -25,11 +25,33 @@ falls back to the CPU):
                same weights and batch (loss and running stats; every
                kernel call of that step against its plain version on the
                same tensors; the gradients shown beside a bf16-vs-f32
-               reference); one eval step.
+               reference); one eval step;
+5. attn-build  — nvcc builds the three CUDA flash-attention kernels from
+                 ``tpu_syncbn_torch/ops/csrc`` (one nvcc per source, all at
+                 once), with seconds, registers and spills;
+6. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+                 plain version, causal and not, float32 (against float64)
+                 and bfloat16, at the LM slice's shape and four others;
+7. attn-time   — device time of each attention kernel at the LM shape
+                 beside its bound, its plain version and, as a yardstick the
+                 port never calls, ``scaled_dot_product_attention``; the
+                 kernels' times at every parity shape; the float32 kernels'
+                 times;
+8. lm          — the causal transformer LM at full width (d_model 512, 8
+                 heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
+                 batch 2, bf16), trained by ``longcontext_train.train_step``
+                 with Adam and ``attn_impl="flash_pallas_bwd"``: every
+                 attention kernel must launch 8 x steps times; step times,
+                 tokens/s, a profiler window;
+9. lm-a/b      — one step from the same weights and batch with the kernels
+                 and with their plain versions (loss; every kernel call of
+                 the kernel step against its plain version on the same
+                 tensors; the gradients shown), and one step of
+                 ``attn_impl="flash"`` (kernel forward, scan backward).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Triton builds every kernel from this checkout's sources into
+Triton and nvcc build every kernel from this checkout's sources into
 ``tpu_syncbn_torch/_build/`` (git-ignored). Without a card the script
 exits 2 and prints no result.
 """
@@ -38,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -116,20 +139,24 @@ def phase_card(torch):
 # -- phase 3: kernels -------------------------------------------------------
 
 
-def _event_ms(torch, fn, iters: int) -> float:
-    """Host-inclusive time per call: ``iters`` calls back to back between
-    two CUDA events, after warm-up. Where a kernel is shorter than its
-    launch, this measures the launch, not the kernel."""
-    for _ in range(3):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+def _event_ms(torch, fn, iters: int, reps: int = 1) -> float:
+    """Host-inclusive time per call: the median over ``reps`` windows of
+    ``iters`` calls back to back between two CUDA events, after one
+    warm-up call. Where a kernel is shorter than its launch, this measures
+    the launch, not the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
 
 
 def device_intervals(prof):
@@ -380,6 +407,51 @@ def phase_kernel_times(torch, T, bn_ops, shapes, card):
     return tot
 
 
+def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
+    """Run ``run()`` (two training steps) under ``torch.profiler`` and print
+    the device's busy and idle share of the wall time, the share of busy
+    time spent in the kernels ``is_ours(name)`` selects, and the top 15
+    device activities."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    acts = device_intervals(prof)
+    by_name: dict = {}
+    for name_, start, end in acts:
+        tot_, cnt_ = by_name.get(name_, (0.0, 0))
+        by_name[name_] = (tot_ + (end - start) / 1e3, cnt_ + 1)
+    rows = sorted(((ms, cnt, key) for key, (ms, cnt) in by_name.items()),
+                  reverse=True)
+    busy = 0.0  # union of device intervals: overlapping work counts once
+    cur_s = cur_e = None
+    for _, start, end in sorted(acts, key=lambda r: r[1]):
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                busy += (cur_e - cur_s) / 1e3
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    if cur_e is not None:
+        busy += (cur_e - cur_s) / 1e3
+    ours_ms = sum(r[0] for r in rows if is_ours(r[2]))
+    wall_ms = window * 1e3
+    if busy > 0:
+        log(f"[{tag}] 2 steps: wall {wall_ms:.1f}ms, device busy {busy:.1f}ms "
+            f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%), "
+            f"{what} {ours_ms:.2f}ms ({100 * ours_ms / busy:.1f}% of busy), "
+            f"{len(acts)} device activities [{card}]")
+    else:  # a limit of the profiler's tracing, not a fault of the port
+        log(f"[{tag}] 2 steps: wall {wall_ms:.1f}ms; the profiler recorded "
+            "no device activity, so the busy share is not measured")
+    for ms, cnt, key in rows[:15]:
+        log(f"[{tag}] {ms:9.3f}ms x{cnt:<5d} {key[:100]}")
+
+
 # -- phase 4: the slice -----------------------------------------------------
 
 
@@ -453,47 +525,10 @@ def phase_slice(torch, card):
 
     # profiler window: where the device time goes in a steady step
     prof_batches = [next(batches), next(batches)]
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b_ in prof_batches:
-            dp.train_step(b_)
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    acts = device_intervals(prof)
-    by_name: dict = {}
-    for name_, start, end in acts:
-        tot_, cnt_ = by_name.get(name_, (0.0, 0))
-        by_name[name_] = (tot_ + (end - start) / 1e3, cnt_ + 1)
-    rows = sorted(((ms, cnt, key) for key, (ms, cnt) in by_name.items()),
-                  reverse=True)
-    busy = 0.0  # union of device intervals: overlapping work counts once
-    cur_s = cur_e = None
-    for _, start, end in sorted(acts, key=lambda r: r[1]):
-        if cur_e is None or start > cur_e:
-            if cur_e is not None:
-                busy += (cur_e - cur_s) / 1e3
-            cur_s, cur_e = start, end
-        else:
-            cur_e = max(cur_e, end)
-    if cur_e is not None:
-        busy += (cur_e - cur_s) / 1e3
     bn_names = ("stats_partial", "sum_partials", "normalize",
                 "bwd_reduce_partial", "backward_elemt")
-    bn_ms = sum(r[0] for r in rows if r[2] in bn_names)
-    wall_ms = window * 1e3
-    if busy > 0:
-        log(f"[profile] 2 steps: wall {wall_ms:.1f}ms, device busy {busy:.1f}ms "
-            f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%), "
-            f"BN kernels {bn_ms:.2f}ms ({100 * bn_ms / busy:.1f}% of busy), "
-            f"{len(acts)} device activities [{card}]")
-    else:  # a limit of the profiler's tracing, not a fault of the port
-        log(f"[profile] 2 steps: wall {wall_ms:.1f}ms; the profiler recorded "
-            "no device activity, so the busy share is not measured")
-    for ms, cnt, key in rows[:15]:
-        log(f"[profile] {ms:9.3f}ms x{cnt:<5d} {key[:100]}")
+    profile_window(torch, lambda: [dp.train_step(b_) for b_ in prof_batches],
+                   "profile", "BN kernels", lambda name: name in bn_names, card)
 
     # in-place A/B: one step from the same state on the same batch, with
     # the kernels ("auto") and with their plain versions ("off"); in the
@@ -584,6 +619,491 @@ def phase_slice(torch, card):
     return launches
 
 
+# -- phases 5-9: the attention kernels and the transformer LM ---------------
+
+BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
+ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# the causal Pallas kernel each CUDA kernel replaces on the LM path (the
+# rectangular ones, pallas_attention.py:118, :412, :450, are its
+# causal=false instantiation)
+ATTN_REPLACES = {"flash_fwd": "tpu_syncbn/ops/pallas_attention.py:161",
+                 "flash_bwd_dkdv": "tpu_syncbn/ops/pallas_attention.py:497",
+                 "flash_bwd_dq": "tpu_syncbn/ops/pallas_attention.py:533"}
+# matrix products per kernel, each 2*D operations per (query, key) pair:
+# S and PV; S, dV, dP and dK; S, dP and dQ
+ATTN_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dkdv": 4, "flash_bwd_dq": 3}
+# per call: (B, L, H, D) operands read, written; (B*H, L) f32 rows moved
+ATTN_MOVES = {"flash_fwd": (3, 1, 1), "flash_bwd_dkdv": (4, 2, 2),
+              "flash_bwd_dq": (4, 1, 2)}
+
+# the LM slice: the repo's own long attention case (tpu_validation.py:355,
+# 363-364: 8 heads x 64, bf16, L 8192); d_ff, vocab and depth follow GPT-2
+# (assumed, PERF.md); the example's Adam lr (longcontext_train.py:49)
+LM_CFG = dict(vocab=50257, d_model=512, n_heads=8, n_layers=8, d_ff=2048,
+              max_len=8192)
+LM_BATCH, LM_STEPS, LM_LR = 2, 6, 3e-3
+ATTN_SHAPE = (LM_BATCH, LM_CFG["max_len"], LM_CFG["n_heads"],
+              LM_CFG["d_model"] // LM_CFG["n_heads"])
+ATTN_PARITY_SHAPES = [ATTN_SHAPE, (1, 2048, 8, 64), (1, 1000, 8, 64),
+                      (1, 2048, 16, 128), (4, 512, 8, 8)]
+
+# |kernel - plain| per element, by output kind:
+#  * float32 kernels vs a float64 plain run: the repo's on-card gate
+#    (benchmarks/tpu_validation.py:269,294) — outputs 2e-4, gradients
+#    5e-4; the logsumexp 2e-4 (float32 in every case);
+#  * bfloat16 kernels vs the plain version on the same bf16 inputs: the
+#    kernels round P (and dS) to bf16, unit roundoff 2^-8, before the sums
+#    that the plain version makes in f32 (o = sum_j P_ij v_j, dv = sum_i
+#    P_ij dO_i, dk = sum_i dS_ij q_i, dq = sum_j dS_ij k_j), so an
+#    element's error is ~2^-8/sqrt(3) of the root sum of squares of its
+#    terms, however far the terms cancel (the dS of a query row sum to 0,
+#    and the LM's values, keys and queries share a common part). Limit:
+#    2^-5 of that root sum of squares (14 of those standard deviations);
+#    plus 2^-6|x| for the final rounding of both sides to bf16, half an
+#    ulp each, where at a power of two one side's ulp is twice the
+#    other's (3 * 2^-8|x| at most); plus 2^-12 of the tensor's RMS, so a
+#    limit is never 0. dS = P (dP - delta) is a difference of two f32 dot
+#    products that both sides round apart, by up to D * 2^-24 of
+#    |dO_i| |v_j|: its magnitude in the terms is never taken below 2^-11
+#    of P |dO_i| |v_j| (2^-5 of that covers both sides' rounding up to
+#    D = 128), which matters only where dS is itself rounding noise (the
+#    first causal row of dq, where P = 1 and dP = delta). The limit follows
+#    each element's own terms, so a fault in the late, small rows of a long
+#    causal call fails it.
+BF16_TERMS, BF16_RTOL, BF16_FLOOR, DS_F32 = 2 ** -5, 2 ** -6, 2 ** -12, 2 ** -11
+F32_TOL = {"out": 2e-4, "grad": 5e-4, "lse": 2e-4}
+
+
+def attn_terms(torch, A, kern: str, args, causal: bool, scale: float, lse):
+    """The root sum of squares of the terms each element of ``kern``'s
+    bf16 outputs sums (o; dk, dv; dq), float32 (B, L, H, D), from the
+    plain arithmetic on ``args``; ``lse`` is the forward's logsumexp."""
+    q, k, v = args[:3]
+    b, l, h, _ = q.shape
+    f = torch.float32
+    qs, kf, vf = A._bh(q, f) * scale, A._bh(k, f), A._bh(v, f)
+    lse = lse.float()
+    if kern != "flash_fwd":
+        dof, delta = A._bh(args[3], f), args[5].float()
+        do_norm, v_norm = dof.norm(dim=-1), vf.norm(dim=-1)
+    outs = [torch.zeros_like(qs) for _ in range(2 if kern == "flash_bwd_dkdv" else 1)]
+    for r0 in range(0, l, A._PLAIN_ROWS):
+        r1 = min(r0 + A._PLAIN_ROWS, l)
+        p = torch.exp(qs[:, r0:r1] @ kf.transpose(1, 2) - lse[:, r0:r1, None])
+        live = A._live(r0, r1, l, causal, q.device)
+        if live is not None:
+            p = torch.where(live, p, 0.0)
+        if kern == "flash_fwd":
+            outs[0][:, r0:r1] = p.square() @ vf.square()
+            continue
+        ds2 = (p * ((dof[:, r0:r1] @ vf.transpose(1, 2) - delta[:, r0:r1, None]).abs()
+                    + DS_F32 * do_norm[:, r0:r1, None] * v_norm[:, None, :])).square()
+        if kern == "flash_bwd_dq":
+            outs[0][:, r0:r1] = (ds2 @ kf.square()) * scale ** 2
+        else:
+            outs[0] += ds2.transpose(1, 2) @ qs[:, r0:r1].square()
+            outs[1] += p.square().transpose(1, 2) @ dof[:, r0:r1].square()
+    return [A._blhd(x.sqrt(), b, h, f) for x in outs]
+
+
+def attn_check(torch, got, want, kind: str, terms=None):
+    """(max abs error, worst error as a share of its limit, median |want|,
+    row of the worst element) of a kernel output of ``kind`` (out, grad,
+    lse) against the plain version's ``want``; ``terms`` is the output's
+    :func:`attn_terms` where it is bf16."""
+    want = want.double()
+    d = (got.double() - want).abs()
+    if kind == "lse" or got.dtype != torch.bfloat16:
+        tol = F32_TOL[kind]
+    else:
+        tol = (BF16_TERMS * terms.double() + BF16_RTOL * want.abs()
+               + BF16_FLOOR * float(want.pow(2).mean().sqrt()))
+    ratio = d / tol
+    i = int(ratio.argmax())
+    row = (i // (want.shape[2] * want.shape[3])) % want.shape[1] \
+        if want.dim() == 4 else i % want.shape[-1]
+    return float(d.max()), float(ratio.max()), float(want.abs().median()), row
+
+
+def attn_bound_ms(k: str, shape, causal: bool, itemsize: int,
+                  flops_per_s: float) -> tuple[float, float]:
+    """(bytes time, operations time) in ms: the least time an H100 needs
+    for one call at ``shape`` (B, L, H, D); causal work counts only the
+    L(L+1)/2 live (query, key) pairs."""
+    b, l, h, d = shape
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    reads, writes, rows = ATTN_MOVES[k]
+    nbytes = (reads + writes) * b * l * h * d * itemsize + rows * b * h * l * 4
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * ATTN_PRODUCTS[k] * pairs * d / flops_per_s * 1e3)
+
+
+def _attn_inputs(torch, shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def phase_attn_build():
+    import re
+
+    from tpu_syncbn_torch.ops import _cuda_build
+
+    t0 = time.perf_counter()
+    paths = _cuda_build.build()
+    secs = time.perf_counter() - t0
+    for stem, out in sorted(_cuda_build.LAST_BUILD["ptxas"].items()):
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", out)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", out))
+        log(f"[attn-build] {stem}: {len(regs)} kernels, registers "
+            f"{min(regs)}-{max(regs)}, spill stores {spills} bytes")
+    log(f"[attn-build] nvcc built {len(_cuda_build.LAST_BUILD['compiled'])} "
+        f"of {len(paths)} libraries in {secs:.1f}s (one nvcc per source, in "
+        f"parallel) into {os.path.dirname(next(iter(paths.values())))}")
+    return secs
+
+
+def phase_attn_parity(torch, A):
+    """Each attention kernel against its plain version (float64 for float32
+    inputs) on the same inputs — the backward kernels on the forward
+    kernel's own lse and delta — causal and not, at every parity shape.
+    Returns the disagreements with the rest; main() fails on them after
+    the LM phases, so one run shows every kernel's gate."""
+    log(f"[attn-parity] limits: float32 vs float64 |err| <= out "
+        f"{F32_TOL['out']:.0e}, grad {F32_TOL['grad']:.0e}, lse {F32_TOL['lse']:.0e}; "
+        f"bfloat16 |err| <= {BF16_TERMS:.2e} x root sum of squares of the "
+        f"element's terms + {BF16_RTOL:.2e}|x| + {BF16_FLOOR:.2e} x the "
+        f"tensor's RMS, lse {F32_TOL['lse']:.0e}")
+    worst = {k: 0.0 for k in ATTN_KERNELS}
+    n_cases, failures = 0, []
+    for shape in ATTN_PARITY_SHAPES:
+        scale = shape[-1] ** -0.5
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[-1]
+                q, k, v, do = _attn_inputs(torch, shape, dtype,
+                                           seed=sum(shape) + causal)
+                kw = dict(causal=causal, scale=scale)
+                o, lse = A.flash_fwd(q, k, v, **kw)
+                delta = A.row_delta(do, o)
+                dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+                dq = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+                torch.cuda.synchronize()
+                ref = (lambda x: x.double()) if dtype == torch.float32 else (lambda x: x)
+                rq, rk, rv, rdo = (ref(x) for x in (q, k, v, do))
+                po, plse = A.flash_fwd_plain(rq, rk, rv, **kw)
+                args = (rq, rk, rv, rdo, ref(lse), ref(delta))
+                pdk, pdv = A.flash_bwd_dkdv_plain(*args, **kw)
+                pdq = A.flash_bwd_dq_plain(*args, **kw)
+                if dtype == torch.bfloat16:
+                    t_o, = attn_terms(torch, A, "flash_fwd", (q, k, v), causal, scale, plse)
+                    t_dk, t_dv = attn_terms(torch, A, "flash_bwd_dkdv", args, causal, scale, lse)
+                    t_dq, = attn_terms(torch, A, "flash_bwd_dq", args, causal, scale, lse)
+                else:
+                    t_o = t_dk = t_dv = t_dq = None
+                checks = {"flash_fwd": [("o", o, po, "out", t_o), ("lse", lse, plse, "lse", None)],
+                          "flash_bwd_dkdv": [("dk", dk, pdk, "grad", t_dk),
+                                             ("dv", dv, pdv, "grad", t_dv)],
+                          "flash_bwd_dq": [("dq", dq, pdq, "grad", t_dq)]}
+                for kern, outs in checks.items():
+                    parts, ratio = [], 0.0
+                    for name, got, want, kind, terms in outs:
+                        abs_e, r, med, row = attn_check(torch, got, want, kind, terms)
+                        parts.append(f"{name} max_abs_err={abs_e:.3e} median|ref|={med:.3e} "
+                                     f"{r:.2f} of tol (row {row})")
+                        ratio = max(ratio, r)
+                        worst[kern] = max(worst[kern], abs_e)
+                    ok = ratio <= 1.0
+                    log(f"[attn-parity] {kern:15s} {str(shape):18s} "
+                        f"{'causal' if causal else 'full  '} {dname:8s} "
+                        f"{'; '.join(parts)} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"{kern} disagrees with its plain version "
+                                        f"at {shape} causal={causal} {dname}")
+                n_cases += 1
+                del q, k, v, do, o, lse, delta, dk, dv, dq, po, plse, pdk, pdv, pdq
+                del t_o, t_dk, t_dv, t_dq, args, checks
+    return worst, n_cases, failures
+
+
+def phase_attn_time(torch, A, card):
+    """Device time of each attention kernel at the LM slice's shape (bf16),
+    causal (the path) and not; beside it the bound, the plain version and
+    scaled_dot_product_attention (a yardstick only: the port never calls
+    it). Then the kernels' times at every parity shape, and the float32
+    kernels' times at the LM shape."""
+    import torch.nn.functional as F
+
+    shape, scale = ATTN_SHAPE, ATTN_SHAPE[-1] ** -0.5
+    out = {}
+    for causal in (True, False):
+        tag = "causal" if causal else "full"
+        q, k, v, do = _attn_inputs(torch, shape, torch.bfloat16, seed=11)
+        kw = dict(causal=causal, scale=scale)
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        delta = A.row_delta(do, o)
+        calls = {
+            "flash_fwd": (lambda: A.flash_fwd(q, k, v, **kw),
+                          lambda: A.flash_fwd_plain(q, k, v, **kw)),
+            "flash_bwd_dkdv": (
+                lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+                lambda: A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)),
+            "flash_bwd_dq": (
+                lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                lambda: A.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
+        }
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        # at this shape a call lasts milliseconds: its launch is a
+        # negligible part of the event time
+        sdpa_fwd = _event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 5, 5)
+        # the closest single library call to the backward pair: ATen's
+        # flash-attention backward, dQ, dK and dV in one call
+        fa = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale)
+        aten_bwd = _event_ms(
+            torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, fa[0], fa[1], fa[2], fa[3], fa[4], fa[5], 0.0,
+                causal, fa[6], fa[7], scale=scale), 5, 5)
+        for kern, (kfn, pfn) in calls.items():
+            t_k = _event_ms(torch, kfn, 5, 5)
+            t_p = _event_ms(torch, pfn, 1, 3)
+            bytes_ms, ops_ms = attn_bound_ms(kern, shape, causal, 2, BF16_FLOPS_PER_S)
+            bound = max(bytes_ms, ops_ms)
+            lib = sdpa_fwd if kern == "flash_fwd" else None
+            out[(kern, causal)] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
+                                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                       library_ms=lib)
+            log(f"[attn-time] {kern:15s} {tag:6s} {shape} bf16 device: "
+                f"kernel={t_k:.3f}ms plain={t_p:.3f}ms bound={bound:.3f}ms "
+                f"({out[(kern, causal)]['bound_by']}, {100 * bound / t_k:.1f}% "
+                f"of bound) "
+                + (f"sdpa={lib:.3f}ms " if lib is not None else "")
+                + f"[{card}]")
+        # forward plus backward as a whole, through the autograd Function
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        qtr, ktr, vtr = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+        def ours():
+            A.flash_attention(qr, kr, vr, causal=causal, backward="pallas").backward(do)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qtr, ktr, vtr, is_causal=causal).backward(dot)
+
+        t_fb, t_sfb = _event_ms(torch, ours, 3, 3), _event_ms(torch, sdpa, 3, 3)
+        bound_fb = sum(max(attn_bound_ms(kk, shape, causal, 2, BF16_FLOPS_PER_S))
+                       for kk in ATTN_KERNELS)
+        log(f"[attn-time] forward+backward {tag:6s} {shape} bf16 device: "
+            f"kernels={t_fb:.3f}ms bound={bound_fb:.3f}ms sdpa={t_sfb:.3f}ms "
+            f"sdpa_fwd={sdpa_fwd:.3f}ms [{card}]")
+        pair = out[("flash_bwd_dkdv", causal)]["ms"] + out[("flash_bwd_dq", causal)]["ms"]
+        log(f"[attn-time] backward pair {tag:6s} {shape} bf16 device: "
+            f"flash_bwd_dkdv+flash_bwd_dq={pair:.3f}ms "
+            f"aten_flash_attention_backward={aten_bwd:.3f}ms [{card}]")
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qr, kr, vr, qtr, ktr, vtr, fa
+    # every parity shape, bf16: device time (CUDA graph of 10 calls; at the
+    # small shapes a call's host cost exceeds the kernel) against the
+    # bound, beside the SDPA forward (yardstick only)
+    for shp in ATTN_PARITY_SHAPES:
+        q, k, v, do = _attn_inputs(torch, shp, torch.bfloat16, seed=13)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        for causal in (True, False):
+            kw = dict(causal=causal, scale=shp[-1] ** -0.5)
+            o, lse = A.flash_fwd(q, k, v, **kw)
+            delta = A.row_delta(do, o)
+            parts = []
+            for kern, fn in (
+                    ("flash_fwd", lambda: A.flash_fwd(q, k, v, **kw)),
+                    ("flash_bwd_dkdv", lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)),
+                    ("flash_bwd_dq", lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw))):
+                t = _device_ms(torch, fn, 10)
+                bound = max(attn_bound_ms(kern, shp, causal, 2, BF16_FLOPS_PER_S))
+                parts.append(f"{kern} {t * 1e3:.1f}/{bound * 1e3:.1f}us")
+            t_s = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), 10)
+            log(f"[attn-shape] {str(shp):18s} {'causal' if causal else 'full  '} "
+                f"bf16 device kernel/bound: {', '.join(parts)}; sdpa forward "
+                f"{t_s * 1e3:.1f}us [{card}]")
+        del q, k, v, do, qt, kt, vt, o, lse, delta
+    # float32 kernels (full f32 on the CUDA cores; 67 TFLOP/s peak)
+    q, k, v, do = _attn_inputs(torch, shape, torch.float32, seed=12)
+    o, lse = A.flash_fwd(q, k, v, causal=True, scale=scale)
+    delta = A.row_delta(do, o)
+    kw = dict(causal=True, scale=scale)
+    for kern, fn in (("flash_fwd", lambda: A.flash_fwd(q, k, v, **kw)),
+                     ("flash_bwd_dkdv", lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)),
+                     ("flash_bwd_dq", lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw))):
+        t = _event_ms(torch, fn, 2, 3)
+        bound = max(attn_bound_ms(kern, shape, True, 4, F32_FLOPS_PER_S))
+        log(f"[attn-time] {kern:15s} causal {shape} float32 device: "
+            f"kernel={t:.3f}ms bound={bound:.3f}ms (f32 rate) [{card}]")
+    return out
+
+
+@contextlib.contextmanager
+def checking_every_attn_call(torch, A, seen):
+    """Inside the block, every attention kernel call is followed by its
+    plain version on the same arguments and held to the parity phase's
+    limits, which follow each element's own terms: the LM's gradients are
+    ~1e-7 (a token-mean loss over 16384 tokens) and fall off along a
+    causal sequence. ``seen[kernel] = (calls, worst error / limit, worst
+    abs error, median |plain| of a bf16 output, row of the worst
+    element)``."""
+    saved = {k: getattr(A, k) for k in ATTN_KERNELS}
+
+    def run(*args, _k, _kern, _plain, **kw):
+        got = _kern(*args, **kw)
+        want = _plain(*args, **kw)
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        lse = want_t[1] if _k == "flash_fwd" else args[4]
+        terms = attn_terms(torch, A, _k, args, kw["causal"], kw["scale"], lse)
+        calls, r0, a0, m0, row0 = seen.get(_k, (0, 0.0, 0.0, 0.0, -1))
+        for i, (g_, w_) in enumerate(zip(got_t, want_t)):
+            kind = "lse" if w_.dtype == torch.float32 else "out"
+            abs_e, r, med, row = attn_check(torch, g_, w_, kind,
+                                            terms[i] if kind == "out" else None)
+            a0 = max(a0, abs_e)
+            if kind == "out":
+                m0 = max(m0, med)
+            if r > r0:
+                r0, row0 = r, row
+        seen[_k] = (calls + 1, r0, a0, m0, row0)
+        return got
+
+    for k in ATTN_KERNELS:
+        setattr(A, k, functools.partial(run, _k=k, _kern=saved[k],
+                                        _plain=getattr(A, f"{k}_plain")))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(A, k, fn)
+
+
+def phase_lm(torch, A, card):
+    """The slice's LM trained by the port's own step function, every
+    attention call through the three kernels."""
+    from tpu_syncbn_torch import longcontext_train as lct
+    from tpu_syncbn_torch import models
+
+    L, n_layers = LM_CFG["max_len"], LM_CFG["n_layers"]
+    model = models.init_transformer_lm(0, **LM_CFG, dtype=torch.bfloat16,
+                                       device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR)
+    stream = lct.periodic_batches(0, LM_BATCH, L, LM_CFG["vocab"])
+
+    def batch():
+        toks = torch.from_numpy(next(stream)).to("cuda")
+        return toks[:, :L], toks[:, 1:]
+
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every attention launch count starts at 0 here
+    A.reset_launch_counts()
+    times, losses = [], []
+    for i in range(LM_STEPS):
+        inputs, labels = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(lct.train_step(model, opt, inputs, labels,
+                                    attn_impl="flash_pallas_bwd"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"[lm] step {i + 1} loss {loss:.4f} time {times[-1] * 1e3:.1f}ms [{card}]")
+    launches = A.launch_counts()
+    log(f"[lm] kernels {json.dumps(launches)}")
+    for k, n in launches.items():
+        if n != n_layers * LM_STEPS:
+            fail(f"{k} launched {n} times in {LM_STEPS} steps, expected "
+                 f"{n_layers * LM_STEPS}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite LM loss in {losses}")
+    steady = times[1:]  # the first step warms cuBLAS and the allocator
+    med = statistics.median(steady)
+    tokens = LM_BATCH * L
+    log(f"[lm] {n_params / 1e6:.1f}M parameters, {n_layers} layers, batch "
+        f"{LM_BATCH} x L {L} bf16: first step {times[0] * 1e3:.1f}ms, steady "
+        f"median {med * 1e3:.2f}ms over {len(steady)} steps "
+        f"({min(steady) * 1e3:.1f}-{max(steady) * 1e3:.1f}) = "
+        f"{tokens / med:.0f} tokens/s; loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+        f"[{card}]")
+    prof = [batch(), batch()]
+    profile_window(
+        torch, lambda: [lct.train_step(model, opt, i_, l_, attn_impl="flash_pallas_bwd")
+                        for i_, l_ in prof],
+        "lm-profile", "attention kernels", lambda name: "flash" in name, card)
+    return model, opt, batch, launches
+
+
+def phase_lm_ab(torch, A, model, opt, batch, card):
+    """One step from the same weights and batch with the kernels ("auto")
+    and with their plain versions ("off"), every kernel call of the kernel
+    step held against its plain version on that call's tensors; then one
+    step of attn_impl="flash" (kernel forward, blockwise-scan backward).
+    Returns the per-call disagreements, which main() fails on."""
+    from tpu_syncbn_torch import longcontext_train as lct
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+
+    n_layers = LM_CFG["n_layers"]
+    inputs, labels = batch()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_state = copy.deepcopy(opt.state_dict())
+
+    def step(mode, impl, check=None):
+        model.load_state_dict(state)
+        opt.load_state_dict(copy.deepcopy(opt_state))
+        with bn_ops.kernel_mode(mode), (check or contextlib.nullcontext()):
+            loss = float(lct.train_step(model, opt, inputs, labels, attn_impl=impl))
+        return loss, {n: p.grad.detach().float().clone()
+                      for n, p in model.named_parameters()}
+
+    seen: dict = {}
+    l_k, g_k = step("auto", "flash_pallas_bwd", checking_every_attn_call(torch, A, seen))
+    l_p, g_p = step("off", "flash_pallas_bwd")
+    loss_err = abs(l_k - l_p) / max(abs(l_p), 1e-6)
+    log(f"[lm-a/b] loss kernels {l_k:.6f} plain {l_p:.6f} rel_err "
+        f"{loss_err:.2e} (tol 1e-2: bf16 activations through {n_layers} layers)")
+    failures = []
+    for k in ATTN_KERNELS:
+        calls, r, abs_e, med, row = seen.get(k, (0, 0.0, 0.0, 0.0, -1))
+        log(f"[lm-a/b] {k:15s} at each of {calls} calls of the kernel step vs "
+            f"its plain version on the same tensors (parity limits): worst "
+            f"{r:.2f} of tol at row {row}, max_abs_err {abs_e:.3e}, "
+            f"median|ref| {med:.3e} {'ok' if calls == n_layers and r <= 1.0 else 'FAIL'}")
+        if calls != n_layers or r > 1.0:
+            failures.append(f"{k} disagrees with its plain version inside the "
+                            f"LM step ({calls} calls, worst {r:.2f} of tol)")
+
+    def by_group(got, want):
+        groups: dict = {}
+        for n in want:
+            grp = n.split(".")[-1]
+            d2, r2 = groups.get(grp, (0.0, 0.0))
+            groups[grp] = (d2 + float((got[n] - want[n]).norm()) ** 2,
+                           r2 + float(want[n].norm()) ** 2)
+        return ", ".join(f"{g} {math.sqrt(d / max(r, 1e-60)):.2e}"
+                         for g, (d, r) in sorted(groups.items()))
+
+    # shown, not gated: whole-model gradients move under bf16 rounding alone
+    # (PERF.md, Findings); the per-call check above is the gate
+    log(f"[lm-a/b] gradients, norm rel_err by parameter, kernels vs plain: "
+        f"{by_group(g_k, g_p)}")
+    A.reset_launch_counts()
+    l_f, g_f = step("auto", "flash")
+    counts = A.launch_counts()
+    log(f"[lm-a/b] attn_impl='flash' (kernel forward, scan backward): loss "
+        f"{l_f:.6f} (kernel backward {l_k:.6f}), launches {json.dumps(counts)}, "
+        f"gradients vs kernel backward: {by_group(g_f, g_k)}")
+    if counts != {"flash_fwd": n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
+        fail(f"attn_impl='flash' launched {counts}")
+    if loss_err > 1e-2 or abs(l_f - l_k) > 1e-2 * abs(l_k) or not math.isfinite(l_f):
+        fail("the LM step disagrees between kernels and plain versions")
+    return failures
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_syncbn_torch")):
         fail("tpu_syncbn_torch/ not found beside chip_smoke.py; run it from "
@@ -622,6 +1142,22 @@ def main() -> int:
         "(includes Triton builds)")
     times = phase_kernel_times(torch, T, bn_ops, shapes, card)
     launches = phase_slice(torch, card)
+    torch.cuda.empty_cache()
+
+    from tpu_syncbn_torch.ops import cuda_attention as A
+
+    phase_attn_build()
+    t0 = time.perf_counter()
+    attn_worst, n_cases, failures = phase_attn_parity(torch, A)
+    log(f"[attn-parity] {n_cases} cases x 3 kernels in "
+        f"{time.perf_counter() - t0:.1f}s, {len(failures)} disagree")
+    torch.cuda.empty_cache()
+    attn_times = phase_attn_time(torch, A, card)
+    torch.cuda.empty_cache()
+    model, opt, batch, attn_launches = phase_lm(torch, A, card)
+    failures += phase_lm_ab(torch, A, model, opt, batch, card)
+    if failures:
+        fail("; ".join(failures))
 
     kernels = []
     for k in MOVES:
@@ -638,6 +1174,23 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    n_layers = LM_CFG["n_layers"]
+    for k in ATTN_KERNELS:  # per LM training step: n_layers causal calls
+        t = attn_times[(k, True)]
+        kernels.append({
+            "name": k,
+            "route": "cuda",
+            "source": f"tpu_syncbn_torch/ops/csrc/{k}.cu",
+            "replaces": ATTN_REPLACES[k],
+            "launches": attn_launches[k],
+            "max_abs_err": attn_worst[k],
+            "ms": n_layers * t["ms"],
+            "plain_ms": n_layers * t["plain_ms"],
+            "bound_ms": n_layers * t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None if t["library_ms"] is None
+            else n_layers * t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

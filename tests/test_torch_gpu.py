@@ -1,5 +1,7 @@
-"""Tests that launch the Triton BN kernels: they need an NVIDIA card with
-Triton, carry the ``gpu`` marker, and skip without one. The file imports
+"""Tests that launch the port's kernels (the Triton BN kernels, and the CUDA
+flash-attention kernels that nvcc builds at first launch): they need an
+NVIDIA card (with Triton and nvcc), carry the ``gpu`` marker, and skip
+without one. The file imports
 no JAX, so on a machine with a card it runs alone, without the suite's
 JAX conftest:
 
@@ -8,7 +10,12 @@ JAX conftest:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors. Tolerances: per-channel sums 1e-5 of the largest sum (f32 sums
 in another order); elementwise f32 outputs rtol 1e-5 / atol 1e-5; bf16
-outputs one bf16 unit in the last place (rtol 2^-7).
+outputs one bf16 unit in the last place (rtol 2^-7). Attention, the repo's
+on-card gate (``benchmarks/tpu_validation.py``): float32 kernels against a
+float64 plain run, outputs atol 2e-4 and gradients 5e-4; bf16 kernels
+against the plain version on the same bf16 inputs, 2^-5 of each row's RMS
+plus one ulp (P and dS are rounded to bf16 for their products; see
+``within_bf16_tol``).
 """
 
 import pytest
@@ -16,6 +23,7 @@ import torch
 
 from tpu_syncbn_torch import nn
 from tpu_syncbn_torch.ops import batch_norm as bn_ops
+from tpu_syncbn_torch.ops import cuda_attention as A
 from tpu_syncbn_torch.ops import triton_bn as T
 
 pytestmark = pytest.mark.gpu
@@ -128,3 +136,140 @@ def test_batch_norm_train_raises_on_a_layout_the_kernels_cannot_read(
         with pytest.raises(ValueError, match="dense channel-last"):
             nn.BatchNorm2d(8, channel_axis=1, device="cuda")(x)
     assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 0)
+
+
+@pytest.fixture
+def cuda_nvcc():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    try:
+        from tpu_syncbn_torch.ops import _cuda_build
+        _cuda_build.nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+
+
+def attn_inputs(b, l, h, d, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, l, h, d, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]
+
+
+def max_err(got, want):
+    return float((got.detach().double() - want.detach().double()).abs().max())
+
+
+def within_bf16_tol(got, want):
+    """|got - want| at most 2^-5 of the RMS of want's row, one ulp (2^-7)
+    of the element and 2^-12 of the tensor's RMS: the kernels round P and
+    dS to bf16 before products the plain version makes in f32, and with
+    random inputs an element's terms do not cancel, so its row's RMS is
+    their scale."""
+    got, want = got.detach().double(), want.detach().double()
+    tol = (2 ** -5 * want.pow(2).mean(-1, keepdim=True).sqrt()
+           + 2 ** -7 * want.abs() + 2 ** -12 * want.pow(2).mean().sqrt())
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 100, 3, 8), (1, 200, 2, 64),
+                                   (1, 130, 2, 128), (2, 64, 1, 32),
+                                   (1, 77, 2, 24), (1, 150, 1, 72),
+                                   (2, 1, 2, 16)])
+def test_flash_kernels_match_plain_versions(cuda_nvcc, shape, dtype, causal):
+    q, k, v, do = attn_inputs(*shape, dtype)
+    scale = 0.7 / shape[-1] ** 0.5
+    ref = (lambda x: x.double()) if dtype == torch.float32 else (lambda x: x)
+    A.reset_launch_counts()
+    o, lse = A.flash_fwd(q, k, v, causal=causal, scale=scale)
+    delta = A.row_delta(do, o)
+    dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert A.launch_counts() == dict.fromkeys(A.LAUNCHES, 1)
+    rq, rk, rv, rdo = map(ref, (q, k, v, do))
+    po, plse = A.flash_fwd_plain(rq, rk, rv, causal=causal, scale=scale)
+    assert max_err(lse, plse) <= 1e-4
+    args = (rq, rk, rv, rdo, ref(lse), ref(delta))
+    pdk, pdv = A.flash_bwd_dkdv_plain(*args, causal=causal, scale=scale)
+    pdq = A.flash_bwd_dq_plain(*args, causal=causal, scale=scale)
+    if dtype == torch.float32:  # against float64
+        assert max_err(o, po) <= 2e-4
+        for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+            assert max_err(got, want) <= 5e-4
+    else:
+        for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
+            assert within_bf16_tol(got, want)
+
+
+def test_flash_kernels_read_qkv_views_in_place(cuda_nvcc):
+    """q, k, v as views into one fused QKV product (row stride 3*H*D) give
+    bit for bit what contiguous copies give: the strides are honoured."""
+    b, l, h, d = 2, 150, 4, 64
+    qkv = torch.randn(b, l, 3 * h * d, device="cuda").to(torch.bfloat16)
+    q, k, v = (x.reshape(b, l, h, d) for x in qkv.split(h * d, -1))
+    assert not q.is_contiguous()
+    o1, lse1 = A.flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+    o2, lse2 = A.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, scale=d ** -0.5)
+    do = torch.randn_like(o1)
+    delta = A.row_delta(do, o1)
+    g1 = A.flash_bwd_dkdv(q, k, v, do, lse1, delta, causal=True, scale=0.125)
+    g2 = A.flash_bwd_dkdv(q.contiguous(), k.contiguous(), v.contiguous(), do,
+                          lse1, delta, causal=True, scale=0.125)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(g1, g2))
+
+
+@pytest.mark.parametrize("backward", ["pallas", "xla"])
+def test_flash_attention_gradients_kernels_vs_plain(cuda_nvcc, backward):
+    q0, k0, v0, w = attn_inputs(2, 96, 2, 32, torch.float32, seed=3)
+    out = {}
+    for mode in ("auto", "off"):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        A.reset_launch_counts()
+        with bn_ops.kernel_mode(mode):
+            o = A.flash_attention(q, k, v, causal=True, backward=backward)
+            (o * w).sum().backward()
+        torch.cuda.synchronize()
+        counts = A.launch_counts()
+        if mode == "off":
+            assert counts == dict.fromkeys(A.LAUNCHES, 0)
+        else:
+            bwd = 1 if backward == "pallas" else 0
+            assert counts == {"flash_fwd": 1, "flash_bwd_dkdv": bwd,
+                              "flash_bwd_dq": bwd}
+        out[mode] = (o, q.grad, k.grad, v.grad)
+    for a, b_ in zip(out["auto"], out["off"]):
+        assert max_err(a, b_) <= 5e-4
+
+
+def test_flash_backward_copies_only_an_unreadable_do(cuda_nvcc):
+    """The dO of ``o.sum()`` is an expanded scalar (every stride 0), which
+    the kernels cannot read: the backward copies it and matches the plain
+    version. A readable dO goes to the kernels as it is."""
+    q0, k0, v0, _ = attn_inputs(1, 96, 2, 32, torch.float32, seed=5)
+    grads = {}
+    for mode in ("auto", "off"):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        with bn_ops.kernel_mode(mode):
+            A.flash_attention(q, k, v, causal=True, backward="pallas").sum().backward()
+        grads[mode] = (q.grad, k.grad, v.grad)
+    for a, b_ in zip(grads["auto"], grads["off"]):
+        assert max_err(a, b_) <= 5e-4
+    do = torch.randn(1, 96, 2, 64, device="cuda")[..., :32]
+    assert not do.is_contiguous() and A._readable(do)
+    assert not A._readable(do[..., 1:])  # 4 bytes past a 16-byte boundary
+
+
+def test_flash_wrappers_raise_instead_of_falling_back_on_the_card(cuda_nvcc):
+    q = torch.randn(1, 32, 2, 136, device="cuda")
+    with pytest.raises(ValueError, match="head dim 136"):
+        A.flash_fwd(q, q, q, causal=True, scale=1.0)
+    q = torch.randn(1, 32, 2, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        A.flash_fwd(q, q, q, causal=True, scale=1.0)
+    q = torch.randn(1, 32, 2, 17, device="cuda")[..., :16]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.flash_fwd(q, q, q, causal=True, scale=1.0)

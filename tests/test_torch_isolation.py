@@ -13,7 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_syncbn_torch import data, models, nn, parallel, runtime, train
+from tpu_syncbn_torch import (
+    data,
+    longcontext_train,
+    models,
+    nn,
+    ops,
+    parallel,
+    runtime,
+    train,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tpu_syncbn_torch")
@@ -36,13 +45,17 @@ def _env():
 
 def test_importing_every_module_loads_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, subprocess, sys\n"
+        "def no_process(*a, **k): raise AssertionError('a process at import')\n"
+        "subprocess.Popen = no_process  # no nvcc (or anything) runs at import\n"
         "import tpu_syncbn_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'tpu_syncbn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "from tpu_syncbn_torch.ops import _cuda_build as cb\n"
+        "built = bool(cb._LIBS or cb.LAST_BUILD)\n"
+        "print(len(names), bad, built)\n"
+        "sys.exit(1 if bad or built else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                        capture_output=True, text=True, timeout=120)
@@ -89,6 +102,16 @@ def test_entry_points_default_to_the_card_and_refuse_to_fall_back(no_card):
         runtime.initialize()
     with pytest.raises(RuntimeError, match=msg):
         train.main(["--epochs", "1"])
+    with pytest.raises(RuntimeError, match=msg):
+        models.init_transformer_lm(0, vocab=8, d_model=16, n_heads=2,
+                                   n_layers=1, d_ff=16, max_len=8)
+    with pytest.raises(RuntimeError, match=msg):
+        longcontext_train.main(["--steps", "1"])
+    # the attention op takes its device from its tensors: a CPU tensor runs
+    # the plain version only when the kernel mode allows it
+    q = torch.zeros(1, 8, 2, 8)
+    with ops.kernel_mode("on"), pytest.raises(RuntimeError, match="needs CUDA"):
+        ops.flash_attention(q, q, q, causal=True)
     # no silent CPU fallback anywhere: the CPU runs only when asked for
     assert runtime.initialize("cpu") == torch.device("cpu")
 

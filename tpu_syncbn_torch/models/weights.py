@@ -1,4 +1,4 @@
-"""Weight transfer from the JAX model's flattened state.
+"""Weight transfer from the JAX models' parameters.
 
 ``load_jax_params(model, params)`` fills a port ResNet from a flat mapping
 of dotted names to numpy arrays, as the JAX package's
@@ -10,6 +10,11 @@ names its submodules like the JAX model, so the mapping is by name:
 * fc ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
 * BN ``weight``/``bias``/``running_mean``/``running_var``/
   ``num_batches_tracked`` keep their names.
+
+``load_jax_transformer_params(model, params)`` fills a port
+``TransformerLM`` from the JAX LM's parameter pytree (nested dicts of
+arrays, ``init_transformer_lm``'s output), name for name and with no
+transpose: both keep matrices in ``x @ W`` (in, out) order.
 
 No JAX import: the arrays arrive as numpy.
 """
@@ -57,3 +62,34 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     if missing:
         raise KeyError(f"no JAX value for {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def load_jax_transformer_params(model: nn.Module, params: Mapping) -> None:
+    """Copy the JAX LM's nested parameter tree into ``model`` in place
+    (values cast to each parameter's dtype and device). Raises if a name
+    of either side has no partner or a shape differs."""
+    flat = _flatten(params)
+    targets = dict(model.named_parameters())
+    extra = sorted(set(flat) - set(targets))
+    missing = sorted(set(targets) - set(flat))
+    if extra or missing:
+        raise KeyError(f"unpaired names: JAX only {extra}, port only {missing}")
+    for name, value in flat.items():
+        arr = np.asarray(value, dtype=np.float32)
+        t = targets[name]
+        if tuple(t.shape) != arr.shape:
+            raise ValueError(f"{name}: shape {arr.shape} does not match "
+                             f"{tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))

@@ -1,6 +1,6 @@
-"""Collectives and the data-parallel trainer."""
+"""Collectives, the data-parallel trainer and (world 1) sequence attention."""
 
-from tpu_syncbn_torch.parallel import collectives
+from tpu_syncbn_torch.parallel import collectives, sequence
 from tpu_syncbn_torch.parallel.trainer import DataParallel, StepOutput
 
-__all__ = ["DataParallel", "StepOutput", "collectives"]
+__all__ = ["DataParallel", "StepOutput", "collectives", "sequence"]
