@@ -28,10 +28,14 @@ falls back to the CPU):
                reference); one eval step;
 5. attn-build  — nvcc builds the three CUDA flash-attention kernels from
                  ``tpu_syncbn_torch/ops/csrc`` (one nvcc per source, all at
-                 once), with seconds, registers and spills;
+                 once), with seconds, registers and spills; ``cuobjdump``
+                 counts each library's HGMMA and UTMALDG instructions, and
+                 the forward and dK/dV libraries must hold both;
 6. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
-                 and bfloat16, at the LM slice's shape and four others;
+                 and bfloat16, at the LM slice's shape and four others,
+                 and causal bf16 at the LM shape on views into one fused
+                 QKV tensor;
 7. attn-time   — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
@@ -646,6 +650,10 @@ ATTN_SHAPE = (LM_BATCH, LM_CFG["max_len"], LM_CFG["n_heads"],
               LM_CFG["d_model"] // LM_CFG["n_heads"])
 ATTN_PARITY_SHAPES = [ATTN_SHAPE, (1, 2048, 8, 64), (1, 1000, 8, 64),
                       (1, 2048, 16, 128), (4, 512, 8, 8)]
+# the kernels whose bf16 path is the TMA + wgmma design, and the opcodes
+# that show it in their machine code
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+SASS_OPS = ("HGMMA", "UTMALDG")
 
 # |kernel - plain| per element, by output kind:
 #  * float32 kernels vs a float64 plain run: the repo's on-card gate
@@ -755,75 +763,107 @@ def phase_attn_build():
     for stem, out in sorted(_cuda_build.LAST_BUILD["ptxas"].items()):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", out)]
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", out))
+        # ptxas notes a wgmma it had to serialize (no room for its registers
+        # to stay apart while it runs) as a "Potential Performance Loss"
+        serial = len(re.findall(r"wgmma.mma_async instructions are serialized", out))
         log(f"[attn-build] {stem}: {len(regs)} kernels, registers "
-            f"{min(regs)}-{max(regs)}, spill stores {spills} bytes")
+            f"{min(regs)}-{max(regs)}, spill stores {spills} bytes, "
+            f"{serial} kernels with serialized wgmma")
     log(f"[attn-build] nvcc built {len(_cuda_build.LAST_BUILD['compiled'])} "
         f"of {len(paths)} libraries in {secs:.1f}s (one nvcc per source, in "
         f"parallel) into {os.path.dirname(next(iter(paths.values())))}")
+    # the Hopper design is on the path: the machine code of the forward and
+    # dK/dV libraries holds warpgroup products (HGMMA) and TMA loads (UTMALDG)
+    cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc()), "cuobjdump")
+    for stem, path in sorted(paths.items()):
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        n = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        log(f"[attn-build] {stem} SASS: " + ", ".join(f"{op} {c}" for op, c in n.items()))
+        if stem in HOPPER_KERNELS and not all(n.values()):
+            fail(f"{stem}: no {' or '.join(op for op, c in n.items() if not c)} "
+                 "in its machine code: the Hopper design is not on the path")
     return secs
+
+
+def _fused_qkv_inputs(torch, shape, seed):
+    """bf16 q, k, v as (B, L, H, D) views into one fused (B, L, 3*H*D)
+    tensor, as the LM's QKV product hands them over (row stride 3*H*D),
+    and a contiguous dO."""
+    b, l, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, l, 3 * h * d, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (x.view(b, l, h, d) for x in qkv.split(h * d, -1))
+    do = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    return q, k, v, do
 
 
 def phase_attn_parity(torch, A):
     """Each attention kernel against its plain version (float64 for float32
     inputs) on the same inputs — the backward kernels on the forward
-    kernel's own lse and delta — causal and not, at every parity shape.
-    Returns the disagreements with the rest; main() fails on them after
-    the LM phases, so one run shows every kernel's gate."""
+    kernel's own lse and delta — causal and not, at every parity shape,
+    and once, causal bf16 at the LM shape, on views into a fused QKV
+    tensor. Returns the disagreements with the rest; main() fails on them
+    after the LM phases, so one run shows every kernel's gate."""
     log(f"[attn-parity] limits: float32 vs float64 |err| <= out "
         f"{F32_TOL['out']:.0e}, grad {F32_TOL['grad']:.0e}, lse {F32_TOL['lse']:.0e}; "
         f"bfloat16 |err| <= {BF16_TERMS:.2e} x root sum of squares of the "
         f"element's terms + {BF16_RTOL:.2e}|x| + {BF16_FLOOR:.2e} x the "
         f"tensor's RMS, lse {F32_TOL['lse']:.0e}")
     worst = {k: 0.0 for k in ATTN_KERNELS}
-    n_cases, failures = 0, []
-    for shape in ATTN_PARITY_SHAPES:
+    failures = []
+
+    def check(shape, causal, dtype, fused):
+        dname = str(dtype).split(".")[-1]
         scale = shape[-1] ** -0.5
-        for causal in (True, False):
-            for dtype in (torch.float32, torch.bfloat16):
-                dname = str(dtype).split(".")[-1]
-                q, k, v, do = _attn_inputs(torch, shape, dtype,
-                                           seed=sum(shape) + causal)
-                kw = dict(causal=causal, scale=scale)
-                o, lse = A.flash_fwd(q, k, v, **kw)
-                delta = A.row_delta(do, o)
-                dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
-                dq = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-                torch.cuda.synchronize()
-                ref = (lambda x: x.double()) if dtype == torch.float32 else (lambda x: x)
-                rq, rk, rv, rdo = (ref(x) for x in (q, k, v, do))
-                po, plse = A.flash_fwd_plain(rq, rk, rv, **kw)
-                args = (rq, rk, rv, rdo, ref(lse), ref(delta))
-                pdk, pdv = A.flash_bwd_dkdv_plain(*args, **kw)
-                pdq = A.flash_bwd_dq_plain(*args, **kw)
-                if dtype == torch.bfloat16:
-                    t_o, = attn_terms(torch, A, "flash_fwd", (q, k, v), causal, scale, plse)
-                    t_dk, t_dv = attn_terms(torch, A, "flash_bwd_dkdv", args, causal, scale, lse)
-                    t_dq, = attn_terms(torch, A, "flash_bwd_dq", args, causal, scale, lse)
-                else:
-                    t_o = t_dk = t_dv = t_dq = None
-                checks = {"flash_fwd": [("o", o, po, "out", t_o), ("lse", lse, plse, "lse", None)],
-                          "flash_bwd_dkdv": [("dk", dk, pdk, "grad", t_dk),
-                                             ("dv", dv, pdv, "grad", t_dv)],
-                          "flash_bwd_dq": [("dq", dq, pdq, "grad", t_dq)]}
-                for kern, outs in checks.items():
-                    parts, ratio = [], 0.0
-                    for name, got, want, kind, terms in outs:
-                        abs_e, r, med, row = attn_check(torch, got, want, kind, terms)
-                        parts.append(f"{name} max_abs_err={abs_e:.3e} median|ref|={med:.3e} "
-                                     f"{r:.2f} of tol (row {row})")
-                        ratio = max(ratio, r)
-                        worst[kern] = max(worst[kern], abs_e)
-                    ok = ratio <= 1.0
-                    log(f"[attn-parity] {kern:15s} {str(shape):18s} "
-                        f"{'causal' if causal else 'full  '} {dname:8s} "
-                        f"{'; '.join(parts)} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        failures.append(f"{kern} disagrees with its plain version "
-                                        f"at {shape} causal={causal} {dname}")
-                n_cases += 1
-                del q, k, v, do, o, lse, delta, dk, dv, dq, po, plse, pdk, pdv, pdq
-                del t_o, t_dk, t_dv, t_dq, args, checks
-    return worst, n_cases, failures
+        if fused:
+            q, k, v, do = _fused_qkv_inputs(torch, shape, seed=sum(shape))
+        else:
+            q, k, v, do = _attn_inputs(torch, shape, dtype, seed=sum(shape) + causal)
+        kw = dict(causal=causal, scale=scale)
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        delta = A.row_delta(do, o)
+        dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref = (lambda x: x.double()) if dtype == torch.float32 else (lambda x: x)
+        rq, rk, rv, rdo = (ref(x) for x in (q, k, v, do))
+        po, plse = A.flash_fwd_plain(rq, rk, rv, **kw)
+        args = (rq, rk, rv, rdo, ref(lse), ref(delta))
+        pdk, pdv = A.flash_bwd_dkdv_plain(*args, **kw)
+        pdq = A.flash_bwd_dq_plain(*args, **kw)
+        if dtype == torch.bfloat16:
+            t_o, = attn_terms(torch, A, "flash_fwd", (q, k, v), causal, scale, plse)
+            t_dk, t_dv = attn_terms(torch, A, "flash_bwd_dkdv", args, causal, scale, lse)
+            t_dq, = attn_terms(torch, A, "flash_bwd_dq", args, causal, scale, lse)
+        else:
+            t_o = t_dk = t_dv = t_dq = None
+        checks = {"flash_fwd": [("o", o, po, "out", t_o), ("lse", lse, plse, "lse", None)],
+                  "flash_bwd_dkdv": [("dk", dk, pdk, "grad", t_dk),
+                                     ("dv", dv, pdv, "grad", t_dv)],
+                  "flash_bwd_dq": [("dq", dq, pdq, "grad", t_dq)]}
+        what = f"{str(shape):18s} {'causal' if causal else 'full  '} {dname:8s}" \
+            + (" fused-qkv" if fused else "")
+        for kern, outs in checks.items():
+            parts, ratio = [], 0.0
+            for name, got, want, kind, terms in outs:
+                abs_e, r, med, row = attn_check(torch, got, want, kind, terms)
+                parts.append(f"{name} max_abs_err={abs_e:.3e} median|ref|={med:.3e} "
+                             f"{r:.2f} of tol (row {row})")
+                ratio = max(ratio, r)
+                worst[kern] = max(worst[kern], abs_e)
+            ok = ratio <= 1.0
+            log(f"[attn-parity] {kern:15s} {what} {'; '.join(parts)} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{kern} disagrees with its plain version at {what}")
+
+    cases = [(shape, causal, dtype, False) for shape in ATTN_PARITY_SHAPES
+             for causal in (True, False) for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((ATTN_SHAPE, True, torch.bfloat16, True))
+    for case in cases:
+        check(*case)
+    return worst, len(cases), failures
 
 
 def phase_attn_time(torch, A, card):

@@ -4,13 +4,16 @@ missing or failing compiler raises with its output. A stand-in ``nvcc``
 script plays the compiler; the real build runs on the card
 (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
 
+import ctypes
 import os
+import re
 import shutil
 import stat
 
 import pytest
 
 from tpu_syncbn_torch.ops import _cuda_build as cb
+from tpu_syncbn_torch.ops import cuda_attention as A
 
 
 def fake_nvcc(tmp_path, body):
@@ -77,3 +80,43 @@ def test_a_failed_build_raises_with_the_compiler_output(
     monkeypatch.setenv("PATH", bindir + os.pathsep + os.environ["PATH"])
     with pytest.raises(RuntimeError, match="no such instruction"):
         cb.build(str(tmp_path / "build"), csrc_copy)
+
+
+# -- the C launchers' signatures against the argument types ctypes passes ----
+
+
+def c_launchers():
+    """``{name: [parameter, ...]}`` of every ``extern "C" int flash_*(...)``
+    in ``csrc/*.cu``."""
+    found = {}
+    for path in cb.sources():
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(r'extern "C" int (flash_\w+)\(([^)]*)\)', src):
+            found[name] = [" ".join(p.split()) for p in params.split(",")]
+    return found
+
+
+def c_kind(param):
+    """pointer, int or float: how ctypes must pass a C parameter."""
+    if "*" in param:
+        return "pointer"
+    return {"int": "int", "float": "float"}[param.replace("const ", "").rsplit(" ", 1)[0]]
+
+
+CTYPES_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+
+
+def test_every_c_launcher_has_its_ctypes_argument_types():
+    """One launcher per source, named after it, each bound in
+    ``cuda_attention._ARGTYPES``."""
+    stems = sorted(os.path.splitext(os.path.basename(s))[0] for s in cb.sources())
+    assert sorted(c_launchers()) == sorted(A._ARGTYPES) == stems
+
+
+@pytest.mark.parametrize("name", sorted(A._ARGTYPES))
+def test_c_launcher_parameters_match_the_ctypes_argument_types(name):
+    """A parameter added, dropped or moved in a launcher would be passed
+    silently by ctypes in the wrong slot: count and kinds must agree."""
+    params = c_launchers()[name]
+    assert [c_kind(p) for p in params] == [CTYPES_KIND[t] for t in A._ARGTYPES[name]]

@@ -222,6 +222,42 @@ def test_flash_kernels_read_qkv_views_in_place(cuda_nvcc):
     assert all(torch.equal(a, b_) for a, b_ in zip(g1, g2))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("poisoned", [0, 1])
+def test_flash_kernels_keep_batches_apart(cuda_nvcc, dtype, poisoned):
+    """q, k, v as views into one fused QKV tensor at a ragged L, B = 2: with
+    one batch's rows (and its dO) set to NaN, the other batch's o, lse, dk
+    and dv are bit for bit what they were. A tile that runs past L must
+    read zeros, never the neighbouring batch's rows: even a masked read of
+    a NaN would reach the output through 0 * NaN."""
+    b, l, h, d = 2, 1000, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=g).to(dtype)
+    do = torch.randn(b, l, h, d, device="cuda", generator=g).to(dtype)
+
+    def run(qkv, do):
+        q, k, v = (x.view(b, l, h, d) for x in qkv.split(h * d, -1))
+        o, lse = A.flash_fwd(q, k, v, causal=False, scale=d ** -0.5)
+        delta = A.row_delta(do, o)
+        dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=False,
+                                  scale=d ** -0.5)
+        torch.cuda.synchronize()
+        return o, lse.view(b, h, l), dk, dv
+
+    clean = run(qkv, do)
+    qkv, do = qkv.clone(), do.clone()
+    qkv[poisoned] = float("nan")
+    do[poisoned] = float("nan")
+    dirty = run(qkv, do)
+    kept = 1 - poisoned
+    for x, y in zip(clean, dirty):
+        assert bool(torch.isfinite(x[kept]).all())
+        assert torch.equal(x[kept], y[kept])
+    # the poison reached the kernels (its lse stays finite: the running
+    # max skips NaN and keeps NEG_BIG)
+    assert not bool(torch.isfinite(dirty[0][poisoned]).all())
+
+
 @pytest.mark.parametrize("backward", ["pallas", "xla"])
 def test_flash_attention_gradients_kernels_vs_plain(cuda_nvcc, backward):
     q0, k0, v0, w = attn_inputs(2, 96, 2, 32, torch.float32, seed=3)

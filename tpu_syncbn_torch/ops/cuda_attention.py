@@ -24,10 +24,22 @@ Layout: every operand is ``(B, L, H, D)`` as the JAX package's public
 function takes it. The kernels read q, k and v through their batch, row
 and head strides with D contiguous, so views into a fused QKV product
 need no transpose copy (the JAX package copies to ``(B*H, L, D)``);
-lse and delta are ``(B*H, L)`` float32. bf16 runs on the tensor cores
-(P and dS rounded to bf16 for their products, as a TPU's default-precision
-dot rounds them); float32 runs in full f32 on the CUDA cores (no TF32).
-D may be any multiple of 8 up to 128.
+lse and delta are ``(B*H, L)`` float32. D may be any multiple of 8 up to
+128. Two designs, chosen by dtype inside the kernels:
+
+* bfloat16 — the forward and dK/dV kernels are built for Hopper: a
+  producer warp streams tiles by TMA (through per-call tensor maps over
+  the (B, L, H, D) strides) into a 3-stage shared-memory ring, and two
+  consumer warpgroups multiply with ``wgmma``, P and dS going from one
+  product to the next in registers (128 query rows x 128-key tiles
+  forward; 128 KV rows x 64-query tiles for dK/dV, 32 at D > 64). D is
+  padded to 64 or 128 in shared memory only, by TMA's zero fill. dQ runs
+  4 warps on 64 x 64 tiles of ``mma.sync.m16n8k16`` from padded shared
+  memory, with no copy pipeline. P and dS are rounded to bf16 for their
+  products, as a TPU's default-precision dot rounds them.
+* float32 — every kernel computes in full f32 on the CUDA cores (no
+  TF32, which is ``wgmma``'s only 32-bit input), on 64 x 64 tiles of
+  ``mma.sync``-shaped warp products from padded shared memory.
 """
 
 from __future__ import annotations
@@ -377,7 +389,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``"pallas"`` (the dK/dV and dQ kernels). ``block_q``/``block_k`` are
     the JAX package's TPU tiling knobs: the scan backward honours
     ``block_k`` as JAX does, while the CUDA kernels choose their own tiles
-    (64 x 64), so ``block_q`` changes nothing here."""
+    by dtype and head dim (see the module docstring), so ``block_q``
+    changes nothing here."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, L, H, D), got {tuple(q.shape)}")
     if backward not in ("xla", "pallas"):
