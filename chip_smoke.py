@@ -30,7 +30,7 @@ falls back to the CPU):
                  ``tpu_syncbn_torch/ops/csrc`` (one nvcc per source, all at
                  once), with seconds, registers and spills; ``cuobjdump``
                  counts each library's HGMMA and UTMALDG instructions, and
-                 the forward and dK/dV libraries must hold both;
+                 every library must hold both;
 6. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -39,8 +39,9 @@ falls back to the CPU):
 7. attn-time   — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
-                 kernels' times at every parity shape; the float32 kernels'
-                 times;
+                 kernels' times at every parity shape, and at a fixed 1024
+                 blocks over four lengths (a fixed cost per block, fitted);
+                 the float32 kernels' times;
 8. lm          — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
@@ -652,7 +653,7 @@ ATTN_PARITY_SHAPES = [ATTN_SHAPE, (1, 2048, 8, 64), (1, 1000, 8, 64),
                       (1, 2048, 16, 128), (4, 512, 8, 8)]
 # the kernels whose bf16 path is the TMA + wgmma design, and the opcodes
 # that show it in their machine code
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 # |kernel - plain| per element, by output kind:
@@ -772,8 +773,8 @@ def phase_attn_build():
     log(f"[attn-build] nvcc built {len(_cuda_build.LAST_BUILD['compiled'])} "
         f"of {len(paths)} libraries in {secs:.1f}s (one nvcc per source, in "
         f"parallel) into {os.path.dirname(next(iter(paths.values())))}")
-    # the Hopper design is on the path: the machine code of the forward and
-    # dK/dV libraries holds warpgroup products (HGMMA) and TMA loads (UTMALDG)
+    # the Hopper design is on the path: the machine code of every attention
+    # library holds warpgroup products (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc()), "cuobjdump")
     for stem, path in sorted(paths.items()):
         sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
@@ -965,6 +966,31 @@ def phase_attn_time(torch, A, card):
                 f"bf16 device kernel/bound: {', '.join(parts)}; sdpa forward "
                 f"{t_s * 1e3:.1f}us [{card}]")
         del q, k, v, do, qt, kt, vt, o, lse, delta
+    # a fixed 1024 blocks (128 rows of one head each, one block per SM at a
+    # time) with walks of 128 down to 16 tiles: the time's least-squares
+    # line in L splits into a cost per key walked and a fixed part, which
+    # over ceil(1024 / SMs) waves is each block's fixed cost
+    sweep = [(2 * 8192 // l, l, 8, 64) for l in (8192, 4096, 2048, 1024)]
+    waves = -(-1024 // torch.cuda.get_device_properties(0).multi_processor_count)
+    times = {kern: [] for kern in ATTN_KERNELS}
+    for shp in sweep:
+        q, k, v, do = _attn_inputs(torch, shp, torch.bfloat16, seed=14)
+        kw = dict(causal=False, scale=shp[-1] ** -0.5)
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        delta = A.row_delta(do, o)
+        for kern, fn in (
+                ("flash_fwd", lambda: A.flash_fwd(q, k, v, **kw)),
+                ("flash_bwd_dkdv", lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)),
+                ("flash_bwd_dq", lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw))):
+            times[kern].append(_device_ms(torch, fn, 10) * 1e3)
+        del q, k, v, do, o, lse, delta
+    for kern, ts in times.items():
+        slope, fixed = statistics.linear_regression([shp[1] for shp in sweep], ts)
+        log(f"[attn-sweep] {kern:15s} full bf16, 1024 blocks, (B, L) = "
+            f"{', '.join(f'({s[0]}, {s[1]})' for s in sweep)} x 8 heads x 64: "
+            f"{' / '.join(f'{t:.1f}' for t in ts)}us; fit {slope * 1e3:.2f}us per "
+            f"1000 keys + {fixed:.1f}us = {fixed / waves:.2f}us per block "
+            f"({waves} waves) [{card}]")
     # float32 kernels (full f32 on the CUDA cores; 67 TFLOP/s peak)
     q, k, v, do = _attn_inputs(torch, shape, torch.float32, seed=12)
     o, lse = A.flash_fwd(q, k, v, causal=True, scale=scale)

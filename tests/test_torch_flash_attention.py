@@ -113,12 +113,7 @@ def test_gradients_match_jax_vjp(causal, backward, block_k):
         assert err(got.numpy(), want) <= 5e-5
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [False, True])
-def test_plain_backward_matches_the_pallas_backward(causal, dtype):
-    """flash_bwd_dkdv_plain and flash_bwd_dq_plain against
-    ``_flash_bwd_2d_pallas`` (both kernels) on the same residuals."""
-    l = 200
+def _plain_vs_pallas_backward(causal, dtype, l):
     q, k, v, do = make(l, 4, seed=3, b=1, h=4, d=32)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     q2, k2, v2, do2 = (to2d(x).astype(jd) for x in (q, k, v, do))
@@ -138,6 +133,24 @@ def test_plain_backward_matches_the_pallas_backward(causal, dtype):
     for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
         assert got.dtype == td
         assert err(from_port(got), np.asarray(want, np.float32)) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_the_pallas_backward(causal, dtype):
+    """flash_bwd_dkdv_plain and flash_bwd_dq_plain against
+    ``_flash_bwd_2d_pallas`` (both kernels) on the same residuals; L = 200
+    is ragged against the CUDA kernels' 128-row blocks and 32- or 64-row
+    tiles (the last block's second warpgroup holds 8 live rows)."""
+    _plain_vs_pallas_backward(causal, dtype, 200)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_the_pallas_backward_past_a_warpgroup(causal, dtype):
+    """The same at L = 300 = 2 * 128 + 44: the second warpgroup of the
+    CUDA dQ kernel's last 128-row block holds no live row."""
+    _plain_vs_pallas_backward(causal, dtype, 300)
 
 
 def test_scan_backward_honours_block_k_like_jax():

@@ -215,19 +215,22 @@ def test_flash_kernels_read_qkv_views_in_place(cuda_nvcc):
                            causal=True, scale=d ** -0.5)
     do = torch.randn_like(o1)
     delta = A.row_delta(do, o1)
-    g1 = A.flash_bwd_dkdv(q, k, v, do, lse1, delta, causal=True, scale=0.125)
-    g2 = A.flash_bwd_dkdv(q.contiguous(), k.contiguous(), v.contiguous(), do,
-                          lse1, delta, causal=True, scale=0.125)
+    views, copies = (q, k, v), (q.contiguous(), k.contiguous(), v.contiguous())
+    g1 = A.flash_bwd_dkdv(*views, do, lse1, delta, causal=True, scale=0.125)
+    g2 = A.flash_bwd_dkdv(*copies, do, lse1, delta, causal=True, scale=0.125)
+    dq1 = A.flash_bwd_dq(*views, do, lse1, delta, causal=True, scale=0.125)
+    dq2 = A.flash_bwd_dq(*copies, do, lse1, delta, causal=True, scale=0.125)
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
     assert all(torch.equal(a, b_) for a, b_ in zip(g1, g2))
+    assert torch.equal(dq1, dq2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("poisoned", [0, 1])
 def test_flash_kernels_keep_batches_apart(cuda_nvcc, dtype, poisoned):
     """q, k, v as views into one fused QKV tensor at a ragged L, B = 2: with
-    one batch's rows (and its dO) set to NaN, the other batch's o, lse, dk
-    and dv are bit for bit what they were. A tile that runs past L must
+    one batch's rows (and its dO) set to NaN, the other batch's o, lse, dk,
+    dv and dq are bit for bit what they were. A tile that runs past L must
     read zeros, never the neighbouring batch's rows: even a masked read of
     a NaN would reach the output through 0 * NaN."""
     b, l, h, d = 2, 1000, 4, 64
@@ -241,8 +244,10 @@ def test_flash_kernels_keep_batches_apart(cuda_nvcc, dtype, poisoned):
         delta = A.row_delta(do, o)
         dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=False,
                                   scale=d ** -0.5)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                            scale=d ** -0.5)
         torch.cuda.synchronize()
-        return o, lse.view(b, h, l), dk, dv
+        return o, lse.view(b, h, l), dk, dv, dq
 
     clean = run(qkv, do)
     qkv, do = qkv.clone(), do.clone()
@@ -256,6 +261,24 @@ def test_flash_kernels_keep_batches_apart(cuda_nvcc, dtype, poisoned):
     # the poison reached the kernels (its lse stays finite: the running
     # max skips NaN and keeps NEG_BIG)
     assert not bool(torch.isfinite(dirty[0][poisoned]).all())
+
+
+@pytest.mark.parametrize("d", [8, 72, 128])
+def test_flash_bwd_dq_repeats_bit_for_bit(cuda_nvcc, d):
+    """dQ is its own kernel, each block writing its own rows with no atomics:
+    two calls give the same bits. Causal at a ragged L = 1000, with head
+    dims that TMA pads to 64 (8) or 128 (72, 128) with zeros; the result
+    agrees with the plain version."""
+    q, k, v, do = attn_inputs(1, 1000, 2, d, torch.bfloat16, seed=d)
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = A.flash_fwd(q, k, v, **kw)
+    delta = A.row_delta(do, o)
+    dq1 = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq2 = A.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    assert bool(torch.isfinite(dq1).all())
+    assert within_bf16_tol(dq1, A.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw))
 
 
 @pytest.mark.parametrize("backward", ["pallas", "xla"])

@@ -278,27 +278,22 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
     mbar_wait(bar_kv, 0);
-    if (wg == 1) bar_arrive(1, CONSUMERS);  // warpgroup 0 goes first
-
-    // the two warpgroups take turns issuing S^T and dP^T (named barriers 1
-    // and 2; warpgroup 0 starts, warpgroup 1 hands back all but its last turn)
-    auto turn = [&]() { bar_sync(1 + wg, CONSUMERS); };
-    auto pass = [&](bool last) {
-      if (wg == 0 || !last) bar_arrive(2 - wg, CONSUMERS);
-    };
+    // the two warpgroups take turns issuing S^T and dP^T
+    const TakeTurns turns{wg};
+    turns.start();
     for (int it = 0; it < n_it; ++it) {
       const int s = it % STAGES, q0 = (qt0 + it) * BQ;
       mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
       if (CAUSAL && q0 + BQ - 1 < wk0) {  // every query precedes every KV row here
-        turn();
-        pass(it + 1 == n_it);
+        turns.turn();
+        turns.pass(it + 1 == n_it);
         if (lane == 0) mbar_arrive(bar_empty + 8 * s);
         continue;
       }
       const uint32_t q_tile = base + Lay::Q + s * Lay::Q_TILE;
       const uint32_t do_tile = base + Lay::DO + s * Lay::Q_TILE;
       float pt[BQ / 2], dpt[BQ / 2];  // S^T (then P^T) and dP^T: 64 KV rows x BQ
-      turn();
+      turns.turn();
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
@@ -314,7 +309,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                       desc(do_tile + (kk >> 2) * Lay::Q_PANEL + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      pass(it + 1 == n_it);
+      turns.pass(it + 1 == n_it);
       wgmma_wait<1>();  // S^T is done; dP^T may still be in flight
       fence_regs(pt);
 

@@ -1,19 +1,16 @@
-// Shared device code of the flash-attention kernels (flash_fwd.cu,
+// Shared code of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dkdv.cu, flash_bwd_dq.cu): tile sizes, the 16-byte tile loader,
-// and one warp-level matrix-product primitive with two implementations.
-//
-//   * bf16: mma.sync.aligned.m16n8k16 on the tensor cores, f32 accumulators;
-//   * f32:  the same 16x8x16 product in f32 on the CUDA cores, each thread
-//           computing exactly the accumulator elements mma.sync would hand it.
-//
-// Because both give the accumulator in mma.sync's register layout, the
-// online softmax, masking and backward arithmetic of every kernel is written
-// once for both types. Accumulator layout of a 16x8 tile c[4] in a warp
+// output stores, launch parameters, and the warp-level matrix product of
+// the float32 kernels: the 16x8x16 product of mma.sync.m16n8k16 in f32 on
+// the CUDA cores, each thread computing exactly the accumulator elements
+// mma.sync would hand it. Accumulator layout of a 16x8 tile c[4] in a warp
 // (lane = 4*g + t): c[0], c[1] hold row g, columns 2t and 2t+1; c[2], c[3]
-// hold row g+8, the same columns.
+// hold row g+8, the same columns. The bf16 kernels are the Hopper designs
+// of hopper.cuh, whose wgmma accumulators hand each thread the same rows
+// and columns, so they share store_rows.
 //
-// Operands live in shared memory in the storage type T. Rows are padded by
-// 16 bytes, so the fragment loads of a warp fall in distinct banks.
+// Operands of the float32 kernels live in shared memory. Rows are padded
+// by 16 bytes, so the fragment loads of a warp fall in distinct banks.
 
 #pragma once
 
@@ -41,7 +38,6 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 // shared-memory row padding: 16 bytes
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int v = 4; };
-template <> struct Pad<bf16> { static constexpr int v = 8; };
 
 // Copy rows [row0, row0 + ROWS) of one (batch, head) slab into shared memory
 // s[ROWS][LD], 16 bytes a thread: rows >= L and columns >= d are zero-filled,
@@ -71,15 +67,6 @@ __device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
     s[i] = row0 + i < L ? g[row0 + i] : 0.f;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return (uint32_t)__bfloat16_as_ushort(*lo) |
-         ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
-}
-
 // Two adjacent values of one row, stored in T.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -92,39 +79,6 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // read from x either transposed (NN = false: B(k, n) = x[n * ld + k], a
 // K or Q tile read as K^T) or as is (NN = true: B(k, n) = x[k * ld + n]).
 template <typename T> struct Mma;
-
-template <> struct Mma<bf16> {
-  struct A { uint32_t r[4]; };
-
-  __device__ __forceinline__ static void load_a(A& a, const bf16* p, int ld) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    a.r[0] = ld32(p + g * ld + 2 * t);
-    a.r[1] = ld32(p + (g + 8) * ld + 2 * t);
-    a.r[2] = ld32(p + g * ld + 2 * t + 8);
-    a.r[3] = ld32(p + (g + 8) * ld + 2 * t + 8);
-  }
-
-  template <bool NN>
-  __device__ __forceinline__ static void mma(float c[4], const A& a,
-                                             const bf16* x, int ld) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    uint32_t b0, b1;
-    if (NN) {
-      b0 = pack2(x + (2 * t) * ld + g, x + (2 * t + 1) * ld + g);
-      b1 = pack2(x + (2 * t + 8) * ld + g, x + (2 * t + 9) * ld + g);
-    } else {
-      b0 = ld32(x + g * ld + 2 * t);
-      b1 = ld32(x + g * ld + 2 * t + 8);
-    }
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b0),
-          "r"(b1));
-  }
-};
 
 template <> struct Mma<float> {
   struct A { float lo[16], hi[16]; };  // rows g and g + 8, all 16 columns
@@ -282,21 +236,8 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Instantiate LAUNCH<T, DP, CAUSAL>(args...) for the run-time dtype (0 f32,
-// 1 bf16), causal flag and head dim; an unsupported combination returns
-// cudaErrorInvalidValue.
-#define FLASH_DISPATCH(LAUNCH, dtype, causal, d, ...)                          \
-  do {                                                                         \
-    const int dp_ = flash::padded_head_dim(d);                                 \
-    if ((dtype) != 0 && (dtype) != 1) return (int)cudaErrorInvalidValue;       \
-    if (dp_ == 0 || (d) % 8 != 0) return (int)cudaErrorInvalidValue;           \
-    if ((dtype) == 0) {                                                        \
-      FLASH_DISPATCH_DP(LAUNCH, float, causal, dp_, __VA_ARGS__);              \
-    } else {                                                                   \
-      FLASH_DISPATCH_DP(LAUNCH, flash::bf16, causal, dp_, __VA_ARGS__);        \
-    }                                                                          \
-  } while (0)
-
+// Instantiate LAUNCH<T, DP, CAUSAL>(args...) for the padded head dim dp
+// (16, 32, 64, 128) and the run-time causal flag.
 #define FLASH_DISPATCH_DP(LAUNCH, T, causal, dp, ...)                          \
   do {                                                                         \
     switch (dp) {                                                              \

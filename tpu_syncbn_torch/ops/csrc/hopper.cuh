@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dkdv.cu): TMA tensor maps and loads, mbarriers,
-// and warpgroup matrix products (wgmma).
+// (flash_fwd.cu, flash_bwd_dkdv.cu, flash_bwd_dq.cu): TMA tensor maps and
+// loads, mbarriers, named barriers for two warpgroups that take turns, and
+// warpgroup matrix products (wgmma).
 //
 // Shared-memory tiles. A (B, L, H, D) operand is read by TMA through a 4-D
 // tensor map {D, H, L, B} with its own byte strides, one box of
@@ -16,7 +17,8 @@
 //     or K tile in S = Q K^T). 8-row groups lie 1024 bytes apart (SBO); a
 //     16-wide k step moves the start address by 32 bytes within the row.
 //   * MN-major: the product's k dimension runs down the rows (a V tile in
-//     O += P V, or a Q or dO tile in dK += dS^T Q). 8-row k groups lie 1024
+//     O += P V, a Q or dO tile in dK += dS^T Q, the K tile of S = Q K^T
+//     again in dQ += dS K). 8-row k groups lie 1024
 //     bytes apart (SBO), 64-column panels `panel` bytes apart (LBO); a
 //     16-wide k step moves the start address by 16 rows (2048 bytes).
 //
@@ -170,6 +172,21 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Two consumer warpgroups (256 threads) taking turns to issue their
+// products, on named barriers 1 and 2: warpgroup 0 goes first, and each
+// hands the turn over once it has issued. Both take the same number of
+// turns; warpgroup 1 does not hand back its last one.
+struct TakeTurns {
+  int wg;
+  __device__ __forceinline__ void start() const {
+    if (wg == 1) bar_arrive(1, 256);
+  }
+  __device__ __forceinline__ void turn() const { bar_sync(1 + wg, 256); }
+  __device__ __forceinline__ void pass(bool last) const {
+    if (wg == 0 || !last) bar_arrive(2 - wg, 256);
+  }
+};
+
 // Hand registers between warpgroups (sm_90a, all warps of a warpgroup
 // together): the producer gives up what the consumers take.
 template <int N>
@@ -218,6 +235,15 @@ template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// 2^x by the special-function unit alone (ex2.approx.ftz: relative error
+// ~2^-22, results below 2^-126 flushed to 0), where exp2f adds range
+// handling around it; for values that go on to be rounded to bf16.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -27,16 +27,15 @@ need no transpose copy (the JAX package copies to ``(B*H, L, D)``);
 lse and delta are ``(B*H, L)`` float32. D may be any multiple of 8 up to
 128. Two designs, chosen by dtype inside the kernels:
 
-* bfloat16 — the forward and dK/dV kernels are built for Hopper: a
-  producer warp streams tiles by TMA (through per-call tensor maps over
-  the (B, L, H, D) strides) into a 3-stage shared-memory ring, and two
-  consumer warpgroups multiply with ``wgmma``, P and dS going from one
-  product to the next in registers (128 query rows x 128-key tiles
-  forward; 128 KV rows x 64-query tiles for dK/dV, 32 at D > 64). D is
-  padded to 64 or 128 in shared memory only, by TMA's zero fill. dQ runs
-  4 warps on 64 x 64 tiles of ``mma.sync.m16n8k16`` from padded shared
-  memory, with no copy pipeline. P and dS are rounded to bf16 for their
-  products, as a TPU's default-precision dot rounds them.
+* bfloat16 — all three kernels are built for Hopper: a producer warp
+  streams tiles by TMA (through per-call tensor maps over the (B, L, H, D)
+  strides) into a 3-stage shared-memory ring, and two consumer warpgroups
+  multiply with ``wgmma``, P and dS going from one product to the next in
+  registers (128 query rows x 128-key tiles forward; 128 KV rows x
+  64-query tiles for dK/dV; 128 query rows x 64-key tiles for dQ; the
+  backward tiles are 32 rows at D > 64). D is padded to 64 or 128 in
+  shared memory only, by TMA's zero fill. P and dS are rounded to bf16
+  for their products, as a TPU's default-precision dot rounds them.
 * float32 — every kernel computes in full f32 on the CUDA cores (no
   TF32, which is ``wgmma``'s only 32-bit input), on 64 x 64 tiles of
   ``mma.sync``-shaped warp products from padded shared memory.
