@@ -9,14 +9,24 @@ falls back to the CPU):
 1. card      — name, compute capability (must be 9.0) and the
                ``nvidia-smi --query-gpu=name,power.limit`` line;
 2. settings  — TF32 and cuDNN switches, set and printed;
-3. kernels   — each of the four Triton BN kernels against its plain
+3. build     — nvcc builds every CUDA library of the port from
+               ``tpu_syncbn_torch/ops/csrc`` (the two BN forward kernels and
+               the three flash-attention kernels; one nvcc per source, all
+               at once), with seconds, registers and spills; ``cuobjdump``
+               counts each library's HGMMA and UTMALDG instructions, and
+               every attention library must hold both;
+4. kernels   — each of the four BN kernels (CUDA ``bn_stats`` and
+               ``bn_normalize``, Triton ``bn_backward_reduce`` and
+               ``bn_backward_elemt``) against its plain
                PyTorch version at every distinct BN shape of the ResNet-50
                path and at one ragged M, in float32
                (against a float64 plain computation) and bfloat16 (in the
                working dtype), with max error against the stated tolerance;
                then kernel, plain and ATen-yardstick times per training
-               step over every BN shape of the path, beside the bound;
-4. slice     — full-width bf16 ResNet-50, converted to SyncBN, trained by
+               step over every BN shape of the path, beside the bound
+               (``bn_normalize`` as the path runs it, the PyTorch fold
+               included, and its kernel alone beside it);
+5. slice     — full-width bf16 ResNet-50, converted to SyncBN, trained by
                ``DataParallel`` with SGD(0.1, momentum 0.9) at batch 64,
                224x224, fed by SyntheticImageDataset -> DistributedSampler
                -> DataLoader -> device_prefetch; every BN kernel must launch
@@ -26,11 +36,6 @@ falls back to the CPU):
                kernel call of that step against its plain version on the
                same tensors; the gradients shown beside a bf16-vs-f32
                reference); one eval step;
-5. attn-build  — nvcc builds the three CUDA flash-attention kernels from
-                 ``tpu_syncbn_torch/ops/csrc`` (one nvcc per source, all at
-                 once), with seconds, registers and spills; ``cuobjdump``
-                 counts each library's HGMMA and UTMALDG instructions, and
-                 every library must hold both;
 6. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -56,9 +61,9 @@ falls back to the CPU):
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Triton and nvcc build every kernel from this checkout's sources into
-``tpu_syncbn_torch/_build/`` (git-ignored). Without a card the script
-exits 2 and prints no result.
+nvcc (phase 3) and Triton (at first launch) build every kernel from this
+checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
+Without a card the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -82,20 +87,32 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# the Pallas kernel each Triton kernel replaces (the dx pass replaces the
-# XLA-fused elementwise tail of the custom VJP)
+# the Pallas kernel each BN kernel replaces (the dx pass replaces the
+# XLA-fused elementwise tail of the custom VJP), and its route and source
+# (the forward pair in CUDA C++, the backward pair in Triton)
 REPLACES = {
     "bn_stats": "tpu_syncbn/ops/pallas_bn.py:99",
     "bn_normalize": "tpu_syncbn/ops/pallas_bn.py:157",
     "bn_backward_reduce": "tpu_syncbn/ops/pallas_bn.py:206",
     "bn_backward_elemt": "tpu_syncbn/ops/pallas_bn.py:344",
 }
+BN_SOURCE = {
+    "bn_stats": ("cuda", "tpu_syncbn_torch/ops/csrc/bn_stats.cu"),
+    "bn_normalize": ("cuda", "tpu_syncbn_torch/ops/csrc/bn_normalize.cu"),
+    "bn_backward_reduce": ("triton", "tpu_syncbn_torch/ops/triton_bn.py"),
+    "bn_backward_elemt": ("triton", "tpu_syncbn_torch/ops/triton_bn.py"),
+}
+# the BN kernels as the profiler names them: the CUDA ones by namespace, the
+# Triton ones by function; the forward's old Triton kernels must not appear
+BN_CUDA_NAMESPACES = ("bn_stats_k::", "bn_normalize_k::")
+BN_TRITON_NAMES = ("bwd_reduce_partial", "sum_partials", "backward_elemt")
+OLD_TRITON_NAMES = ("stats_partial", "normalize")
 # floating-point operations per element (x̂ = 2, one FMA = 2)
 FLOPS_PER_ELEM = {"bn_stats": 3, "bn_normalize": 2,
                   "bn_backward_reduce": 5, "bn_backward_elemt": 7}
 # per call: ((M, C) operands read, (M, C) operands written, f32 (C,)
 # vectors read + written) — each input read once, each output written once
-MOVES = {"bn_stats": (1, 0, 2), "bn_normalize": (1, 1, 2),
+MOVES = {"bn_stats": (1, 0, 2), "bn_normalize": (1, 1, 4),
          "bn_backward_reduce": (2, 0, 4), "bn_backward_elemt": (2, 1, 5)}
 
 
@@ -141,7 +158,7 @@ def phase_card(torch):
     return name, smi
 
 
-# -- phase 3: kernels -------------------------------------------------------
+# -- phases 3-4: build, kernels -------------------------------------------
 
 
 def _event_ms(torch, fn, iters: int, reps: int = 1) -> float:
@@ -231,7 +248,7 @@ def _cases(torch, T, bn_ops, x, dy, w, b, eps=1e-5):
             lambda: T.bn_backward_elemt(dy, x, mean, invstd, w, sdy, sdyx, count),
             lambda xx: T.backward_elemt_plain(dy.to(xx.dtype), xx, mean, invstd,
                                               w, sdy, sdyx, count)),
-    }, (mean, invstd, count)
+    }, (mean, invstd, count, scale, shift)
 
 
 def _err(torch, got, ref, elementwise: bool, scaled_floor: bool = False):
@@ -279,13 +296,17 @@ RAGGED_SHAPE = (100003, 96)
 
 def phase_kernel_parity(torch, T, bn_ops, shapes):
     """Each kernel against its plain version at every distinct BN shape of
-    the path and at one ragged shape, in float32 and bfloat16."""
+    the path and at one ragged shape, in float32 and bfloat16; returns the
+    worst abs errors and the cases that disagree (every case runs)."""
     worst = {k: 0.0 for k in MOVES}
+    failures = []
     for (m, c) in sorted(set(shapes)) + [RAGGED_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             x, dy, w, b = _inputs(torch, m, c, dtype, seed=m + c)
-            cases, _ = _cases(torch, T, bn_ops, x, dy, w, b)
+            cases, (_, _, count, _, _) = _cases(torch, T, bn_ops, x, dy, w, b)
+            if float(count) != m:
+                failures.append(f"bn_stats count {float(count)} != M={m}")
             for k, (kern, plain) in cases.items():
                 got = kern()
                 ref = plain(x.double() if dtype == torch.float32 else x)
@@ -297,11 +318,11 @@ def phase_kernel_parity(torch, T, bn_ops, shapes):
                     f"max_abs_err={abs_e:.3e} max_rel_err={rel_e:.3e} "
                     f"tol={tol:.1e} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    fail(f"{k} disagrees with its plain version at "
-                         f"M={m} C={c} {dname}")
+                    failures.append(f"{k} disagrees with its plain version "
+                                    f"at M={m} C={c} {dname}")
                 worst[k] = max(worst[k], abs_e)
             del x, dy
-    return worst
+    return worst, failures
 
 
 # the dispatch function of ops/triton_bn.py each kernel runs through, and
@@ -323,7 +344,9 @@ def checking_every_call(torch, T, seen):
     for k, (disp, plain) in DISPATCH.items():
         def run(*args, _k=k, _kern=saved[disp], _plain=getattr(T, plain)):
             got = _kern(*args)
-            abs_e, rel_e = _err(torch, got, _plain(*args), _k in ELEMENTWISE,
+            # stats also hands back its count, which the plain sums lack
+            cmp = got[:2] if _k == "bn_stats" else got
+            abs_e, rel_e = _err(torch, cmp, _plain(*args), _k in ELEMENTWISE,
                                 scaled_floor=True)
             tol = TOL[(str(args[0].dtype).split(".")[-1], _k)]
             calls, ratio, worst_abs = seen.get(_k, (0, 0.0, 0.0))
@@ -368,7 +391,13 @@ def phase_kernel_times(torch, T, bn_ops, shapes, card):
                "bytes_ms": 0.0, "ops_ms": 0.0, "host_ms": 0.0} for k in MOVES}
     for (m, c), n in sorted(counts.items()):
         x, dy, w, b = _inputs(torch, m, c, torch.bfloat16, seed=7)
-        cases, (mean, invstd, count) = _cases(torch, T, bn_ops, x, dy, w, b)
+        cases, (mean, invstd, count, scale, shift) = _cases(torch, T, bn_ops, x,
+                                                             dy, w, b)
+        # bn_normalize is timed as the path runs it: the wrapper, which
+        # folds (mean, var, γ, β) into (scale, shift) with six small PyTorch
+        # ops before the kernel, the same function ATen's batch_norm_elemt
+        # computes; the kernel alone, on the folded (scale, shift), beside it
+        alone = lambda: T._normalize_2d(x, scale, shift)  # noqa: E731
         icount = torch.tensor([m], dtype=torch.int32, device="cuda")
         sdy, sdyx = T.bn_backward_reduce(dy, x, mean, invstd)
         sdyx_over_invstd = sdyx / invstd  # ATen takes Σdy·(x − mean)
@@ -388,11 +417,19 @@ def phase_kernel_times(torch, T, bn_ops, shapes, card):
             t_l = _device_ms(torch, aten[k], iters)
             t_host = _event_ms(torch, kern, iters)
             bytes_ms, ops_ms = bound_ms(k, m, c, x.element_size())
+            extra = ""
+            if k == "bn_normalize":
+                t_a = _device_ms(torch, alone, iters)
+                t_ah = _event_ms(torch, alone, iters)
+                tot[k]["alone_ms"] = tot[k].get("alone_ms", 0.0) + n * t_a
+                tot[k]["alone_host_ms"] = tot[k].get("alone_host_ms", 0.0) + n * t_ah
+                extra = (f"; kernel alone (scale, shift folded) device "
+                         f"{t_a:.4f}ms, with its launch {t_ah:.4f}ms")
             log(f"[time] {k:19s} M={m:<7d} C={c:<5d} x{n:<2d} bf16 device: "
                 f"kernel={t_k:.4f}ms plain={t_p:.4f}ms aten={t_l:.4f}ms "
                 f"bound={max(bytes_ms, ops_ms):.4f}ms "
                 f"({100 * max(bytes_ms, ops_ms) / t_k:.0f}% of bound); "
-                f"kernel with its launch {t_host:.4f}ms [{card}]")
+                f"kernel with its launch {t_host:.4f}ms{extra} [{card}]")
             agg = tot[k]
             agg["ms"] += n * t_k
             agg["plain_ms"] += n * t_p
@@ -409,6 +446,10 @@ def phase_kernel_times(torch, T, bn_ops, shapes, card):
             f"aten={agg['library_ms']:.3f}ms bound={agg['bound_ms']:.3f}ms "
             f"({agg['bound_by']}); kernel with its launches "
             f"{agg['host_ms']:.3f}ms [{card}]")
+    agg = tot["bn_normalize"]
+    log(f"[time] bn_normalize kernel alone per step (scale, shift folded) "
+        f"device: {agg['alone_ms']:.3f}ms; with its launches "
+        f"{agg['alone_host_ms']:.3f}ms [{card}]")
     return tot
 
 
@@ -455,9 +496,10 @@ def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
             "no device activity, so the busy share is not measured")
     for ms, cnt, key in rows[:15]:
         log(f"[{tag}] {ms:9.3f}ms x{cnt:<5d} {key[:100]}")
+    return set(by_name)
 
 
-# -- phase 4: the slice -----------------------------------------------------
+# -- phase 5: the slice -----------------------------------------------------
 
 
 def _loss_fn(model, batch):
@@ -522,24 +564,28 @@ def phase_slice(torch, card):
                  f"{BN_LAYERS * steps}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite loss in {losses}")
-    steady = times[1:]  # the first step builds the Triton kernels
+    steady = times[1:]  # the first step may build Triton kernels
     med = statistics.median(steady)
-    log(f"[slice] first step {times[0] * 1e3:.1f}ms (includes Triton builds); "
+    log(f"[slice] first step {times[0] * 1e3:.1f}ms; "
         f"steady median {med * 1e3:.2f}ms over {len(steady)} steps = "
         f"{bs / med:.1f} img/s, batch {bs} at {side}x{side} bf16 [{card}]")
 
     # profiler window: where the device time goes in a steady step
     prof_batches = [next(batches), next(batches)]
-    bn_names = ("stats_partial", "sum_partials", "normalize",
-                "bwd_reduce_partial", "backward_elemt")
-    profile_window(torch, lambda: [dp.train_step(b_) for b_ in prof_batches],
-                   "profile", "BN kernels", lambda name: name in bn_names, card)
+    names = profile_window(
+        torch, lambda: [dp.train_step(b_) for b_ in prof_batches], "profile",
+        "BN kernels", lambda name: name in BN_TRITON_NAMES
+        or any(ns in name for ns in BN_CUDA_NAMESPACES), card)
+    stale = sorted(set(OLD_TRITON_NAMES) & names)
+    if stale:
+        fail(f"the profile window shows the old Triton forward kernels {stale}")
 
     # in-place A/B: one step from the same state on the same batch, with
     # the kernels ("auto") and with their plain versions ("off"); in the
     # kernel step every kernel call is also held against its plain version
     # on the same arguments
     ab_batch = next(batches)
+    failures = []
     state = {k: v.clone() for k, v in model.state_dict().items()}
     opt_state = copy.deepcopy(opt.state_dict())
     result, seen = {}, {}
@@ -573,8 +619,8 @@ def phase_slice(torch, card):
             f"its plain version on the same tensors: worst "
             f"{ratio:.2f} of tol, max_abs_err {worst_abs:.3e}")
         if calls != BN_LAYERS or ratio > 1.0:
-            fail(f"{k} disagrees with its plain version inside the step "
-                 f"({calls} calls, worst {ratio:.2f} of tol)")
+            failures.append(f"{k} disagrees with its plain version inside "
+                            f"the step ({calls} calls, worst {ratio:.2f} of tol)")
 
     # Whole-model gradients: shown, not gated. Rounding alone moves the
     # gradient of the early layers by about its whole norm (compare the
@@ -608,7 +654,7 @@ def phase_slice(torch, card):
         f"{float((g_p['fc.weight'] - g_f['fc.weight']).norm() / g_f['fc.weight'].norm()):.2e}")
     del ref, g_f
     if loss_err > 1e-2 or stat_err > 2e-2:
-        fail("kernels and plain versions disagree on the full model")
+        failures.append("kernels and plain versions disagree on the full model")
 
     ev_out = dp.eval_step(ab_batch)
     ev_loss = float(ev_out.loss)
@@ -621,10 +667,10 @@ def phase_slice(torch, card):
         fail("eval step produced non-finite or misshapen output")
     for _ in batches:  # drain the loader so its threads finish
         pass
-    return launches
+    return launches, failures
 
 
-# -- phases 5-9: the attention kernels and the transformer LM ---------------
+# -- phases 6-9: the attention kernels and the transformer LM ---------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -753,7 +799,10 @@ def _attn_inputs(torch, shape, dtype, seed):
             for _ in range(4)]
 
 
-def phase_attn_build():
+def phase_build():
+    """nvcc builds every CUDA library of the port before any kernel runs, so
+    the build is timed and ptxas's report printed here (a later first
+    launch finds the libraries built)."""
     import re
 
     from tpu_syncbn_torch.ops import _cuda_build
@@ -767,20 +816,21 @@ def phase_attn_build():
         # ptxas notes a wgmma it had to serialize (no room for its registers
         # to stay apart while it runs) as a "Potential Performance Loss"
         serial = len(re.findall(r"wgmma.mma_async instructions are serialized", out))
-        log(f"[attn-build] {stem}: {len(regs)} kernels, registers "
+        log(f"[build] {stem}: {len(regs)} kernels, registers "
             f"{min(regs)}-{max(regs)}, spill stores {spills} bytes, "
             f"{serial} kernels with serialized wgmma")
-    log(f"[attn-build] nvcc built {len(_cuda_build.LAST_BUILD['compiled'])} "
+    log(f"[build] nvcc built {len(_cuda_build.LAST_BUILD['compiled'])} "
         f"of {len(paths)} libraries in {secs:.1f}s (one nvcc per source, in "
         f"parallel) into {os.path.dirname(next(iter(paths.values())))}")
     # the Hopper design is on the path: the machine code of every attention
-    # library holds warpgroup products (HGMMA) and TMA loads (UTMALDG)
+    # library holds warpgroup products (HGMMA) and TMA loads (UTMALDG); the
+    # BN libraries stream with plain 16-byte loads and hold neither
     cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc()), "cuobjdump")
     for stem, path in sorted(paths.items()):
         sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         n = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
-        log(f"[attn-build] {stem} SASS: " + ", ".join(f"{op} {c}" for op, c in n.items()))
+        log(f"[build] {stem} SASS: " + ", ".join(f"{op} {c}" for op, c in n.items()))
         if stem in HOPPER_KERNELS and not all(n.values()):
             fail(f"{stem}: no {' or '.join(op for op, c in n.items() if not c)} "
                  "in its machine code: the Hopper design is not on the path")
@@ -1202,21 +1252,23 @@ def main() -> int:
         num_classes=1000, dtype=torch.bfloat16, device="cuda"))
     shapes = bn_shapes(torch, probe, BATCH, IMAGE_SIZE)
     del probe
+    phase_build()
     t0 = time.perf_counter()
-    worst = phase_kernel_parity(torch, T, bn_ops, shapes)
+    worst, failures = phase_kernel_parity(torch, T, bn_ops, shapes)
     log(f"[kernels] parity done in {time.perf_counter() - t0:.1f}s "
-        "(includes Triton builds)")
+        f"(includes the Triton builds), {len(failures)} disagree")
     times = phase_kernel_times(torch, T, bn_ops, shapes, card)
-    launches = phase_slice(torch, card)
+    launches, slice_failures = phase_slice(torch, card)
+    failures += slice_failures
     torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
-    phase_attn_build()
     t0 = time.perf_counter()
-    attn_worst, n_cases, failures = phase_attn_parity(torch, A)
+    attn_worst, n_cases, attn_failures = phase_attn_parity(torch, A)
+    failures += attn_failures
     log(f"[attn-parity] {n_cases} cases x 3 kernels in "
-        f"{time.perf_counter() - t0:.1f}s, {len(failures)} disagree")
+        f"{time.perf_counter() - t0:.1f}s, {len(attn_failures)} disagree")
     torch.cuda.empty_cache()
     attn_times = phase_attn_time(torch, A, card)
     torch.cuda.empty_cache()
@@ -1230,8 +1282,8 @@ def main() -> int:
         t = times[k]
         kernels.append({
             "name": k,
-            "route": "triton",
-            "source": "tpu_syncbn_torch/ops/triton_bn.py",
+            "route": BN_SOURCE[k][0],
+            "source": BN_SOURCE[k][1],
             "replaces": REPLACES[k],
             "launches": launches[k],
             "max_abs_err": worst[k],
@@ -1241,6 +1293,8 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if k == "bn_normalize":  # "ms" is the wrapper, fold included
+            kernels[-1]["kernel_alone_ms"] = t["alone_ms"]
     n_layers = LM_CFG["n_layers"]
     for k in ATTN_KERNELS:  # per LM training step: n_layers causal calls
         t = attn_times[(k, True)]

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpu_syncbn.ops import pallas_bn
+from tpu_syncbn_torch.ops import cuda_bn as B
 from tpu_syncbn_torch.ops import triton_bn as T
 
 # (M as N·H·W shape, C): M = 60 and 300 are multiples of no row block
@@ -234,3 +235,69 @@ def test_reduction_plan_fills_the_card_and_covers_every_row(m, c):
     if m * c >= 3136 * 512:
         assert n_m * n_c >= 2 * 132
 
+
+
+# ResNet-50's 12 BN shapes at batch 64, 224² (M = N·H·W, C), and the edges
+RESNET50_BN_SHAPES = [(802816, 64), (200704, 64), (200704, 256), (200704, 128),
+                      (50176, 128), (50176, 512), (50176, 256), (12544, 256),
+                      (12544, 1024), (12544, 512), (3136, 512), (3136, 2048)]
+PLAN_SHAPES = RESNET50_BN_SHAPES + [(0, 64), (7, 3), (100003, 96), (64, 6),
+                                    (1000, 100), (5, 65536)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("m,c", PLAN_SHAPES)
+def test_stats_plan_covers_every_row_and_channel_once_and_fills_the_card(
+        m, c, itemsize):
+    """The one-launch stats grid for an H100 (132 SMs): column blocks of a
+    power of two of 16-byte channel groups that cover C, row blocks of
+    contiguous rows that cover M exactly once, at most one block per SM
+    (one wave), and at ResNet-50's shapes as many SMs busy as whole
+    columns of row blocks allow."""
+    gc, n_c, n_m, rows = B.stats_plan(m, c, itemsize, 132)
+    vec = 16 // itemsize
+    assert 1 <= gc <= 256 and gc & (gc - 1) == 0
+    lanes = B._STATS_THREADS // gc
+    assert rows >= 1
+    assert n_c * gc * vec >= c > (n_c - 1) * gc * vec
+    assert 1 <= n_m <= 65535
+    assert n_m * rows >= m and (n_m - 1) * rows < max(m, 1)
+    blocks = B._STATS_BLOCKS_PER_SM * 132
+    assert n_m * n_c <= blocks
+    if m:  # each row once: row block r // rows, row lane (r % rows) % lanes
+        r = np.arange(m)
+        owner = (r // rows) * lanes + (r % rows) % lanes
+        counts = np.bincount(owner, minlength=n_m * lanes)
+        assert counts.sum() == m and (counts <= -(-rows // lanes)).all()
+        assert (r // rows).max() == n_m - 1
+    if (m, c) in RESNET50_BN_SHAPES:  # no further row block fits the wave
+        assert n_m * n_c > blocks - n_c and n_m * n_c >= 0.9 * 132
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("m,c", PLAN_SHAPES)
+def test_normalize_plan_keeps_each_thread_on_one_channel_group(m, c, itemsize):
+    """The normalize grid: a block spans a power of two of 16-byte channel
+    groups (all of a row's, or the whole block) and whole row lanes, so a
+    thread keeps one group for its 4 rows; every (row, group) pair is
+    visited exactly once; at ResNet-50's shapes a block moves 8 KB of
+    bf16 and the grid holds several blocks per SM."""
+    gcols, n_rb, n_cb = B.normalize_plan(m, c, itemsize)
+    threads = B._NORM_THREADS
+    groups = -(-c // (16 // itemsize))
+    assert threads == 128 and gcols & (gcols - 1) == 0 and threads % gcols == 0
+    assert gcols >= min(groups, threads) and n_cb <= 65535
+    lanes, unroll = threads // gcols, B._NORM_UNROLL
+    assert n_rb * lanes * unroll >= m > (n_rb - 1) * lanes * unroll or m == 0
+    assert n_cb * gcols >= groups > (n_cb - 1) * gcols
+    if 0 < m * groups <= 2 ** 22:  # thread t of block (bx, by), its j-th row
+        bx, by, t, j = np.meshgrid(np.arange(n_rb), np.arange(n_cb),
+                                   np.arange(threads), np.arange(unroll), indexing="ij")
+        g = by * gcols + t % gcols
+        r = bx * lanes * unroll + t // gcols + j * lanes
+        keep = (g < groups) & (r < m)
+        visits = np.zeros((m, groups), dtype=np.int64)
+        np.add.at(visits, (r[keep], g[keep]), 1)
+        assert (visits == 1).all()
+    if (m, c) in RESNET50_BN_SHAPES and itemsize == 2:
+        assert threads * unroll * 16 == 8192 and n_rb * n_cb >= 2 * 132

@@ -12,8 +12,14 @@ import stat
 
 import pytest
 
+import torch
+
 from tpu_syncbn_torch.ops import _cuda_build as cb
 from tpu_syncbn_torch.ops import cuda_attention as A
+from tpu_syncbn_torch.ops import cuda_bn as B
+
+STEMS = ["bn_normalize", "bn_stats", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd"]
+ARGTYPES = {**A._ARGTYPES, **B._ARGTYPES}
 
 
 def fake_nvcc(tmp_path, body):
@@ -34,7 +40,7 @@ def csrc_copy(tmp_path):
 
 def test_every_kernel_source_is_one_library():
     stems = [os.path.splitext(os.path.basename(s))[0] for s in cb.sources()]
-    assert stems == ["flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd"]
+    assert stems == STEMS
     assert ("-gencode", "arch=compute_90a,code=sm_90a") == cb.NVCC_FLAGS[:2]
 
 
@@ -65,12 +71,12 @@ def test_build_runs_one_compiler_per_source_and_reuses_its_output(
     monkeypatch.setenv("PATH", bindir + os.pathsep + os.environ["PATH"])
     build = str(tmp_path / "build")
     paths = cb.build(build, csrc_copy)
-    assert sorted(paths) == ["flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd"]
+    assert sorted(paths) == STEMS
     assert all(os.path.isfile(p) for p in paths.values())
-    assert len(log.read_text().splitlines()) == 3
+    assert len(log.read_text().splitlines()) == len(STEMS)
     assert "Used 1 registers" in cb.LAST_BUILD["ptxas"]["flash_fwd"]
     assert cb.build(build, csrc_copy) == paths  # nothing stale: no new call
-    assert len(log.read_text().splitlines()) == 3
+    assert len(log.read_text().splitlines()) == len(STEMS)
     assert not [f for f in os.listdir(build) if f.endswith(".tmp")]
 
 
@@ -87,12 +93,12 @@ def test_a_failed_build_raises_with_the_compiler_output(
 
 def c_launchers():
     """``{name: [parameter, ...]}`` of every ``extern "C" int flash_*(...)``
-    in ``csrc/*.cu``."""
+    and ``extern "C" int bn_*(...)`` in ``csrc/*.cu``."""
     found = {}
     for path in cb.sources():
         with open(path) as f:
             src = f.read()
-        for name, params in re.findall(r'extern "C" int (flash_\w+)\(([^)]*)\)', src):
+        for name, params in re.findall(r'extern "C" int ((?:flash|bn)_\w+)\(([^)]*)\)', src):
             found[name] = [" ".join(p.split()) for p in params.split(",")]
     return found
 
@@ -109,14 +115,93 @@ CTYPES_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: 
 
 def test_every_c_launcher_has_its_ctypes_argument_types():
     """One launcher per source, named after it, each bound in
-    ``cuda_attention._ARGTYPES``."""
+    ``cuda_attention._ARGTYPES`` or ``cuda_bn._ARGTYPES`` (never both)."""
     stems = sorted(os.path.splitext(os.path.basename(s))[0] for s in cb.sources())
-    assert sorted(c_launchers()) == sorted(A._ARGTYPES) == stems
+    assert not set(A._ARGTYPES) & set(B._ARGTYPES)
+    assert sorted(c_launchers()) == sorted(ARGTYPES) == stems
 
 
-@pytest.mark.parametrize("name", sorted(A._ARGTYPES))
+@pytest.mark.parametrize("name", sorted(ARGTYPES))
 def test_c_launcher_parameters_match_the_ctypes_argument_types(name):
     """A parameter added, dropped or moved in a launcher would be passed
     silently by ctypes in the wrong slot: count and kinds must agree."""
     params = c_launchers()[name]
-    assert [c_kind(p) for p in params] == [CTYPES_KIND[t] for t in A._ARGTYPES[name]]
+    assert [c_kind(p) for p in params] == [CTYPES_KIND[t] for t in ARGTYPES[name]]
+
+
+# -- cuda_bn's wrappers against a stand-in library -------------------------
+
+
+class StubLauncher:
+    """Plays a C launcher: records each call's arguments, returns ``err``."""
+
+    def __init__(self, err=0):
+        self.argtypes = self.restype = None
+        self.calls, self.err = [], err
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+class StubLibrary:
+    def __init__(self, err=0):
+        self.bn_stats, self.bn_normalize = StubLauncher(err), StubLauncher(err)
+        self.cuda_error_string = lambda code: b"stub error"
+
+
+@pytest.fixture
+def stub_lib(monkeypatch):
+    """cuda_bn's wrappers on CPU tensors, with the library, the SM count and
+    the stream stood in for: what the wrappers hand each launcher."""
+    lib = StubLibrary()
+    monkeypatch.setattr(cb, "library", lambda stem: lib)
+    monkeypatch.setattr(B._tc, "sm_count", lambda device: 132)
+    monkeypatch.setattr(B, "_stream", lambda device: 1234)
+    monkeypatch.setattr(B, "_COUNTERS", {})
+    return lib
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1),
+                                        (torch.float16, 2)])
+def test_cuda_bn_stats_hands_its_launcher_the_plan_in_order(stub_lib, dtype, code):
+    x2 = torch.zeros(3136, 512, dtype=dtype)
+    s, sq, n = B.stats(x2)
+    (call,) = stub_lib.bn_stats.calls
+    assert stub_lib.bn_stats.argtypes == B._ARGTYPES["bn_stats"]
+    assert stub_lib.bn_stats.restype is ctypes.c_int
+    gc, n_c, n_m, rows = B.stats_plan(3136, 512, x2.element_size(), 132)
+    assert call[:2] == (code, x2.data_ptr())
+    ws_ptr, counters_ptr, out_ptr = call[2:5]
+    assert counters_ptr == B._COUNTERS[None].data_ptr()
+    assert out_ptr == s.data_ptr() and sq.data_ptr() == out_ptr + 512 * 4
+    assert n.data_ptr() == out_ptr + 2 * 512 * 4
+    assert ws_ptr not in (out_ptr, counters_ptr, x2.data_ptr())
+    assert call[5:] == (3136, 512, gc, n_c, n_m, rows, 1234)
+    assert s.shape == sq.shape == (512,) and n.shape == ()
+    assert s.dtype == sq.dtype == n.dtype == torch.float32
+    assert len(call) == len(B._ARGTYPES["bn_stats"])
+
+
+def test_cuda_bn_normalize_hands_its_launcher_the_plan_in_order(stub_lib):
+    x2 = torch.zeros(100003, 96, dtype=torch.bfloat16)
+    scale, shift = torch.ones(96), torch.zeros(96)
+    y = B.normalize(x2, scale, shift)
+    (call,) = stub_lib.bn_normalize.calls
+    assert y.shape == x2.shape and y.dtype == x2.dtype and y.is_contiguous()
+    assert call == (1, x2.data_ptr(), y.data_ptr(), scale.data_ptr(),
+                    shift.data_ptr(), 100003, 96,
+                    *B.normalize_plan(100003, 96, 2), 1234)
+    assert len(call) == len(B._ARGTYPES["bn_normalize"])
+    B.normalize(x2[:0], scale, shift)  # M = 0 launches nothing
+    assert len(stub_lib.bn_normalize.calls) == 1
+
+
+def test_cuda_bn_raises_when_its_launcher_returns_an_error(monkeypatch, stub_lib):
+    lib = StubLibrary(err=7)
+    monkeypatch.setattr(cb, "library", lambda stem: lib)
+    x2 = torch.zeros(64, 6)
+    with pytest.raises(RuntimeError, match="bn_stats: CUDA error 7: stub error"):
+        B.stats(x2)
+    with pytest.raises(RuntimeError, match="bn_normalize: CUDA error 7: stub error"):
+        B.normalize(x2, torch.ones(6), torch.zeros(6))

@@ -1,7 +1,7 @@
-"""Tests that launch the port's kernels (the Triton BN kernels, and the CUDA
-flash-attention kernels that nvcc builds at first launch): they need an
-NVIDIA card (with Triton and nvcc), carry the ``gpu`` marker, and skip
-without one. The file imports
+"""Tests that launch the port's kernels (the BN kernels, CUDA forward and
+Triton backward, and the CUDA flash-attention kernels; nvcc builds every
+CUDA library at the first launch of one): they need an NVIDIA card (with
+Triton and nvcc), carry the ``gpu`` marker, and skip without one. The file imports
 no JAX, so on a machine with a card it runs alone, without the suite's
 JAX conftest:
 
@@ -31,9 +31,15 @@ pytestmark = pytest.mark.gpu
 
 @pytest.fixture
 def cuda_triton():
+    """The BN kernels: Triton (backward) and nvcc (forward) on a card."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the Triton kernels have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (the BN kernels have no CPU mode)")
     pytest.importorskip("triton")
+    try:
+        from tpu_syncbn_torch.ops import _cuda_build
+        _cuda_build.nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
 
 
 def close_sums(got, want):
@@ -136,6 +142,82 @@ def test_batch_norm_train_raises_on_a_layout_the_kernels_cannot_read(
         with pytest.raises(ValueError, match="dense channel-last"):
             nn.BatchNorm2d(8, channel_axis=1, device="cuda")(x)
     assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 0)
+
+
+def flat_stats(out):
+    return torch.cat([t.reshape(-1) for t in out])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_repeats_bit_for_bit_and_inside_a_cuda_graph(cuda_triton, dtype):
+    """One launch, no atomics on the sums, a grid fixed by the shape: two
+    calls and three replays of a captured call (the arrival counters are
+    back at zero after each) give the same bits."""
+    x, _, _, _ = inputs(50176, 256, dtype, seed=3)
+    first = flat_stats(T.bn_stats(x))
+    assert torch.equal(flat_stats(T.bn_stats(x)), first)
+    ps, psq = T.stats_plain(x)
+    close_sums(first[:256], ps)
+    close_sums(first[256:512], psq)
+    assert float(first[512]) == 50176
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        T.bn_stats(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = T.bn_stats(x)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(flat_stats(captured), first)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 6, 100, 96])
+def test_bn_forward_kernels_take_unaligned_views_and_odd_widths(
+        cuda_triton, c, dtype, aligned):
+    """Rows of C * itemsize bytes off 16-byte boundaries, and a view that
+    starts one element into its buffer ([1:] of a flat tensor), take the
+    scalar paths, chosen inside the launchers: never a copy, never a
+    refusal, and the plain versions' numbers."""
+    m = 1000
+    g = torch.Generator(device="cuda").manual_seed(c)
+    flat = (torch.randn(m * c + 1, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    x = flat[:m * c].view(m, c) if aligned else flat[1:].view(m, c)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    w = torch.rand(c, device="cuda", generator=g) + 0.5
+    b = torch.randn(c, device="cuda", generator=g)
+    T.reset_launch_counts()
+    s, sq, n = T.bn_stats(x)
+    mean = s / n
+    var = (sq / n - mean * mean).clamp_min(0)
+    y = T.bn_normalize(x, mean, var, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["bn_stats"] == T.launch_counts()["bn_normalize"] == 1
+    ps, psq = T.stats_plain(x)
+    close_sums(s, ps)
+    close_sums(sq, psq)
+    assert float(n) == m
+    scale, shift = bn_ops.fold_scale_shift(mean, var, w, b, 1e-5)
+    close_elem(y, T.normalize_plain(x, scale, shift), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_forward_kernels_at_m_zero(cuda_triton, dtype):
+    """M = 0: stats launches and writes zero sums and n = 0; normalize
+    launches nothing and returns the empty view's shape."""
+    x = torch.empty(0, 64, device="cuda", dtype=dtype)
+    T.reset_launch_counts()
+    s, sq, n = T.bn_stats(x)
+    y = T.bn_normalize(x, torch.zeros(64, device="cuda"), torch.ones(64, device="cuda"),
+                       None, None, 1e-5)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["bn_stats"] == 1 and T.launch_counts()["bn_normalize"] == 0
+    assert not bool(s.any()) and not bool(sq.any()) and float(n) == 0
+    assert y.shape == (0, 64) and y.dtype == dtype
 
 
 @pytest.fixture

@@ -30,11 +30,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_syncbn")
 
 
 def _sources():
-    """The package's sources and chip_smoke.py, in a fixed order (every
-    test worker must collect the same parameters)."""
+    """The package's sources, chip_smoke.py and the port's timing tools,
+    in a fixed order (every test worker must collect the same
+    parameters)."""
     found = [os.path.join(d, f) for d, dirs, files in os.walk(PKG)
              for f in files if f.endswith(".py") and "_build" not in d]
-    return sorted(found) + [os.path.join(ROOT, "chip_smoke.py")]
+    tools = [os.path.join(ROOT, "tools", f)
+             for f in os.listdir(os.path.join(ROOT, "tools")) if f.endswith(".py")]
+    return sorted(found) + [os.path.join(ROOT, "chip_smoke.py")] + sorted(tools)
 
 
 def _env():
@@ -138,3 +141,13 @@ def test_chip_smoke_refuses_without_a_card_and_alone(no_card, tmp_path):
         assert r.returncode != 0
         assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
 
+
+
+def test_bn_forward_timer_refuses_without_a_card(no_card):
+    """tools/bn_forward_times.py times nothing, and prints no times,
+    without a card."""
+    r = subprocess.run([sys.executable, os.path.join("tools", "bn_forward_times.py"),
+                        "--tree", "."], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "[bn-fwd]" not in r.stdout and "no CUDA device" in r.stderr

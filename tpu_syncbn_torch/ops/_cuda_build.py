@@ -122,7 +122,7 @@ def library(stem: str) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (a refused launch is never
     reported by ``torch.cuda.synchronize``). Every library exports
-    ``cuda_error_string`` (``csrc/flash_common.cuh``)."""
+    ``cuda_error_string`` (``csrc/common.cuh``)."""
     if err != 0:
         fn = lib.cuda_error_string
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p

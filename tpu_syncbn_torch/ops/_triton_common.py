@@ -1,4 +1,4 @@
-"""Shared bits for the Triton kernel modules — the counterpart of
+"""Shared bits for the kernel modules (Triton and CUDA) — the counterpart of
 ``tpu_syncbn.ops._pallas_common``: where Triton builds and caches its
 kernels, how it is imported, and the kernel mode every wrapper reads.
 
@@ -76,6 +76,16 @@ def import_triton():
     import triton.language as tl
 
     return triton, tl
+
+
+def cdiv(a: int, b: int) -> int:
+    """``ceil(a / b)`` for positive ``b``."""
+    return -(-a // b)
+
+
+def pow2_at_least(n: int) -> int:
+    """The least power of two ``>= n`` (1 for ``n <= 1``)."""
+    return 1 << max(0, n - 1).bit_length()
 
 
 _SM_COUNT: dict[int, int] = {}

@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace flash {
 
 using bf16 = __nv_bfloat16;
@@ -229,12 +231,6 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
 }
 
 }  // namespace flash
-
-// The message of a cudaError_t, for the Python wrapper's exception (each
-// library built from a source that includes this header exports it).
-extern "C" const char* cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // Instantiate LAUNCH<T, DP, CAUSAL>(args...) for the padded head dim dp
 // (16, 32, 64, 128) and the run-time causal flag.

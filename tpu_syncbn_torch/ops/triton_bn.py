@@ -1,19 +1,23 @@
-"""Hand-written Triton kernels for the BatchNorm hot ops on Hopper — the
+"""Hand-written kernels for the BatchNorm hot ops on Hopper — the
 counterpart of ``tpu_syncbn.ops.pallas_bn``.
 
-Four kernels over a channel-last view ``(M, C)``, ``M = N·H·W``:
+Four kernels over a channel-last view ``(M, C)``, ``M = N·H·W``; the two
+forward ones are CUDA C++ (``ops/cuda_bn.py``, ``csrc/bn_*.cu``), the two
+backward ones Triton (below):
 
-* :func:`bn_stats`           — per-channel ``(Σx, Σx²)`` in one read of x
-                               (replaces ``pallas_bn._stats_kernel``);
+* :func:`bn_stats`           — per-channel ``(Σx, Σx², n)`` in one read of
+                               x, one launch (CUDA ``csrc/bn_stats.cu``;
+                               replaces ``pallas_bn._stats_kernel``);
 * :func:`bn_normalize`       — ``y = x·scale + shift``, scale and shift
                                folded per channel by ``fold_scale_shift``
-                               (replaces ``pallas_bn._normalize_kernel``);
+                               (CUDA ``csrc/bn_normalize.cu``; replaces
+                               ``pallas_bn._normalize_kernel``);
 * :func:`bn_backward_reduce` — per-channel ``(Σdy, Σdy·x̂)`` in one fused
-                               read of (dy, x) (replaces
+                               read of (dy, x) (Triton; replaces
                                ``pallas_bn._bwd_reduce_kernel``);
 * :func:`bn_backward_elemt`  — ``dx = (dy − Σdy/n − x̂·Σdy·x̂/n)·invstd·γ``,
                                the elementwise pass the JAX custom VJP leaves
-                               to XLA fusion (``pallas_bn._fbn_bwd``).
+                               to XLA fusion (Triton; ``pallas_bn._fbn_bwd``).
 
 What bounds them on an H100. Each does 1–3 floating-point operations per
 element it moves, far below the ~295 operations per byte at which the
@@ -28,11 +32,13 @@ are launched to keep every SM streaming.
 Reductions across blocks. A Pallas grid runs in order, so the TPU kernels
 carry one accumulator across grid steps. Hopper runs blocks in no order;
 here M is split across programs, each program loops over its rows and
-writes f32 partial sums to an ``(n_row_blocks, 2, C)`` workspace, and a
-second small pass sums the partials in a fixed order. No atomics, so
-every result is deterministic. C is tiled in a second grid dimension, so
-wide layers (C = 2048) need no large on-chip buffer. Rows past M are
-masked, not padded in memory.
+writes f32 partial sums to an ``(n_row_blocks, 2, C)`` workspace, and the
+partials are summed in a fixed order: by a second small Triton pass for
+backward-reduce, and inside the same launch by the last block of each
+column block to arrive for stats (``csrc/bn_stats.cu``). No atomic touches
+a sum, so every result is deterministic. C is tiled in a second grid
+dimension, so wide layers (C = 2048) need no large on-chip buffer. Rows
+past M are masked, not padded in memory.
 
 Dispatch. Each public wrapper checks its inputs, then runs the kernel for
 a CUDA tensor or the plain PyTorch version beside it for a CPU tensor
@@ -46,6 +52,7 @@ import types
 import torch
 
 from tpu_syncbn_torch.ops import _triton_common as _tc
+from tpu_syncbn_torch.ops import cuda_bn
 from tpu_syncbn_torch.ops.batch_norm import fold_scale_shift
 from tpu_syncbn_torch.parallel.collectives import (
     moments_from_stats,
@@ -179,42 +186,17 @@ def _kernels():
         return _KERNELS
     triton, tl = _tc.import_triton()
 
-    # Replaces pallas_bn._stats_kernel. Bound: one read of x, M·C·itemsize
-    # bytes per call (the stem's 802816x64 bf16 view: 103 MB, 31 us at
-    # 3.35 TB/s). Design: every element read once, coalesced along C, into
-    # f32 register accumulators; ~4 programs per SM keep loads in flight.
-    @triton.jit
-    def stats_partial(x_ptr, ws_ptr, M, C, rows_per_prog,
-                      BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-        # program (pid_m, pid_c): rows [pid_m·rows_per_prog, +rows_per_prog),
-        # channels [pid_c·BLOCK_C, +BLOCK_C); partial (Σx, Σx²) -> ws[pid_m]
-        pid_m = tl.program_id(0)
-        pid_c = tl.program_id(1)
-        cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        acc_s = tl.zeros((BLOCK_M, BLOCK_C), dtype=tl.float32)
-        acc_q = tl.zeros((BLOCK_M, BLOCK_C), dtype=tl.float32)
-        row0 = pid_m.to(tl.int64) * rows_per_prog
-        for i in range(0, rows_per_prog, BLOCK_M):
-            rows = row0 + i + tl.arange(0, BLOCK_M)
-            mask = (rows < M)[:, None] & cmask[None, :]
-            x = tl.load(x_ptr + rows[:, None] * C + cols[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            acc_s += x
-            acc_q += x * x
-        out = ws_ptr + pid_m.to(tl.int64) * (2 * C) + cols
-        tl.store(out, tl.sum(acc_s, axis=0), mask=cmask)
-        tl.store(out + C, tl.sum(acc_q, axis=0), mask=cmask)
-
     # Replaces pallas_bn._bwd_reduce_kernel. Bound: one read each of dy
-    # and x, 2·M·C·itemsize bytes per call. Design: as stats_partial, both
-    # operands streamed together; x̂ is recomputed in registers, never
-    # stored.
+    # and x, 2·M·C·itemsize bytes per call (the stem's 802816x64 bf16
+    # views: 206 MB, 61 us at 3.35 TB/s). Design: every element read once,
+    # coalesced along C, into f32 register accumulators, ~4 programs per SM
+    # keeping loads in flight; x̂ is recomputed in registers, never stored.
     @triton.jit
     def bwd_reduce_partial(dy_ptr, x_ptr, mean_ptr, invstd_ptr, ws_ptr,
                            M, C, rows_per_prog,
                            BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-        # as stats_partial, over (dy, x): partial (Σdy, Σdy·x̂) -> ws[pid_m]
+        # program (pid_m, pid_c): rows [pid_m·rows_per_prog, +rows_per_prog),
+        # channels [pid_c·BLOCK_C, +BLOCK_C); partial (Σdy, Σdy·x̂) -> ws[pid_m]
         pid_m = tl.program_id(0)
         pid_c = tl.program_id(1)
         cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
@@ -237,7 +219,7 @@ def _kernels():
         tl.store(out, tl.sum(acc_a, axis=0), mask=cmask)
         tl.store(out + C, tl.sum(acc_b, axis=0), mask=cmask)
 
-    # The second pass of both reductions: n_parts·2·C f32 values, a few
+    # The second pass of the reduction: n_parts·2·C f32 values, a few
     # hundred kilobytes at most, summed in a fixed order (deterministic).
     @triton.jit
     def sum_partials(ws_ptr, out_ptr, n_parts, C,
@@ -256,25 +238,6 @@ def _kernels():
             acc_b += tl.load(ptr + C, mask=mask, other=0.0)
         tl.store(out_ptr + cols, tl.sum(acc_a, axis=0), mask=cmask)
         tl.store(out_ptr + C + cols, tl.sum(acc_b, axis=0), mask=cmask)
-
-    # Replaces pallas_bn._normalize_kernel. Bound: one read of x and one
-    # write of y, 2·M·C·itemsize bytes per call. Design: one FMA per
-    # element with the per-channel (scale, shift) folded beforehand, one
-    # 4096-element tile per program, no reuse to exploit.
-    @triton.jit
-    def normalize(x_ptr, y_ptr, scale_ptr, shift_ptr, M, C,
-                  BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-        # one (BLOCK_M, BLOCK_C) tile per program: y = x·scale + shift
-        rows = tl.program_id(0).to(tl.int64) * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mask = (rows < M)[:, None] & cmask[None, :]
-        offs = rows[:, None] * C + cols[None, :]
-        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-        shift = tl.load(shift_ptr + cols, mask=cmask, other=0.0)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        y = x * scale[None, :] + shift[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
     # Replaces the XLA-fused dx tail of pallas_bn._fbn_bwd. Bound: reads
     # of dy and x and a write of dx, 3·M·C·itemsize bytes per call.
@@ -306,21 +269,11 @@ def _kernels():
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
 
     _KERNELS = types.SimpleNamespace(
-        stats_partial=stats_partial,
         bwd_reduce_partial=bwd_reduce_partial,
         sum_partials=sum_partials,
-        normalize=normalize,
         backward_elemt=backward_elemt,
     )
     return _KERNELS
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << max(0, n - 1).bit_length()
 
 
 # Reductions: 64-row tiles, at most 64 channels per program, and about
@@ -340,17 +293,17 @@ def reduction_plan(m: int, c: int, n_sm: int) -> tuple[int, int, int, int]:
     reduction over an (m, c) view: rows split so that about
     ``_RED_PROGRAMS_PER_SM · n_sm`` programs run, each over a whole number
     of 64-row tiles, and no program is empty (m = 0 still gets one)."""
-    block_c = max(16, min(_RED_MAX_C, _pow2_at_least(c)))
-    n_c = _cdiv(c, block_c)
-    want = max(1, _cdiv(_RED_PROGRAMS_PER_SM * n_sm, n_c))
-    n_m = max(1, min(_cdiv(m, _RED_BLOCK_M), want))
-    rows_per_prog = max(1, _cdiv(_cdiv(m, n_m), _RED_BLOCK_M)) * _RED_BLOCK_M
-    n_m = max(1, _cdiv(m, rows_per_prog))
+    block_c = max(16, min(_RED_MAX_C, _tc.pow2_at_least(c)))
+    n_c = _tc.cdiv(c, block_c)
+    want = max(1, _tc.cdiv(_RED_PROGRAMS_PER_SM * n_sm, n_c))
+    n_m = max(1, min(_tc.cdiv(m, _RED_BLOCK_M), want))
+    rows_per_prog = max(1, _tc.cdiv(_tc.cdiv(m, n_m), _RED_BLOCK_M)) * _RED_BLOCK_M
+    n_m = max(1, _tc.cdiv(m, rows_per_prog))
     return block_c, n_m, n_c, rows_per_prog
 
 
 def _elementwise_blocks(c: int) -> tuple[int, int]:
-    block_c = max(16, min(_EW_MAX_C, _pow2_at_least(c)))
+    block_c = max(16, min(_EW_MAX_C, _tc.pow2_at_least(c)))
     return _EW_TILE // block_c, block_c
 
 
@@ -366,7 +319,7 @@ def _reduce(partial_kernel, args, m: int, c: int, device) -> torch.Tensor:
     )
     out = torch.empty((2, c), dtype=torch.float32, device=device)
     fin_c = min(32, block_c)
-    k.sum_partials[(_cdiv(c, fin_c),)](
+    k.sum_partials[(_tc.cdiv(c, fin_c),)](
         ws, out, n_m, c, BLOCK_P=_PART_BLOCK, BLOCK_C=fin_c,
         num_warps=_NUM_WARPS,
     )
@@ -374,21 +327,14 @@ def _reduce(partial_kernel, args, m: int, c: int, device) -> torch.Tensor:
 
 
 def _stats_kernel(x2: torch.Tensor):
-    m, c = x2.shape
-    out = _reduce(_kernels().stats_partial, (x2,), m, c, x2.device)
+    out = cuda_bn.stats(x2)
     LAUNCHES["bn_stats"] += 1
-    return out[0], out[1]
+    return out
 
 
 def _normalize_kernel(x2, scale, shift) -> torch.Tensor:
-    m, c = x2.shape
-    y = torch.empty_like(x2)
-    if m:
-        block_m, block_c = _elementwise_blocks(c)
-        _kernels().normalize[(_cdiv(m, block_m), _cdiv(c, block_c))](
-            x2, y, scale, shift, m, c,
-            BLOCK_M=block_m, BLOCK_C=block_c, num_warps=_NUM_WARPS,
-        )
+    y = cuda_bn.normalize(x2, scale, shift)
+    if x2.shape[0]:
         LAUNCHES["bn_normalize"] += 1
     return y
 
@@ -407,7 +353,7 @@ def _backward_elemt_kernel(dy2, x2, mean, invstd, weight, sum_dy,
     dx = torch.empty_like(x2)
     if m:
         block_m, block_c = _elementwise_blocks(c)
-        _kernels().backward_elemt[(_cdiv(m, block_m), _cdiv(c, block_c))](
+        _kernels().backward_elemt[(_tc.cdiv(m, block_m), _tc.cdiv(c, block_c))](
             dy2, x2, dx, mean, invstd,
             weight if weight is not None else invstd,
             sum_dy, sum_dy_xhat, count, m, c,
@@ -422,9 +368,13 @@ def _backward_elemt_kernel(dy2, x2, mean, invstd, weight, sum_dy,
 
 
 def _stats_2d(x2):
+    """``(Σx, Σx², n)``: the kernel's three views of one buffer, or the
+    plain sums and the row count."""
     if _tc.use_kernel(x2):
         return _stats_kernel(x2)
-    return stats_plain(x2)
+    s, sq = stats_plain(x2)
+    return s, sq, torch.full((), float(x2.shape[0]), dtype=torch.float32,
+                             device=x2.device)
 
 
 def _normalize_2d(x2, scale, shift):
@@ -454,11 +404,7 @@ def _backward_elemt_2d(dy2, x2, mean, invstd, weight, sum_dy, sum_dy_xhat,
 def bn_stats(x: torch.Tensor):
     """Per-channel ``(Σx, Σx², count)`` of a channel-last tensor, f32 —
     one read of x. Same contract as ``ops.batch_norm.batch_norm_stats``."""
-    x2 = _as_2d(x)
-    s, sq = _stats_2d(x2)
-    count = torch.full((), float(x2.shape[0]), dtype=torch.float32,
-                       device=x.device)
-    return s, sq, count
+    return _stats_2d(_as_2d(x))
 
 
 def bn_normalize(x, mean, var, weight, bias, eps: float) -> torch.Tensor:
