@@ -36,30 +36,48 @@ falls back to the CPU):
                kernel call of that step against its plain version on the
                same tensors; the gradients shown beside a bf16-vs-f32
                reference); one eval step;
-6. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+6. groups    — the cross-replica path with the kernels: four processes
+               share the card over a gloo group (gloo copies CUDA tensors
+               through the host; NCCL needs a card a rank), each joined by
+               ``runtime.initialize("cuda")``, kernel mode "on". One
+               SyncBatchNorm at C = 256, 12544 rows a rank, for the whole
+               world, ``group_size=2`` and the partition ((0, 3), (1, 2)), in
+               float32 and bfloat16: y, dx, dγ, dβ and running statistics
+               against one BatchNorm of the rank's group in float64; two
+               planted faults (the partition built as contiguous pairs; local
+               moments after the all-reduce) must fail that check; one f32
+               ResNet-50 step at world 4 against world 1 on the same weights
+               and global batch 64; three bf16 steps with ``group_size=2``
+               after each of which every rank's parameters and buffers equal
+               rank 0's bit for bit, every BN kernel launching 53 x 3 times
+               on every rank; then ``python -m tpu_syncbn_torch.launch``
+               runs ``train.py`` (ResNet-50) at ``--nproc-per-node 1`` and
+               refuses one process more than the card count;
+7. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
                  and causal bf16 at the LM shape on views into one fused
                  QKV tensor;
-7. attn-time   — device time of each attention kernel at the LM shape
+8. attn-time   — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
                  kernels' times at every parity shape, and at a fixed 1024
                  blocks over four lengths (a fixed cost per block, fitted);
                  the float32 kernels' times;
-8. lm          — the causal transformer LM at full width (d_model 512, 8
+9. lm          — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
                  with Adam and ``attn_impl="flash_pallas_bwd"``: every
                  attention kernel must launch 8 x steps times; step times,
                  tokens/s, a profiler window;
-9. lm-a/b      — one step from the same weights and batch with the kernels
+10. lm-a/b     — one step from the same weights and batch with the kernels
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
+Before the last two lines comes ``{"groups": {...}}`` (phase 6's worst
+ratios); the second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -670,7 +688,429 @@ def phase_slice(torch, card):
     return launches, failures
 
 
-# -- phases 6-9: the attention kernels and the transformer LM ---------------
+# -- phase 6: groups — the cross-replica path at world 4 on one card --------
+
+# Four processes share the one card through a gloo group (gloo all-reduces
+# and broadcasts CUDA tensors by copying them through the host; NCCL needs a
+# card a rank). This checks the SyncBN and DataParallel collectives with the
+# hand-written kernels; it measures no configuration a user would run.
+GROUP_WORLD = 4
+GROUP_SPECS = {"world": None, "g2": 2, "partition": ((0, 3), (1, 2))}
+# one SyncBN layer at a ResNet-50 shape: 4 x 56 x 56 = 12544 rows a rank,
+# C = 256, channels_last
+GROUP_LAYER = (4, 256, 56, 56)
+GROUP_BATCH, GROUP_STEPS = 16, 3  # per rank (global 64), bit-identity steps
+GROUP_JOIN_S = 600
+# World 4 against world 1, f32 with TF32 off, one SGD step of ResNet-50 at
+# global batch 64. The two differ only in the order of f32 sums (BN moments
+# over 4 partials; convolution gradients summed per 16-image shard, then
+# across ranks). The loss is well conditioned: limit 1e-4 (f32 rounds at
+# 6e-8). The update is not: at initialization the backward through 53 BN
+# layers amplifies rounding, so reordering the images of the same world-1
+# step moves the whole update (|Δp(perm) − Δp| / |Δp| over all
+# parameters, L2) by percents (2.4e-2 on an H100, this phase's floor). So
+# the update's limit is measured in the same run: the world-1 step
+# repeated on the batch with its four shards in reverse order gives the
+# rounding floor, and world 4 must agree with world 1 within 5x that
+# floor. A missing 1/world (an update 4x too large: error 3), a wrong
+# group or an unsynced layer moves the update by O(1).
+TRAINER_LOSS_TOL, TRAINER_FLOOR_FACTOR = 1e-4, 5.0
+
+
+def _layer_errs(torch, got, ref, terms=None):
+    """Relative errors of the layer invariant, by output kind: elementwise
+    against ``terms`` (|ref| + 1e-3 when None), per-channel sums against
+    the largest |sum| (as ``_err``). y's terms are |x̂γ| + |β| + 1e-3: in
+    float32 the kernel's per-channel scale and shift are rounded to f32
+    (6e-8 of each), so at an element where x̂γ and β cancel, y's error is
+    that rounding of its terms, not of y."""
+    d = (got.detach().double() - ref).abs()
+    if terms is None:
+        return float(d.max() / (ref.abs().max() + 1e-30))
+    return float((d / terms).max())
+
+
+def _group_layer_case(torch, rank, spec, dtype, seed):
+    """One SyncBatchNorm at ``GROUP_LAYER`` on every rank, forward and
+    backward, against one BatchNorm of this rank's group's shards
+    concatenated, in float64; returns ``{output: error / tolerance}``."""
+    from tpu_syncbn_torch import nn
+    from tpu_syncbn_torch.parallel import collectives
+
+    n, c, h, w = GROUP_LAYER
+    cl = torch.channels_last
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    # every rank draws every rank's shard, so it can build its group's batch
+    xs = [(torch.randn(n, c, h, w, generator=g, device="cuda") * 1.5 + 0.3)
+          .to(dtype).contiguous(memory_format=cl) for _ in range(GROUP_WORLD)]
+    dys = [torch.randn(n, c, h, w, generator=g, device="cuda").to(dtype)
+           .contiguous(memory_format=cl) for _ in range(GROUP_WORLD)]
+    gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+    beta = torch.randn(c, generator=g, device="cuda")
+    bn = nn.SyncBatchNorm(c, channel_axis=1, group_size=spec, device="cuda")
+    with torch.no_grad():
+        bn.weight.copy_(gamma)
+        bn.bias.copy_(beta)
+    x = xs[rank].detach().requires_grad_()
+    y = bn(x)
+    y.backward(dys[rank])
+    world = torch.distributed.group.WORLD
+    dgamma = collectives.psum_in_groups(bn.weight.grad, world, spec)
+    dbeta = collectives.psum_in_groups(bn.bias.grad, world, spec)
+
+    members = next(grp for grp in collectives.partition(spec, GROUP_WORLD)
+                   if rank in grp) if spec is not None else range(GROUP_WORLD)
+    rows = lambda t: t.permute(0, 2, 3, 1).reshape(-1, c).double()  # noqa: E731
+    xg = torch.cat([rows(xs[r]) for r in members])
+    dyg = torch.cat([rows(dys[r]) for r in members])
+    cnt = xg.shape[0]
+    mean, var = xg.mean(0), xg.var(0, unbiased=False)
+    invstd = torch.rsqrt(var + bn.eps)
+    xhat = (xg - mean) * invstd
+    gd, bd = gamma.double(), beta.double()
+    y_ref = xhat * gd + bd
+    sum_dy, sum_dy_xhat = dyg.sum(0), (dyg * xhat).sum(0)
+    dx_ref = (dyg - sum_dy / cnt - xhat * sum_dy_xhat / cnt) * invstd * gd
+    mine = slice(list(members).index(rank) * n * h * w,
+                 (list(members).index(rank) + 1) * n * h * w)
+    dname = str(dtype).split(".")[-1]
+    tol = lambda k: TOL[(dname, k)]  # noqa: E731
+    return {
+        "y": _layer_errs(torch, rows(y), y_ref[mine],
+                         (xhat[mine] * gd).abs() + bd.abs() + 1e-3)
+        / tol("bn_normalize"),
+        "dx": _layer_errs(torch, rows(x.grad), dx_ref[mine],
+                          dx_ref[mine].abs() + 1e-3) / tol("bn_backward_elemt"),
+        "dgamma": _layer_errs(torch, dgamma, sum_dy_xhat) / tol("bn_backward_reduce"),
+        "dbeta": _layer_errs(torch, dbeta, sum_dy) / tol("bn_backward_reduce"),
+        "running_mean": _layer_errs(torch, bn.running_mean, 0.1 * mean)
+        / tol("bn_stats"),
+        "running_var": _layer_errs(torch, bn.running_var,
+                                   0.9 + 0.1 * var * cnt / (cnt - 1)) / tol("bn_stats"),
+    }
+
+
+def _group_faults(torch, rank):
+    """Two planted faults, each applied on every rank (so every rank still
+    issues the same collectives on the same groups) through a patch of this
+    process's modules; returns each one's worst error / tolerance, which
+    must exceed 1."""
+    from tpu_syncbn_torch.ops import triton_bn as T
+    from tpu_syncbn_torch.parallel import collectives
+
+    out = {}
+    # (a) the partition's groups are built as the contiguous pairs
+    real_build = collectives._build_groups
+
+    def contiguous(groups, parent):
+        return real_build(((0, 1), (2, 3)) if groups == ((0, 3), (1, 2))
+                          else groups, parent)
+
+    collectives.clear_group_cache()
+    collectives._build_groups = contiguous
+    try:
+        out["partition_built_contiguous"] = max(_group_layer_case(
+            torch, rank, GROUP_SPECS["partition"], torch.float32, 11).values())
+    finally:
+        collectives._build_groups = real_build
+        collectives.clear_group_cache()
+    # (b) the moments are all-reduced, then each rank normalizes with its own
+    real_reduce = T.reduce_moments
+
+    def local_moments(s, sq, count, group, **kw):
+        real_reduce(s, sq, count, group, **kw)
+        mean, var = T.moments_from_stats(s, sq, count)
+        return mean, var, count
+
+    T.reduce_moments = local_moments
+    try:
+        out["local_moments"] = max(_group_layer_case(
+            torch, rank, None, torch.float32, 12).values())
+    finally:
+        T.reduce_moments = real_reduce
+    return out
+
+
+def _group_trainer_check(torch, rank, ref):
+    """One DataParallel step of f32 ResNet-50 at world 4 (16 images a
+    rank) from the world-1 step's weights and batch; returns (loss rel
+    err, whole-update rel err, fc.weight's update rel err)."""
+    from tpu_syncbn_torch import models, nn, parallel
+
+    model = nn.convert_sync_batchnorm(models.resnet50(num_classes=1000,
+                                                      device="cuda"))
+    model.load_state_dict(ref["state"])
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    dp = parallel.DataParallel(model, opt, _loss_fn, device="cuda")
+    sl = slice(rank * GROUP_BATCH, (rank + 1) * GROUP_BATCH)
+    loss = float(dp.train_step((ref["x"][sl].cuda(), ref["y"][sl].cuda())).loss)
+    after = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    params = {k: ref["state"][k] for k in after}
+    fc = "fc.weight"
+    return (abs(loss - ref["loss"]) / abs(ref["loss"]),
+            _update_rel_err(params, after, ref["after"]),
+            _update_rel_err({fc: params[fc]}, {fc: after[fc]}, {fc: ref["after"][fc]}))
+
+
+def _group_replicas(torch, rank):
+    """GROUP_STEPS DataParallel steps of bf16 ResNet-50 with group-scoped
+    SyncBN (group_size=2), a different batch a rank: after every step each
+    rank's parameters, and its buffers after the trainer's broadcast, equal
+    rank 0's bit for bit. Returns (identical per step, launches, step
+    times in ms)."""
+    from tpu_syncbn_torch import models, nn, parallel
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    tdist = torch.distributed
+    model = nn.convert_sync_batchnorm(models.resnet50(
+        num_classes=1000, dtype=torch.bfloat16, device="cuda"), group_size=2)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    dp = parallel.DataParallel(model, opt, _loss_fn, device="cuda")
+    if not dp._per_step_broadcast:
+        raise RuntimeError("a group-scoped SyncBN model must keep the "
+                           "per-step buffer broadcast")
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    batches = [(torch.randn(GROUP_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, generator=g,
+                            device="cuda"),
+                torch.randint(0, 1000, (GROUP_BATCH,), generator=g, device="cuda"))
+               for _ in range(GROUP_STEPS)]
+    same, times = [], []
+    T.reset_launch_counts()  # the main path of this phase
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.train_step(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ok = True
+        for ts in ([p.detach() for p in model.parameters()],
+                   [b_ for b_ in model.buffers() if b_ is not None]):
+            flat = torch.cat([t.reshape(-1).double() for t in ts])
+            ref = flat.clone()
+            tdist.broadcast(ref, src=0)
+            ok = ok and torch.equal(flat, ref)
+        same.append(ok)
+    return same, T.launch_counts(), times
+
+
+def _groups_child(rank, d, ref_path):
+    """One of the GROUP_WORLD processes: cuda:0, a gloo group through a
+    file:// rendezvous, then ``runtime.initialize("cuda")``, which keeps
+    it. Writes its results to ``d/rank<r>.json``; any failure raises, and
+    the process exits non-zero."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(GROUP_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(GROUP_WORLD))
+    import torch
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                             world_size=GROUP_WORLD, rank=rank)
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+
+    dev = runtime.initialize("cuda")
+    if dev != torch.device("cuda", 0) or runtime.process_count() != GROUP_WORLD:
+        raise RuntimeError(f"initialize gave {dev}, world {runtime.process_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bn_ops.set_kernel_mode("on")  # a CPU tensor or a missed launch raises
+    out = {"layer": {}}
+    for name, spec in GROUP_SPECS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            out["layer"][f"{name} {str(dtype).split('.')[-1]}"] = \
+                _group_layer_case(torch, rank, spec, dtype, 1)
+    out["faults"] = _group_faults(torch, rank)
+    ref = torch.load(ref_path, map_location="cpu")
+    out["trainer"] = _group_trainer_check(torch, rank, ref)
+    del ref
+    torch.backends.cudnn.allow_tf32 = True
+    out["replicas"] = _group_replicas(torch, rank)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown()
+
+
+def _update_rel_err(before, after, want_after) -> float:
+    """|Δ − Δ_want| / |Δ_want| over every parameter at once (L2), in f64."""
+    diff2 = want2 = 0.0
+    for name, b in before.items():
+        want = want_after[name].double() - b.double()
+        diff2 += float((after[name].double() - b.double() - want).norm()) ** 2
+        want2 += float(want.norm()) ** 2
+    return math.sqrt(diff2 / want2)
+
+
+def _world1_step(torch, model, state, x, y):
+    """One f32 DataParallel step (TF32 off) of ``model`` from ``state`` on
+    the whole batch, at world 1; returns (loss, updated parameters)."""
+    from tpu_syncbn_torch import parallel
+
+    model.load_state_dict(state)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    dp = parallel.DataParallel(model, opt, _loss_fn, device="cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss = float(dp.train_step((x.cuda(), y.cuda())).loss)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return loss, {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def _world1_reference(torch, path):
+    """The world-1 side of the trainer check, outside any process group:
+    weights, batch, loss and updated parameters of one f32 ResNet-50 step
+    saved for the children; and the rounding floor, the same step with the
+    batch's four shards in reverse order. Returns (loss, floor)."""
+    from tpu_syncbn_torch import models, nn
+
+    model = nn.convert_sync_batchnorm(models.resnet50(num_classes=1000,
+                                                      device="cuda"))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(5)
+    n = GROUP_WORLD * GROUP_BATCH
+    x = torch.randn(n, IMAGE_SIZE, IMAGE_SIZE, 3, generator=g)
+    y = torch.randint(0, 1000, (n,), generator=g)
+    loss, after = _world1_step(torch, model, state, x, y)
+    rev = torch.cat([torch.arange(r * GROUP_BATCH, (r + 1) * GROUP_BATCH)
+                     for r in reversed(range(GROUP_WORLD))])
+    _, after_rev = _world1_step(torch, model, state, x[rev], y[rev])
+    del model
+    torch.cuda.empty_cache()
+    params = {k: state[k] for k in after}
+    floor = _update_rel_err(params, after_rev, after)
+    torch.save({"state": state, "x": x, "y": y, "loss": loss, "after": after}, path)
+    return loss, floor
+
+
+def _launcher_on_the_card():
+    """``python -m tpu_syncbn_torch.launch`` with ``train.py``: ResNet-50 at
+    --nproc-per-node 1 must run to its ``done:`` line; --nproc-per-node 2
+    on a one-card machine must exit non-zero, naming the card count."""
+    import torch
+
+    failures = []
+    env = dict(os.environ, PYTHONPATH=HERE)
+    base = [sys.executable, "-m", "tpu_syncbn_torch.launch"]
+    train = [os.path.join("tpu_syncbn_torch", "train.py"), "--", "--arch",
+             "resnet50", "--epochs", "1", "--dataset-size", "128",
+             "--batch-size", "64"]
+    t0 = time.perf_counter()
+    r = subprocess.run(base + ["--nproc-per-node", "1"] + train, cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=300)
+    done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
+    log(f"[groups] launcher --nproc-per-node 1 train.py --arch resnet50: exit "
+        f"{r.returncode} in {time.perf_counter() - t0:.1f}s; {done[-1] if done else 'no done: line'}")
+    if r.returncode != 0 or not done:
+        failures.append("the launcher did not run train.py at --nproc-per-node 1: "
+                        + (r.stdout + r.stderr)[-2000:])
+    n = torch.cuda.device_count()
+    r = subprocess.run(base + ["--nproc-per-node", str(n + 1)] + train, cwd=HERE,
+                       env=env, capture_output=True, text=True, timeout=300)
+    msg = (r.stdout + r.stderr).strip().splitlines()
+    log(f"[groups] launcher --nproc-per-node {n + 1} on {n} card(s): exit "
+        f"{r.returncode}: {msg[-1] if msg else ''}")
+    if r.returncode == 0 or f"this node has {n}" not in r.stdout + r.stderr:
+        failures.append(f"the launcher did not refuse --nproc-per-node {n + 1}")
+    return failures
+
+
+def phase_groups(torch, card):
+    """The cross-replica path with the kernels: four processes on the one
+    card over gloo (see GROUP_WORLD). Returns the summary and failures."""
+    import multiprocessing
+    import tempfile
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_groups_") as d:
+        ref_path = os.path.join(d, "world1.pt")
+        t0 = time.perf_counter()
+        ref_loss, floor = _world1_reference(torch, ref_path)
+        log(f"[groups] world-1 reference steps in {time.perf_counter() - t0:.1f}s")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_groups_child, args=(r, d, ref_path))
+                 for r in range(GROUP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + GROUP_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+        if alive:
+            fail(f"[groups] {len(alive)} of {GROUP_WORLD} processes still "
+                 f"running after {GROUP_JOIN_S}s; killed")
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * GROUP_WORLD:
+            fail(f"[groups] process exit codes {codes}")
+        res = []
+        for r in range(GROUP_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    secs = time.perf_counter() - t0
+    summary = {"world": GROUP_WORLD, "layer": {}, "faults": {}}
+    for case in res[0]["layer"]:
+        per = {k: max(r_["layer"][case][k] for r_ in res) for k in res[0]["layer"][case]}
+        worst = max(per.values())
+        summary["layer"][case] = worst
+        log(f"[groups] layer C=256 x 12544 rows a rank, {case}: worst {worst:.3f} "
+            "of tol over 4 ranks (" + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+            + f") {'ok' if worst <= 1.0 else 'FAIL'}")
+        if worst > 1.0:
+            failures.append(f"[groups] layer invariant {case}: {worst:.3f} of tol")
+    for fault in res[0]["faults"]:
+        worst = min(r_["faults"][fault] for r_ in res)
+        summary["faults"][fault] = worst
+        log(f"[groups] planted fault {fault}: fails its check at "
+            f"{worst:.2f}x tol (least over 4 ranks) "
+            f"{'ok' if worst > 1.0 else 'FAIL: the check did not see it'}")
+        if worst <= 1.0:
+            failures.append(f"[groups] planted fault {fault} passed the check")
+    loss_err = max(r_["trainer"][0] for r_ in res)
+    upd_err = max(r_["trainer"][1] for r_ in res)
+    fc_err = max(r_["trainer"][2] for r_ in res)
+    upd_tol = TRAINER_FLOOR_FACTOR * floor
+    summary["trainer"] = {"loss_rel_err": loss_err, "update_rel_err": upd_err,
+                          "update_floor": floor}
+    ok = loss_err <= TRAINER_LOSS_TOL and upd_err <= upd_tol
+    log(f"[groups] trainer: world 4 (16 a rank) vs world 1 (64), f32 ResNet-50, "
+        f"TF32 off, loss {ref_loss:.6f}: loss rel err {loss_err:.2e} (tol "
+        f"{TRAINER_LOSS_TOL:.0e}); whole update rel err {upd_err:.3e} against "
+        f"the world-1 step's own rounding floor {floor:.3e} (shards reversed; "
+        f"tol {TRAINER_FLOOR_FACTOR:g}x floor = {upd_tol:.3e}); worst "
+        f"{max(loss_err / TRAINER_LOSS_TOL, upd_err / upd_tol):.3f} of tol "
+        f"{'ok' if ok else 'FAIL'}; fc.weight's update alone {fc_err:.2e}")
+    if not ok:
+        failures.append("[groups] world 4 disagrees with world 1")
+    same = all(all(r_["replicas"][0]) for r_ in res)
+    want = BN_LAYERS * GROUP_STEPS
+    counts = [r_["replicas"][1] for r_ in res]
+    summary["replicas_bit_identical"] = same
+    summary["launches_per_rank"] = counts
+    log(f"[groups] replicas: bf16 ResNet-50, group_size=2, {GROUP_STEPS} steps: "
+        f"parameters and buffers equal rank 0's bit for bit after every step "
+        f"on every rank: {same}; BN kernel launches per rank {counts} "
+        f"(expected {want} each)")
+    if not same:
+        failures.append("[groups] replicas differ from rank 0")
+    if any(n_ != want for c_ in counts for n_ in c_.values()):
+        failures.append(f"[groups] a BN kernel did not launch {want} times on every rank")
+    for r, r_ in enumerate(res):
+        log(f"[groups] rank {r} step times " + ", ".join(
+            f"{t:.1f}" for t in r_["replicas"][2]) + " ms: four processes "
+            f"time-slicing one card through gloo host copies, not a throughput "
+            f"figure [{card}]")
+    log(f"[groups] four processes: {secs:.1f}s from spawn to join")
+    failures += _launcher_on_the_card()
+    return summary, failures
+
+
+# -- phases 7-10: the attention kernels and the transformer LM --------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1261,6 +1701,12 @@ def main() -> int:
     launches, slice_failures = phase_slice(torch, card)
     failures += slice_failures
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    groups, group_failures = phase_groups(torch, card)
+    failures += group_failures
+    log(f"[groups] phase done in {time.perf_counter() - t0:.1f}s, "
+        f"{len(group_failures)} failures")
+    torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -1312,6 +1758,7 @@ def main() -> int:
             "library_ms": None if t["library_ms"] is None
             else n_layers * t["library_ms"],
         })
+    print(json.dumps({"groups": groups}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

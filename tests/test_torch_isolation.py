@@ -67,6 +67,29 @@ def test_importing_every_module_loads_no_jax():
     assert n_modules >= 20  # every subpackage and module was imported
 
 
+@pytest.mark.parametrize("module", ["tpu_syncbn_torch.runtime.probe",
+                                    "tpu_syncbn_torch.runtime.launcher",
+                                    "tpu_syncbn_torch.launch"])
+def test_the_runtime_entry_points_alone_load_no_jax(module):
+    """The launcher, its entry point and the backend probe, each imported
+    alone in a fresh process (as ``python -m tpu_syncbn_torch.launch``
+    starts), pull in nothing of JAX; the launcher's help runs."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    if module == "tpu_syncbn_torch.launch":
+        r = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
+                           env=_env(), capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0 and "--simulate-chips" in r.stdout, r.stderr
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):

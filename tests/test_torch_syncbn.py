@@ -259,3 +259,40 @@ def test_dataparallel_two_replicas_equal_one_replica_of_the_whole_batch(world2):
     for r in ranks:
         for key in dp_keys:
             np.testing.assert_allclose(r[key], want[key], err_msg=key, **NET)
+
+
+# -- torch's own BatchNorm as a second oracle -------------------------------
+
+
+def torch_bn_oracle(inputs):
+    """What ``_bn_run`` computes, by ``torch.nn.BatchNorm2d`` on the whole
+    batch (NCHW views of the NHWC arrays): the port's world-N SyncBN must
+    match it as it matches the JAX package."""
+    bn = torch.nn.BatchNorm2d(C)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(inputs["w"]))
+        bn.bias.copy_(torch.from_numpy(inputs["b"]))
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    bn(nchw(inputs["xa"]))
+    x = nchw(inputs["xb"]).detach().requires_grad_()
+    y = bn(x)
+    (y * nchw(inputs["coeff"])).sum().backward()
+    nhwc = lambda t: npf(t.permute(0, 2, 3, 1))  # noqa: E731
+    return {"y": nhwc(y), "dx": nhwc(x.grad), "dw": npf(bn.weight.grad),
+            "db": npf(bn.bias.grad), "running_mean": npf(bn.running_mean),
+            "running_var": npf(bn.running_var),
+            "nbt": np.asarray(int(bn.num_batches_tracked))}
+
+
+def check_against_torch_bn(inputs, ranks):
+    want = torch_bn_oracle(inputs)
+    for key in ("y", "dx"):
+        np.testing.assert_allclose(np.concatenate([r[key] for r in ranks]),
+                                   want[key], err_msg=key, **F32)
+    for r in ranks:
+        for key in ("dw", "db", "running_mean", "running_var", "nbt"):
+            np.testing.assert_allclose(r[key], want[key], err_msg=key, **F32)
+
+
+def test_syncbn_two_replicas_equal_torch_batchnorm2d_of_the_whole_batch(world2):
+    check_against_torch_bn(*world2)

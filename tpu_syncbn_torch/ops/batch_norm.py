@@ -12,7 +12,9 @@
 
 Layout: channel-last (N…C) by default; ``channel_axis`` covers others.
 ``process_group=None`` means local statistics (the JAX ``axis_name=None``);
-pass a group to sync across its replicas.
+pass a group to sync across its replicas, and ``group_size`` (an int for
+contiguous subgroups, or an explicit rank partition) to sync only within
+this rank's subgroup of it (``parallel.collectives.group_for``).
 
 The training path without a mask goes through the fused kernels of
 :mod:`tpu_syncbn_torch.ops.triton_bn`, which take a view whose channel
@@ -32,16 +34,41 @@ from tpu_syncbn_torch.ops._triton_common import mode as kernel_mode
 from tpu_syncbn_torch.ops._triton_common import set_mode as set_kernel_mode
 from tpu_syncbn_torch.ops._triton_common import use_kernel
 from tpu_syncbn_torch.parallel.collectives import (
+    _tally,
+    group_for,
     moments_from_stats,
-    reduce_moments,
     world_size,
 )
 
 __all__ = [
     "batch_norm_elemt", "batch_norm_inference", "batch_norm_stats",
-    "batch_norm_train", "fold_scale_shift", "get_kernel_mode", "kernel_mode",
-    "set_kernel_mode", "sync_moments", "update_running_stats",
+    "batch_norm_train", "check_stats_compress", "fold_scale_shift",
+    "get_kernel_mode", "kernel_mode", "set_kernel_mode", "sync_moments",
+    "update_running_stats",
 ]
+
+
+def check_stats_compress(mode: str) -> str:
+    """Statistics ride the wire exactly (``"none"``); the JAX package's
+    lossy ``"bf16"``/``"int8"`` moment reduction is not ported yet, so any
+    other value raises."""
+    if mode != "none":
+        raise ValueError(
+            f"stats_compress={mode!r}: only 'none' (exact float32 "
+            "statistics) is supported by tpu_syncbn_torch"
+        )
+    return mode
+
+
+def _sync_group(process_group, group_size, stats_compress):
+    """The group the statistics sum over: ``process_group``, or this
+    rank's subgroup of it for a ``group_size`` spec; ``None`` without a
+    ``process_group`` (local statistics, as the JAX ``axis_name=None``
+    ignores ``group_size``)."""
+    check_stats_compress(stats_compress)
+    if process_group is None:
+        return None
+    return group_for(group_size, process_group)
 
 
 def _reduction_axes(ndim: int, channel_axis: int) -> tuple[int, ...]:
@@ -74,14 +101,18 @@ def sync_moments(
     *,
     channel_axis: int = -1,
     process_group=None,
+    group_size=None,
+    stats_compress: str = "none",
     mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-channel ``(mean, biased var, count)`` over the batch, across the
-    replicas of ``process_group`` when one is given.
+    replicas of ``process_group`` when one is given (within this rank's
+    subgroup of it for a ``group_size``).
 
     ``mask`` (broadcastable to x, channel-axis size 1) marks the valid
     elements: the uneven/empty-shard contract. Differentiable (the
     all-reduce's gradient is an all-reduce)."""
+    group = _sync_group(process_group, group_size, stats_compress)
     if mask is None:
         s, sq, count = batch_norm_stats(x, channel_axis=channel_axis)
     else:
@@ -91,8 +122,8 @@ def sync_moments(
         s = (xf * mf).sum(dim=axes)
         sq = (xf * xf * mf).sum(dim=axes)
         count = mf.sum(dim=axes)
-    if world_size(process_group) > 1:
-        return _differentiable_reduce_moments(s, sq, count, process_group)
+    if world_size(group) > 1:
+        return _differentiable_reduce_moments(s, sq, count, group)
     mean, var = moments_from_stats(s, sq, count)
     return mean, var, count
 
@@ -103,7 +134,9 @@ def _differentiable_reduce_moments(s, sq, count, group):
     from torch.distributed.nn.functional import all_reduce
 
     c = s.shape[0]
-    total = all_reduce(torch.cat([s, sq, count.reshape(-1)]), group=group)
+    payload = torch.cat([s, sq, count.reshape(-1)])
+    _tally("psum", [payload])
+    total = all_reduce(payload, group=group)
     tcount = total[2 * c:]
     if count.dim() == 0:
         tcount = tcount.reshape(())
@@ -186,14 +219,19 @@ def batch_norm_train(
     eps: float = 1e-5,
     channel_axis: int = -1,
     process_group=None,
+    group_size=None,
+    stats_compress: str = "none",
     mask: torch.Tensor | None = None,
 ):
     """Full training-mode BN forward, synced across ``process_group``'s
-    replicas when one is given (SyncBatchNorm).
+    replicas when one is given (SyncBatchNorm), or within this rank's
+    subgroup of it for a ``group_size`` (an int for contiguous groups, or
+    an explicit rank partition).
 
     Returns ``(y, (new_running_mean, new_running_var,
     new_num_batches_tracked))``; the triple is ``(None, None, None)`` when
     no running stats are tracked. The new stats carry no gradient."""
+    group = _sync_group(process_group, group_size, stats_compress)
     xv = x.movedim(channel_axis, -1)
     if mask is None and (xv.is_contiguous() or use_kernel(xv)):
         # fused kernel path: stats kernel, one all-reduce, normalize
@@ -203,13 +241,12 @@ def batch_norm_train(
         from tpu_syncbn_torch.ops import triton_bn
 
         yv, mean, var, count = triton_bn.fused_batch_norm(
-            xv, weight, bias, eps, process_group
+            xv, weight, bias, eps, group
         )
         y = yv.movedim(-1, channel_axis)
     else:
         mean, var, count = sync_moments(
-            x, channel_axis=channel_axis, process_group=process_group,
-            mask=mask,
+            x, channel_axis=channel_axis, process_group=group, mask=mask,
         )
         y = batch_norm_elemt(
             x, mean, var, weight, bias, eps, channel_axis=channel_axis

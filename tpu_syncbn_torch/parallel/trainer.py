@@ -49,7 +49,10 @@ def _stats_replicated_by_construction(model: nn.Module, group) -> bool:
     """True when every buffer belongs to a SyncBatchNorm syncing over the
     trainer's whole group: its stats come from all-reduced moments, so
     they are identical on every replica and a per-step broadcast would
-    move bytes for nothing."""
+    move bytes for nothing. A layer scoped to a subgroup (``group_size``,
+    or another ``process_group``) has stats that differ between
+    subgroups, so the trainer keeps DDP's broadcast from rank 0, as the
+    JAX trainer does for group-scoped SyncBN."""
     from tpu_syncbn_torch.nn.normalization import SyncBatchNorm
 
     for module in model.modules():
@@ -58,7 +61,7 @@ def _stats_replicated_by_construction(model: nn.Module, group) -> bool:
             continue
         if not isinstance(module, SyncBatchNorm):
             return False
-        if module.process_group not in (None, group):
+        if module.scope_group() is not group:
             return False
     return True
 
@@ -150,9 +153,17 @@ class DataParallel:
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._split(self.loss_fn(self.model, batch))
         loss.backward()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        # DDP gradient averaging: one flat all-reduce per dtype
-        collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+        if self.world > 1:
+            # DDP gradient averaging: one flat all-reduce per dtype. Every
+            # parameter that requires grad takes part, zero-filled where
+            # this rank's loss did not reach it, so all ranks send buffers
+            # of one size (the JAX trainer's gradients cover every
+            # parameter too)
+            for p in self.model.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in self.model.parameters() if p.requires_grad]
+            collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
         self.optimizer.step()
         if self._per_step_broadcast:
             collectives.broadcast_(

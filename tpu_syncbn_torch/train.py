@@ -6,14 +6,16 @@ One GPU:
     python -m tpu_syncbn_torch.train --epochs 2
 
 Several GPUs of one host (one process per GPU, torchrun's environment;
-not yet run on cards: the multi-replica path is tested over gloo on the
-CPU only, so NCCL is untested):
+NCCL between cards is not yet run: the multi-replica path is tested over
+gloo, on the CPU and with four processes sharing one card):
 
+    python -m tpu_syncbn_torch.launch --nproc-per-node 4 tpu_syncbn_torch/train.py -- --epochs 2
     torchrun --nproc-per-node 4 -m tpu_syncbn_torch.train --epochs 2
 
 On the CPU (plain versions of the kernels, gloo between processes):
 
     python -m tpu_syncbn_torch.train --device cpu --epochs 1
+    python -m tpu_syncbn_torch.launch --simulate-chips 2 tpu_syncbn_torch/train.py -- --device cpu
 
 Every numbered step of the recipe appears below, marked ``# [step N]``.
 """
@@ -118,4 +120,6 @@ if __name__ == "__main__":
     main()
 
 # [step 6] — launch: ``python -m tpu_syncbn_torch.train`` on one GPU, or
-# ``torchrun --nproc-per-node N -m tpu_syncbn_torch.train`` on N.
+# ``python -m tpu_syncbn_torch.launch --nproc-per-node N
+# tpu_syncbn_torch/train.py`` (or ``torchrun --nproc-per-node N -m
+# tpu_syncbn_torch.train``) on N.
