@@ -53,24 +53,42 @@ falls back to the CPU):
                on every rank; then ``python -m tpu_syncbn_torch.launch``
                runs ``train.py`` (ResNet-50) at ``--nproc-per-node 1`` and
                refuses one process more than the card count;
-7. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+7. imagenet  — the real-image data path: the native library must load; a
+               seeded JPEG tree of ImageNet's image sizes (4 classes x 160
+               train, x 16 val); the train pipeline's img/s with 8 thread
+               and 8 process workers and with os.cpu_count() of the faster
+               kind, the process path's receive time a batch, and
+               ``staged_iter`` over the native ring (batches equal, the
+               consumer's time a batch); then the ported ImageNet example
+               (``imagenet_resnet50.main``, bf16 ResNet-50 at batch 64 and
+               224x224, kernel mode "on"): every BN kernel must launch 53 x
+               the train steps (the eval counted apart), the loss be
+               finite, the done line carry a val top-1, and the first 3
+               staged batches read back from the card equal their host
+               arrays; its median step and data wait beside the synthetic
+               slice's step; a 2-step profiler window (device busy, the
+               host-to-device copies on a stream of their own, and their
+               overlap with the compute stream's kernels); and the example
+               under ``python -m tpu_syncbn_torch.launch`` with process
+               workers, to its done line;
+8. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
                  and causal bf16 at the LM shape on views into one fused
                  QKV tensor;
-8. attn-time   — device time of each attention kernel at the LM shape
+9. attn-time   — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
                  kernels' times at every parity shape, and at a fixed 1024
                  blocks over four lengths (a fixed cost per block, fitted);
                  the float32 kernels' times;
-9. lm          — the causal transformer LM at full width (d_model 512, 8
+10. lm         — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
                  with Adam and ``attn_impl="flash_pallas_bwd"``: every
                  attention kernel must launch 8 x steps times; step times,
                  tokens/s, a profiler window;
-10. lm-a/b     — one step from the same weights and batch with the kernels
+11. lm-a/b     — one step from the same weights and batch with the kernels
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
@@ -471,6 +489,18 @@ def phase_kernel_times(torch, T, bn_ops, shapes, card):
     return tot
 
 
+def merged(intervals):
+    """The union of ``(start, end)`` intervals as disjoint sorted ones:
+    overlapping device work counts once."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
 def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
     """Run ``run()`` (two training steps) under ``torch.profiler`` and print
     the device's busy and idle share of the wall time, the share of busy
@@ -491,17 +521,7 @@ def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
         by_name[name_] = (tot_ + (end - start) / 1e3, cnt_ + 1)
     rows = sorted(((ms, cnt, key) for key, (ms, cnt) in by_name.items()),
                   reverse=True)
-    busy = 0.0  # union of device intervals: overlapping work counts once
-    cur_s = cur_e = None
-    for _, start, end in sorted(acts, key=lambda r: r[1]):
-        if cur_e is None or start > cur_e:
-            if cur_e is not None:
-                busy += (cur_e - cur_s) / 1e3
-            cur_s, cur_e = start, end
-        else:
-            cur_e = max(cur_e, end)
-    if cur_e is not None:
-        busy += (cur_e - cur_s) / 1e3
+    busy = sum(e - s_ for s_, e in merged([(a[1], a[2]) for a in acts])) / 1e3
     ours_ms = sum(r[0] for r in rows if is_ours(r[2]))
     wall_ms = window * 1e3
     if busy > 0:
@@ -685,7 +705,7 @@ def phase_slice(torch, card):
         fail("eval step produced non-finite or misshapen output")
     for _ in batches:  # drain the loader so its threads finish
         pass
-    return launches, failures
+    return launches, failures, med
 
 
 # -- phase 6: groups — the cross-replica path at world 4 on one card --------
@@ -1110,7 +1130,396 @@ def phase_groups(torch, card):
     return summary, failures
 
 
-# -- phases 7-10: the attention kernels and the transformer LM --------------
+# -- phase 7: imagenet — the real-image data path --------------------------
+
+# A JPEG tree of ImageNet's shape (the ILSVRC-2012 train images average
+# about 400 x 350 pixels and 110 KB): 4 classes of 160 train images (10
+# steps of batch 64) and of 16 val images (one eval batch).
+IMAGENET_CLASSES, IMAGENET_TRAIN, IMAGENET_VAL = 4, 160, 16
+LOADER_WORKERS = 8  # the JAX example's num_workers
+PROFILED_STEP = 4  # the 2-step profiler window starts at this 0-based step
+STAGED_CHECKED = 3  # staged batches read back from the card
+
+
+def _smooth_jpeg(path: str, seed: int) -> int:
+    """One image of 375-500 x 300-375 pixels: colour fields at three
+    scales, upsampled, plus mild noise, saved at quality 90 (about 100 KB,
+    so the decoder does a photo's work, not a noise image's). Returns the
+    file's bytes."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    w, h = rs.randint(375, 501), rs.randint(300, 376)
+    out = np.zeros((h, w, 3), np.float32)
+    for grid, amp in (((6, 8), 1.0), ((24, 32), 1.0), ((150, 190), 2.0)):
+        f = Image.fromarray(rs.randint(0, 256, grid + (3,), dtype=np.uint8))
+        out += amp * (np.asarray(f.resize((w, h), Image.BILINEAR), np.float32) - 128)
+    out = out / 4.0 + 128 + rs.randint(-32, 33, (h, w, 3))
+    Image.fromarray(np.clip(out, 0, 255).astype(np.uint8)).save(path, quality=90)
+    return os.path.getsize(path)
+
+
+def write_jpeg_tree(root: str) -> tuple[int, int]:
+    """``root/{train,val}/n0000000<c>/*.JPEG``, image k from seed k, written
+    by a thread pool (PIL's resize and encode release the interpreter
+    lock). Returns (files, bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = []
+    for split, n in (("train", IMAGENET_TRAIN), ("val", IMAGENET_VAL)):
+        for c in range(IMAGENET_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            jobs += [os.path.join(d, f"{split}_{i:04d}.JPEG") for i in range(n)]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        sizes = list(pool.map(_smooth_jpeg, jobs, range(len(jobs))))
+    return len(sizes), sum(sizes)
+
+
+def _loader_rate(data, ds, kind: str, workers: int):
+    """img/s of ``DataLoader(ds, 64, worker_type=kind)`` (no device) over
+    its second epoch, from the epoch's start to its last batch (the first
+    epoch warms up; its first batch's wait, a process pool's spawn
+    included, is returned apart); for the process kind also the
+    consumer's time per batch when the batch is already waiting in a pipe
+    (the receive and unpickle of 38.5 MB)."""
+    sampler = data.DistributedSampler(len(ds), 1, 0, shuffle=True, seed=0)
+    loader = data.DataLoader(ds, BATCH, sampler=sampler, num_workers=workers,
+                             drop_last=True, worker_type=kind)
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)
+        first = time.perf_counter() - t0
+        for _ in it:
+            pass
+        sampler.set_epoch(1)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        rate = BATCH * n / (time.perf_counter() - t0)
+        receive = []
+        if kind == "process":
+            # let the workers fill their pipes, then time the consumer alone
+            sampler.set_epoch(2)
+            it = iter(loader)
+            next(it)
+            waiting = min(len(loader) - 1, workers * loader.prefetch_batches)
+            deadline = time.monotonic() + 60
+            queues = loader._pool["out_queues"]
+            while (sum(q.qsize() for q in queues) < waiting
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            for _ in range(waiting):
+                t0 = time.perf_counter()
+                next(it)
+                receive.append(time.perf_counter() - t0)
+            it.close()
+    finally:
+        loader.close()
+    return rate, first, receive
+
+
+def _pipeline_costs(ds, n: int = 64):
+    """ms an image of each stage of ``ds``'s pipeline on one thread:
+    decode, then each transform in turn, then the collate's share."""
+    import numpy as np
+
+    costs = {"decode": 0.0}
+    out = []
+    for path, _ in ds.samples[:n]:
+        t0 = time.perf_counter()
+        x = ds.loader(path)
+        costs["decode"] += time.perf_counter() - t0
+        for tf in ds.transform.transforms:
+            t0 = time.perf_counter()
+            x = tf(x)
+            name = type(tf).__name__
+            costs[name] = costs.get(name, 0.0) + time.perf_counter() - t0
+        out.append(x)
+    t0 = time.perf_counter()
+    np.stack(out)
+    costs["collate"] = time.perf_counter() - t0
+    return {k: 1e3 * v / n for k, v in costs.items()}
+
+
+def _staged_consumer_ms(data, batches):
+    """The consumer thread's time per batch out of ``staged_iter`` when the
+    producer has already filled the ring (the copy out of a slot); the
+    batches must come out equal."""
+    it = data.staged_iter(iter(batches), slots=3, slot_mb=64)
+    got = [next(it)]
+    time.sleep(1.0)  # the producer fills the other slots
+    times = []
+    for _ in range(len(batches) - 1):
+        t0 = time.perf_counter()
+        got.append(next(it))
+        times.append(time.perf_counter() - t0)
+    it.close()
+    import numpy as np
+
+    same = all(a.dtype == b.dtype and np.array_equal(a, b)
+               for g, w in zip(got, batches) for a, b in zip(g, w))
+    return times, same
+
+
+class _Tee:
+    """stdout that is also kept, to read the example's done line."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def h2d_overlap(prof):
+    """(H2D copies, ms of them, their streams, the compute stream, the
+    share of copy time during which the compute stream ran a kernel):
+    the compute stream is the one with the most kernel time."""
+    from torch.autograd import DeviceType
+
+    kernels, copies = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append((e.device_resource_id, span))
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.setdefault(e.device_resource_id, []).append(span)
+    if not kernels or not copies:
+        return len(copies), 0.0, set(), None, 0.0
+    compute = max(kernels, key=lambda s_: sum(e - b for b, e in kernels[s_]))
+    busy = merged(kernels[compute])
+    total = sum(e - b for _, (b, e) in copies)
+    over = sum(max(0, min(e, be) - max(b, bb))
+               for _, (b, e) in copies for bb, be in busy)
+    return (len(copies), total / 1e3, {s_ for s_, _ in copies}, compute,
+            over / total if total else 0.0)
+
+
+def _example_in_process(torch, tree):
+    """``imagenet_resnet50.main`` under kernel mode "on", with its train
+    steps and evals wrapped: BN launches counted apart for the evals, the
+    first staged batches kept on the card (and their host arrays), and a
+    2-step profiler window. Returns (summary, done line, train launches,
+    eval launches, kept batches, host batches, profile, its wall
+    seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_syncbn_torch import data, imagenet_resnet50, parallel
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    DP = parallel.DataParallel
+    orig_train, orig_eval, orig_prefetch = DP.train_step, DP.eval_step, data.device_prefetch
+    kept, host, eval_launches = [], [], dict.fromkeys(T.LAUNCHES, 0)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    calls, window = [0], [0.0]
+
+    def train_step(self, batch):
+        i = calls[0]
+        calls[0] += 1
+        if i < STAGED_CHECKED:
+            kept.append(batch)  # held: the allocator cannot reuse it
+        if i == PROFILED_STEP:
+            torch.cuda.synchronize()
+            prof.start()
+            window[0] = time.perf_counter()
+        out = orig_train(self, batch)
+        if i == PROFILED_STEP + 1:
+            torch.cuda.synchronize()
+            window[0] = time.perf_counter() - window[0]
+            prof.stop()
+        return out
+
+    def eval_step(self, batch):
+        before = T.launch_counts()
+        out = orig_eval(self, batch)
+        for k, n in T.launch_counts().items():
+            eval_launches[k] += n - before[k]
+        return out
+
+    def device_prefetch(iterator, **kw):
+        first = not host and not kept
+
+        def tee(it):
+            for b in it:
+                if first and len(host) < STAGED_CHECKED:
+                    host.append(b)
+                yield b
+
+        return orig_prefetch(tee(iterator), **kw)
+
+    tee_out = _Tee(sys.stdout)
+    DP.train_step, DP.eval_step, data.device_prefetch = train_step, eval_step, device_prefetch
+    try:
+        with bn_ops.kernel_mode("on"), contextlib.redirect_stdout(tee_out):
+            T.reset_launch_counts()  # the real-data path: counts from 0
+            summary = imagenet_resnet50.main([
+                "--data-root", tree, "--epochs", "1", "--batch-size", str(BATCH),
+                "--image-size", str(IMAGE_SIZE), "--dtype", "bf16",
+                "--num-classes", str(IMAGENET_CLASSES), "--eval-every", "1"])
+            total = T.launch_counts()
+    finally:
+        DP.train_step, DP.eval_step, data.device_prefetch = orig_train, orig_eval, orig_prefetch
+    done = [ln for ln in "".join(tee_out.lines).splitlines() if ln.startswith("done:")]
+    train_launches = {k: total[k] - eval_launches[k] for k in total}
+    return summary, done, train_launches, eval_launches, kept, host, prof, window[0]
+
+
+def _example_under_the_launcher(tree):
+    """``python -m tpu_syncbn_torch.launch --nproc-per-node 1
+    tpu_syncbn_torch/imagenet_resnet50.py`` with process workers, to its
+    done line."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    cmd = [sys.executable, "-m", "tpu_syncbn_torch.launch", "--nproc-per-node", "1",
+           os.path.join("tpu_syncbn_torch", "imagenet_resnet50.py"), "--",
+           "--data-root", tree, "--worker-type", "process", "--epochs", "1",
+           "--batch-size", str(BATCH), "--image-size", str(IMAGE_SIZE),
+           "--dtype", "bf16", "--eval-every", "1"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=300)
+    done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
+    return r, done, time.perf_counter() - t0
+
+
+def phase_imagenet(torch, card, slice_med):
+    """The real-image path: a JPEG tree, the loader alone, the ported
+    ImageNet example in process with the BN kernels, and the example under
+    the launcher with process workers. Returns the failures."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_syncbn_torch import data, imagenet_resnet50
+    from tpu_syncbn_torch.runtime import native
+
+    t_phase = time.perf_counter()
+    failures = []
+    if not native.available():
+        fail(f"[imagenet] the native library did not build or load: "
+             f"{native.load_error()}")
+    log(f"[imagenet] native library loaded: "
+        f"{os.path.relpath(native.library_path(native.BUILD_DIR), HERE)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_imagenet_") as tree:
+        t0 = time.perf_counter()
+        n_files, n_bytes = write_jpeg_tree(tree)
+        log(f"[imagenet] JPEG tree: {n_files} files ({IMAGENET_CLASSES} classes x "
+            f"{IMAGENET_TRAIN} train + {IMAGENET_VAL} val), {n_bytes / 2**20:.1f} MiB, "
+            f"mean {n_bytes / n_files / 1024:.1f} KiB a file, written in "
+            f"{time.perf_counter() - t0:.1f}s; host CPUs {os.cpu_count()}")
+
+        # the loader alone: the train pipeline at 224², no device
+        train_ds, _ = imagenet_resnet50.make_imagefolder_datasets(tree, IMAGE_SIZE)
+        costs = _pipeline_costs(train_ds)
+        log(f"[imagenet] one thread, ms an image: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in costs.items())
+            + f"; total {sum(costs.values()):.3f} [{card}]")
+        rates = {}
+        for kind, workers in (("thread", LOADER_WORKERS), ("process", LOADER_WORKERS)):
+            rate, first, receive = _loader_rate(data, train_ds, kind, workers)
+            rates[kind] = rate
+            extra = ""
+            if receive:
+                extra = (f"; consumer's receive of a waiting batch "
+                         f"({BATCH * IMAGE_SIZE ** 2 * 3 * 4 / 1e6:.1f} MB) median "
+                         f"{1e3 * statistics.median(receive):.2f}ms over {len(receive)}")
+            log(f"[imagenet] loader {kind} x{workers}: {rate:.1f} img/s over an "
+                f"epoch of {IMAGENET_TRAIN * IMAGENET_CLASSES} images (the first "
+                f"epoch's first batch after {first:.2f}s){extra} [{card}]")
+        best = max(rates, key=rates.get)
+        if os.cpu_count() == LOADER_WORKERS:
+            log(f"[imagenet] loader {best} x{os.cpu_count()} (os.cpu_count()): "
+                f"the {best} run above")
+        else:
+            rate, first, _ = _loader_rate(data, train_ds, best, os.cpu_count())
+            log(f"[imagenet] loader {best} x{os.cpu_count()} (os.cpu_count()): "
+                f"{rate:.1f} img/s over an epoch (the first epoch's first batch "
+                f"after {first:.2f}s) [{card}]")
+
+        # the staging ring on real batches: a pass, and its consumer cost
+        batches = list(data.DataLoader(train_ds, BATCH, num_workers=LOADER_WORKERS,
+                                       drop_last=True))[:6]
+        times, same = _staged_consumer_ms(data, batches)
+        log(f"[imagenet] staged_iter over the native ring: {len(batches)} batches "
+            f"equal: {same}; consumer's time a batch median "
+            f"{1e3 * statistics.median(times):.2f}ms [{card}]")
+        if not same:
+            failures.append("[imagenet] staged_iter changed a batch")
+        del batches
+
+        # the example in process, with the BN kernels
+        t0 = time.perf_counter()
+        summary, done, launches, eval_launches, kept, host, prof, window = \
+            _example_in_process(torch, tree)
+        secs = time.perf_counter() - t0
+        steps = summary["steps"]
+        log(f"[imagenet] example in process: {steps} steps in {secs:.1f}s; "
+            f"{done[-1] if done else 'no done: line'}")
+        log(f"[imagenet] BN kernels over the train steps {json.dumps(launches)}; "
+            f"in the eval {json.dumps(eval_launches)}")
+        if any(n != BN_LAYERS * steps for n in launches.values()) or steps < 1:
+            failures.append(f"[imagenet] a BN kernel did not launch {BN_LAYERS} x "
+                            f"{steps} times over the train steps: {launches}")
+        if not math.isfinite(summary["loss"]):
+            failures.append(f"[imagenet] non-finite loss {summary['loss']}")
+        if not done or "val top1" not in done[-1] or not math.isfinite(summary["final_top1"]):
+            failures.append("[imagenet] no done: line with a val top1")
+        exact = len(kept) == len(host) == STAGED_CHECKED and all(
+            torch.equal(d_.cpu(), torch.from_numpy(h_))
+            for kb, hb in zip(kept, host) for d_, h_ in zip(kb, hb))
+        on_card = all(t.is_cuda for kb in kept for t in kb)
+        log(f"[imagenet] first {STAGED_CHECKED} staged batches read back from the "
+            f"card equal their host arrays: {exact} (on the card: {on_card})")
+        if not (exact and on_card):
+            failures.append("[imagenet] a staged batch differs from its host arrays")
+        del kept, host
+
+        step_s, wait_s = summary["step_s"], summary["data_wait_s"]
+        steady = [i for i in range(1, steps)
+                  if i not in (PROFILED_STEP, PROFILED_STEP + 1)]
+        it_med = statistics.median(step_s[i] for i in steady)
+        wait_med = statistics.median(wait_s[i] for i in steady)
+        comp_med = statistics.median(step_s[i] - wait_s[i] for i in steady)
+        log(f"[imagenet] real-data step (next batch + step) median {1e3 * it_med:.2f}ms "
+            f"= {BATCH / it_med:.1f} img/s over {len(steady)} steady steps; data_wait "
+            f"median {1e3 * wait_med:.2f}ms; step without the wait {1e3 * comp_med:.2f}ms; "
+            f"the synthetic slice's step this run {1e3 * slice_med:.2f}ms = "
+            f"{BATCH / slice_med:.1f} img/s [{card}]")
+        acts = device_intervals(prof)
+        window *= 1e3
+        busy = sum(e - s_ for s_, e in merged([(a[1], a[2]) for a in acts])) / 1e3
+        n_h2d, h2d_ms, h2d_streams, compute, overlap = h2d_overlap(prof)
+        side = bool(h2d_streams) and compute not in h2d_streams
+        log(f"[imagenet-profile] 2 steps (steps {PROFILED_STEP + 1}-{PROFILED_STEP + 2}): "
+            f"device busy {busy:.1f}ms of {window:.1f}ms "
+            f"({100 * busy / window:.1f}%); {n_h2d} H2D copies, {h2d_ms:.2f}ms, on "
+            f"stream(s) {sorted(h2d_streams)}, compute on stream {compute}: side "
+            f"stream {side}; {100 * overlap:.1f}% of the copy time overlapped "
+            f"compute-stream kernels [{card}]")
+        if n_h2d and not side:
+            failures.append("[imagenet] the H2D copies ran on the compute stream")
+
+        r, done, secs = _example_under_the_launcher(tree)
+        log(f"[imagenet] launcher --nproc-per-node 1 imagenet_resnet50.py "
+            f"--worker-type process: exit {r.returncode} in {secs:.1f}s; "
+            f"{done[-1] if done else 'no done: line'}")
+        if r.returncode != 0 or not done:
+            failures.append("[imagenet] the launcher did not run the example: "
+                            + (r.stdout + r.stderr)[-2000:])
+    log(f"[imagenet] phase done in {time.perf_counter() - t_phase:.1f}s, "
+        f"{len(failures)} failures")
+    return failures
+
+
+# -- phases 8-11: the attention kernels and the transformer LM --------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1698,7 +2107,7 @@ def main() -> int:
     log(f"[kernels] parity done in {time.perf_counter() - t0:.1f}s "
         f"(includes the Triton builds), {len(failures)} disagree")
     times = phase_kernel_times(torch, T, bn_ops, shapes, card)
-    launches, slice_failures = phase_slice(torch, card)
+    launches, slice_failures, slice_med = phase_slice(torch, card)
     failures += slice_failures
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1706,6 +2115,8 @@ def main() -> int:
     failures += group_failures
     log(f"[groups] phase done in {time.perf_counter() - t0:.1f}s, "
         f"{len(group_failures)} failures")
+    torch.cuda.empty_cache()
+    failures += phase_imagenet(torch, card, slice_med)
     torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A

@@ -117,3 +117,54 @@ def test_device_prefetch_on_the_cpu_yields_tensors_in_order():
         assert y.tolist() == [i, i + 1]
     with pytest.raises(ValueError, match="size"):
         tdata.device_prefetch(iter(batches), size=0, device="cpu")
+
+
+def write_cifar(root, per_batch=6, seed=0):
+    """A tiny ``cifar-10-batches-py``: CIFAR-10's pickled python layout."""
+    import os
+    import pickle
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    rs = np.random.RandomState(seed)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": rs.randint(0, 256, (per_batch, 3072), dtype=np.uint8),
+                         b"labels": rs.randint(0, 10, per_batch).tolist()}, f)
+    return str(root)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_load_cifar10_reads_the_python_batches_like_jax(tmp_path, train):
+    import os
+
+    root = write_cifar(tmp_path)
+    jd, td = jdata.load_cifar10(root, train), tdata.load_cifar10(root, train)
+    assert len(td) == len(jd) == (30 if train else 6)
+    for i in range(len(td)):
+        (jx, jy), (tx, ty) = jd[i], td[i]
+        assert tx.shape == (32, 32, 3) and tx.dtype == np.float32
+        assert np.array_equal(tx, jx) and ty == jy and ty.dtype == jy.dtype
+    assert -1.0 <= td.arrays[0].min() and td.arrays[0].max() <= 1.0
+    # absent: None, nothing downloaded
+    assert tdata.load_cifar10(str(tmp_path / "nowhere"), train) is None
+    os.remove(os.path.join(root, "cifar-10-batches-py",
+                           "data_batch_3" if train else "test_batch"))
+    assert tdata.load_cifar10(root, train) is None is jdata.load_cifar10(root, train)
+
+
+def test_transform_dataset_and_random_sampler_match():
+    base_kw = dict(length=9, shape=(4, 4, 3), num_classes=3, seed=1)
+    jd = jdata.TransformDataset(jdata.SyntheticImageDataset(**base_kw),
+                                lambda s: (s[0] * 2, s[1]))
+    td = tdata.TransformDataset(tdata.SyntheticImageDataset(**base_kw),
+                                lambda s: (s[0] * 2, s[1]))
+    assert len(td) == len(jd) == 9
+    for i in range(9):
+        assert np.array_equal(td[i][0], jd[i][0]) and td[i][1] == jd[i][1]
+    js, ts = jdata.RandomSampler(13, seed=4), tdata.RandomSampler(13, seed=4)
+    for epoch in (0, 1, 7):
+        js.set_epoch(epoch)
+        ts.set_epoch(epoch)
+        assert list(ts) == list(js) and sorted(ts) == list(range(13))
+    assert len(ts) == 13

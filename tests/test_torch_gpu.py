@@ -1,9 +1,10 @@
 """Tests that launch the port's kernels (the BN kernels, CUDA forward and
 Triton backward, and the CUDA flash-attention kernels; nvcc builds every
-CUDA library at the first launch of one): they need an NVIDIA card (with
-Triton and nvcc), carry the ``gpu`` marker, and skip without one. The file imports
-no JAX, so on a machine with a card it runs alone, without the suite's
-JAX conftest:
+CUDA library at the first launch of one), and tests of device staging and
+the native library on the card's machine: they need an NVIDIA card (the
+kernels also Triton and nvcc), carry the ``gpu`` marker, and skip without
+one. The file imports no JAX, so on a machine with a card it runs alone,
+without the suite's JAX conftest:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q -p no:cacheprovider
 
@@ -18,6 +19,7 @@ plus one ulp (P and dS are rounded to bf16 for their products; see
 ``within_bf16_tol``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -414,3 +416,104 @@ def test_flash_wrappers_raise_instead_of_falling_back_on_the_card(cuda_nvcc):
     q = torch.randn(1, 32, 2, 17, device="cuda")[..., :16]
     with pytest.raises(ValueError, match="16-byte aligned"):
         A.flash_fwd(q, q, q, causal=True, scale=1.0)
+
+
+# -- device staging and the native library on the card's machine -----------
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (device staging copies to the card)")
+
+
+# 50 batches prefetched onto the card while the compute stream is kept
+# busy: before each batch is read, a long matmul is queued on the compute
+# stream, so the host runs far ahead of the device and the staging copies
+# of later batches would land in a freed block that a queued read still
+# has to read, if the prefetcher did not record its tensors on the
+# consumer's stream. Prints the number of batches that came out unequal.
+PREFETCH_RACE = r"""
+import numpy as np, torch
+from tpu_syncbn_torch import data
+torch.backends.cuda.matmul.allow_tf32 = False
+n, shape = 50, (512, 1024)
+host = [(np.random.RandomState(i).rand(*shape).astype(np.float32),
+         np.arange(8, dtype=np.int32) + i) for i in range(n)]
+a = torch.randn(4096, 4096, device="cuda")
+reads = []
+for x, y in data.device_prefetch(iter(host), size=2, device="cuda"):
+    for _ in range(3):
+        a = torch.tanh(a @ a * 1e-3)  # ~10 ms of queued compute
+    reads.append((x.clone(), y.clone()))
+    del x, y
+torch.cuda.synchronize()
+bad = sum(not (torch.equal(x.cpu(), torch.from_numpy(hx))
+               and torch.equal(y.cpu(), torch.from_numpy(hy)))
+          for (x, y), (hx, hy) in zip(reads, host))
+print("unequal", bad, "of", len(reads), data.__file__)
+"""
+
+
+def run_race(root):
+    """Run PREFETCH_RACE on the package under ``root`` (also the working
+    directory, which comes first on ``sys.path``)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    r = subprocess.run([sys.executable, "-c", PREFETCH_RACE], env=env, cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    _, bad, _, total, path = r.stdout.split()
+    assert int(total) == 50
+    assert path.startswith(os.path.join(str(root), "tpu_syncbn_torch")), path
+    return int(bad)
+
+
+def test_side_stream_prefetch_is_exact_under_a_busy_compute_stream(cuda_card):
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert run_race(root) == 0
+
+
+def test_prefetch_without_record_stream_fails_on_a_copy(cuda_card, tmp_path):
+    """The same run on a copy of the package outside the checkout whose
+    prefetcher does not record its tensors on the consumer's stream: some
+    batch is overwritten by a later copy before the step reads it."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(root, "tpu_syncbn_torch"),
+                    tmp_path / "tpu_syncbn_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    loader = tmp_path / "tpu_syncbn_torch" / "data" / "loader.py"
+    src = loader.read_text()
+    line = "            _map_arrays(lambda t_: t_.record_stream(consumer), batch)\n"
+    assert src.count(line) == 1
+    loader.write_text(src.replace(line, ""))
+    bad = run_race(str(tmp_path))
+    print(f"without record_stream: {bad} of 50 batches unequal")
+    assert bad > 0
+
+
+def test_device_prefetch_stacks_on_the_card(cuda_card):
+    from tpu_syncbn_torch import data
+
+    host = [np.full((2, 3), i, np.float32) for i in range(5)]
+    chunks = list(data.device_prefetch(iter(host), device="cuda", scan_steps=2))
+    assert [tuple(c.shape) for c in chunks] == [(2, 2, 3), (2, 2, 3), (1, 2, 3)]
+    assert all(c.is_cuda for c in chunks)
+    assert torch.equal(torch.cat([c.cpu() for c in chunks]),
+                       torch.from_numpy(np.stack(host)))
+
+
+def test_native_library_loads_on_the_card_machine(cuda_card):
+    from tpu_syncbn_torch.runtime import native
+
+    assert native.available(), native.load_error()
+    got = native.permutation(7, 1000)
+    assert np.array_equal(got, np.random.RandomState(7).permutation(1000))

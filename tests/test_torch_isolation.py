@@ -15,6 +15,7 @@ import torch
 
 from tpu_syncbn_torch import (
     data,
+    imagenet_resnet50,
     longcontext_train,
     models,
     nn,
@@ -69,11 +70,16 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("module", ["tpu_syncbn_torch.runtime.probe",
                                     "tpu_syncbn_torch.runtime.launcher",
-                                    "tpu_syncbn_torch.launch"])
+                                    "tpu_syncbn_torch.launch",
+                                    "tpu_syncbn_torch.runtime.native",
+                                    "tpu_syncbn_torch.data",
+                                    "tpu_syncbn_torch.utils",
+                                    "tpu_syncbn_torch.imagenet_resnet50"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
-    """The launcher, its entry point and the backend probe, each imported
-    alone in a fresh process (as ``python -m tpu_syncbn_torch.launch``
-    starts), pull in nothing of JAX; the launcher's help runs."""
+    """The launcher, its entry point, the backend probe, and the data path
+    with its native bindings, meters and ImageNet entry point, each
+    imported alone in a fresh process (as ``python -m ...`` starts), pull
+    in nothing of JAX; the launcher's help runs."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -106,6 +112,35 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, node.lineno, name)
 
 
+def write_cifar(root, n=48):
+    """A tiny ``cifar-10-batches-py`` tree: five train batches and a test
+    batch of CIFAR-10's pickled layout."""
+    import pickle
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    rs = np.random.RandomState(0)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": rs.randint(0, 256, (n // 6, 3072), dtype=np.uint8),
+                         b"labels": rs.randint(0, 10, n // 6).tolist()}, f)
+    return str(root)
+
+
+def write_jpegs(root, n=8):
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    for split in ("train", "val"):
+        for c in ("a", "b"):
+            d = os.path.join(root, split, c)
+            os.makedirs(d)
+            for i in range(n):
+                px = rs.randint(0, 256, (40, 48, 3), dtype=np.uint8)
+                Image.fromarray(px).save(os.path.join(d, f"{i}.jpg"), quality=90)
+    return str(root)
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -129,6 +164,12 @@ def test_entry_points_default_to_the_card_and_refuse_to_fall_back(no_card):
     with pytest.raises(RuntimeError, match=msg):
         train.main(["--epochs", "1"])
     with pytest.raises(RuntimeError, match=msg):
+        train.main(["--epochs", "1", "--data-root", os.devnull])
+    with pytest.raises(RuntimeError, match=msg):
+        imagenet_resnet50.main(["--epochs", "1", "--data-root", os.devnull])
+    with pytest.raises(RuntimeError, match=msg):
+        data.device_prefetch(iter([np.zeros(2)]), scan_steps=2)
+    with pytest.raises(RuntimeError, match=msg):
         models.init_transformer_lm(0, vocab=8, d_model=16, n_heads=2,
                                    n_layers=1, d_ff=16, max_len=8)
     with pytest.raises(RuntimeError, match=msg):
@@ -150,6 +191,25 @@ def test_train_script_runs_on_the_cpu_when_asked():
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "done: 6 steps, final loss" in r.stdout
+
+
+def test_scripts_train_on_real_data_on_the_cpu_when_asked(tmp_path):
+    """train.py reads a CIFAR-10 tree, the ImageNet entry point a JPEG
+    tree; both on the CPU because they are asked to."""
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_syncbn_torch.train", "--device", "cpu",
+         "--epochs", "1", "--batch-size", "8", "--arch", "resnet18",
+         "--data-root", write_cifar(tmp_path / "cifar")],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "done: 5 steps, final loss" in r.stdout  # 40 CIFAR images, not 512
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_syncbn_torch.imagenet_resnet50", "--device",
+         "cpu", "--data-root", write_jpegs(tmp_path / "jpeg"), "--epochs", "1",
+         "--image-size", "32", "--batch-size", "8"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "done: 2 steps, final val top1" in r.stdout
 
 
 def test_chip_smoke_refuses_without_a_card_and_alone(no_card, tmp_path):

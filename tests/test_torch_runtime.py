@@ -119,6 +119,68 @@ def test_world2_initialize_identity_and_collectives(tmp_path):
         np.testing.assert_array_equal(r["m_count"], np.asarray(jm_count))
 
 
+def _sync_replica(rank, port, out_dir):
+    """Each rank builds its model from its own seed; after
+    ``sync_module_states(model)`` (default group) every rank holds rank
+    0's parameters and buffers."""
+    from tpu_syncbn_torch import models, nn, parallel
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    runtime.initialize("cpu")
+    try:
+        model = nn.convert_sync_batchnorm(models.resnet18(
+            num_classes=3, width=4, device="cpu",
+            generator=torch.Generator().manual_seed(rank)))
+        with torch.no_grad():
+            for b in model.buffers():
+                b.fill_(rank + 1)
+        parallel.sync_module_states(model)
+        np.savez(os.path.join(out_dir, f"sync{rank}.npz"),
+                 **{k: v.numpy() for k, v in model.state_dict().items()})
+    finally:
+        runtime.shutdown()
+
+
+def test_sync_module_states_at_world_1_and_2(tmp_path, monkeypatch):
+    from tpu_syncbn_torch import models, parallel
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    runtime.initialize("cpu")  # world 1: no group, nothing moves
+    model = models.resnet18(num_classes=3, width=4, device="cpu")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    parallel.sync_module_states(model)
+    parallel.sync_module_states(model, 0, group=None)
+    assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
+
+    ctx = tmp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_sync_replica, args=(r, port, str(tmp_path)))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(5)
+    assert not alive, f"replicas still running after {JOIN_TIMEOUT_S}s"
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    r0, r1 = (np.load(tmp_path / f"sync{r}.npz") for r in range(WORLD))
+    own0 = models.resnet18(num_classes=3, width=4, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    assert sorted(r0.files) == sorted(r1.files)
+    for k in r0.files:
+        np.testing.assert_array_equal(r1[k], r0[k])
+    # rank 0's own weights, and rank 0's buffers (all 1), won
+    np.testing.assert_array_equal(r1["fc.weight"], own0.fc.weight.detach().numpy())
+    assert (r1["stem_bn.running_mean"] == 1).all()
+
+
 def test_world1_initialize_makes_no_process_group(monkeypatch):
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)

@@ -15,7 +15,8 @@ Entry points default to ``device="cuda"`` and raise without a card; pass
 ``device="cpu"`` to run on the CPU (the kernels' plain versions run there).
 """
 
-from tpu_syncbn_torch import data, models, nn, ops, parallel, runtime
+from tpu_syncbn_torch import data, models, nn, ops, parallel, runtime, utils
 from tpu_syncbn_torch.mesh_axes import DATA_AXIS
 
-__all__ = ["DATA_AXIS", "data", "models", "nn", "ops", "parallel", "runtime"]
+__all__ = ["DATA_AXIS", "data", "models", "nn", "ops", "parallel", "runtime",
+           "utils"]

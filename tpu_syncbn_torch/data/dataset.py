@@ -1,11 +1,14 @@
 """Map-style datasets — the counterpart of ``tpu_syncbn.data.dataset``.
 Samples are numpy arrays; the per-index generation is the same numpy code,
 so :class:`SyntheticImageDataset` is bit-identical across the two
-packages."""
+packages, and :func:`load_cifar10` reads the same on-disk batches into the
+same arrays."""
 
 from __future__ import annotations
 
-from typing import Any
+import os
+import pickle
+from typing import Any, Callable
 
 import numpy as np
 
@@ -39,6 +42,21 @@ class ArrayDataset(Dataset):
         return out if len(out) > 1 else out[0]
 
 
+class TransformDataset(Dataset):
+    """Applies ``transform(sample)`` lazily per item (the augmentation
+    hook, run by the loader's workers)."""
+
+    def __init__(self, base: Dataset, transform: Callable[[Any], Any]):
+        self.base = base
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx):
+        return self.transform(self.base[idx])
+
+
 class SyntheticImageDataset(Dataset):
     """Deterministic synthetic (image, label) pairs, images NHWC float32 —
     stands in for CIFAR/ImageNet without downloads. Each index seeds its
@@ -66,3 +84,29 @@ class SyntheticImageDataset(Dataset):
         x = rng.randn(*self.shape).astype(np.float32)
         y = np.int32(rng.randint(self.num_classes))
         return x, y
+
+
+def load_cifar10(root: str, train: bool = True) -> ArrayDataset | None:
+    """Load CIFAR-10 from an on-disk copy of the standard python batches
+    (``root/cifar-10-batches-py``), images NHWC float32 normalized to
+    [-1, 1]. Returns None when a batch file is absent: nothing is
+    downloaded, and callers fall back to :class:`SyntheticImageDataset`.
+    The files are unpickled, so point ``root`` only at a copy you trust."""
+    base = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        return None
+    names = (
+        [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    )
+    xs, ys = [], []
+    for name in names:
+        path = os.path.join(base, name)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            batch = pickle.load(f, encoding="bytes")
+        xs.append(batch[b"data"])
+        ys.extend(batch[b"labels"])
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    x = (x.astype(np.float32) / 255.0 - 0.5) / 0.5
+    return ArrayDataset(x, np.asarray(ys, np.int32))

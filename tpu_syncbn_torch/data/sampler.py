@@ -2,7 +2,9 @@
 ``tpu_syncbn.data.sampler``, index-exact with it: the same numpy
 ``RandomState((seed + epoch) % 2**32)`` permutation, wraparound padding or
 ``drop_last`` truncation, and ``indices[rank::num_replicas]`` striding of
-``torch.utils.data.DistributedSampler``'s algorithm.
+``torch.utils.data.DistributedSampler``'s algorithm. The shard comes from
+the native library (:mod:`tpu_syncbn_torch.runtime.native`, C++ MT19937)
+when it is loaded, and from numpy otherwise: the two are bit-identical.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from tpu_syncbn_torch.runtime import distributed as dist
+from tpu_syncbn_torch.runtime import native
 
 
 class Sampler:
@@ -28,6 +31,26 @@ class SequentialSampler(Sampler):
 
     def __iter__(self):
         return iter(range(self._length))
+
+    def __len__(self):
+        return self._length
+
+
+class RandomSampler(Sampler):
+    """Uniform shuffle, reseeded per epoch via ``set_epoch`` (like the
+    distributed sampler, so single-replica runs reshuffle identically)."""
+
+    def __init__(self, length: int, seed: int = 0):
+        self._length = length
+        self._seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __iter__(self):
+        rng = np.random.RandomState(self._seed + self._epoch)
+        return iter(rng.permutation(self._length).tolist())
 
     def __len__(self):
         return self._length
@@ -80,6 +103,13 @@ class DistributedSampler(Sampler):
         self.epoch = epoch
 
     def __iter__(self):
+        shard = native.sampler_indices(
+            self.dataset_length, self.num_replicas, self.rank, self.seed,
+            self.epoch, self.shuffle, self.drop_last)
+        if shard is not None:
+            if len(shard) != self.num_samples:
+                raise RuntimeError("native sampler shard has the wrong length")
+            return iter(shard.tolist())
         if self.shuffle:
             rng = np.random.RandomState((self.seed + self.epoch) % 2**32)
             indices = rng.permutation(self.dataset_length)

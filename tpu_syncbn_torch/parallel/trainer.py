@@ -37,9 +37,12 @@ def _default_group():
     return tdist.group.WORLD if tdist.is_available() and tdist.is_initialized() else None
 
 
-def sync_module_states(model: nn.Module, group, src: int = 0) -> None:
-    """Broadcast parameters and buffers from rank ``src`` — DDP's
-    init-time ``_sync_module_states``. No-op at world 1."""
+def sync_module_states(model: nn.Module, src: int = 0, *, group=None) -> None:
+    """Broadcast parameters and buffers from rank ``src`` of ``group``
+    (``None``: the default world group) — DDP's init-time
+    ``_sync_module_states``. No-op at world 1."""
+    if group is None:
+        group = _default_group()
     tensors = [p.data for p in model.parameters()]
     tensors += [b for b in model.buffers() if b is not None]
     collectives.broadcast_(tensors, group, src)
@@ -130,7 +133,7 @@ class DataParallel:
         else:
             self._per_step_broadcast = bool(broadcast_buffers)
         self.broadcast_buffers = broadcast_buffers
-        sync_module_states(model, self.group)
+        sync_module_states(model, group=self.group)
 
     def _split(self, out):
         loss, metrics = out if isinstance(out, tuple) else (out, {})

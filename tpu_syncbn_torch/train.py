@@ -15,6 +15,10 @@ gloo, on the CPU and with four processes sharing one card):
 On the CPU (plain versions of the kernels, gloo between processes):
 
     python -m tpu_syncbn_torch.train --device cpu --epochs 1
+
+``--data-root DIR`` trains on CIFAR-10 when ``DIR/cifar-10-batches-py``
+holds its python batches (nothing is downloaded), on synthetic data
+otherwise.
     python -m tpu_syncbn_torch.launch --simulate-chips 2 tpu_syncbn_torch/train.py -- --device cpu
 
 Every numbered step of the recipe appears below, marked ``# [step N]``.
@@ -40,6 +44,9 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.02)
     p.add_argument("--dataset-size", type=int, default=512)
     p.add_argument("--arch", default="resnet18", choices=sorted(models.RESNETS))
+    p.add_argument("--data-root", default=None,
+                   help="directory containing cifar-10-batches-py (falls "
+                   "back to synthetic data when absent)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--no-syncbn", action="store_true",
@@ -78,9 +85,13 @@ def main(argv=None):
     dp = parallel.DataParallel(model, opt, loss_fn, device=device)
 
     # [step 5] — sharded data + loader
-    ds = tdata.SyntheticImageDataset(
-        length=args.dataset_size, shape=(32, 32, 3), num_classes=10
-    )
+    ds = None
+    if args.data_root:
+        ds = tdata.load_cifar10(args.data_root, train=True)
+    if ds is None:
+        ds = tdata.SyntheticImageDataset(
+            length=args.dataset_size, shape=(32, 32, 3), num_classes=10
+        )
     sampler = tdata.DistributedSampler(
         len(ds), num_replicas=runtime.process_count(),
         rank=runtime.process_index(), shuffle=True, seed=0,
