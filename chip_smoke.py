@@ -71,24 +71,43 @@ falls back to the CPU):
                overlap with the compute stream's kernels); and the example
                under ``python -m tpu_syncbn_torch.launch`` with process
                workers, to its done line;
-8. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+8. trainer   — the rest of ``DataParallel`` on the slice's model and batch
+               (bf16 ResNet-50 SyncBN, 64 at 224x224, the example's
+               optimizer with its schedule in the trainer), every BN launch
+               of the checked steps held against its plain version:
+               ``accum_steps=2`` (53 x 2 launches of each kernel a step,
+               num_batches_tracked +2 a step, finite loss; step time
+               against accum 1); ``remat`` against the plain step from the
+               same weights (loss, running stats and update within 2^-8,
+               num_batches_tracked +1, forward kernels 2 x 53 and backward
+               53; peak memory and step time both ways); the guard
+               (``skip_step`` with a NaN image: parameters, momentum and BN
+               buffers bit for bit unchanged, nonfinite 1, the schedule not
+               advanced; ``halve_lr`` gives lr_scale 0.5; its cost a step);
+               checkpoints (payload MB, synchronous save, async snapshot
+               and load seconds) and the ported example run 2 epochs with
+               ``--ckpt-dir --async-ckpt --accum-steps 2 --divergence-guard
+               skip_step``, then ``--resume --epochs 3`` (starts at epoch
+               2, the state after load bitwise equal to the saved one; a
+               truncated newest checkpoint falls back to the older one);
+9. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
                  and causal bf16 at the LM shape on views into one fused
                  QKV tensor;
-9. attn-time   — device time of each attention kernel at the LM shape
+10. attn-time  — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
                  kernels' times at every parity shape, and at a fixed 1024
                  blocks over four lengths (a fixed cost per block, fitted);
                  the float32 kernels' times;
-10. lm         — the causal transformer LM at full width (d_model 512, 8
+11. lm         — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
                  with Adam and ``attn_impl="flash_pallas_bwd"``: every
                  attention kernel must launch 8 x steps times; step times,
                  tokens/s, a profiler window;
-11. lm-a/b     — one step from the same weights and batch with the kernels
+12. lm-a/b     — one step from the same weights and batch with the kernels
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
@@ -298,14 +317,19 @@ def _err(torch, got, ref, elementwise: bool, scaled_floor: bool = False):
     ref = ref if isinstance(ref, (tuple, list)) else (ref,)
     abs_e, rel_e = 0.0, 0.0
     for g_, r_ in zip(got, ref):
-        r_ = r_.double()
-        d = (g_.double() - r_).abs()
+        g_, r_ = g_.double(), r_.double()
+        # equal values (infinities included) and NaN on both sides agree
+        # (a step with a NaN input: the two must put NaN in the same
+        # places); a non-finite value on one side only is an infinite error
+        same = (g_ == r_) | (g_.isnan() & r_.isnan())
+        d = torch.where(same, 0.0, (g_ - r_).abs()).nan_to_num(nan=math.inf)
+        ra = r_.abs().nan_to_num(nan=0.0, posinf=0.0)
         abs_e = max(abs_e, float(d.max()))
         if elementwise:
-            floor = 1e-3 * float(r_.abs().max()) + 1e-30 if scaled_floor else 1e-3
-            rel_e = max(rel_e, float((d / (r_.abs() + floor)).max()))
+            floor = 1e-3 * float(ra.max()) + 1e-30 if scaled_floor else 1e-3
+            rel_e = max(rel_e, float((d / (ra + floor)).max()))
         else:
-            rel_e = max(rel_e, float(d.max() / (r_.abs().max() + 1e-30)))
+            rel_e = max(rel_e, float(d.max() / (ra.max() + 1e-30)))
     return abs_e, rel_e
 
 
@@ -1519,7 +1543,416 @@ def phase_imagenet(torch, card, slice_med):
     return failures
 
 
-# -- phases 8-11: the attention kernels and the transformer LM --------------
+# -- phase 8: trainer — accum_steps, remat, the guard, checkpoints ----------
+
+# The rest of the trainer on [slice]'s model and batch (ResNet-50 SyncBN,
+# bf16, 64 images at 224x224, world 1) with the example's optimizer (SGD
+# Nesterov, weight decay, per-step cosine schedule owned by the trainer);
+# the batches are made on the card from a seed. Every BN launch of the
+# checked steps is held against its plain version (checking_every_call);
+# the timed steps after them run the same path unchecked.
+ACCUM, TRAINER_STEPS = 2, 3
+# remat recomputes the same forward with the same kernels, so its loss and
+# running statistics equal the plain step's up to bf16 rounding (2^-8);
+# its update differs from the plain step's only by the backward's own
+# run-to-run rounding, so its limit is 5x that floor, measured in the same
+# run by repeating the plain step, and at least 2^-8. The recomputation
+# runs in autograd's device thread, and PyTorch keeps cuDNN's convolution
+# plans per thread (looked up before the benchmark flag is read): where the
+# calling thread autotuned a shape and the device thread did not, the two
+# passes convolve with other algorithms, and that bf16 rounding, amplified
+# through 53 BN layers at initialization, moves the early layers' gradients
+# by about their norm (shown below, not gated; PERF.md, Findings). So the
+# checked steps run in a fresh thread with the autotuner off: both passes
+# then take cuDNN's heuristic plans (no earlier phase recomputes a forward).
+# A recomputation that wrote the running stats again, or normalized with
+# other statistics, moves them by O(1).
+REMAT_TOL, REMAT_FLOOR_FACTOR = 2 ** -8, 5.0
+
+
+def _nbt(model) -> int:
+    """``num_batches_tracked`` of the first BN layer (all move alike)."""
+    from tpu_syncbn_torch.nn import BatchNorm
+
+    return next(int(m.num_batches_tracked) for m in model.modules()
+                if isinstance(m, BatchNorm))
+
+
+def _trainer_batch(torch, seed: int, nan_image: int | None = None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device="cuda", generator=g)
+    y = torch.randint(0, 1000, (BATCH,), device="cuda", generator=g)
+    if nan_image is not None:
+        x[nan_image] = float("nan")
+    return x, y
+
+
+def _resnet_trainer(torch, **kw):
+    """A ResNet-50 SyncBN trainer from seed-0 weights with the ImageNet
+    example's optimizer and its schedule (owned by the trainer)."""
+    from tpu_syncbn_torch import imagenet_resnet50, models, nn, parallel
+
+    model = nn.convert_sync_batchnorm(models.resnet50(
+        num_classes=1000, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(0)))
+    opt, sched = imagenet_resnet50.make_optimizer(model, 0.1, 100)
+    return model, parallel.DataParallel(model, opt, _loss_fn, device="cuda",
+                                        lr_scheduler=sched, **kw)
+
+
+def _timed_step(torch, dp, batch):
+    """(ms between CUDA events around one step, peak bytes allocated
+    during it above the bytes allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    dp.train_step(batch)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), torch.cuda.max_memory_allocated() - base
+
+
+def _held(tag: str, seen: dict, launches: dict, failures: list) -> None:
+    """Every launch was held against its plain version, within tolerance."""
+    worst = {k: round(seen.get(k, (0, 0.0, 0.0))[1], 3) for k in MOVES}
+    log(f"[trainer] {tag}: per-call kernel/plain worst ratio to tol {json.dumps(worst)}")
+    for k in MOVES:
+        calls, ratio, _ = seen.get(k, (0, 0.0, 0.0))
+        if calls != launches[k] or ratio > 1.0:
+            failures.append(f"[trainer] {tag}: {k} {calls} of {launches[k]} "
+                            f"launches checked, worst {ratio:.2f} of tol")
+
+
+def _trainer_accum(torch, T, batches, card, failures):
+    model, dp = _resnet_trainer(torch, accum_steps=ACCUM)
+    nbt0, seen = _nbt(model), {}
+    T.reset_launch_counts()  # this path: counts from 0
+    with checking_every_call(torch, T, seen):
+        losses = [float(dp.train_step(b).loss) for b in batches]
+    launches = T.launch_counts()
+    want, nbt = BN_LAYERS * ACCUM * len(batches), _nbt(model) - nbt0
+    log(f"[trainer] accum {ACCUM}: {len(batches)} steps, losses "
+        f"{[round(v, 4) for v in losses]}, BN kernels {json.dumps(launches)} "
+        f"(want {want} each), num_batches_tracked +{nbt} "
+        f"(want {ACCUM * len(batches)})")
+    _held(f"accum {ACCUM}", seen, launches, failures)
+    if any(n != want for n in launches.values()):
+        failures.append(f"[trainer] accum: BN launches {launches}, want {want}")
+    if nbt != ACCUM * len(batches):
+        failures.append(f"[trainer] accum: num_batches_tracked +{nbt}")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"[trainer] accum: non-finite loss {losses}")
+    times = {1: [], ACCUM: []}
+    for acc in (1, ACCUM, ACCUM, 1):  # in turns, on the same trainer
+        dp.accum_steps = acc
+        times[acc] += [_timed_step(torch, dp, b)[0] for b in batches[:2]]
+    log(f"[trainer] accum step time (CUDA events, median of 4 unchecked "
+        f"steps): accum_steps=1 {statistics.median(times[1]):.2f} ms, "
+        f"accum_steps={ACCUM} {statistics.median(times[ACCUM]):.2f} ms "
+        f"{json.dumps({k: [round(t, 2) for t in v] for k, v in times.items()})} [{card}]")
+
+
+def _rel(torch, a: dict, b: dict) -> float:
+    """|a - b| / |b| over every tensor of two name->tensor dicts (L2)."""
+    num = sum(float((a[k].double() - b[k].double()).norm()) ** 2 for k in b)
+    den = sum(float(b[k].double().norm()) ** 2 for k in b)
+    return math.sqrt(num / den)
+
+
+def _in_fresh_thread(fn):
+    """``fn()`` run in a new thread (its own cuDNN plan cache); its result,
+    or its exception raised here."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # re-raised in the caller below
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _trainer_remat(torch, T, batch, card, failures):
+    model, dp = _resnet_trainer(torch)
+    start = dp.state_dict()
+    seen, total = {}, dict.fromkeys(T.LAUNCHES, 0)
+
+    def step(remat):
+        dp.load_state_dict(start)
+        dp.remat = remat
+        nbt0 = _nbt(model)
+        T.reset_launch_counts()  # this path: counts from 0
+        with checking_every_call(torch, T, seen):
+            loss = float(dp.train_step(batch).loss)
+        launches = T.launch_counts()
+        for k, n in launches.items():
+            total[k] += n
+        after = dp.state_dict()
+        delta = {k: after["params"][k] - start["params"][k] for k in start["params"]}
+        return loss, after["rest"], delta, launches, _nbt(model) - nbt0
+
+    def checked_steps():
+        return (step(False), step(False),  # the plain step again: the floor
+                step(True))
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        (l_p, rest_p, d_p, _, _), (_, _, d_p2, _, _), \
+            (l_r, rest_r, d_r, launches, nbt) = _in_fresh_thread(checked_steps)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    # shown, not gated: the same pair in this thread, with the autotuner on
+    _, _, d_pb, _, _ = step(False)
+    _, _, d_rb, _, _ = step(True)
+    loss_err = abs(l_r - l_p) / abs(l_p)
+    stat_err = max(float((rest_r[k] - rest_p[k]).abs().max())
+                   / (float(rest_p[k].abs().max()) + 1e-6)
+                   for k in rest_p if k.endswith(("running_mean", "running_var")))
+    floor = _rel(torch, d_p2, d_p)
+    upd_err = _rel(torch, d_r, d_p)
+    upd_tol = max(REMAT_FLOOR_FACTOR * floor, REMAT_TOL)
+    want = {"bn_stats": 2 * BN_LAYERS, "bn_normalize": 2 * BN_LAYERS,
+            "bn_backward_reduce": BN_LAYERS, "bn_backward_elemt": BN_LAYERS}
+    log(f"[trainer] remat (fresh thread, cudnn.benchmark off): loss {l_r:.6f} vs {l_p:.6f} rel_err {loss_err:.2e} "
+        f"(tol {REMAT_TOL:.2e}); running stats max rel_err {stat_err:.2e} (tol "
+        f"{REMAT_TOL:.2e}); update rel_err {upd_err:.3e} (floor {floor:.3e}, "
+        f"tol {upd_tol:.3e}); num_batches_tracked +{nbt}; BN kernels "
+        f"{json.dumps(launches)} (want {json.dumps(want)})")
+    log(f"[trainer] remat in the autotuned thread (shown, not gated): update "
+        f"rel_err {_rel(torch, d_rb, d_pb):.3e} against the plain step")
+    _held("remat (the five steps)", seen, total, failures)
+    if launches != want:
+        failures.append(f"[trainer] remat: BN launches {launches}, want {want}")
+    if nbt != 1:
+        failures.append(f"[trainer] remat: num_batches_tracked +{nbt}, want +1")
+    if not (loss_err <= REMAT_TOL and stat_err <= REMAT_TOL and upd_err <= upd_tol):
+        failures.append("[trainer] remat and the plain step disagree")
+    # peak memory and step time both ways, unchecked, in turns
+    got = {False: [], True: []}
+    for remat in (False, True, True, False):
+        dp.load_state_dict(start)
+        dp.remat = remat
+        got[remat].append(_timed_step(torch, dp, batch))
+    for remat in (False, True):
+        log(f"[trainer] remat={remat}: step {statistics.median(t for t, _ in got[remat]):.2f} ms "
+            f"(CUDA events), peak above the step's start "
+            f"{max(m for _, m in got[remat]) / 2**30:.3f} GiB "
+            f"{json.dumps([[round(t, 2), m] for t, m in got[remat]])} [{card}]")
+
+
+def _state_leaves(tree) -> list:
+    """``(path, leaf)`` of a trainer state, in a fixed order."""
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    return ckpt._leaves(tree)
+
+
+def _same_leaf(torch, a, b) -> bool:
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _trainer_guard(torch, T, batches, card, failures):
+    """The guard's exact skip; returns the trainer (the checkpoint timings
+    use its state: the example's optimizer, schedule and guard)."""
+    from tpu_syncbn_torch import parallel
+
+    model, dp = _resnet_trainer(torch, divergence_guard="skip_step")
+    poisoned = _trainer_batch(torch, 7, nan_image=0)
+    seen = {}
+    T.reset_launch_counts()  # this path: counts from 0
+    with checking_every_call(torch, T, seen):
+        dp.train_step(batches[0])
+        before = dp.state_dict()
+        out = dp.train_step(poisoned)
+        nonfinite = float(out.metrics["nonfinite"])
+        after = dp.state_dict()
+        halve = parallel.DataParallel(model, dp.optimizer, _loss_fn, device="cuda",
+                                      divergence_guard="halve_lr",
+                                      lr_scheduler=dp.lr_scheduler)
+        halve.train_step(poisoned)
+    launches = T.launch_counts()
+    bad = [p for (p, a), (_, b) in zip(_state_leaves(before), _state_leaves(after))
+           if not _same_leaf(torch, a, b) and not p.startswith("/opt_state/guard")]
+    moms = sum("momentum_buffer" in p for p, _ in _state_leaves(before))
+    sched_steps = (before["opt_state"]["lr_scheduler"]["last_epoch"],
+                   after["opt_state"]["lr_scheduler"]["last_epoch"])
+    log(f"[trainer] guard skip_step, NaN in image 0 of step 2: nonfinite "
+        f"{nonfinite}, {len(_state_leaves(before))} state leaves ({moms} momentum "
+        f"buffers) bitwise unchanged but {bad[:4]}; scheduler step "
+        f"{sched_steps[0]} -> {sched_steps[1]}; guard {dp.guard_state}; halve_lr "
+        f"guard {halve.guard_state}; BN kernels {json.dumps(launches)}")
+    _held("guard", seen, launches, failures)
+    if bad or nonfinite != 1.0 or sched_steps[0] != sched_steps[1] or moms != 161:
+        failures.append(f"[trainer] guard: the skipped step moved {bad[:4]} "
+                        f"(nonfinite {nonfinite}, scheduler {sched_steps})")
+    if halve.guard_state["lr_scale"] != 0.5:
+        failures.append(f"[trainer] guard: halve_lr gave {halve.guard_state}")
+    if any(n != 3 * BN_LAYERS for n in launches.values()):
+        failures.append(f"[trainer] guard: BN launches {launches}")
+    # the guard's cost a step: finite steps with and without it, in turns,
+    # host clock around a step and the read of its loss
+    plain = parallel.DataParallel(model, dp.optimizer, _loss_fn, device="cuda",
+                                  lr_scheduler=dp.lr_scheduler)
+    times = {"off": [], "skip_step": []}
+    for name in ("off", "skip_step", "skip_step", "off"):
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float((plain if name == "off" else dp).train_step(b).loss)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"[trainer] guard cost: step (host clock) off "
+        f"{statistics.median(times['off']):.2f} ms, skip_step "
+        f"{statistics.median(times['skip_step']):.2f} ms "
+        f"{json.dumps({k: [round(t, 2) for t in v] for k, v in times.items()})} [{card}]")
+    return dp
+
+
+def _trainer_checkpoint(torch, T, dp, card, failures):
+    """Certified saves, verified resume and the async writer: timed on the
+    guard's trainer, then the ported example run to 2 epochs with
+    checkpoints and resumed to 3."""
+    import tempfile
+
+    from tpu_syncbn_torch import imagenet_resnet50, parallel, utils
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = dp.state_dict()
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        utils.save_checkpoint(os.path.join(d, "sync"), 1, tree)
+        sync_s = time.perf_counter() - t0
+        mb = utils.read_manifest(os.path.join(d, "sync"), 1)["nbytes"] / 2**20
+        with utils.AsyncCheckpointer() as ac:
+            t0 = time.perf_counter()
+            ac.save(os.path.join(d, "async"), 1, tree)
+            snap_s = time.perf_counter() - t0
+            ac.flush()
+            write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, _ = utils.load_checkpoint(os.path.join(d, "sync"), tree)
+        dp.load_state_dict(state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = utils.verified_steps(os.path.join(d, "async")) == [1] and \
+            _read_bytes(ckpt._path(os.path.join(d, "async"), 1)) == \
+            _read_bytes(ckpt._path(os.path.join(d, "sync"), 1))
+        log(f"[trainer] checkpoint of the ResNet-50 trainer: payload {mb:.1f} MB "
+            f"(MiB); state_dict copy {copy_s:.3f} s; synchronous save {sync_s:.3f} s; "
+            f"async snapshot {snap_s:.3f} s (what the loop pays), write done "
+            f"{write_s:.3f} s after it; load + load_state_dict {load_s:.3f} s; "
+            f"async payload equal to the synchronous one: {same} [{card}]")
+        if not same:
+            failures.append("[trainer] the async checkpoint differs from the sync one")
+
+        # the ported example: 2 epochs with checkpoints, then resumed to 3
+        ex = os.path.join(d, "example")
+        saved, loaded, evals = {}, {}, dict.fromkeys(T.LAUNCHES, 0)
+        AC, DP = utils.AsyncCheckpointer, parallel.DataParallel
+        orig = (AC.save, DP.load_state_dict, DP.eval_step)
+
+        def save(self, directory, step, tree, **kw):
+            saved[step] = ckpt.snapshot_to_host(tree)
+            return orig[0](self, directory, step, tree, **kw)
+
+        def load_state_dict(self, state):
+            orig[1](self, state)
+            loaded["state"] = ckpt.snapshot_to_host(self.state_dict())
+
+        def eval_step(self, batch):
+            before = T.launch_counts()
+            out = orig[2](self, batch)
+            for k, n in T.launch_counts().items():
+                evals[k] += n - before[k]
+            return out
+
+        argv = ["--ckpt-dir", ex, "--async-ckpt", "--accum-steps", str(ACCUM),
+                "--divergence-guard", "skip_step", "--dataset-size", str(2 * BATCH),
+                "--batch-size", str(BATCH), "--image-size", str(IMAGE_SIZE),
+                "--dtype", "bf16"]
+        seen = {}
+        AC.save, DP.load_state_dict, DP.eval_step = save, load_state_dict, eval_step
+        try:
+            T.reset_launch_counts()  # this path: counts from 0
+            with checking_every_call(torch, T, seen):
+                first = imagenet_resnet50.main(["--epochs", "2"] + argv)
+                second = imagenet_resnet50.main(["--epochs", "3", "--resume"] + argv)
+            launches = T.launch_counts()
+        finally:
+            AC.save, DP.load_state_dict, DP.eval_step = orig
+        steps = len(first["step_s"]) + len(second["step_s"])
+        train = {k: launches[k] - evals[k] for k in launches}
+        diff = [p for (p, a), (q, b) in zip(_state_leaves(saved.get(2, {})),
+                                            _state_leaves(loaded.get("state", {})))
+                if p != q or not _same_leaf(torch, a, b)]
+        if len(_state_leaves(saved.get(2, {}))) != len(_state_leaves(loaded.get("state", {}))):
+            diff.append("the number of leaves")
+        n_leaves = len(_state_leaves(saved.get(2, {})))
+        newest = ckpt.available_steps(ex)
+        with open(ckpt._path(ex, newest[-1]), "r+b") as f:
+            f.truncate(os.path.getsize(ckpt._path(ex, newest[-1])) // 2)
+        _, fell_back = utils.load_checkpoint(ex, None)
+        log(f"[trainer] example --epochs 2 {' '.join(argv[2:])}: {first['steps']} "
+            f"steps, loss {first['loss']:.4f}; --resume --epochs 3: start epoch "
+            f"{second['start_epoch']}, {second['steps']} steps in all, loss "
+            f"{second['loss']:.4f}; checkpoints {newest}; state after load vs "
+            f"saved at epoch 2: {n_leaves - len(diff)} of {n_leaves} leaves "
+            f"bitwise equal; newest truncated -> load_checkpoint restores step "
+            f"{fell_back}; BN kernels over {steps} train steps {json.dumps(train)}, "
+            f"in the evals {json.dumps(evals)}")
+        _held("example", seen, launches, failures)
+        if second["start_epoch"] != 2 or diff or not n_leaves or newest != [1, 2, 3] \
+                or fell_back != 2 or not (math.isfinite(first["loss"])
+                                          and math.isfinite(second["loss"])):
+            failures.append(f"[trainer] checkpoint/resume failed: start "
+                            f"{second['start_epoch']}, differing {diff[:4]}, "
+                            f"steps {newest}, fallback {fell_back}")
+        if any(n != BN_LAYERS * ACCUM * steps for n in train.values()) or steps != 6:
+            failures.append(f"[trainer] example: BN launches {train} over {steps} steps")
+
+
+def phase_trainer(torch, card):
+    """accum_steps, remat, the divergence guard and checkpoints on the
+    ResNet-50 SyncBN step; returns the failures."""
+    t0 = time.perf_counter()
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    failures = []
+    batches = [_trainer_batch(torch, 100 + i) for i in range(TRAINER_STEPS)]
+    _trainer_accum(torch, T, batches, card, failures)
+    torch.cuda.empty_cache()
+    _trainer_remat(torch, T, batches[0], card, failures)
+    torch.cuda.empty_cache()
+    dp = _trainer_guard(torch, T, batches, card, failures)
+    _trainer_checkpoint(torch, T, dp, card, failures)
+    del dp
+    torch.cuda.empty_cache()
+    log(f"[trainer] phase done in {time.perf_counter() - t0:.1f}s, "
+        f"{len(failures)} failures")
+    return failures
+
+
+# -- phases 9-12: the attention kernels and the transformer LM -------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -2118,6 +2551,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     failures += phase_imagenet(torch, card, slice_med)
     torch.cuda.empty_cache()
+    failures += phase_trainer(torch, card)
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 

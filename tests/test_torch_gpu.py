@@ -517,3 +517,63 @@ def test_native_library_loads_on_the_card_machine(cuda_card):
     assert native.available(), native.load_error()
     got = native.permutation(7, 1000)
     assert np.array_equal(got, np.random.RandomState(7).permutation(1000))
+
+
+# -- the trainer's remat and divergence guard on the card -------------------
+
+
+def _card_trainer(**kw):
+    """A SyncBN ResNet-18 (width 8, 20 BN layers) on the card with SGD
+    momentum and a cosine schedule the trainer owns."""
+    import math
+
+    from tpu_syncbn_torch import models, parallel
+
+    model = nn.convert_sync_batchnorm(models.resnet18(
+        num_classes=10, small_input=True, width=8, device="cuda",
+        generator=torch.Generator().manual_seed(0)))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda s: 0.5 * (1 + math.cos(math.pi * min(s, 10) / 10)))
+    dp = parallel.DataParallel(
+        model, opt, lambda m, b: torch.nn.functional.cross_entropy(m(b[0]), b[1]),
+        device="cuda", lr_scheduler=sched, **kw)
+    return model, dp
+
+
+def _card_batch(seed, nan_image=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(16, 16, 16, 3, device="cuda", generator=g)
+    if nan_image is not None:
+        x[nan_image] = float("nan")
+    return x, torch.randint(0, 10, (16,), device="cuda", generator=g)
+
+
+def test_remat_launches_the_forward_kernels_twice_and_moves_stats_once(cuda_triton):
+    model, dp = _card_trainer(remat=True)
+    bn = next(m for m in model.modules() if isinstance(m, nn.BatchNorm))
+    T.reset_launch_counts()
+    dp.train_step(_card_batch(0))
+    torch.cuda.synchronize()
+    assert T.launch_counts() == {"bn_stats": 40, "bn_normalize": 40,
+                                 "bn_backward_reduce": 20, "bn_backward_elemt": 20}
+    assert int(bn.num_batches_tracked) == 1
+
+
+def test_guard_skip_is_bitwise_exact_on_the_card(cuda_triton):
+    """A NaN image: parameters, momentum buffers, BN buffers and the
+    schedule come out of the skipped step bit for bit as they went in."""
+    _, dp = _card_trainer(divergence_guard="skip_step")
+    dp.train_step(_card_batch(0))
+    before = dp.state_dict()
+    out = dp.train_step(_card_batch(1, nan_image=3))
+    after = dp.state_dict()
+    assert float(out.metrics["nonfinite"]) == 1.0
+    for part in ("params", "rest"):
+        assert all(torch.equal(before[part][k], after[part][k]) for k in before[part])
+    opt_b, opt_a = before["opt_state"]["optimizer"], after["opt_state"]["optimizer"]
+    assert len(opt_b["state"]) == 62  # every parameter's momentum buffer
+    assert all(torch.equal(opt_b["state"][i]["momentum_buffer"],
+                           opt_a["state"][i]["momentum_buffer"]) for i in opt_b["state"])
+    assert before["opt_state"]["lr_scheduler"] == after["opt_state"]["lr_scheduler"]
+    assert dp.guard_state == {"lr_scale": 1.0, "nonfinite_count": 1}

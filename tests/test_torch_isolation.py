@@ -74,10 +74,13 @@ def test_importing_every_module_loads_no_jax():
                                     "tpu_syncbn_torch.runtime.native",
                                     "tpu_syncbn_torch.data",
                                     "tpu_syncbn_torch.utils",
+                                    "tpu_syncbn_torch.utils.checkpoint",
+                                    "tpu_syncbn_torch.parallel",
                                     "tpu_syncbn_torch.imagenet_resnet50"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
-    """The launcher, its entry point, the backend probe, and the data path
-    with its native bindings, meters and ImageNet entry point, each
+    """The launcher, its entry point, the backend probe, the data path
+    with its native bindings, meters, checkpoints, the trainer and the
+    ImageNet entry point, each
     imported alone in a fresh process (as ``python -m ...`` starts), pull
     in nothing of JAX; the launcher's help runs."""
     code = (

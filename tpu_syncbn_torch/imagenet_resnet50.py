@@ -19,6 +19,16 @@ On the CPU (plain versions of the kernels):
     python -m tpu_syncbn_torch.imagenet_resnet50 --device cpu \\
         --data-root /data/tiny --epochs 1 --image-size 32 --batch-size 8
 
+Checkpoints: ``--ckpt-dir D`` writes a certified checkpoint of the whole
+training state (parameters, BN buffers, optimizer, schedule, guard) at
+the end of every epoch, tagged with the number of epochs done
+(``--async-ckpt``: written by a background thread, the loop paying only
+the copy to the host); ``--resume`` restarts from the newest verified one
+in D at the epoch it was taken. ``--accum-steps K`` splits each batch
+into K microbatches with one gradient all-reduce;
+``--divergence-guard`` skips a step whose loss or gradients are not
+finite.
+
 Without ``--data-root`` a deterministic synthetic ImageNet-shaped dataset
 stands in; the pipeline, sharding and step are the same. The done line
 gives the steps, the final val top-1, the throughput, and the median step
@@ -88,6 +98,15 @@ def parse_args(argv=None):
     p.add_argument("--dataset-size", type=int, default=2048)
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--dtype", choices=["f32", "bf16"], default="bf16")
+    p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--divergence-guard", default=None,
+                   choices=["skip_step", "halve_lr", "restore_last_good"],
+                   help="non-finite loss/grad policy (DataParallel)")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="checkpoint via the background AsyncCheckpointer "
+                        "(the loop pays only the state snapshot)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="eval every N epochs (0 = only at the end)")
     p.add_argument("--metrics-log", default=None,
@@ -159,8 +178,10 @@ def main(argv=None) -> dict:
 
 def train(args, train_ds, val_ds, device: torch.device) -> dict:
     """Train and evaluate on the given datasets; returns the done line's
-    numbers (``steps``, ``final_top1``, ``img_per_sec``, ``loss``) and the
-    per-step host times ``step_s`` and ``data_wait_s``."""
+    numbers (``steps``, ``final_top1``, ``img_per_sec``, ``loss``), the
+    epoch the run started at (``start_epoch``: 0, or the resumed
+    checkpoint's) and the per-step host times ``step_s`` and
+    ``data_wait_s`` of this run."""
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     model = nn.convert_sync_batchnorm(models.resnet50(
         num_classes=args.num_classes, dtype=dtype, device=device,
@@ -172,9 +193,25 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
     if args.batch_size % world:
         raise SystemExit("--batch-size must be divisible by the process count")
     per_process = args.batch_size // world
-    steps_per_epoch = args.dataset_size // args.batch_size
-    opt, sched = make_optimizer(model, args.lr, args.epochs * steps_per_epoch)
-    dp = parallel.DataParallel(model, opt, _loss_fn, device=device)
+    decay_steps = args.epochs * (args.dataset_size // args.batch_size)
+    opt, sched = make_optimizer(model, args.lr, decay_steps)
+    dp = parallel.DataParallel(
+        model, opt, _loss_fn, device=device, accum_steps=args.accum_steps,
+        divergence_guard=args.divergence_guard, lr_scheduler=sched)
+    log = runtime.get_logger("imagenet")
+
+    start_epoch = 0
+    if args.ckpt_dir and args.resume:
+        # newest VERIFIED checkpoint (corrupt or truncated ones are skipped
+        # with a warning); 0 means a fresh start
+        start_epoch = parallel.resume_latest(dp, args.ckpt_dir)
+        if not start_epoch:
+            log.info("no checkpoint found; starting fresh")
+        # this run's schedule at the restored step, as the JAX example's
+        # optax schedule is a function of the restored count (--epochs,
+        # hence the schedule's length, may differ from the saving run's)
+        for g, base in zip(opt.param_groups, sched.base_lrs):
+            g["lr"] = base * cosine_decay(sched.last_epoch, max(decay_steps, 1))
 
     sampler = tdata.DistributedSampler(
         len(train_ds), num_replicas=world, rank=runtime.process_index(),
@@ -202,14 +239,30 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
             meter.update(float(out.metrics["top1"]), n=args.batch_size)
         return meter.avg
 
+    # checkpoint writes: synchronous rank-0 writes, or the background
+    # AsyncCheckpointer (the loop pays only the snapshot; closed, so
+    # flushed, before every exit)
+    async_ckpt = (utils.AsyncCheckpointer()
+                  if args.async_ckpt and args.ckpt_dir else None)
+
+    def save_ckpt(tag: int) -> None:
+        if not args.ckpt_dir:
+            return
+        if async_ckpt is not None:
+            async_ckpt.save(args.ckpt_dir, tag, dp.state_dict())
+        else:
+            utils.save_checkpoint(args.ckpt_dir, tag, dp.state_dict())
+
     tput = utils.ThroughputMeter()
-    step = 0
+    # a resumed run keeps the logged step monotonic across runs (the JSONL
+    # file is append-mode); len(loader) is the real steps an epoch
+    step = start_epoch * len(loader)
     loss = float("nan")
     step_s, data_wait_s = [], []
     last_eval = None
     scalars = utils.ScalarLogger(args.metrics_log) if args.metrics_log else None
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start_epoch, args.epochs):
             sampler.set_epoch(epoch)
             batches = tdata.device_prefetch(iter(loader), device=device)
             while True:
@@ -219,7 +272,6 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
                 if batch is None:
                     break
                 out = dp.train_step(batch)
-                sched.step()
                 loss, top1 = float(out.loss), float(out.metrics["top1"])
                 t2 = time.perf_counter()  # float() waited for the step
                 data_wait_s.append(t1 - t0)
@@ -234,6 +286,7 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
                     if scalars:
                         scalars.log(step, epoch=epoch, loss=loss, top1=top1,
                                     img_per_sec=tput.samples_per_sec)
+            save_ckpt(epoch + 1)
             if args.eval_every and (epoch + 1) % args.eval_every == 0:
                 last_eval = run_eval()
                 runtime.master_print(f"epoch {epoch}: val top1 {last_eval:.4f}")
@@ -241,6 +294,8 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
                     scalars.log(step, epoch=epoch, val_top1=last_eval)
             else:
                 last_eval = None  # the model changed since the last eval
+        if async_ckpt is not None:
+            async_ckpt.close()  # every write durable (or raised) before eval
         final_top1 = last_eval if last_eval is not None else run_eval()
         if scalars:
             scalars.log(step, final_val_top1=final_top1)
@@ -248,9 +303,18 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
         loader.close()
         if scalars:
             scalars.close()
+        if async_ckpt is not None:
+            # an exception is unwinding (the normal path closed it above):
+            # a write failure surfacing here must not replace it, and a
+            # wedged writer must not hang the exit
+            try:
+                async_ckpt.close(timeout=60)
+            except Exception:
+                log.exception("async checkpoint close failed at exit")
     steady = slice(1, None) if len(step_s) > 1 else slice(None)
     summary = {
-        "steps": step, "final_top1": final_top1, "loss": loss,
+        "steps": step, "start_epoch": start_epoch,
+        "final_top1": final_top1, "loss": loss,
         "img_per_sec": tput.samples_per_sec,
         "step_s": step_s, "data_wait_s": data_wait_s,
         "step_median_ms": 1e3 * statistics.median(step_s[steady]) if step_s else math.nan,

@@ -18,10 +18,11 @@ from tpu_syncbn_torch.models.transformer import (
 )
 from tpu_syncbn_torch.models.weights import (
     load_jax_params,
+    load_jax_trainer_state,
     load_jax_transformer_params,
 )
 
 __all__ = ["RESNETS", "BasicBlock", "Bottleneck", "ResNet", "TransformerLM",
            "init_transformer_lm", "load_jax_params",
-           "load_jax_transformer_params", "resnet18", "resnet34", "resnet50",
+           "load_jax_trainer_state", "load_jax_transformer_params", "resnet18", "resnet34", "resnet50",
            "resnet101", "resnet152"]

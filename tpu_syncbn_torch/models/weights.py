@@ -16,6 +16,13 @@ names its submodules like the JAX model, so the mapping is by name:
 arrays, ``init_transformer_lm``'s output), name for name and with no
 transpose: both keep matrices in ``x @ W`` (in, out) order.
 
+``load_jax_trainer_state(trainer, state)`` carries a whole JAX
+``DataParallel.state_dict()`` (as the JAX checkpoint stores it: nested
+dicts of numpy arrays, the optax state as its named tuples) into a port
+``DataParallel``: parameters and BN buffers as above, optax's momentum
+``trace`` into SGD's ``momentum_buffer``, the schedule's ``count`` into the
+trainer's scheduler, and the divergence guard's state.
+
 No JAX import: the arrays arrive as numpy.
 """
 
@@ -28,6 +35,21 @@ import torch
 from torch import nn
 
 
+def _port_name(key: str, value) -> tuple[str, np.ndarray]:
+    """The port's name for the JAX value at ``key``, and the value in the
+    port's layout (kernels transposed)."""
+    arr = np.asarray(value)
+    if not key.endswith(".kernel"):
+        return key, arr
+    if arr.ndim == 4:      # conv: HWIO -> OIHW
+        arr = arr.transpose(3, 2, 0, 1)
+    elif arr.ndim == 2:    # linear: (in, out) -> (out, in)
+        arr = arr.T
+    else:
+        raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
+    return key[: -len(".kernel")] + ".weight", arr
+
+
 def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     """Copy ``params`` into ``model`` in place (values cast to each target's
     dtype and device). Raises if a name of either side has no partner."""
@@ -35,17 +57,7 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     targets.update(dict(model.named_buffers()))
     seen = set()
     for key, value in params.items():
-        arr = np.asarray(value)
-        if key.endswith(".kernel"):
-            name = key[: -len(".kernel")] + ".weight"
-            if arr.ndim == 4:      # conv: HWIO -> OIHW
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:    # linear: (in, out) -> (out, in)
-                arr = arr.T
-            else:
-                raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
-        else:
-            name = key
+        name, arr = _port_name(key, value)
         if name not in targets:
             raise KeyError(f"{key}: the port model has no {name!r}")
         t = targets[name]
@@ -93,3 +105,69 @@ def load_jax_transformer_params(model: nn.Module, params: Mapping) -> None:
                              f"{tuple(t.shape)}")
         with torch.no_grad():
             t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
+
+
+def _named_tuples(tree) -> list:
+    """Every named tuple in a nest of tuples, lists and dicts, in order."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [tree] + [n for v in tree for n in _named_tuples(v)]
+    if isinstance(tree, (tuple, list)):
+        return [n for v in tree for n in _named_tuples(v)]
+    if isinstance(tree, Mapping):
+        return [n for v in tree.values() for n in _named_tuples(v)]
+    return []
+
+
+def load_jax_trainer_state(trainer, state: Mapping) -> None:
+    """Carry a JAX ``DataParallel.state_dict()`` into the port's
+    ``DataParallel`` ``trainer`` in place. ``state`` is the JAX tree as
+    its checkpoint stores it: ``params`` and ``rest`` nested dicts of numpy
+    arrays, ``opt_state`` the optax state (its named tuples kept), wrapped
+    as ``(opt_state, guard)`` when the JAX trainer's guard is armed.
+
+    * params and BN buffers, as :func:`load_jax_params`;
+    * optax's momentum ``trace`` becomes ``torch.optim.SGD``'s
+      ``momentum_buffer`` per parameter (optax ``trace = g + μ·trace`` is
+      torch's ``buf = μ·buf + g`` at dampening 0; a zero trace is the
+      empty buffer's first step);
+    * a schedule's ``count`` (optimizer steps taken) becomes the trainer's
+      ``lr_scheduler`` position: after ``count`` scheduler steps;
+    * the guard's ``lr_scale`` and ``nonfinite_count``.
+
+    Only SGD's state is carried: an optax state holding anything but
+    ``trace`` and ``count`` (Adam's moments, say) raises ``ValueError``."""
+    load_jax_params(trainer.model, {**_flatten(state["params"]),
+                                    **_flatten(state["rest"])})
+    opt_state = state["opt_state"]
+    if trainer.divergence_guard is not None:
+        opt_state, guard = opt_state
+        trainer.guard_state = {"lr_scale": float(guard["lr_scale"]),
+                               "nonfinite_count": int(guard["nonfinite_count"])}
+    traces, counts = [], []
+    for node in _named_tuples(opt_state):
+        unknown = set(node._fields) - {"trace", "count"}
+        if unknown:
+            raise ValueError(f"{type(node).__name__}: cannot carry optax "
+                             f"state {sorted(unknown)} into the port")
+        if "trace" in node._fields:
+            traces.append(node.trace)
+        if "count" in node._fields:
+            counts.append(int(np.asarray(node.count)))
+    if len(traces) > 1 or len(set(counts)) > 1:
+        raise ValueError(f"expected one momentum trace and one schedule "
+                         f"count, got {len(traces)} and {counts}")
+    params = dict(trainer.model.named_parameters())
+    for key, value in (_flatten(traces[0]).items() if traces else ()):
+        name, arr = _port_name(key, value)
+        p = params[name]
+        trainer.optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
+            np.array(arr, order="C")).to(device=p.device, dtype=p.dtype)
+    if counts and counts[0] and trainer.lr_scheduler is not None:
+        # position the scheduler one step short, then step it: the
+        # scheduler sets every group's lr for step ``count`` itself
+        sched = trainer.lr_scheduler
+        sched.load_state_dict({**sched.state_dict(),
+                               "last_epoch": counts[0] - 1,
+                               # past 1: no "step before optimizer.step" warning
+                               "_step_count": counts[0] + 1})
+        sched.step()

@@ -17,6 +17,9 @@ fused kernels read them with no copy.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.distributed as tdist
 from torch import nn
@@ -28,6 +31,25 @@ from tpu_syncbn_torch.parallel.collectives import (
     world_size,
 )
 from tpu_syncbn_torch.runtime.distributed import resolve_device
+
+
+# set while a rematerialized forward runs again during backward
+_RECOMPUTING = contextvars.ContextVar("bn_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside this block a BN layer in training mode computes as usual but
+    writes none of its running buffers. The trainer's ``remat`` enters it
+    around the recomputation of a forward whose first pass already moved
+    the buffers, so ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` move once a step, as under ``jax.checkpoint``,
+    where the new buffers come out of the primal pass only."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 class BatchNorm(nn.Module):
@@ -131,7 +153,7 @@ class BatchNorm(nn.Module):
             channel_axis=self.channel_axis,
             process_group=self._sync_group(), mask=mask,
         )
-        if self.track_running_stats:
+        if self.track_running_stats and not _RECOMPUTING.get():
             with torch.no_grad():
                 self.running_mean.copy_(rm)
                 self.running_var.copy_(rv)

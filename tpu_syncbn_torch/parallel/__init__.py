@@ -4,8 +4,9 @@ from tpu_syncbn_torch.parallel import collectives, sequence
 from tpu_syncbn_torch.parallel.trainer import (
     DataParallel,
     StepOutput,
+    resume_latest,
     sync_module_states,
 )
 
-__all__ = ["DataParallel", "StepOutput", "collectives", "sequence",
-           "sync_module_states"]
+__all__ = ["DataParallel", "StepOutput", "collectives", "resume_latest",
+           "sequence", "sync_module_states"]

@@ -1,5 +1,17 @@
-"""Training meters, step timing and the JSONL scalar log."""
+"""Utilities: checkpoint / resume (rank 0 writes), meters, step timing and
+the JSONL scalar log."""
 
+from tpu_syncbn_torch.utils.checkpoint import (
+    AsyncCheckpointer,
+    CheckpointCorruptError,
+    available_steps,
+    load_checkpoint,
+    read_manifest,
+    save_checkpoint,
+    snapshot_to_host,
+    verified_steps,
+    verify_checkpoint,
+)
 from tpu_syncbn_torch.utils.metrics import (
     AverageMeter,
     ScalarLogger,
@@ -7,4 +19,8 @@ from tpu_syncbn_torch.utils.metrics import (
     step_timer,
 )
 
-__all__ = ["AverageMeter", "ScalarLogger", "ThroughputMeter", "step_timer"]
+__all__ = ["AsyncCheckpointer", "AverageMeter", "CheckpointCorruptError",
+           "ScalarLogger", "ThroughputMeter", "available_steps",
+           "load_checkpoint", "read_manifest", "save_checkpoint",
+           "snapshot_to_host", "step_timer", "verified_steps",
+           "verify_checkpoint"]
