@@ -90,31 +90,55 @@ falls back to the CPU):
                skip_step``, then ``--resume --epochs 3`` (starts at epoch
                2, the state after load bitwise equal to the saved one; a
                truncated newest checkpoint falls back to the older one);
-9. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+9. gan       — the GAN capability config (DCGAN, then SNGAN, at full
+               width: latent 128, G width 256, D width 64, 32x32, f32,
+               global batch 64) through ``gan_train.main`` in process on
+               synthetic data for 20 iterations each: every BN kernel
+               launches 14 x iterations (forward pair) and 10 x iterations
+               (backward pair); num_batches_tracked +2 (G) and +3 (D) an
+               iteration; the 16 samples finite in [-1, 1]; the iteration
+               time (CUDA events, median of 10) and a 2-iteration profiler
+               window; one iteration from the same state on the same
+               batch with the kernels and with their plain versions
+               (d_loss, g_loss, every running statistic and SNConv u within
+               the slice's A/B tolerances; every kernel call against its
+               plain version on its own tensors);
+10. retinanet — RetinaNet-R50-FPN at 512x512, 80 classes, per-GPU batch 2,
+               f32, Adam(1e-3) under ``DataParallel`` on synthetic
+               detection data (32 boxes at most) for 10 steps: each BN
+               kernel launches 53 x steps; a finite loss; step time (CUDA
+               events), peak memory and a profiler window; the A/B step
+               as above; decode + ``batched_nms`` + ``evaluate_detections``
+               over 8 images give an mAP in [0, 1];
+11. bench     — ``python -m tpu_syncbn_torch.bench`` in a subprocess: exit
+               0, every key of its JSON line, 0 < mfu <= 1; the line
+               printed;
+12. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
                  and causal bf16 at the LM shape on views into one fused
                  QKV tensor;
-10. attn-time  — device time of each attention kernel at the LM shape
+13. attn-time  — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
                  kernels' times at every parity shape, and at a fixed 1024
                  blocks over four lengths (a fixed cost per block, fitted);
                  the float32 kernels' times;
-11. lm         — the causal transformer LM at full width (d_model 512, 8
+14. lm         — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
                  with Adam and ``attn_impl="flash_pallas_bwd"``: every
                  attention kernel must launch 8 x steps times; step times,
                  tokens/s, a profiler window;
-12. lm-a/b     — one step from the same weights and batch with the kernels
+15. lm-a/b     — one step from the same weights and batch with the kernels
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
-Before the last two lines comes ``{"groups": {...}}`` (phase 6's worst
-ratios); the second-to-last line is ``{"kernels": [...]}``; the last line is
+Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
+ratios) and ``{"paths": {...}}`` (phases 9-11's launches, times and the
+bench line); the second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -558,6 +582,9 @@ def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
             "no device activity, so the busy share is not measured")
     for ms, cnt, key in rows[:15]:
         log(f"[{tag}] {ms:9.3f}ms x{cnt:<5d} {key[:100]}")
+    for ms, cnt, key in rows[15:]:  # the rest of the selected kernels
+        if is_ours(key):
+            log(f"[{tag}] {ms:9.3f}ms x{cnt:<5d} {key[:100]} (below the top 15)")
     return set(by_name)
 
 
@@ -1952,7 +1979,260 @@ def phase_trainer(torch, card):
     return failures
 
 
-# -- phases 9-12: the attention kernels and the transformer LM -------------
+# -- phases 9-11: the GAN, RetinaNet and the bench -------------------------
+
+# The paper's two small-batch workloads, in float32 on the BN kernels at
+# shapes the ResNet slice never takes, and the port's headline bench.
+GAN_ITERS, GAN_BATCH, GAN_TIMED = 20, 64, 10
+GAN_FWD, GAN_BWD = 14, 10  # BN kernel launches a DCGAN/SNGAN iteration
+RN_SIDE, RN_BATCH, RN_STEPS, RN_BOXES, RN_EVAL = 512, 2, 10, 32, 8
+FORWARD = ("bn_stats", "bn_normalize")
+AB_LOSS_TOL, AB_STAT_TOL = 1e-2, 2e-2  # the slice's A/B tolerances
+
+
+def _float_buffers(*models):
+    """``(name, clone)`` of every floating-point buffer (BN running
+    statistics, SNConv's ``u``) of the models, in order."""
+    return [(f"{i}.{n}", b.detach().clone()) for i, m in enumerate(models)
+            for n, b in m.named_buffers() if b is not None and b.is_floating_point()]
+
+
+def _stat_err(a, b) -> float:
+    """Worst of |a − b| / max|b| over two lists of ``_float_buffers``."""
+    return max(float((x - y).abs().max()) / (float(y.abs().max()) + 1e-6)
+               for (_, x), (_, y) in zip(a, b))
+
+
+def _ab(torch, T, bn_ops, tag, step, restore, buffers, want_calls, failures):
+    """One step from the same state on the same inputs with the kernels
+    ("auto", every kernel call held against its plain version) and with
+    the plain versions ("off"); ``step()`` returns its losses, ``restore()``
+    puts the starting state back, ``buffers()`` lists the buffers to hold
+    equal. Fails on a loss or a buffer past the slice's A/B tolerances, or
+    a call count other than ``want_calls``."""
+    result, seen = {}, {}
+    for mode in ("auto", "off"):
+        restore()
+        check = checking_every_call(torch, T, seen) if mode == "auto" \
+            else contextlib.nullcontext()
+        with bn_ops.kernel_mode(mode), check:
+            losses = step()
+        result[mode] = (losses, buffers())
+    (l_k, b_k), (l_p, b_p) = result["auto"], result["off"]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(l_k, l_p))
+    stat_err = _stat_err(b_k, b_p)
+    worst = {k: round(seen.get(k, (0, 0.0, 0.0))[1], 3) for k in MOVES}
+    log(f"[{tag}] a/b: losses kernels {[round(v, 6) for v in l_k]} plain "
+        f"{[round(v, 6) for v in l_p]} rel_err {loss_err:.2e} (tol "
+        f"{AB_LOSS_TOL:.0e}); {len(b_k)} buffers max rel_err {stat_err:.2e} "
+        f"(tol {AB_STAT_TOL:.0e}); per-call worst ratio to tol {json.dumps(worst)}")
+    if loss_err > AB_LOSS_TOL or stat_err > AB_STAT_TOL:
+        failures.append(f"[{tag}] kernels and plain versions disagree "
+                        f"(loss {loss_err:.2e}, buffers {stat_err:.2e})")
+    for k in MOVES:
+        calls, ratio, _ = seen.get(k, (0, 0.0, 0.0))
+        if calls != want_calls[k] or ratio > 1.0:
+            failures.append(f"[{tag}] {k}: {calls} calls checked (want "
+                            f"{want_calls[k]}), worst {ratio:.2f} of tol")
+
+
+def _launch_gate(tag, launches, want, failures):
+    log(f"[{tag}] BN kernels {json.dumps(launches)} (want {json.dumps(want)})")
+    if launches != want:
+        failures.append(f"[{tag}] BN launches {launches}, want {want}")
+
+
+def _is_bn_kernel(name: str) -> bool:
+    return name in BN_TRITON_NAMES or any(ns in name for ns in BN_CUDA_NAMESPACES)
+
+
+def _gan_arch(torch, T, bn_ops, arch, card, failures):
+    """``gan_train.main`` in process at full width (f32, global batch 64,
+    synthetic data) for GAN_ITERS iterations, then timed and profiled
+    iterations and the one-iteration A/B on the trained trainer."""
+    from tpu_syncbn_torch import gan_train, nn
+
+    tag = f"gan/{arch}"
+    T.reset_launch_counts()  # this path: counts from 0
+    t0 = time.perf_counter()
+    out = gan_train.main(["--arch", arch, "--iters", str(GAN_ITERS),
+                          "--batch-size", str(GAN_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = T.launch_counts()
+    tr, samples = out["trainer"], out["samples"]
+    want = {k: (GAN_FWD if k in FORWARD else GAN_BWD) * GAN_ITERS for k in MOVES}
+    _launch_gate(tag, launches, want, failures)
+    nbt = {net: sorted({int(m.num_batches_tracked) for m in model.modules()
+                        if isinstance(m, nn.BatchNorm)})
+           for net, model in (("G", tr.generator), ("D", tr.discriminator))}
+    shapes = {net: [m.num_features for m in model.modules() if isinstance(m, nn.BatchNorm)]
+              for net, model in (("G", tr.generator), ("D", tr.discriminator))}
+    log(f"[{tag}] {out['iters']} iterations in {wall:.1f}s (first builds nothing "
+        f"new: the kernels are built); BN layers {json.dumps(shapes)}; "
+        f"num_batches_tracked {json.dumps(nbt)} (want G {[2 * GAN_ITERS]}, "
+        f"D {[3 * GAN_ITERS]}); samples {tuple(samples.shape)} range "
+        f"[{float(samples.min()):.4f}, {float(samples.max()):.4f}]")
+    if nbt != {"G": [2 * GAN_ITERS], "D": [3 * GAN_ITERS]}:
+        failures.append(f"[{tag}] num_batches_tracked {nbt}")
+    if tuple(samples.shape) != (16, 32, 32, 3) or not bool(torch.isfinite(samples).all()) \
+            or float(samples.abs().max()) > 1.0:
+        failures.append(f"[{tag}] samples not finite in [-1, 1]")
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    real = torch.rand(GAN_BATCH, 32, 32, 3, device="cuda", generator=g) * 2 - 1
+    z = torch.randn(2, GAN_BATCH, tr.generator.latent_dim, device="cuda", generator=g)
+
+    def step():
+        o = tr.train_step(real, z[0], z[1])
+        return [float(o.d_loss), float(o.g_loss)]
+
+    med = _event_ms(torch, lambda: tr.train_step(real, z[0], z[1]), 1, GAN_TIMED)
+    log(f"[{tag}] iteration (D + G update) CUDA events median {med:.3f} ms over "
+        f"{GAN_TIMED} = {GAN_BATCH / med * 1e3:.1f} img/s, batch {GAN_BATCH} "
+        f"f32 [{card}]")
+    profile_window(torch, lambda: [tr.train_step(real, z[0], z[1]) for _ in range(2)],
+                   f"{tag}-profile", "BN kernels", _is_bn_kernel, card)
+
+    saved = tr.state_dict()
+    _ab(torch, T, bn_ops, tag, step, lambda: tr.load_state_dict(saved),
+        lambda: _float_buffers(tr.generator, tr.discriminator),
+        {k: GAN_FWD if k in FORWARD else GAN_BWD for k in MOVES}, failures)
+    return launches, med
+
+
+def phase_gan(torch, card):
+    """DCGAN, then SNGAN (ROADMAP A.6); returns (failures, launches by
+    arch, median iteration ms by arch)."""
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t0 = time.perf_counter()
+    failures, launches, meds = [], {}, {}
+    for arch in ("dcgan", "sngan"):
+        launches[arch], meds[arch] = _gan_arch(torch, T, bn_ops, arch, card, failures)
+        torch.cuda.empty_cache()
+    log(f"[gan] phase done in {time.perf_counter() - t0:.1f}s, "
+        f"{len(failures)} failures")
+    return failures, launches, meds
+
+
+def phase_retinanet(torch, card):
+    """RetinaNet-R50-FPN (ROADMAP A.7) at 512², 80 classes, per-GPU batch
+    2, f32, Adam(1e-3) under DataParallel for RN_STEPS steps on synthetic
+    detection data, then the A/B step and an mAP over RN_EVAL images."""
+    from tpu_syncbn_torch import data, models, nn, parallel, retinanet_train
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t0 = time.perf_counter()
+    failures = []
+    dev = torch.device("cuda", 0)
+    model = nn.convert_sync_batchnorm(models.retinanet_r50_fpn(
+        num_classes=80, image_size=(RN_SIDE, RN_SIDE), device=dev))
+    n_bn = sum(isinstance(m, nn.BatchNorm) for m in model.modules())
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    dp = parallel.DataParallel(model, opt, lambda m, b: m.loss(*b), device=dev)
+    ds = data.SyntheticDetectionDataset(length=RN_BATCH * (RN_STEPS + 3),
+                                        image_size=(RN_SIDE, RN_SIDE),
+                                        num_classes=80, max_boxes=RN_BOXES)
+    sampler = data.DistributedSampler(len(ds), num_replicas=1, rank=0,
+                                      shuffle=True, seed=0)
+    loader = data.DataLoader(ds, batch_size=RN_BATCH, sampler=sampler,
+                             num_workers=4, drop_last=True)
+    batches = data.device_prefetch(iter(loader), size=2, device=dev)
+
+    T.reset_launch_counts()  # this path: counts from 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    times, losses, peaks = [], [], []
+    for _ in range(RN_STEPS):
+        batch = next(batches)
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = dp.train_step(batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(out.loss))
+    launches = T.launch_counts()
+    # the first step autotunes cuDNN, whose trial workspaces set its peak
+    peak = max(peaks[1:])
+    _launch_gate("retinanet", launches, dict.fromkeys(MOVES, BN_LAYERS * RN_STEPS),
+                 failures)
+    med = statistics.median(times[1:])
+    log(f"[retinanet] {n_bn} BN layers; losses {[round(v, 4) for v in losses]}; "
+        f"first step {times[0]:.1f} ms (cuDNN autotune), steady median {med:.2f} ms "
+        f"over {RN_STEPS - 1} (CUDA events) = {RN_BATCH / med * 1e3:.1f} img/s at "
+        f"batch {RN_BATCH}, {RN_SIDE}² f32; peak memory of a steady step "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+        f"start; the first step's {peaks[0] / 2**30:.3f} GiB) [{card}]")
+    if n_bn != BN_LAYERS:
+        failures.append(f"[retinanet] {n_bn} BN layers, want {BN_LAYERS}")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"[retinanet] non-finite loss {losses}")
+
+    prof_batches = [next(batches), next(batches)]
+    profile_window(torch, lambda: [dp.train_step(b_) for b_ in prof_batches],
+                   "retinanet-profile", "BN kernels", _is_bn_kernel, card)
+    ab_batch = next(batches)
+    for _ in batches:  # drain the loader so its threads finish
+        pass
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_state = copy.deepcopy(opt.state_dict())
+
+    def restore():
+        model.load_state_dict(state)
+        opt.load_state_dict(copy.deepcopy(opt_state))
+
+    _ab(torch, T, bn_ops, "retinanet", lambda: [float(dp.train_step(ab_batch).loss)],
+        restore, lambda: _float_buffers(model), dict.fromkeys(MOVES, BN_LAYERS), failures)
+
+    t1 = time.perf_counter()
+    ap = retinanet_train.evaluate(model, ds, RN_EVAL, 80, 100)
+    log(f"[retinanet] eval over {RN_EVAL} images (decode, batched_nms, "
+        f"evaluate_detections) in {time.perf_counter() - t1:.1f}s: mAP "
+        f"{ap['mAP']:.4f} AP50 {ap['AP50']:.4f} AP75 {ap['AP75']:.4f}")
+    if not 0.0 <= ap["mAP"] <= 1.0:
+        failures.append(f"[retinanet] mAP {ap['mAP']} outside [0, 1]")
+    del dp, model, opt
+    torch.cuda.empty_cache()
+    log(f"[retinanet] phase done in {time.perf_counter() - t0:.1f}s, "
+        f"{len(failures)} failures")
+    return failures, launches, med, peak
+
+
+BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
+              "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
+              "flops_per_step", "flops_source", "peak_flops", "peak_source",
+              "device_kind", "host_load_1m")
+
+
+def phase_bench():
+    """``python -m tpu_syncbn_torch.bench`` in a subprocess (its kernels
+    are built and cached by now): exit 0, every key of its line,
+    0 < mfu <= 1. Returns (failures, the line)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench"], cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    log(f"[bench] exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
+    if r.returncode != 0 or not lines:
+        return [f"[bench] exit {r.returncode}: {r.stderr[-2000:]}"], None
+    line = json.loads(lines[-1])
+    log(f"[bench] {json.dumps(line)}")
+    failures = [f"[bench] key {k} missing" for k in BENCH_KEYS if k not in line]
+    mfu = line.get("mfu")
+    if not (isinstance(mfu, (int, float)) and 0 < mfu <= 1):
+        failures.append(f"[bench] mfu {mfu} not in (0, 1]")
+    return failures, line
+
+
+# -- phases 12-15: the attention kernels and the transformer LM -------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -2552,6 +2832,13 @@ def main() -> int:
     failures += phase_imagenet(torch, card, slice_med)
     torch.cuda.empty_cache()
     failures += phase_trainer(torch, card)
+    torch.cuda.empty_cache()
+    gan_failures, gan_launches, gan_meds = phase_gan(torch, card)
+    failures += gan_failures
+    rn_failures, rn_launches, rn_med, rn_peak = phase_retinanet(torch, card)
+    failures += rn_failures
+    bench_failures, bench_line = phase_bench()
+    failures += bench_failures
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -2604,6 +2891,12 @@ def main() -> int:
             else n_layers * t["library_ms"],
         })
     print(json.dumps({"groups": groups}), flush=True)
+    print(json.dumps({"paths": {
+        "gan": {arch: {"launches": gan_launches[arch],
+                       "iteration_ms": gan_meds[arch]} for arch in gan_launches},
+        "retinanet": {"launches": rn_launches, "step_ms": rn_med,
+                      "peak_bytes": rn_peak},
+        "bench": bench_line}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,50 @@
+"""``python -m tpu_syncbn_torch.bench --device cpu``: the port's headline
+bench runs its small CPU config (here cut further by the
+``BENCH_*`` overrides it honours) and prints one JSON line with every key
+of its contract, ``mfu`` null (no peak on the CPU), FLOPs from
+``torch.utils.flop_counter``. Numbers from this run are CPU numbers and
+are checked for shape only."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
+        "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
+        "flops_per_step", "flops_source", "peak_flops", "peak_source",
+        "device_kind", "host_load_1m"}
+
+
+def test_bench_on_the_cpu_prints_its_line():
+    env = dict(os.environ, PYTHONPATH=ROOT, BENCH_PER_CHIP_BATCH="2",
+               BENCH_STEPS="2", BENCH_IMAGE_SIDE="32")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench",
+                        "--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert set(line) == KEYS
+    assert line["metric"] == "resnet50_syncbn_dp_train_throughput"
+    assert line["mfu"] is None and line["peak_flops"] is None
+    assert line["backend"] == "cpu" and line["bn_backend"] == "plain"
+    assert (line["per_chip_batch"], line["steps"], line["image_side"]) == (2, 2, 32)
+    assert line["chips"] == 1 and line["value"] > 0
+    assert line["flops_source"] == "torch-flop-counter"
+    # ResNet-50 at 32²: ~0.17 GFLOP an image forward, x3 with the
+    # backward, for 2 images (convolutions and the classifier only)
+    assert 0.8e9 < line["flops_per_step"] < 1.3e9
+
+
+def test_bench_config_defaults_and_overrides(monkeypatch):
+    from tpu_syncbn_torch import bench
+
+    for k in ("BENCH_PER_CHIP_BATCH", "BENCH_STEPS", "BENCH_IMAGE_SIDE"):
+        monkeypatch.delenv(k, raising=False)
+    assert bench.bench_config(True) == {"per_chip_batch": 64, "steps": 10, "side": 224}
+    assert bench.bench_config(False) == {"per_chip_batch": 8, "steps": 20, "side": 64}
+    monkeypatch.setenv("BENCH_STEPS", "3")
+    assert bench.bench_config(True)["steps"] == 3
+    assert bench.PEAK_FLOPS["NVIDIA H100 80GB HBM3"][0] == 989.4e12

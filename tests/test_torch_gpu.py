@@ -577,3 +577,54 @@ def test_guard_skip_is_bitwise_exact_on_the_card(cuda_triton):
                            opt_a["state"][i]["momentum_buffer"]) for i in opt_b["state"])
     assert before["opt_state"]["lr_scheduler"] == after["opt_state"]["lr_scheduler"]
     assert dp.guard_state == {"lr_scale": 1.0, "nonfinite_count": 1}
+
+
+@pytest.mark.parametrize("arch", ["dcgan", "sngan"])
+def test_gan_iteration_launches_fourteen_forward_and_ten_backward(cuda_triton, arch):
+    """One GANTrainer iteration at the DCGAN widths (G's 4 BN layers, D's
+    2), f32: the forward pair 14 times (G 4 + 4, D 2 + 2 + 2), the
+    backward pair 10 times (D 2 + 2 in the D step, D 2 + G 4 in the G
+    step); num_batches_tracked +2 in G and +3 in D."""
+    from tpu_syncbn_torch import models, parallel
+
+    G = nn.convert_sync_batchnorm(models.DCGANGenerator(device="cuda"))
+    D = nn.convert_sync_batchnorm(
+        (models.DCGANDiscriminator if arch == "dcgan" else models.SNGANDiscriminator)(
+            device="cuda"))
+    tr = parallel.GANTrainer(
+        G, D, torch.optim.Adam(G.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+        torch.optim.Adam(D.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+        loss="bce" if arch == "dcgan" else "hinge", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    real = torch.rand(64, 32, 32, 3, device="cuda", generator=g) * 2 - 1
+    z = torch.randn(2, 64, 128, device="cuda", generator=g)
+    T.reset_launch_counts()
+    out = tr.train_step(real, z[0], z[1])
+    torch.cuda.synchronize()
+    assert T.launch_counts() == {"bn_stats": 14, "bn_normalize": 14,
+                                 "bn_backward_reduce": 10, "bn_backward_elemt": 10}
+    assert {int(m.num_batches_tracked) for m in G.modules()
+            if isinstance(m, nn.BatchNorm)} == {2}
+    assert {int(m.num_batches_tracked) for m in D.modules()
+            if isinstance(m, nn.BatchNorm)} == {3}
+    assert np.isfinite(float(out.d_loss)) and np.isfinite(float(out.g_loss))
+
+
+def test_retinanet_step_launches_each_bn_kernel_53_times(cuda_triton):
+    """One DataParallel step of RetinaNet-R50-FPN at per-GPU batch 2 and
+    256², f32: each BN kernel 53 times (the backbone's layers, once each
+    way), a finite loss."""
+    from tpu_syncbn_torch import data, models, parallel
+
+    model = nn.convert_sync_batchnorm(models.retinanet_r50_fpn(
+        num_classes=80, image_size=(256, 256), device="cuda"))
+    dp = parallel.DataParallel(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                               lambda m, b: m.loss(*b), device="cuda")
+    ds = data.SyntheticDetectionDataset(length=2, image_size=(256, 256),
+                                        num_classes=80, max_boxes=32)
+    batch = tuple(np.stack(parts) for parts in zip(ds[0], ds[1]))
+    T.reset_launch_counts()
+    out = dp.train_step(batch)
+    torch.cuda.synchronize()
+    assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 53)
+    assert np.isfinite(float(out.loss))

@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from tpu_syncbn_torch import (
+    bench,
     data,
+    gan_train,
     imagenet_resnet50,
     longcontext_train,
     models,
     nn,
     ops,
     parallel,
+    retinanet_train,
     runtime,
     train,
 )
@@ -76,11 +79,18 @@ def test_importing_every_module_loads_no_jax():
                                     "tpu_syncbn_torch.utils",
                                     "tpu_syncbn_torch.utils.checkpoint",
                                     "tpu_syncbn_torch.parallel",
-                                    "tpu_syncbn_torch.imagenet_resnet50"])
+                                    "tpu_syncbn_torch.imagenet_resnet50",
+                                    "tpu_syncbn_torch.models.gan",
+                                    "tpu_syncbn_torch.parallel.gan_trainer",
+                                    "tpu_syncbn_torch.models.retinanet",
+                                    "tpu_syncbn_torch.bench",
+                                    "tpu_syncbn_torch.gan_train",
+                                    "tpu_syncbn_torch.retinanet_train"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
     """The launcher, its entry point, the backend probe, the data path
-    with its native bindings, meters, checkpoints, the trainer and the
-    ImageNet entry point, each
+    with its native bindings, meters, checkpoints, the trainer, the
+    ImageNet entry point, the GAN and detection models, the GAN trainer,
+    the bench and the GAN and RetinaNet entry points, each
     imported alone in a fresh process (as ``python -m ...`` starts), pull
     in nothing of JAX; the launcher's help runs."""
     code = (
@@ -184,6 +194,36 @@ def test_entry_points_default_to_the_card_and_refuse_to_fall_back(no_card):
         ops.flash_attention(q, q, q, causal=True)
     # no silent CPU fallback anywhere: the CPU runs only when asked for
     assert runtime.initialize("cpu") == torch.device("cpu")
+
+
+def test_gan_detection_and_bench_entry_points_refuse_to_fall_back(no_card):
+    msg = "no CUDA device"
+    for build in (models.DCGANGenerator, models.DCGANDiscriminator,
+                  models.SNGANDiscriminator, models.retinanet_r50_fpn):
+        with pytest.raises(RuntimeError, match=msg):
+            build()
+    g = models.DCGANGenerator(latent_dim=8, width=16, device="cpu")
+    d = models.DCGANDiscriminator(width=8, device="cpu")
+    opt = torch.optim.Adam(g.parameters())
+    with pytest.raises(RuntimeError, match=msg):
+        parallel.GANTrainer(g, d, opt, opt)
+    for main in (gan_train.main, retinanet_train.main, bench.main):
+        with pytest.raises(RuntimeError, match=msg):
+            main([])
+
+
+def test_gan_example_trains_and_checkpoints_on_the_cpu_when_asked(tmp_path):
+    from tpu_syncbn_torch import utils
+
+    out = gan_train.main(["--device", "cpu", "--iters", "3", "--batch-size", "8",
+                          "--arch", "sngan", "--ckpt-dir", str(tmp_path),
+                          "--data-root", write_jpegs(tmp_path / "jpeg", n=4)])
+    tr, samples = out["trainer"], out["samples"]
+    assert out["iters"] == 3 and tr.step_count == 3
+    assert samples.shape == (16, 32, 32, 3) and float(samples.abs().max()) <= 1.0
+    state, step = utils.load_checkpoint(str(tmp_path), tr.state_dict())
+    assert step == 3 and state["step_count"] == 3
+    assert torch.equal(state["d_rest"]["conv1.u"], tr.discriminator.conv1.u)
 
 
 def test_train_script_runs_on_the_cpu_when_asked():

@@ -8,6 +8,11 @@ from tpu_syncbn_torch.data.dataset import (
     TransformDataset,
     load_cifar10,
 )
+from tpu_syncbn_torch.data.detection import (
+    CocoDetectionDataset,
+    SyntheticDetectionDataset,
+    pad_ground_truth,
+)
 from tpu_syncbn_torch.data.image_folder import ImageFolderDataset, decode_image
 from tpu_syncbn_torch.data.loader import (
     DataLoader,
@@ -25,7 +30,8 @@ from tpu_syncbn_torch.data.sampler import (
     SequentialSampler,
 )
 
-__all__ = ["ArrayDataset", "DataLoader", "Dataset", "DistributedSampler",
+__all__ = ["ArrayDataset", "CocoDetectionDataset", "DataLoader", "Dataset",
+           "DistributedSampler", "SyntheticDetectionDataset", "pad_ground_truth",
            "ImageFolderDataset", "RandomSampler", "Sampler",
            "SequentialSampler", "SyntheticImageDataset", "TransformDataset",
            "WorkerError", "WorkerInfo", "decode_image", "default_collate",

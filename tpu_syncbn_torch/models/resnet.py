@@ -61,23 +61,31 @@ def _trunc_normal_fan_out_(w: torch.Tensor, generator: torch.Generator):
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv with JAX ``"SAME"`` padding; f32 weight (OIHW, held
-    channels_last), computed in ``dtype``."""
+    """Conv with JAX ``"SAME"`` padding; f32 weight (OIHW, held
+    channels_last), computed in ``dtype``. Bias-free unless ``bias`` (a
+    zero-initialized f32 bias, ``nnx.Conv``'s default). ``init(w,
+    generator)`` draws the weight in place (default: He fan-out, the JAX
+    ResNet's ``_conv_init``)."""
 
     def __init__(self, cin, cout, kernel, stride, *, dtype=None, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, bias: bool = False,
+                 init: Callable | None = None):
         super().__init__()
         self.kernel = kernel
         self.stride = stride
         self.dtype = dtype
         w = torch.empty(cout, cin, kernel, kernel, dtype=torch.float32)
-        _trunc_normal_fan_out_(w, generator)
+        (init or _trunc_normal_fan_out_)(w, generator)
         self.weight = nn.Parameter(
             w.to(device).contiguous(memory_format=torch.channels_last))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if bias else None
 
     def forward(self, x):
-        w = self.weight if self.dtype is None else self.weight.to(self.dtype)
-        return F.conv2d(_pad_same(x, self.kernel, self.stride), w,
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            w = w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        return F.conv2d(_pad_same(x, self.kernel, self.stride), w, b,
                         stride=self.stride)
 
 

@@ -1,15 +1,22 @@
 """Weight transfer from the JAX models' parameters.
 
-``load_jax_params(model, params)`` fills a port ResNet from a flat mapping
-of dotted names to numpy arrays, as the JAX package's
+``load_jax_params(model, params)`` fills a port model (the ResNets, the
+GAN's generator and discriminators, RetinaNet) from a flat mapping of
+dotted names to numpy arrays, as the JAX package's
 ``compat.nnx_to_pure_dict(nnx.state(model))`` yields them once flattened
 (``"stem_conv.kernel"``, ``"stages.0.0.bn1.running_var"``, ...). The port
 names its submodules like the JAX model, so the mapping is by name:
 
 * conv ``kernel`` (HWIO) → ``weight`` (OIHW, written channels_last);
+* transposed-conv ``kernel`` (HWIO, of ``nnx.ConvTranspose``) → the
+  ``F.conv_transpose2d`` layout (in, out, kh, kw), flipped on both spatial
+  axes (``models/gan.py``'s docstring): same shape as a wrong transpose,
+  so the converter asks the target module's kind;
 * fc ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
 * BN ``weight``/``bias``/``running_mean``/``running_var``/
-  ``num_batches_tracked`` keep their names.
+  ``num_batches_tracked`` and SNConv's ``u`` keep their names;
+* RetinaNet's ``anchors`` are not loaded: the port builds them at
+  construction, and the converter checks them equal.
 
 ``load_jax_transformer_params(model, params)`` fills a port
 ``TransformerLM`` from the JAX LM's parameter pytree (nested dicts of
@@ -23,6 +30,12 @@ dicts of numpy arrays, the optax state as its named tuples) into a port
 ``trace`` into SGD's ``momentum_buffer``, the schedule's ``count`` into the
 trainer's scheduler, and the divergence guard's state.
 
+``load_jax_gan_trainer_state(trainer, state)`` carries a JAX
+``GANTrainer.state_dict()`` into the port's ``GANTrainer``: both networks'
+parameters and buffers (BN statistics, SNConv's ``u``), both optax Adam
+states into ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``,
+and ``step_count``.
+
 No JAX import: the arrays arrive as numpy.
 """
 
@@ -35,32 +48,49 @@ import torch
 from torch import nn
 
 
-def _port_name(key: str, value) -> tuple[str, np.ndarray]:
+def _port_name(key: str, value, model: nn.Module | None = None) -> tuple[str, np.ndarray]:
     """The port's name for the JAX value at ``key``, and the value in the
-    port's layout (kernels transposed)."""
+    port's layout: kernels transposed, and a transposed conv's also
+    flipped, which needs the ``model`` that owns it (without one, every
+    4-D kernel is a conv's)."""
+    from tpu_syncbn_torch.models.gan import ConvTranspose
+
     arr = np.asarray(value)
     if not key.endswith(".kernel"):
         return key, arr
-    if arr.ndim == 4:      # conv: HWIO -> OIHW
+    owner = key[: -len(".kernel")]
+    if arr.ndim == 4 and model is not None \
+            and isinstance(model.get_submodule(owner), ConvTranspose):
+        arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # -> (in, out, kh, kw)
+    elif arr.ndim == 4:    # conv: HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
     elif arr.ndim == 2:    # linear: (in, out) -> (out, in)
         arr = arr.T
     else:
         raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
-    return key[: -len(".kernel")] + ".weight", arr
+    return owner + ".weight", arr
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     """Copy ``params`` into ``model`` in place (values cast to each target's
-    dtype and device). Raises if a name of either side has no partner."""
+    dtype and device). Raises if a name of either side has no partner, and
+    if RetinaNet's ``anchors`` differ from the port's (they are compared,
+    not copied)."""
     targets = dict(model.named_parameters())
     targets.update(dict(model.named_buffers()))
     seen = set()
     for key, value in params.items():
-        name, arr = _port_name(key, value)
+        name, arr = _port_name(key, value, model)
         if name not in targets:
             raise KeyError(f"{key}: the port model has no {name!r}")
         t = targets[name]
+        if name == "anchors":
+            if not np.array_equal(t.detach().cpu().numpy(), arr):
+                raise ValueError(
+                    "anchors: the JAX model's differ from the port's (another "
+                    f"image size? JAX {arr.shape}, port {tuple(t.shape)})")
+            seen.add(name)
+            continue
         if tuple(t.shape) != arr.shape:
             raise ValueError(
                 f"{key}: shape {arr.shape} does not match {name} "
@@ -158,7 +188,7 @@ def load_jax_trainer_state(trainer, state: Mapping) -> None:
                          f"count, got {len(traces)} and {counts}")
     params = dict(trainer.model.named_parameters())
     for key, value in (_flatten(traces[0]).items() if traces else ()):
-        name, arr = _port_name(key, value)
+        name, arr = _port_name(key, value, trainer.model)
         p = params[name]
         trainer.optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
             np.array(arr, order="C")).to(device=p.device, dtype=p.dtype)
@@ -171,3 +201,58 @@ def load_jax_trainer_state(trainer, state: Mapping) -> None:
                                # past 1: no "step before optimizer.step" warning
                                "_step_count": counts[0] + 1})
         sched.step()
+
+
+def _carry_adam(optimizer: torch.optim.Optimizer, model: nn.Module,
+                opt_state) -> None:
+    """optax Adam's ``ScaleByAdamState`` into ``torch.optim.Adam``: ``mu``
+    and ``nu`` (optax ``mu = b1·mu + (1 − b1)·g``, torch's ``exp_avg``
+    alike; ``nu`` is ``exp_avg_sq``) per parameter, ``count`` as ``step``
+    (both bias-correct with the incremented count). Raises on any other
+    optax state."""
+    adam = []
+    for node in _named_tuples(opt_state):
+        unknown = set(node._fields) - {"count", "mu", "nu"}
+        if unknown:
+            raise ValueError(f"{type(node).__name__}: cannot carry optax "
+                             f"state {sorted(unknown)} into torch.optim.Adam")
+        if node._fields:
+            adam.append(node)
+    if len(adam) != 1 or set(adam[0]._fields) != {"count", "mu", "nu"}:
+        raise ValueError(f"expected one optax Adam state, got {adam}")
+    count = int(np.asarray(adam[0].count))
+    if count == 0:
+        return  # no step taken: torch's state starts empty
+    params = dict(model.named_parameters())
+    nus = _flatten(adam[0].nu)
+    for key, mu in _flatten(adam[0].mu).items():
+        name, m_arr = _port_name(key, mu, model)
+        _, v_arr = _port_name(key, nus[key], model)
+        p = params[name]
+
+        def put(a, p=p):  # in p's dtype, device and memory format
+            return torch.empty_like(p).copy_(torch.from_numpy(np.array(a, order="C")))
+
+        optimizer.state[p] = {"step": torch.tensor(float(count)),
+                              "exp_avg": put(m_arr), "exp_avg_sq": put(v_arr)}
+
+
+def load_jax_gan_trainer_state(trainer, state: Mapping) -> None:
+    """Carry a JAX ``GANTrainer.state_dict()`` into the port's
+    ``GANTrainer`` in place. ``state`` is the JAX tree as its checkpoint
+    stores it: ``g_params``/``g_rest``/``d_params``/``d_rest`` nested dicts
+    of numpy arrays, ``g_opt_state``/``d_opt_state`` optax Adam states (the
+    named tuples kept), ``step_count`` an int.
+
+    * both networks' parameters and buffers, as :func:`load_jax_params`
+      (SNConv's ``u`` is a buffer of the discriminator);
+    * each optax Adam state into its ``torch.optim.Adam`` (``mu`` →
+      ``exp_avg``, ``nu`` → ``exp_avg_sq``, ``count`` → ``step``);
+    * ``step_count``."""
+    for net, model, optimizer in (
+            ("g", trainer.generator, trainer.g_optimizer),
+            ("d", trainer.discriminator, trainer.d_optimizer)):
+        load_jax_params(model, {**_flatten(state[f"{net}_params"]),
+                                **_flatten(state[f"{net}_rest"])})
+        _carry_adam(optimizer, model, state[f"{net}_opt_state"])
+    trainer.step_count = int(state.get("step_count", 0))

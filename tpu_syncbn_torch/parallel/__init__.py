@@ -1,6 +1,8 @@
-"""Collectives, the data-parallel trainer and (world 1) sequence attention."""
+"""Collectives, the data-parallel trainer, the GAN trainer and (world 1)
+sequence attention."""
 
 from tpu_syncbn_torch.parallel import collectives, sequence
+from tpu_syncbn_torch.parallel.gan_trainer import GANStepOutput, GANTrainer
 from tpu_syncbn_torch.parallel.trainer import (
     DataParallel,
     StepOutput,
@@ -8,5 +10,5 @@ from tpu_syncbn_torch.parallel.trainer import (
     sync_module_states,
 )
 
-__all__ = ["DataParallel", "StepOutput", "collectives", "resume_latest",
-           "sequence", "sync_module_states"]
+__all__ = ["DataParallel", "GANStepOutput", "GANTrainer", "StepOutput",
+           "collectives", "resume_latest", "sequence", "sync_module_states"]

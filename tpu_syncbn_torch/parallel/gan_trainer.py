@@ -1,0 +1,231 @@
+"""Data-parallel GAN trainer — the counterpart of
+``tpu_syncbn.parallel.gan_trainer``: alternating D and G updates with
+SyncBN in both networks, the reference's GAN capability case (BASELINE
+config 5), where tiny per-GPU batches make per-replica BN statistics
+destabilize training.
+
+One iteration is one D update, then one G update, with the torch DCGAN
+loop's ordering of the running-statistic updates:
+
+* D step: ``fake = G(z_d)`` runs G in **train mode without a gradient**
+  (``torch.no_grad()``, never ``eval()``), so G's BN statistics move; D
+  sees ``real`` and ``fake`` as two forwards, so D's move twice. Only D's
+  gradients are taken, then averaged over the group, then D steps.
+* G step: ``D(G(z_g))``, D with its just-updated weights; G's and D's
+  statistics move once more. Only G's gradients are taken
+  (``backward(inputs=G's parameters)``, as the JAX step differentiates
+  with respect to G's parameters only), so no gradient lands in D's
+  ``.grad`` for the next D update.
+
+Per iteration G's BN layers move ``num_batches_tracked`` by 2 and D's by
+3; each of G's 4 BN layers runs its forward kernels twice and its
+backward kernels once, each of D's 2 runs its forward kernels three times
+and its backward kernels twice (14 and 10 launches of each kernel an
+iteration at the DCGAN widths). ``d_loss``, ``g_loss``, ``d_real`` and
+``d_fake`` are replica-averaged in one all-reduce, and both networks'
+buffers (BN statistics and SNConv's ``u``) are broadcast from rank 0 at
+the end, as the JAX step does.
+
+Not ported: ``monitors`` (ROADMAP A.11) and ``compress`` (A.9) raise
+``NotImplementedError`` for anything but their defaults here;
+``train_steps``, the K-iteration scan, waits for A.8.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+from tpu_syncbn_torch.parallel import collectives
+from tpu_syncbn_torch.parallel.trainer import (
+    _default_group,
+    _grads_for_all_reduce,
+    _load_named_state_,
+    _named_state,
+    _to_device,
+    sync_module_states,
+)
+from tpu_syncbn_torch.runtime.distributed import resolve_device
+
+LOSSES = ("bce", "hinge")
+
+
+def loss_pair(name: str) -> Callable:
+    """The ``(real_logits, fake_logits) -> (d_loss, g_loss)`` function of a
+    loss name (imported here: ``models`` imports the BN ops, which import
+    this package)."""
+    from tpu_syncbn_torch.models.gan import bce_gan_losses, hinge_gan_losses
+
+    return {"bce": bce_gan_losses, "hinge": hinge_gan_losses}[name]
+
+
+@dataclasses.dataclass
+class GANStepOutput:
+    """What an iteration returns: replica-averaged losses and metrics, as
+    device tensors (reading a value waits for the iteration). ``monitors``
+    stays empty until the on-device monitors are ported (A.11)."""
+
+    d_loss: torch.Tensor
+    g_loss: torch.Tensor
+    metrics: dict[str, torch.Tensor]
+    monitors: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+class GANTrainer:
+    """Two-network, two-optimizer data-parallel trainer.
+
+    ``train_step(real, z_d, z_g)`` takes this replica's shard of the real
+    batch and of two latent batches (one per sub-step: the torch loop draws
+    fresh noise for the G step) and performs one D update, then one G
+    update. The optimizers are ``torch.optim`` optimizers over each
+    network's parameters (``optax.adam(lr, b1=0.5, b2=0.999)`` is
+    ``torch.optim.Adam(params, lr, betas=(0.5, 0.999))``).
+
+    ``group`` is the process group to average over (``None``: the default
+    world group). Both models must already be on ``device`` (default
+    ``"cuda"``, which raises without a card); their parameters and buffers
+    are broadcast from rank 0 at construction."""
+
+    def __init__(
+        self,
+        generator: nn.Module,
+        discriminator: nn.Module,
+        g_optimizer: torch.optim.Optimizer,
+        d_optimizer: torch.optim.Optimizer,
+        *,
+        loss: str = "bce",
+        group=None,
+        monitors: bool | str = False,
+        compress: str = "none",
+        device: str | torch.device | None = "cuda",
+    ):
+        if loss not in LOSSES:
+            raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+        if monitors is not False:
+            raise NotImplementedError(
+                "GANTrainer(monitors=...): the on-device monitors are not "
+                "ported yet (ROADMAP A.11); use monitors=False")
+        if compress != "none":
+            raise NotImplementedError(
+                f"GANTrainer(compress={compress!r}): compressed gradient "
+                "all-reduce is not ported yet (ROADMAP A.9); use 'none'")
+        self.device = resolve_device(device)
+        for net, model in (("generator", generator), ("discriminator", discriminator)):
+            for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+                if t is not None and t.device != self.device:
+                    raise ValueError(
+                        f"{net} {name} lives on {t.device}, not on the "
+                        f"trainer's device {self.device}; move the model first")
+        self.generator = generator
+        self.discriminator = discriminator
+        self.g_optimizer = g_optimizer
+        self.d_optimizer = d_optimizer
+        self.loss = loss
+        self.loss_pair = loss_pair(loss)
+        self.group = group if group is not None else _default_group()
+        self.world = collectives.world_size(self.group)
+        #: iterations taken (one D and one G update each)
+        self.step_count = 0
+        for model in (generator, discriminator):
+            sync_module_states(model, group=self.group)
+
+    def _update(self, model: nn.Module, optimizer) -> None:
+        """Average ``model``'s gradients over the group, then step."""
+        grads = _grads_for_all_reduce(
+            [p for p in model.parameters() if p.requires_grad], self.world)
+        collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+        optimizer.step()
+
+    def train_step(self, real, z_d, z_g) -> GANStepOutput:
+        """One D update, then one G update (module docstring)."""
+        real, z_d, z_g = _to_device((real, z_d, z_g), self.device)
+        G, D = self.generator, self.discriminator
+        G.train()
+        D.train()
+
+        # ---- D step
+        self.d_optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            fake = G(z_d)  # train mode: G's statistics move
+        real_logits = D(real)
+        fake_logits = D(fake)
+        d_loss, _ = self.loss_pair(real_logits, fake_logits)
+        d_loss.backward()
+        self._update(D, self.d_optimizer)
+
+        # ---- G step, through the just-updated D
+        self.g_optimizer.zero_grad(set_to_none=True)
+        g_params = [p for p in G.parameters() if p.requires_grad]
+        g_logits = D(G(z_g))
+        _, g_loss = self.loss_pair(torch.zeros_like(g_logits), g_logits)
+        g_loss.backward(inputs=g_params)
+        self._update(G, self.g_optimizer)
+
+        with torch.no_grad():
+            vals = torch.stack([d_loss.detach(), g_loss.detach(),
+                                torch.sigmoid(real_logits).mean(),
+                                torch.sigmoid(fake_logits).mean()]).float()
+            if self.world > 1:
+                vals = collectives.pmean(vals, self.group)
+                # replica-0 buffer broadcast (DDP forward_sync_buffers)
+                collectives.broadcast_(
+                    [b for m in (G, D) for b in m.buffers() if b is not None],
+                    self.group)
+        self.step_count += 1
+        return GANStepOutput(d_loss=vals[0], g_loss=vals[1],
+                             metrics={"d_real": vals[2], "d_fake": vals[3]})
+
+    def sync_to_models(self) -> tuple[nn.Module, nn.Module]:
+        """``(generator, discriminator)``: the port trains the modules in
+        place, so they already hold the trained state."""
+        return self.generator, self.discriminator
+
+    @torch.no_grad()
+    def generate(self, z) -> torch.Tensor:
+        """Images from latents ``z`` with the current generator in eval
+        mode (running statistics; the module's mode flag is restored).
+        Every rank holds the whole generator, so each samples its own
+        ``z`` with no collective."""
+        z = _to_device(z, self.device)
+        G = self.generator
+        was_training = G.training
+        G.eval()
+        try:
+            return G(z)
+        finally:
+            G.train(was_training)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Full training state as copies: each network's ``params`` and
+        ``rest`` (every buffer) by name, each optimizer's ``state_dict()``,
+        and ``step_count``."""
+        out = {"step_count": self.step_count}
+        for net, model, opt in self._nets():
+            state = _named_state(model)
+            out[f"{net}_params"], out[f"{net}_rest"] = state["params"], state["rest"]
+            out[f"{net}_opt_state"] = copy.deepcopy(opt.state_dict())
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a tree produced by :meth:`state_dict` (or loaded from a
+        checkpoint) in place; nothing is broadcast (every rank loads the
+        same checkpoint). Raises ``ValueError`` on names or shapes that
+        are not this trainer's."""
+        for net, model, opt in self._nets():
+            _load_named_state_(model, state[f"{net}_params"], state[f"{net}_rest"],
+                               label=f"{net}_")
+            # a copy: torch's load keeps the given tensors where their
+            # dtype and device already fit, and the next step would then
+            # update the caller's state in place
+            opt.load_state_dict(copy.deepcopy(state[f"{net}_opt_state"]))
+        self.step_count = int(state.get("step_count", 0))
+
+    def _nets(self):
+        return (("g", self.generator, self.g_optimizer),
+                ("d", self.discriminator, self.d_optimizer))

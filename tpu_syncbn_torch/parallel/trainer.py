@@ -137,6 +137,52 @@ def _unpack_(packed) -> None:
                 t.copy_(part.view_as(t))
 
 
+def _grads_for_all_reduce(params, world: int) -> list[torch.Tensor]:
+    """The gradients of ``params`` to all-reduce. At world > 1 a parameter
+    that requires grad but got none on this rank (its loss did not reach
+    it) gets a zero gradient, so all ranks send buffers of one size (the
+    JAX trainers' gradients cover every parameter too)."""
+    if world > 1:
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    return [p.grad for p in params if p.grad is not None]
+
+
+def _named_state(model: nn.Module) -> dict:
+    """``{"params": ..., "rest": ...}``: copies of the parameters and of
+    every buffer, by name."""
+    with torch.no_grad():
+        return {"params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                "rest": {n: b.detach().clone() for n, b in model.named_buffers()
+                         if b is not None}}
+
+
+def _load_named_state_(model: nn.Module, params: dict, rest: dict,
+                       label: str = "") -> None:
+    """Copy ``params`` and ``rest`` (name -> tensor) into ``model`` in
+    place; raises ``ValueError`` when the names or a shape are not the
+    model's (``label`` prefixes the part's name in the message)."""
+    for part, got, live in (
+            ("params", params, dict(model.named_parameters())),
+            ("rest", rest, {n: b for n, b in model.named_buffers() if b is not None})):
+        if set(got) != set(live):
+            raise ValueError(
+                f"{label}{part} mismatch: the checkpoint's names differ from "
+                f"the model's (only in the checkpoint: "
+                f"{sorted(set(got) - set(live))[:4]}; only in the model: "
+                f"{sorted(set(live) - set(got))[:4]})"
+            )
+        for name, t in live.items():
+            if tuple(got[name].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{label}{part} {name}: shape {tuple(got[name].shape)} in "
+                    f"the checkpoint, {tuple(t.shape)} in the model")
+        with torch.no_grad():
+            for name, t in live.items():
+                t.copy_(got[name])
+
+
 def _remat_contexts():
     """``checkpoint``'s ``context_fn``: nothing around the first forward,
     and BN buffer writes off around its recomputation."""
@@ -313,17 +359,9 @@ class DataParallel:
             loss = torch.stack([l_ for l_, _ in outs]).mean(dtype=torch.float32)
             metrics = {k: torch.stack([m[k] for _, m in outs]).mean(dtype=torch.float32)
                        for k in outs[0][1]}
-        params = [p for p in self.model.parameters() if p.requires_grad]
-        if self.world > 1:
-            # DDP gradient averaging: one flat all-reduce per dtype. Every
-            # parameter that requires grad takes part, zero-filled where
-            # this rank's loss did not reach it, so all ranks send buffers
-            # of one size (the JAX trainer's gradients cover every
-            # parameter too)
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params if p.grad is not None]
+        # DDP gradient averaging: one flat all-reduce per dtype
+        grads = _grads_for_all_reduce(
+            [p for p in self.model.parameters() if p.requires_grad], self.world)
         if guarded:
             finite = torch.stack(
                 [flat.isfinite().all() for _, flat in _pack(grads)]).all()
@@ -382,14 +420,7 @@ class DataParallel:
             opt_state["lr_scheduler"] = copy.deepcopy(self.lr_scheduler.state_dict())
         if self.divergence_guard is not None:
             opt_state["guard"] = dict(self.guard_state)
-        with torch.no_grad():
-            return {
-                "params": {n: p.detach().clone()
-                           for n, p in self.model.named_parameters()},
-                "rest": {n: b.detach().clone()
-                         for n, b in self.model.named_buffers() if b is not None},
-                "opt_state": opt_state,
-            }
+        return {**_named_state(self.model), "opt_state": opt_state}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore a tree produced by :meth:`state_dict` (or loaded from a
@@ -412,26 +443,11 @@ class DataParallel:
                 "the trainer with the same settings to resume the optimizer "
                 "state."
             )
-        for part, live in (("params", dict(self.model.named_parameters())),
-                           ("rest", {n: b for n, b in self.model.named_buffers()
-                                     if b is not None})):
-            got = state[part]
-            if set(got) != set(live):
-                raise ValueError(
-                    f"{part} mismatch: the checkpoint's names differ from "
-                    f"the model's (only in the checkpoint: "
-                    f"{sorted(set(got) - set(live))[:4]}; only in the model: "
-                    f"{sorted(set(live) - set(got))[:4]})"
-                )
-            for name, t in live.items():
-                if tuple(got[name].shape) != tuple(t.shape):
-                    raise ValueError(
-                        f"{part} {name}: shape {tuple(got[name].shape)} in "
-                        f"the checkpoint, {tuple(t.shape)} in the model")
-            with torch.no_grad():
-                for name, t in live.items():
-                    t.copy_(got[name])
-        self.optimizer.load_state_dict(opt_state["optimizer"])
+        _load_named_state_(self.model, state["params"], state["rest"])
+        # a copy: torch's load keeps the given tensors where their dtype
+        # and device already fit, and the next step would then update the
+        # caller's state in place
+        self.optimizer.load_state_dict(copy.deepcopy(opt_state["optimizer"]))
         if self.lr_scheduler is not None:
             self.lr_scheduler.load_state_dict(opt_state["lr_scheduler"])
         if self.divergence_guard is not None:

@@ -1,5 +1,5 @@
-"""Utilities: checkpoint / resume (rank 0 writes), meters, step timing and
-the JSONL scalar log."""
+"""Utilities: checkpoint / resume (rank 0 writes), meters, step timing,
+the JSONL scalar log, COCO-style mAP and the Fréchet distance."""
 
 from tpu_syncbn_torch.utils.checkpoint import (
     AsyncCheckpointer,
@@ -12,6 +12,8 @@ from tpu_syncbn_torch.utils.checkpoint import (
     verified_steps,
     verify_checkpoint,
 )
+from tpu_syncbn_torch.utils.coco_map import evaluate_detections
+from tpu_syncbn_torch.utils.fid import frechet_distance, gaussian_stats
 from tpu_syncbn_torch.utils.metrics import (
     AverageMeter,
     ScalarLogger,
@@ -21,6 +23,7 @@ from tpu_syncbn_torch.utils.metrics import (
 
 __all__ = ["AsyncCheckpointer", "AverageMeter", "CheckpointCorruptError",
            "ScalarLogger", "ThroughputMeter", "available_steps",
+           "evaluate_detections", "frechet_distance", "gaussian_stats",
            "load_checkpoint", "read_manifest", "save_checkpoint",
            "snapshot_to_host", "step_timer", "verified_steps",
            "verify_checkpoint"]
