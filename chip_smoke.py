@@ -110,35 +110,60 @@ falls back to the CPU):
                events), peak memory and a profiler window; the A/B step
                as above; decode + ``batched_nms`` + ``evaluate_detections``
                over 8 images give an mAP in [0, 1];
-11. bench     — ``python -m tpu_syncbn_torch.bench`` in a subprocess: exit
-               0, every key of its JSON line, 0 < mfu <= 1; the line
-               printed;
-12. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
+11. bench     — ``python -m tpu_syncbn_torch.bench --scan 8`` in a
+               subprocess: exit 0, every key of its JSON line, 0 < mfu <= 1,
+               the ``recovery`` block (a truncated newest checkpoint resumes
+               the older step, the async write certifies) and the ``scan``
+               block at K = 8; the line printed;
+12. scan      — K steps as one CUDA graph (``train_steps_batches``,
+               ``GANTrainer.train_steps``) for the ResNet-50 slice (the
+               example's SGD and a cosine schedule), DCGAN and RetinaNet:
+               4 captured steps against the same body run eagerly from the
+               same state (cuDNN deterministic; losses and buffers within
+               the A/B limits, update and optimizer state within 2^-8,
+               counts exact, bitwise equality printed), one captured step
+               against one ``train_step``, the BN launches the graph
+               recorded (layers x K, none through the wrappers at a
+               replay), the lr table across two chunks, and after
+               ``load_state_dict`` of another state a rebuilt graph equal
+               to the eager body (the stale-address check); then eager and
+               captured step times (host clock and CUDA events) at K = 4
+               and 8, capture seconds and graph pool bytes against the
+               eager steady peak. (The gloo refusal runs in phase 6's
+               children: ``train_steps_batches`` on CUDA tensors under
+               their gloo group raises.)
+13. resilience — ``ResilientLoop(scan_steps=4, async_checkpoint=True)`` on
+               the ResNet slice: a NaN step under ``restore_last_good``
+               restores the last checkpoint and continues; SIGTERM before
+               the second chunk of a child process (``chip_smoke.py
+               --resilience-child DIR``): exit 0, ``preempted``, the
+               boundary checkpoint, and the resume here continues from it;
+14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
                  and causal bf16 at the LM shape on views into one fused
                  QKV tensor;
-13. attn-time  — device time of each attention kernel at the LM shape
+15. attn-time  — device time of each attention kernel at the LM shape
                  beside its bound, its plain version and, as a yardstick the
                  port never calls, ``scaled_dot_product_attention``; the
                  kernels' times at every parity shape, and at a fixed 1024
                  blocks over four lengths (a fixed cost per block, fitted);
                  the float32 kernels' times;
-14. lm         — the causal transformer LM at full width (d_model 512, 8
+16. lm         — the causal transformer LM at full width (d_model 512, 8
                  heads of 64, d_ff 2048, vocab 50257, 8 layers, L 8192,
                  batch 2, bf16), trained by ``longcontext_train.train_step``
                  with Adam and ``attn_impl="flash_pallas_bwd"``: every
                  attention kernel must launch 8 x steps times; step times,
                  tokens/s, a profiler window;
-15. lm-a/b     — one step from the same weights and batch with the kernels
+17. lm-a/b     — one step from the same weights and batch with the kernels
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-11's launches, times and the
-bench line); the second-to-last line is ``{"kernels": [...]}``; the last line is
+ratios) and ``{"paths": {...}}`` (phases 9-13's launches, times, the
+bench line, the eager and captured steps and the resilience summaries); the second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -549,11 +574,12 @@ def merged(intervals):
     return out
 
 
-def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
-    """Run ``run()`` (two training steps) under ``torch.profiler`` and print
-    the device's busy and idle share of the wall time, the share of busy
-    time spent in the kernels ``is_ours(name)`` selects, and the top 15
-    device activities."""
+def profile_window(torch, run, tag: str, what: str, is_ours, card: str,
+                   window: str = "2 steps"):
+    """Run ``run()`` (two training steps, or what ``window`` says) under
+    ``torch.profiler`` and print the device's busy and idle share of the
+    wall time, the share of busy time spent in the kernels
+    ``is_ours(name)`` selects, and the top 15 device activities."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -573,12 +599,12 @@ def profile_window(torch, run, tag: str, what: str, is_ours, card: str):
     ours_ms = sum(r[0] for r in rows if is_ours(r[2]))
     wall_ms = window * 1e3
     if busy > 0:
-        log(f"[{tag}] 2 steps: wall {wall_ms:.1f}ms, device busy {busy:.1f}ms "
+        log(f"[{tag}] {window}: wall {wall_ms:.1f}ms, device busy {busy:.1f}ms "
             f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%), "
             f"{what} {ours_ms:.2f}ms ({100 * ours_ms / busy:.1f}% of busy), "
             f"{len(acts)} device activities [{card}]")
     else:  # a limit of the profiler's tracing, not a fault of the port
-        log(f"[{tag}] 2 steps: wall {wall_ms:.1f}ms; the profiler recorded "
+        log(f"[{tag}] {window}: wall {wall_ms:.1f}ms; the profiler recorded "
             "no device activity, so the busy share is not measured")
     for ms, cnt, key in rows[:15]:
         log(f"[{tag}] {ms:9.3f}ms x{cnt:<5d} {key[:100]}")
@@ -961,7 +987,15 @@ def _group_replicas(torch, rank):
             tdist.broadcast(ref, src=0)
             ok = ok and torch.equal(flat, ref)
         same.append(ok)
-    return same, T.launch_counts(), times
+    launches = T.launch_counts()
+    # K steps as one CUDA graph cannot hold gloo's host-side collectives:
+    # train_steps_batches on CUDA tensors under this gloo group must raise
+    try:
+        dp.train_steps_batches(tuple(t[None] for t in batches[0]))
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    return same, launches, times, refusal
 
 
 def _groups_child(rank, d, ref_path):
@@ -1171,6 +1205,13 @@ def phase_groups(torch, card):
         failures.append("[groups] replicas differ from rank 0")
     if any(n_ != want for c_ in counts for n_ in c_.values()):
         failures.append(f"[groups] a BN kernel did not launch {want} times on every rank")
+    refusals = [r_["replicas"][3] for r_ in res]
+    refused = all(m is not None and "gloo" in m for m in refusals)
+    summary["gloo_scan_refused"] = refused
+    log(f"[groups] train_steps_batches on CUDA tensors under the gloo group raises "
+        f"on every rank: {refused} ({refusals[0]!r})")
+    if not refused:
+        failures.append(f"[groups] train_steps_batches under gloo did not raise: {refusals}")
     for r, r_ in enumerate(res):
         log(f"[groups] rank {r} step times " + ", ".join(
             f"{t:.1f}" for t in r_["replicas"][2]) + " ms: four processes "
@@ -1614,7 +1655,7 @@ def _trainer_batch(torch, seed: int, nan_image: int | None = None):
     return x, y
 
 
-def _resnet_trainer(torch, **kw):
+def _resnet_trainer(torch, decay_steps: int = 100, **kw):
     """A ResNet-50 SyncBN trainer from seed-0 weights with the ImageNet
     example's optimizer and its schedule (owned by the trainer)."""
     from tpu_syncbn_torch import imagenet_resnet50, models, nn, parallel
@@ -1622,7 +1663,7 @@ def _resnet_trainer(torch, **kw):
     model = nn.convert_sync_batchnorm(models.resnet50(
         num_classes=1000, dtype=torch.bfloat16, device="cuda",
         generator=torch.Generator().manual_seed(0)))
-    opt, sched = imagenet_resnet50.make_optimizer(model, 0.1, 100)
+    opt, sched = imagenet_resnet50.make_optimizer(model, 0.1, decay_steps)
     return model, parallel.DataParallel(model, opt, _loss_fn, device="cuda",
                                         lr_scheduler=sched, **kw)
 
@@ -2212,11 +2253,14 @@ BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
 
 
 def phase_bench():
-    """``python -m tpu_syncbn_torch.bench`` in a subprocess (its kernels
-    are built and cached by now): exit 0, every key of its line,
-    0 < mfu <= 1. Returns (failures, the line)."""
+    """``python -m tpu_syncbn_torch.bench --scan 8`` in a subprocess (its
+    kernels are built and cached by now): exit 0, every key of its line,
+    0 < mfu <= 1, the ``recovery`` block (a truncated newest checkpoint
+    resumes the older step, the async write certifies) and the ``scan``
+    block at K = 8. Returns (failures, the line)."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench"], cwd=HERE,
+    r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench", "--scan",
+                        str(SCAN_KS[-1])], cwd=HERE,
                        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
                        text=True, timeout=600)
     lines = r.stdout.strip().splitlines()
@@ -2229,10 +2273,665 @@ def phase_bench():
     mfu = line.get("mfu")
     if not (isinstance(mfu, (int, float)) and 0 < mfu <= 1):
         failures.append(f"[bench] mfu {mfu} not in (0, 1]")
+    rec, scan = line.get("recovery") or {}, line.get("scan") or {}
+    if rec.get("resumed_step_after_kill") != 1 or not rec.get("async_manifest_verified"):
+        failures.append(f"[bench] recovery block {rec}")
+    if scan.get("k") != SCAN_KS[-1] or not scan.get("img_per_sec_per_chip"):
+        failures.append(f"[bench] scan block {scan}")
     return failures, line
 
 
-# -- phases 12-15: the attention kernels and the transformer LM -------------
+# -- phases 12-13: scan (K steps captured into one CUDA graph) and resilience
+
+SCAN_KS = (4, 8)
+SCAN_TIMED = 4  # timed chunks of each K, after the one that captures it
+SCAN_STEPS = 4  # steps of each checked chunk (two chunks: the schedule)
+SCAN_UPD_TOL, SCAN_FLOOR_FACTOR = 2 ** -8, 5.0  # the remat check's rule
+SCAN_ROUNDING = 2 ** -24  # f32's unit roundoff (parameters and optimizer state)
+SCAN_STEP_UNITS = 2.0  # one step against optimizer.step(): PERF.md §2
+SCAN_DECAY = 1000  # cosine schedule length: the lr moves at every step
+
+
+def _split_state(torch, tree) -> dict:
+    """A trainer state (``state_dict()``) as ``{"params", "buffers",
+    "moments", "counts"}`` of path -> tensor: parameters, floating
+    buffers (running statistics, SNConv's u), floating optimizer state
+    (momentum, Adam's moments) and the integer-valued leaves
+    (``num_batches_tracked``, Adam's step counts), which must match
+    exactly."""
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    out = {"params": {}, "buffers": {}, "moments": {}, "counts": {}}
+    for path, leaf in ckpt._leaves(tree):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        if "params" in path:
+            out["params"][path] = leaf
+        elif not leaf.is_floating_point() or path.endswith("/step"):
+            out["counts"][path] = leaf
+        elif "opt_state" in path:
+            out["moments"][path] = leaf
+        else:
+            out["buffers"][path] = leaf
+    return out
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k].double() - a[k].double() for k in a}
+
+
+def _scan_compare(torch, tag, start, eager, eager2, scan, l_e, l_s, failures,
+                  losses_only: bool = False) -> bool:
+    """K captured steps against K eager ones from ``start``: losses and
+    floating buffers within the A/B limits, counts exact, and the
+    parameter update and the optimizer state within the larger of 2^-8
+    and 5x the eager run's own floor (``eager2``, the same K steps
+    again); with ``losses_only`` the gate holds the losses and the counts
+    and shows the rest. Prints whether the two are bitwise equal and
+    returns it; with ``failures`` None it only prints."""
+    s0, e, e2, c = (_split_state(torch, t) for t in (start, eager, eager2, scan))
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(l_s, l_e))
+    stat_err = max((float((c["buffers"][k] - e["buffers"][k]).abs().max())
+                    / (float(e["buffers"][k].abs().max()) + 1e-6)
+                    for k in e["buffers"]), default=0.0)
+    upd_want = _delta(s0["params"], e["params"])
+    upd_floor = _rel(torch, _delta(s0["params"], e2["params"]), upd_want)
+    upd_err = _rel(torch, _delta(s0["params"], c["params"]), upd_want)
+    mom_floor = _rel(torch, e2["moments"], e["moments"]) if e["moments"] else 0.0
+    mom_err = _rel(torch, c["moments"], e["moments"]) if e["moments"] else 0.0
+    upd_tol = max(SCAN_FLOOR_FACTOR * upd_floor, SCAN_UPD_TOL)
+    mom_tol = max(SCAN_FLOOR_FACTOR * mom_floor, SCAN_UPD_TOL)
+    counts_ok = all(torch.equal(c["counts"][k].cpu(), e["counts"][k].cpu())
+                    for k in e["counts"])
+    bitwise = counts_ok and list(l_s) == list(l_e) and all(
+        torch.equal(c[part][k], e[part][k]) for part in ("params", "buffers", "moments")
+        for k in e[part])
+    ok = loss_err <= AB_LOSS_TOL and counts_ok and (losses_only or (
+        stat_err <= AB_STAT_TOL and upd_err <= upd_tol and mom_err <= mom_tol))
+    verdict = ("shown, not gated" if failures is None else
+               ("ok" if ok else "FAIL") + ("; losses and counts gated, the rest "
+                                           "shown" if losses_only else ""))
+    log(f"[{tag}] {len(l_e)} steps: losses {[round(v, 5) for v in l_s]} vs "
+        f"{[round(v, 5) for v in l_e]} rel_err {loss_err:.2e} (tol {AB_LOSS_TOL:.0e}); "
+        f"buffers max rel_err {stat_err:.2e} (tol {AB_STAT_TOL:.0e}); update rel_err "
+        f"{upd_err:.3e} (eager floor {upd_floor:.3e}, tol {upd_tol:.3e}); optimizer "
+        f"state rel_err {mom_err:.3e} (floor {mom_floor:.3e}, tol {mom_tol:.3e}); "
+        f"{len(e['counts'])} counts exact: {counts_ok}; bitwise equal: {bitwise} "
+        f"({verdict})")
+    if failures is not None and not ok:
+        failures.append(f"[{tag}] captured and eager steps disagree")
+    return bitwise
+
+
+def _rounding_units(a: dict, b: dict) -> float:
+    """|a - b| / (2^-24 |b|), L2 over every tensor of ``b``: the distance
+    in f32 unit roundoffs of ``b``'s norm."""
+    num = sum(float((a[k].double() - b[k].double()).norm()) ** 2 for k in b)
+    den = sum(float(b[k].double().norm()) ** 2 for k in b)
+    return 0.0 if num == 0 else math.sqrt(num) / (SCAN_ROUNDING * math.sqrt(den))
+
+
+def _by_net(part: dict, skip=()) -> dict:
+    """``{net: {path: tensor}}`` by a state path's first component
+    (``params``, ``opt_state``; ``g_params``, ``d_opt_state``, ...),
+    leaving out the paths that start with one of ``skip``."""
+    out = {}
+    for k, v in part.items():
+        if not any(k.startswith(p) for p in skip):
+            out.setdefault(k.split("/")[1], {})[k] = v
+    return out
+
+
+def _optimizers(tr) -> list:
+    return [tr.optimizer] if hasattr(tr, "optimizer") else [o for _, _, o in tr._nets()]
+
+
+def _make_capturable(torch, tr) -> bool:
+    """Put every Adam of ``tr`` in torch's capturable form (step counts
+    on the device), the form a chunk runs it in; False if there is
+    none."""
+    adams = [o for o in _optimizers(tr) if isinstance(o, torch.optim.Adam)]
+    for opt in adams:
+        for g in opt.param_groups:
+            g["capturable"] = True
+        for st in opt.state.values():
+            if "step" in st:
+                st["step"] = st["step"].to("cuda")
+    return bool(adams)
+
+
+def _scan_step_vs_torch(torch, tag, start, eager, scan, l_e, l_s, failures,
+                        cancel=(), lr=0.0) -> None:
+    """One captured step against one ``train_step`` from ``start``: the
+    captured update (SGD's ``_foreach`` update reading the lr tensor;
+    Adam's capturable update reading its lr from the device) against
+    torch's ``optimizer.step()``. Losses and floating buffers within the
+    A/B limits, counts exact, and for each net the parameters and the
+    optimizer state within ``SCAN_STEP_UNITS`` f32 unit roundoffs of
+    their norm: one ulp an element, two roundings of one value. With
+    ``failures`` None it only prints.
+
+    ``cancel`` lists the state paths of the biases a BatchNorm follows:
+    their gradient is zero in exact arithmetic and rounding noise as
+    computed, and Adam's first step turns noise of either sign into ±lr.
+    They are left out of the nets' figures; their sign flips and largest
+    move (against ``lr``) are printed."""
+    s0, e, c = (_split_state(torch, t) for t in (start, eager, scan))
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(l_s, l_e))
+    stat_err = max((float((c["buffers"][k] - e["buffers"][k]).abs().max())
+                    / (float(e["buffers"][k].abs().max()) + 1e-6)
+                    for k in e["buffers"]), default=0.0)
+    counts_ok = all(torch.equal(c["counts"][k].cpu(), e["counts"][k].cpu())
+                    for k in e["counts"])
+    ok = loss_err <= AB_LOSS_TOL and stat_err <= AB_STAT_TOL and counts_ok
+    nets = {}
+    for part in ("params", "moments"):
+        ce, ee = _by_net(c[part], cancel), _by_net(e[part], cancel)
+        for net in ee:
+            nets[net] = round(_rounding_units(ce[net], ee[net]), 3)
+            ok = ok and nets[net] <= SCAN_STEP_UNITS
+    upd = _rel(torch, _delta(s0["params"], c["params"]), _delta(s0["params"], e["params"]))
+    biases = [k for k in e["params"] if any(k.startswith(p) for p in cancel)]
+    flips, worst = 0, 0.0
+    for k in biases:
+        dc, de = c["params"][k] - s0["params"][k], e["params"][k] - s0["params"][k]
+        flips += int(((dc > 0) != (de > 0)).sum())
+        worst = max(worst, float(dc.abs().max()), float(de.abs().max()))
+    verdict = "shown, not gated" if failures is None else ("ok" if ok else "FAIL")
+    log(f"[{tag}] losses {[round(v, 5) for v in l_s]} vs {[round(v, 5) for v in l_e]} "
+        f"rel_err {loss_err:.2e} (tol {AB_LOSS_TOL:.0e}); buffers max rel_err "
+        f"{stat_err:.2e} (tol {AB_STAT_TOL:.0e}); {len(e['counts'])} counts exact: "
+        f"{counts_ok}; parameters and optimizer state by net, in f32 unit roundoffs "
+        f"of the norm (tol {SCAN_STEP_UNITS}) {json.dumps(nets)}; the whole update "
+        f"rel_err {upd:.3e}"
+        + (f"; {len(biases)} BN-fed biases left out: {flips} signs flipped, max "
+           f"|dp| {worst:.4e} (lr {lr:.0e})" if biases else "") + f" ({verdict})")
+    if failures is not None and not ok:
+        failures.append(f"[{tag}] the captured step and optimizer.step() disagree")
+
+
+def _restore_in_place(torch, tr, sd) -> None:
+    """Copy a trainer's ``state_dict()`` back into its live tensors (a
+    captured program keeps their addresses, where ``load_state_dict``
+    replaces the optimizer's): parameters and buffers, every optimizer
+    state tensor (zeroed where ``sd`` has none: torch's fresh state), each
+    group's lr, the schedule and the host counters."""
+    from tpu_syncbn_torch.parallel.trainer import _load_named_state_
+
+    if hasattr(tr, "model"):
+        nets = [(tr.model, tr.optimizer, sd["params"], sd["rest"],
+                 sd["opt_state"]["optimizer"])]
+    else:
+        nets = [(m, o, sd[f"{n}_params"], sd[f"{n}_rest"], sd[f"{n}_opt_state"])
+                for n, m, o in tr._nets()]
+    with torch.no_grad():
+        for model, opt, params, rest, osd in nets:
+            _load_named_state_(model, params, rest)
+            for i, st in opt.state_dict()["state"].items():
+                for key, v in st.items():
+                    if isinstance(v, torch.Tensor):
+                        if i in osd["state"]:
+                            v.copy_(osd["state"][i][key])
+                        else:
+                            v.zero_()
+            for g, saved in zip(opt.param_groups, osd["param_groups"]):
+                g["lr"] = saved["lr"]
+    if getattr(tr, "lr_scheduler", None) is not None:
+        tr.lr_scheduler.load_state_dict(copy.deepcopy(sd["opt_state"]["lr_scheduler"]))
+    if "step_count" in sd:
+        tr.step_count = sd["step_count"]
+
+
+def _timed_calls(torch, fn, n: int) -> tuple[list, list, int]:
+    """``n`` calls of ``fn``, each between a synchronize and CUDA events:
+    (host ms, device ms, peak bytes above the start of a call)."""
+    host, dev, peak = [], [], 0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return host, dev, peak
+
+
+def _flat(losses) -> list:
+    """Per-step loss lists (``[loss]``, or ``[d_loss, g_loss]``) as one list."""
+    return [v for step in losses for v in step]
+
+
+def _program(tr, k: int):
+    return next(p for key, p in tr.program_caches[0].items() if key[0] == k)
+
+
+def _scan_path(torch, T, tag, subject, per_step, card, failures) -> dict:
+    """One path of ``[scan]``. ``subject`` builds and drives the trainer:
+    ``trainer``, ``steps`` (per-step batches on the card), ``stack``,
+    ``eager(batch) -> losses`` (``train_step``), ``chunk(stacked) ->
+    per-step losses``, ``losses(out)`` of a program's outputs, ``images``
+    a step, and ``lr_at(start, i)`` where a schedule runs. ``per_step``:
+    BN launches of each kernel a step. The checks:
+
+    * K captured steps against the same K-step body run eagerly on the
+      card from the same state (``ScanSteps.loop``), with cuDNN's
+      deterministic algorithms so the eager run repeats itself: the graph
+      must replay what it recorded (update and optimizer state within
+      2^-8, bitwise equality printed);
+    * one captured step against one ``train_step`` with each Adam in
+      torch's capturable form, as the chunk runs it: the update and the
+      optimizer state within one rounding (:func:`_scan_step_vs_torch`);
+      shown, against Adam as built (torch's capturable form computes
+      its bias corrections in f32);
+    * K captured steps against K such ``train_step`` calls: the losses
+      within the A/B limit and the counts exact (the rest shown: a
+      rounding apart grows step by step; all shown where
+      ``gate_k_losses`` is False); for Adam, shown, against the form as
+      built, and torch's two forms against each other;
+    * the launches the graph recorded, none at a replay; the schedule
+      across two chunks. Then, with cuDNN's default algorithms again,
+      the eager and captured step times at each K of ``SCAN_KS``."""
+    tr, steps, k = subject["trainer"], subject["steps"], SCAN_STEPS
+    eager, chunk, stack, losses = (subject[n] for n in ("eager", "chunk", "stack",
+                                                        "losses"))
+    start = tr.state_dict()
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # the train_steps first (a load of ``start`` puts each Adam back in
+    # its form as built; a chunk makes it capturable)
+    l_e1 = [eager(steps[0])]
+    st_e1 = tr.state_dict()
+    tr.load_state_dict(start)
+    l_e = [eager(b) for b in steps[:k]]
+    st_e = tr.state_dict()
+    tr.load_state_dict(start)
+    adam = _make_capturable(torch, tr)
+    l_ec1, st_ec1, l_ec, st_ec = l_e1, st_e1, l_e, st_e
+    if adam:
+        l_ec1 = [eager(steps[0])]
+        st_ec1 = tr.state_dict()
+        l_ec = l_ec1 + [eager(b) for b in steps[1:k]]
+        st_ec = tr.state_dict()
+    form = " (Adam capturable, as the chunk runs it)" if adam else ""
+
+    tr.load_state_dict(start)
+    l_c1 = chunk(stack(steps[:1]))
+    st_c1 = tr.state_dict()
+    _scan_step_vs_torch(torch, f"{tag} K=1 captured vs one train_step{form}", start,
+                        st_ec1, st_c1, _flat(l_ec1), _flat(l_c1), failures)
+    if adam:
+        _scan_step_vs_torch(torch, f"{tag} K=1 captured vs one train_step (Adam as "
+                            "built)", start, st_e1, st_c1, _flat(l_e1), _flat(l_c1),
+                            None, subject.get("cancel", ()), subject.get("lr", 0.0))
+
+    tr.load_state_dict(start)
+    chunk1, chunk2 = stack(steps[:k]), stack(steps[k:2 * k])
+    T.reset_launch_counts()  # the captured path: counts from 0
+    t0 = time.perf_counter()
+    l_c = chunk(chunk1)
+    first_s = time.perf_counter() - t0
+    built = T.launch_counts()
+    st_c = tr.state_dict()
+    prog = _program(tr, k)
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    captured = {n: built[n] - per_step[n] * scan_driver.WARMUP_STEPS for n in built}
+    want = {n: per_step[n] * k for n in per_step}
+    looped = []
+    for _ in range(2):  # the body eagerly from the same state, twice
+        _restore_in_place(torch, tr, start)
+        looped.append((losses(prog.loop(chunk1)), tr.state_dict()))
+    bitwise = _scan_compare(torch, f"{tag} K={k} captured vs the body run eagerly",
+                            start, looped[0][1], looped[1][1], st_c,
+                            _flat(looped[0][0]), _flat(l_c), failures)
+    _scan_compare(torch, f"{tag} K={k} captured vs {k} train_steps{form}", start, st_ec,
+                  st_ec, st_c, _flat(l_ec), _flat(l_c),
+                  failures if subject.get("gate_k_losses", True) else None,
+                  losses_only=True)
+    if adam:
+        _scan_compare(torch, f"{tag} K={k} captured vs {k} train_steps (Adam as built)",
+                      start, st_e, st_e, st_c, _flat(l_e), _flat(l_c), None)
+        _scan_compare(torch, f"{tag} K={k} torch's two forms: {k} train_steps with Adam "
+                      "capturable vs as built", start, st_e, st_e, st_ec, _flat(l_e),
+                      _flat(l_ec), None)
+    _restore_in_place(torch, tr, st_c)
+    before = T.launch_counts()
+    chunk(chunk2)
+    replay_adds = {n: T.launch_counts()[n] - before[n] for n in before}
+    log(f"[{tag}] K={k}: the first chunk built (warm-up {scan_driver.WARMUP_STEPS} "
+        f"steps + capture) in {first_s:.2f}s (capture {prog.capture_s:.2f}s), graph "
+        f"pool {prog.pool_bytes / 2**30:.3f} GiB; BN launches recorded in the graph "
+        f"{json.dumps(captured)} (want {json.dumps(want)} a replay); launches through "
+        f"the wrappers during a later chunk {json.dumps(replay_adds)} (a replay calls "
+        "none)")
+    if captured != want or any(replay_adds.values()):
+        failures.append(f"[{tag}] captured launches {captured} (want {want}), a "
+                        f"replay added {replay_adds}")
+    if "lr_at" in subject:
+        # the table holds the last fill, chunk 2's: schedule steps k..2k-1
+        table = prog.chunk.opt.lrs[:, 0].cpu()
+        want_lr = torch.tensor([subject["lr_at"](start, i) for i in range(k, 2 * k)],
+                               dtype=torch.float32)
+        sched = tr.lr_scheduler.last_epoch - start["opt_state"]["lr_scheduler"]["last_epoch"]
+        log(f"[{tag}] schedule across two chunks: chunk 2's lr table "
+            f"{table.tolist()} vs the cosine schedule's {want_lr.tolist()}; the "
+            f"scheduler advanced {sched} steps (want {2 * k})")
+        if not torch.equal(table, want_lr) or sched != 2 * k:
+            failures.append(f"[{tag}] the chunk's lr table does not follow the schedule")
+    torch.backends.cudnn.deterministic = determ
+    e_host, e_dev, e_peak = _timed_calls(torch, lambda: eager(steps[0]), SCAN_TIMED + 1)
+    e_host_med, e_dev_med = statistics.median(e_host[1:]), statistics.median(e_dev[1:])
+    out = {"eager": {"host_ms": e_host_med, "device_ms": e_dev_med,
+                     "img_s": subject["images"] / e_host_med * 1e3,
+                     "steady_peak_bytes": e_peak},
+           "bitwise_vs_loop": bitwise}
+    log(f"[{tag}] eager step: host median {e_host_med:.3f} ms, CUDA events "
+        f"{e_dev_med:.3f} ms ({subject['images'] / e_host_med * 1e3:.1f} img/s), "
+        f"peak above the step's start {e_peak / 2**30:.3f} GiB [{card}]")
+    for kk in SCAN_KS:
+        stacked = stack(steps[:kk])
+        tr.program_caches[0].clear()
+        t0 = time.perf_counter()
+        chunk(stacked)
+        build_s = time.perf_counter() - t0
+        p = _program(tr, kk)
+        host, dev, peak = _timed_calls(torch, lambda: chunk(stacked), SCAN_TIMED)
+        h, d = statistics.median(host) / kk, statistics.median(dev) / kk
+        out[f"k{kk}"] = {"host_ms": h, "device_ms": d, "img_s": subject["images"] / h * 1e3,
+                         "capture_s": p.capture_s, "build_s": build_s,
+                         "pool_bytes": p.pool_bytes, "call_peak_bytes": peak}
+        log(f"[{tag}] captured K={kk}: a step host {h:.3f} ms, CUDA events {d:.3f} ms "
+            f"(median of {SCAN_TIMED} chunks / K; {subject['images'] / h * 1e3:.1f} img/s, "
+            f"{e_host_med / h:.2f}x eager); capture {p.capture_s:.2f}s (build "
+            f"{build_s:.2f}s); graph pool {p.pool_bytes / 2**30:.3f} GiB vs the eager "
+            f"steady peak {e_peak / 2**30:.3f} GiB; a call's own peak "
+            f"{peak / 2**30:.3f} GiB [{card}]")
+    last = stack(steps[:SCAN_KS[-1]])
+    profile_window(torch, lambda: [chunk(last) for _ in range(2)], f"{tag}-profile",
+                   "BN kernels", _is_bn_kernel, card,
+                   window=f"2 chunks of K={SCAN_KS[-1]} ({2 * SCAN_KS[-1]} steps)")
+    return out
+
+
+def _dp_losses(out) -> list:
+    return [[v] for v in out["loss"].tolist()]
+
+
+def _scan_resnet(torch, T, card, failures):
+    """ResNet-50 SyncBN bf16 at batch 64, 224², the ImageNet example's SGD
+    (Nesterov, weight decay) and its cosine LambdaLR; then the
+    stale-address check."""
+    from tpu_syncbn_torch import imagenet_resnet50
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    model, dp = _resnet_trainer(torch, decay_steps=SCAN_DECAY)
+    steps = [_trainer_batch(torch, 300 + i) for i in range(max(2 * SCAN_STEPS, SCAN_KS[-1]))]
+    base = dp.optimizer.param_groups[0]["initial_lr"]
+    subject = {
+        "trainer": dp, "steps": steps, "images": BATCH, "losses": _dp_losses,
+        "stack": scan_driver.stack_batches,
+        "eager": lambda b: [float(dp.train_step(b).loss)],
+        "chunk": lambda s: [[v] for v in dp.train_steps_batches(s).loss.tolist()],
+        # bf16 at lr 0.1 from initialization: the eager steps' own fourth
+        # loss moves ~2 % between processes (cuDNN's autotuned algorithms),
+        # so the K-step losses against train_step are shown; the one-step
+        # check holds the update against torch's
+        "gate_k_losses": False,
+        "lr_at": lambda start, i: base * imagenet_resnet50.cosine_decay(
+            start["opt_state"]["lr_scheduler"]["last_epoch"] + i, SCAN_DECAY),
+    }
+    out = _scan_path(torch, T, "scan/resnet50", subject,
+                     dict.fromkeys(MOVES, BN_LAYERS), card, failures)
+    # stale addresses: load a different state (it replaces the optimizer's
+    # tensors); the next chunk must equal the body run eagerly from it
+    other = dp.state_dict()
+    for _ in range(2):
+        dp.train_step(steps[0])
+    held = next(iter(dp.program_caches[0].values()))
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dp.load_state_dict(other)
+    stale, emptied = held.stale(), len(dp.program_caches[0]) == 0
+    chunk1 = scan_driver.stack_batches(steps[:SCAN_STEPS])
+    l_c = subject["chunk"](chunk1)
+    st_c = dp.state_dict()
+    prog = _program(dp, SCAN_STEPS)
+    looped = []
+    for _ in range(2):
+        _restore_in_place(torch, dp, other)
+        looped.append((_dp_losses(prog.loop(chunk1)), dp.state_dict()))
+    log(f"[scan/resnet50] stale addresses: after load_state_dict the program "
+        f"held before it reads stale: {stale}; the cache emptied: {emptied}")
+    n_fail = len(failures)
+    _scan_compare(torch, "scan/resnet50 after load_state_dict, captured vs the body "
+                  "run eagerly", other, looped[0][1], looped[1][1], st_c,
+                  _flat(looped[0][0]), _flat(l_c), failures)
+    torch.backends.cudnn.deterministic = determ
+    if not (stale and emptied):
+        failures.append("[scan/resnet50] load_state_dict left a stale program cached")
+    out["stale_gate"] = stale and emptied and len(failures) == n_fail
+    del dp, model
+    return out
+
+
+def _scan_dcgan(torch, T, card, failures):
+    """DCGAN at full width (latent 128, G width 256, D width 64), f32,
+    batch 64, Adam(2e-4, β₁ 0.5) made capturable: GANTrainer.train_steps."""
+    from tpu_syncbn_torch import models, nn, parallel
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    def build():
+        G = nn.convert_sync_batchnorm(models.DCGANGenerator(
+            latent_dim=128, device="cuda", generator=torch.Generator().manual_seed(0)))
+        D = nn.convert_sync_batchnorm(models.DCGANDiscriminator(
+            device="cuda", generator=torch.Generator().manual_seed(1)))
+        return parallel.GANTrainer(
+            G, D, torch.optim.Adam(G.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+            torch.optim.Adam(D.parameters(), lr=2e-4, betas=(0.5, 0.999)), device="cuda")
+
+    tr = build()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    steps = [(torch.rand(GAN_BATCH, 32, 32, 3, device="cuda", generator=g) * 2 - 1,
+              torch.randn(GAN_BATCH, 128, device="cuda", generator=g),
+              torch.randn(GAN_BATCH, 128, device="cuda", generator=g))
+             for _ in range(max(2 * SCAN_STEPS, SCAN_KS[-1]))]
+
+    def eager(b):
+        o = tr.train_step(*b)
+        return [float(o.d_loss), float(o.g_loss)]
+
+    def chunk(s):
+        o = tr.train_steps(*s)
+        return [list(v) for v in zip(o.d_loss.tolist(), o.g_loss.tolist())]
+
+    # the biases a BatchNorm follows (G: fc, the deconvs; D: conv2, conv3)
+    names = {"g": ["fc.bias"] + [f"deconvs.{i}.bias" for i in range(3)],
+             "d": ["conv2.bias", "conv3.bias"]}
+    cancel = []
+    for net, model, _ in tr._nets():
+        order = [n for n, _ in model.named_parameters()]
+        for n in names[net]:
+            cancel += [f"/{net}_params/{n}", f"/{net}_opt_state/state/{order.index(n)}/"]
+    subject = {"trainer": tr, "steps": steps, "images": GAN_BATCH, "eager": eager,
+               "chunk": chunk, "stack": scan_driver.stack_batches,
+               "cancel": cancel, "lr": 2e-4,
+               "losses": lambda o: [list(v) for v in zip(o["d_loss"].tolist(),
+                                                         o["g_loss"].tolist())]}
+    per = {k: GAN_FWD if k in FORWARD else GAN_BWD for k in MOVES}
+    out = _scan_path(torch, T, "scan/dcgan", subject, per, card, failures)
+    nbt = {net: sorted({int(m.num_batches_tracked) for m in model.modules()
+                        if isinstance(m, nn.BatchNorm)})
+           for net, model in (("G", tr.generator), ("D", tr.discriminator))}
+    log(f"[scan/dcgan] num_batches_tracked after the timed chunks {json.dumps(nbt)} "
+        f"(+2 G / +3 D an iteration: {tr.step_count} iterations)")
+    if nbt != {"G": [2 * tr.step_count], "D": [3 * tr.step_count]}:
+        failures.append(f"[scan/dcgan] num_batches_tracked {nbt}")
+    return out
+
+
+def _scan_retinanet(torch, T, card, failures):
+    """RetinaNet-R50-FPN at 512², batch 2, f32, Adam(1e-3) made capturable,
+    under DataParallel: its loss (per-image matching, one-hot targets,
+    gathers by index) reads no device value on the host, so it captures."""
+    from tpu_syncbn_torch import data, models, nn, parallel
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    model = nn.convert_sync_batchnorm(models.retinanet_r50_fpn(
+        num_classes=80, image_size=(RN_SIDE, RN_SIDE), device="cuda"))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    dp = parallel.DataParallel(model, opt, lambda m, b: m.loss(*b), device="cuda")
+    ds = data.SyntheticDetectionDataset(length=RN_BATCH * SCAN_KS[-1],
+                                        image_size=(RN_SIDE, RN_SIDE),
+                                        num_classes=80, max_boxes=RN_BOXES)
+    loader = data.DataLoader(ds, batch_size=RN_BATCH, num_workers=0, drop_last=True)
+    steps = [data.loader._map_arrays(lambda a: torch.as_tensor(a).cuda(), b)
+             for b in loader]
+    subject = {"trainer": dp, "steps": steps, "images": RN_BATCH, "losses": _dp_losses,
+               "stack": scan_driver.stack_batches,
+               "eager": lambda b: [float(dp.train_step(b).loss)],
+               "chunk": lambda s: [[v] for v in dp.train_steps_batches(s).loss.tolist()]}
+    out = _scan_path(torch, T, "scan/retinanet", subject,
+                     dict.fromkeys(MOVES, BN_LAYERS), card, failures)
+    del dp, model, opt
+    return out
+
+
+def phase_scan(torch, card):
+    """K steps as one CUDA graph for each path (ROADMAP A.8). Returns
+    (failures, numbers by path)."""
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t0 = time.perf_counter()
+    failures, out = [], {}
+    for name, fn in (("resnet50", _scan_resnet), ("dcgan", _scan_dcgan),
+                     ("retinanet", _scan_retinanet)):
+        t1 = time.perf_counter()
+        out[name] = fn(torch, T, card, failures)
+        torch.cuda.empty_cache()
+        log(f"[scan/{name}] done in {time.perf_counter() - t1:.1f}s")
+    log(f"[scan] phase done in {time.perf_counter() - t0:.1f}s, {len(failures)} failures")
+    return failures, out
+
+
+RES_CHUNKS, RES_K = 3, 4  # ResilientLoop's chunks of K steps
+
+
+def _resilience_chunks(torch, n_chunks, seed, poison=None):
+    from tpu_syncbn_torch.parallel import scan_driver
+    from tpu_syncbn_torch.testing import faults
+
+    steps = [_trainer_batch(torch, seed + i) for i in range(n_chunks * RES_K)]
+    if poison is not None:
+        steps = list(faults.poison_nan(steps, poison))
+    return [scan_driver.stack_batches(steps[i:i + RES_K])
+            for i in range(0, len(steps), RES_K)]
+
+
+def _params_sum(torch, model) -> float:
+    return float(sum(p.detach().double().sum() for p in model.parameters()))
+
+
+def _resilience_child(d: str) -> int:
+    """``chip_smoke.py --resilience-child DIR``: the full-width ResNet
+    slice under ResilientLoop(scan_steps=4, async checkpoints), SIGTERM
+    delivered before the second chunk; prints the summary and the sum of
+    the parameters as its last line."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.testing import faults
+
+    model, dp = _resnet_trainer(torch)
+    chunks = _resilience_chunks(torch, RES_CHUNKS, 500)
+    with runtime.ResilientLoop(dp, d, ckpt_every=100, scan_steps=RES_K,
+                               async_checkpoint=True) as loop:
+        summary = loop.run(faults.signal_at(iter(chunks), at_step=1))
+    summary["params_sum"] = _params_sum(torch, model)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+def phase_resilience(torch, card):
+    """ResilientLoop over the full-width ResNet slice with scan_steps=4 and
+    async checkpoints: a NaN step restored from the last good checkpoint;
+    SIGTERM in a child process checkpointing at the chunk boundary and
+    exiting 0, then resumed here. Returns (failures, summary)."""
+    import tempfile
+
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    failures, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resilience_") as d:
+        model, dp = _resnet_trainer(torch, divergence_guard="restore_last_good")
+        # step 5 (inside the second chunk) sees NaN images
+        chunks = _resilience_chunks(torch, RES_CHUNKS, 400, poison=RES_K + 1)
+        t1 = time.perf_counter()
+        with runtime.ResilientLoop(dp, os.path.join(d, "nan"), ckpt_every=RES_K,
+                                   keep=5, scan_steps=RES_K, async_checkpoint=True) as loop:
+            summary = loop.run(iter(chunks))
+        kept = ckpt.verified_steps(os.path.join(d, "nan"))
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+        ok = (summary["divergence_restores"] == 1 and summary["nonfinite_steps"] == 1
+              and summary["steps"] == RES_CHUNKS * RES_K and summary["step"] == 2 * RES_K
+              and kept == [RES_K, 2 * RES_K] and finite)
+        log(f"[resilience] restore_last_good, {RES_CHUNKS} chunks of {RES_K} with NaN "
+            f"images at step {RES_K + 2}: {json.dumps(summary)}; verified checkpoints "
+            f"{kept}; parameters finite {finite}; {time.perf_counter() - t1:.1f}s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[resilience] the NaN chunk was not restored from the last "
+                            "good checkpoint")
+        out["nan_restore"] = summary
+        del dp, model
+        torch.cuda.empty_cache()
+
+        pre = os.path.join(d, "preempt")
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                            "--resilience-child", pre], cwd=HERE,
+                           env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                           text=True, timeout=600)
+        child_s = time.perf_counter() - t1
+        lines = r.stdout.strip().splitlines()
+        child = json.loads(lines[-1]) if r.returncode == 0 and lines else None
+        kept = ckpt.verified_steps(pre)
+        log(f"[resilience] SIGTERM child: exit {r.returncode} in {child_s:.1f}s, summary "
+            f"{json.dumps(child)}; verified checkpoints {kept}")
+        if child is None or not child["preempted"] or child["step"] != 2 * RES_K \
+                or kept != [2 * RES_K]:
+            failures.append(f"[resilience] SIGTERM child: exit {r.returncode} "
+                            f"{r.stderr[-2000:]}")
+        else:
+            model, dp = _resnet_trainer(torch)
+            with runtime.ResilientLoop(dp, pre, scan_steps=RES_K) as loop:
+                resumed = loop.resume()
+                same = _params_sum(torch, model) == child["params_sum"]
+                more = loop.run(iter(_resilience_chunks(torch, 1, 600)))
+            ok = resumed == 2 * RES_K and same and more["step"] == 3 * RES_K
+            log(f"[resilience] resumed at step {resumed} (want {2 * RES_K}), parameters "
+                f"equal the child's at its exit: {same}; one more chunk to step "
+                f"{more['step']} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("[resilience] the resume did not continue from the "
+                                "preemption boundary")
+            del dp, model
+        out["preempt"] = child
+    log(f"[resilience] phase done in {time.perf_counter() - t0:.1f}s, "
+        f"{len(failures)} failures [{card}]")
+    return failures, out
+
+
+# -- phases 14-17: the attention kernels and the transformer LM -------------
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
 ATTN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -2791,6 +3490,8 @@ def main() -> int:
     os.environ["TRITON_CACHE_DIR"] = os.path.join(
         HERE, "tpu_syncbn_torch", "_build", "triton")
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--resilience-child"]:  # phase_resilience's child
+        return _resilience_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -2839,6 +3540,13 @@ def main() -> int:
     failures += rn_failures
     bench_failures, bench_line = phase_bench()
     failures += bench_failures
+    torch.cuda.empty_cache()
+    scan_failures, scan = phase_scan(torch, card)
+    failures += scan_failures
+    torch.cuda.empty_cache()
+    res_failures, resilience = phase_resilience(torch, card)
+    failures += res_failures
+    torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -2896,7 +3604,8 @@ def main() -> int:
                        "iteration_ms": gan_meds[arch]} for arch in gan_launches},
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
-        "bench": bench_line}}), flush=True)
+        "bench": bench_line, "scan": scan, "resilience": resilience}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -14,7 +14,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
-        "device_kind", "host_load_1m"}
+        "device_kind", "host_load_1m", "recovery", "scan"}
+RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
+                 "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
+                 "async_manifest_verified", "resume_after_kill_s",
+                 "resumed_step_after_kill", "ckpt_bytes"}
+SCAN_KEYS = {"k", "host_gap_frac_scan1", "dispatch_frac_scan1", "chunks",
+             "host_gap_frac", "dispatch_frac", "img_per_sec_per_chip"}
 
 
 def test_bench_on_the_cpu_prints_its_line():
@@ -36,6 +42,34 @@ def test_bench_on_the_cpu_prints_its_line():
     # ResNet-50 at 32²: ~0.17 GFLOP an image forward, x3 with the
     # backward, for 2 images (convolutions and the classifier only)
     assert 0.8e9 < line["flops_per_step"] < 1.3e9
+    # the recovery block (bench.py's): a killed newest write falls back to
+    # step 1, and the async write certifies
+    rec = line["recovery"]
+    assert set(rec) == RECOVERY_KEYS
+    assert rec["resumed_step_after_kill"] == 1 and rec["async_manifest_verified"]
+    assert rec["ckpt_bytes"] > 0
+    assert set(line["scan"]) == SCAN_KEYS and line["scan"]["k"] == 1
+    assert line["scan"]["chunks"] == 2
+
+
+def test_bench_scan_block_on_the_cpu():
+    """``--scan 2``: the same batch through ``train_steps_batches`` on
+    2-stacked copies, ceil(steps / 2) chunks: 3 steps time 2 chunks, at
+    least as many steps as the per-step loop."""
+    env = dict(os.environ, PYTHONPATH=ROOT, BENCH_PER_CHIP_BATCH="2",
+               BENCH_STEPS="3", BENCH_IMAGE_SIDE="32")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench",
+                        "--device", "cpu", "--scan", "2"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    scan = json.loads(r.stdout.strip().splitlines()[-1])["scan"]
+    assert set(scan) == SCAN_KEYS
+    assert scan["k"] == 2 and scan["chunks"] == 2
+    for k in ("host_gap_frac", "dispatch_frac", "host_gap_frac_scan1",
+              "dispatch_frac_scan1"):
+        assert 0.0 <= scan[k] <= 1.0, k
+    assert scan["img_per_sec_per_chip"] > 0
 
 
 def test_bench_config_defaults_and_overrides(monkeypatch):

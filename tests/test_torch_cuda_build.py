@@ -10,6 +10,7 @@ import re
 import shutil
 import stat
 
+import numpy as np
 import pytest
 
 import torch
@@ -205,3 +206,41 @@ def test_cuda_bn_raises_when_its_launcher_returns_an_error(monkeypatch, stub_lib
         B.stats(x2)
     with pytest.raises(RuntimeError, match="bn_normalize: CUDA error 7: stub error"):
         B.normalize(x2, torch.ones(6), torch.zeros(6))
+
+
+# -- bn_stats's arrival counters under graph capture ---------------------------
+
+
+@pytest.mark.parametrize("n_sm", [1, 66, 78, 114, 132, 144])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_stats_counters_cover_every_plan_below_the_group_cap(n_sm, itemsize):
+    """The counters allocated at first use (``counter_capacity``) cover
+    the column blocks of every (M, C) plan up to 512 · capacity channel
+    groups, so a captured graph never needs them to grow; past that C the
+    plan asks for more."""
+    cap = B.counter_capacity(n_sm)
+    vec = 16 // itemsize
+    top = 512 * cap * vec
+    rs = np.random.RandomState(n_sm)
+    cs = sorted(set([1, 3, 64, 2048, top - 1, top] + list(rs.randint(1, top, 200))))
+    for c in cs:
+        for m in (1, 4096, 10 ** 6):
+            assert B.stats_plan(m, int(c), itemsize, n_sm)[1] <= cap, (m, c)
+    assert B.stats_plan(64, top + vec, itemsize, n_sm)[1] == cap + 1
+
+
+def test_stats_counters_are_never_replaced_after_a_capture(monkeypatch):
+    monkeypatch.setattr(B, "_COUNTERS", {})
+    monkeypatch.setattr(B, "_CAPTURED", set())
+    dev = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="before capturing"):
+        B._counters(dev, 8, 132, capturing=True)  # a first call under capture
+    buf = B._counters(dev, 8, 132)
+    assert buf.numel() == B.counter_capacity(132) and int(buf.abs().sum()) == 0
+    assert B._counters(dev, 100, 132, capturing=True) is buf  # recorded
+    with pytest.raises(RuntimeError, match="captured CUDA graph"):
+        B._counters(dev, buf.numel() + 1, 132)
+    assert B._COUNTERS[None] is buf
+    # before any capture a larger plan still grows the buffer
+    monkeypatch.setattr(B, "_CAPTURED", set())
+    assert B._counters(dev, buf.numel() + 1, 132).numel() == buf.numel() + 1

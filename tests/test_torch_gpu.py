@@ -628,3 +628,156 @@ def test_retinanet_step_launches_each_bn_kernel_53_times(cuda_triton):
     torch.cuda.synchronize()
     assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 53)
     assert np.isfinite(float(out.loss))
+
+
+# -- K steps as one CUDA graph (parallel.scan_driver) --------------------------
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, so an eager run repeats itself
+    and a replay can be held against it bit for bit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prev
+
+
+def _body_run_eagerly(dp, chunk):
+    """The K-step body of ``dp`` (a fresh program, captured and then not
+    replayed) run eagerly from ``dp``'s state on ``chunk``: the plain
+    version of ``train_steps_batches``."""
+    from tpu_syncbn_torch.parallel import scan_driver
+    from tpu_syncbn_torch.parallel.trainer import _schedule_lrs
+
+    k = scan_driver.scan_length(chunk)
+    prog = dp._build_program(k, True, chunk)
+    prog.chunk.opt.fill(_schedule_lrs(dp.optimizer, dp.lr_scheduler, k))
+    prog.chunk.lr_scale.fill_(dp.guard_state["lr_scale"])
+    prog.chunk.count.fill_(dp.guard_state["nonfinite_count"])
+    return prog.loop(chunk)
+
+
+def _same_training_state(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    same = all(torch.equal(sa[p][k], sb[p][k]) for p in ("params", "rest") for k in sa[p])
+    oa, ob = sa["opt_state"]["optimizer"]["state"], sb["opt_state"]["optimizer"]["state"]
+    return same and all(torch.equal(oa[i][k].cpu(), ob[i][k].cpu())
+                        for i in oa for k in oa[i])
+
+
+def test_train_steps_batches_replays_the_body_bit_for_bit(cuda_triton, deterministic_cudnn):
+    """K = 3 steps under ``skip_step`` with a NaN image in step 2: one
+    graph replay, equal bit for bit to the same body run eagerly from the
+    same weights; the graph recorded 20 BN layers x 3 launches of each
+    kernel (and 2 warm-up steps went through the wrappers), and a second
+    chunk launches nothing through them."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    batches = [_card_batch(i, nan_image=3 if i == 1 else None) for i in range(3)]
+    chunk = scan_driver.stack_batches(batches)
+    _, dp = _card_trainer(divergence_guard="skip_step")
+    T.reset_launch_counts()
+    out = dp.train_steps_batches(chunk)
+    assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 20 * (scan_driver.WARMUP_STEPS + 3))
+    prog = next(iter(dp.program_caches[0].values()))
+    assert prog.graph is not None and prog.pool_bytes > 0
+    assert out.metrics["nonfinite"].tolist() == [0.0, 1.0, 0.0]
+    assert dp.guard_state == {"lr_scale": 1.0, "nonfinite_count": 1}
+    assert dp.lr_scheduler.last_epoch == 2  # the skipped step took no lr
+    _, ref = _card_trainer(divergence_guard="skip_step")
+    want = _body_run_eagerly(ref, chunk)
+    torch.testing.assert_close(out.loss, want["loss"], rtol=0, atol=0, equal_nan=True)
+    assert _same_training_state(dp, ref)
+    counts = T.launch_counts()
+    dp.train_steps_batches(chunk)
+    assert T.launch_counts() == counts
+
+
+def test_a_loaded_state_rebuilds_the_graph(cuda_triton, deterministic_cudnn):
+    """``load_state_dict`` replaces the optimizer's tensors: the program
+    captured before reads stale and refuses to replay, the cache is
+    emptied, and the next chunk (a new capture) equals the body run
+    eagerly from the loaded state."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    chunk = scan_driver.stack_batches([_card_batch(i) for i in range(2)])
+    _, dp = _card_trainer()
+    dp.train_steps_batches(chunk)
+    held = next(iter(dp.program_caches[0].values()))
+    saved = dp.state_dict()
+    dp.train_steps_batches(chunk)
+    dp.load_state_dict(saved)
+    assert held.stale() and len(dp.program_caches[0]) == 0
+    with pytest.raises(RuntimeError, match="replaced"):
+        held(chunk)
+    out = dp.train_steps_batches(chunk)
+    _, ref = _card_trainer()
+    ref.load_state_dict(saved)
+    want = _body_run_eagerly(ref, chunk)
+    assert torch.equal(out.loss, want["loss"])
+    assert _same_training_state(dp, ref)
+
+
+def test_bn_stats_counters_are_not_replaced_under_a_captured_graph(cuda_triton):
+    """After a graph recorded ``bn_stats``, a shape needing more arrival
+    counters than were allocated raises instead of replacing the buffer
+    the graph writes; the graph still replays right."""
+    from tpu_syncbn_torch.ops import cuda_bn
+
+    x, _, _, _ = inputs(4096, 256, torch.bfloat16, seed=5)
+    first = flat_stats(T.bn_stats(x))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = T.bn_stats(x)
+    cap = cuda_bn.counter_capacity(torch.cuda.get_device_properties(0).multi_processor_count)
+    wide = torch.zeros(1, 512 * cap * 8 + 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="captured CUDA graph"):
+        T.bn_stats(wide)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(flat_stats(captured), first)
+
+
+def test_gan_train_steps_replays_the_iterations_bit_for_bit(cuda_triton, deterministic_cudnn):
+    """Two DCGAN iterations (narrow widths, Adam made capturable) as one
+    graph: 14 / 10 BN launches an iteration recorded, num_batches_tracked
+    +4 in G and +6 in D, and the same losses and weights as the two
+    iterations run eagerly through the same body."""
+    from tpu_syncbn_torch import models, parallel
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    def build():
+        G = nn.convert_sync_batchnorm(models.DCGANGenerator(
+            latent_dim=8, width=16, device="cuda", generator=torch.Generator().manual_seed(0)))
+        D = nn.convert_sync_batchnorm(models.DCGANDiscriminator(
+            width=8, device="cuda", generator=torch.Generator().manual_seed(1)))
+        return parallel.GANTrainer(
+            G, D, torch.optim.Adam(G.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+            torch.optim.Adam(D.parameters(), lr=2e-4, betas=(0.5, 0.999)), device="cuda")
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    real = torch.rand(2, 16, 32, 32, 3, device="cuda", generator=g) * 2 - 1
+    z_d, z_g = torch.randn(2, 2, 16, 8, device="cuda", generator=g)
+    tr = build()
+    T.reset_launch_counts()
+    out = tr.train_steps(real, z_d, z_g)
+    per = scan_driver.WARMUP_STEPS + 2
+    assert T.launch_counts() == {"bn_stats": 14 * per, "bn_normalize": 14 * per,
+                                 "bn_backward_reduce": 10 * per,
+                                 "bn_backward_elemt": 10 * per}
+    assert all(grp["capturable"] for o in (tr.g_optimizer, tr.d_optimizer)
+               for grp in o.param_groups)
+    assert {int(m.num_batches_tracked) for m in tr.generator.modules()
+            if isinstance(m, nn.BatchNorm)} == {4}
+    assert {int(m.num_batches_tracked) for m in tr.discriminator.modules()
+            if isinstance(m, nn.BatchNorm)} == {6}
+    ref = build()
+    prog = ref._build_program(2, (real, z_d, z_g))
+    for opt in (ref.g_optimizer, ref.d_optimizer):
+        prog.opts[id(opt)].fill([[grp["lr"] for grp in opt.param_groups]] * 2)
+    want = prog.loop((real, z_d, z_g))
+    assert torch.equal(out.d_loss, want["d_loss"]) and torch.equal(out.g_loss, want["g_loss"])
+    sa, sb = tr.state_dict(), ref.state_dict()
+    for key in ("g_params", "d_params", "g_rest", "d_rest"):
+        assert all(torch.equal(sa[key][k], sb[key][k]) for k in sa[key]), key

@@ -7,12 +7,13 @@ JSON line:
      "unit": "img/s/gpu", "backend", "bn_backend", "chips", "per_chip_batch",
      "image_side", "steps", "compile_warmup_s", "mfu", "flops_per_step",
      "flops_source", "peak_flops", "peak_source", "device_kind",
-     "host_load_1m"}
+     "host_load_1m", "recovery": {...}, "scan": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
 
     python -m tpu_syncbn_torch.bench
+    python -m tpu_syncbn_torch.bench --scan 8     # also the fused 8-step path
     BENCH_PER_CHIP_BATCH=32 BENCH_STEPS=20 BENCH_IMAGE_SIDE=224 python -m tpu_syncbn_torch.bench
 
 ``--device cpu`` (tests) runs a small config (batch 8, 20 steps at 64²,
@@ -28,6 +29,18 @@ and matrix-multiply work only, so BatchNorm, activations, the loss and
 the optimizer add nothing to ``flops_per_step`` (``flops_source``
 "torch-flop-counter"). The peak comes from :data:`PEAK_FLOPS`, keyed on
 ``torch.cuda.get_device_name()``; a card not in it gives ``mfu: null``.
+
+``recovery`` (:func:`measure_recovery`) is what robustness costs on the
+bench's training state: checkpoint round trips with and without the
+manifest, the async save's loop-visible cost, and the resume after a
+killed write. ``scan`` is the host-dispatch-gap fraction of the timed
+loop: 1 − (time inside the dispatch calls, by ``time.perf_counter``
+around each) / wall. With ``--scan K`` the same batch also runs through
+``DataParallel.train_steps_batches`` on K-stacked copies (one CUDA graph
+replay a chunk on the card), for ceil(steps / K) chunks (at least as
+many steps as the per-step loop), and the block
+gives that loop's fraction and img/s beside the per-step loop's
+(``host_gap_frac_scan1``).
 """
 
 from __future__ import annotations
@@ -35,7 +48,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import tempfile
 import time
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -75,7 +91,132 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(device: torch.device) -> dict:
+def measure_recovery(dp, *, repeats: int = 3) -> dict:
+    """The ``recovery`` block (``bench.py``'s ``measure_recovery``): on the
+    bench's training state, best of ``repeats`` each,
+
+    * ``ckpt_roundtrip_s`` — save + load through ``utils.checkpoint`` with
+      the manifest and its verification (the shipped path);
+    * ``ckpt_roundtrip_seed_s`` — the payload alone: the host snapshot, a
+      plain ``torch.save`` to bytes, the atomic write, the read and
+      ``torch.load``;
+    * ``manifest_overhead_s`` / ``_frac`` — the verification's own cost,
+      timed component by component (checksums at save and load, the tree
+      hash, the manifest's write and read) against the seed round trip;
+    * ``ckpt_async_enqueue_s`` / ``_flush_s`` — what the loop pays for an
+      ``AsyncCheckpointer.save`` and the wait for its writes, and whether
+      the async write certifies (``async_manifest_verified``);
+    * ``resume_after_kill_s`` — load when the newest checkpoint was
+      truncated mid-write: detection, fallback to the older verified step
+      (``resumed_step_after_kill``) and restore; ``ckpt_bytes``."""
+    from tpu_syncbn_torch.testing import faults
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    d = tempfile.mkdtemp(prefix="bench_recovery_")
+    try:
+        state = dp.state_dict()
+        template = dp.state_dict()
+
+        def timed(fn):
+            best = None
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                fn()
+                dt = time.perf_counter() - t0
+                best = dt if best is None else min(best, dt)
+            return best
+
+        def shipped():
+            ckpt.save_checkpoint(d, 1, state, keep=0)
+            ckpt.load_checkpoint(d, template)
+
+        seed_file = os.path.join(d, "seed.pt")
+
+        def seed():
+            ckpt._atomic_write(d, seed_file, ckpt._to_bytes(ckpt.snapshot_to_host(state)))
+            with open(seed_file, "rb") as f:
+                ckpt._from_bytes(f.read(), None)
+
+        shipped_s = timed(shipped)
+        seed_s = timed(seed)
+        ckpt_bytes = os.path.getsize(ckpt._path(d, 1))
+
+        async_dir = os.path.join(d, "async")
+        ac = ckpt.AsyncCheckpointer(keep=0, max_pending=repeats + 1)
+        async_step = [0]
+
+        def async_enqueue():
+            async_step[0] += 1
+            ac.save(async_dir, async_step[0], state)
+
+        async_enqueue_s = timed(async_enqueue)
+        t0 = time.perf_counter()
+        ac.flush()
+        async_flush_s = time.perf_counter() - t0
+        async_verified = ckpt.verify_checkpoint(async_dir, async_step[0])
+        ac.close()
+
+        host = ckpt.snapshot_to_host(state)
+        data = ckpt._to_bytes(host)
+
+        def verify_components():
+            ckpt.payload_sum64(data)  # save side
+            ckpt.payload_sum64(data)  # load side
+            if len(data) <= ckpt._CRC32_MAX_BYTES:
+                zlib.crc32(data)
+                zlib.crc32(data)
+            ckpt.tree_structure_hash(host)
+            mpath = os.path.join(d, "probe.manifest.json")
+            ckpt._atomic_write(d, mpath, b"{}" * 64)
+            with open(mpath, "rb") as f:
+                f.read()
+
+        overhead_s = timed(verify_components)
+
+        # an injected kill: the newest checkpoint truncated mid-write
+        ckpt.save_checkpoint(d, 1, state, keep=0)
+        ckpt.save_checkpoint(d, 2, state, keep=0)
+        faults.truncate_file(ckpt._path(d, 2))
+        t0 = time.perf_counter()
+        _, resumed_step = ckpt.load_checkpoint(d, template)
+        resume_s = time.perf_counter() - t0
+        return {
+            "ckpt_roundtrip_s": round(shipped_s, 4),
+            "ckpt_roundtrip_seed_s": round(seed_s, 4),
+            "manifest_overhead_s": round(overhead_s, 4),
+            "manifest_overhead_frac": round(overhead_s / seed_s, 4) if seed_s > 0 else None,
+            "ckpt_async_enqueue_s": round(async_enqueue_s, 4),
+            "ckpt_async_flush_s": round(async_flush_s, 4),
+            "async_manifest_verified": bool(async_verified),
+            "resume_after_kill_s": round(resume_s, 4),
+            "resumed_step_after_kill": resumed_step,
+            "ckpt_bytes": ckpt_bytes,
+        }
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _timed_loop(device, n: int, dispatch) -> tuple[float, float]:
+    """``(wall, in-dispatch)`` seconds of ``n`` calls of ``dispatch``, the
+    wall closed by a synchronize after the last."""
+    _sync(device)
+    inside = 0.0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        a = time.perf_counter()
+        dispatch()
+        inside += time.perf_counter() - a
+    _sync(device)
+    return time.perf_counter() - t0, inside
+
+
+def _gap(wall: float, inside: float) -> tuple[float, float]:
+    """``(host_gap_frac, dispatch_frac)`` of a timed loop."""
+    frac = inside / wall
+    return round(max(0.0, 1.0 - frac), 6), round(frac, 6)
+
+
+def run(device: torch.device, scan: int = 1) -> dict:
     """Build, warm up, count FLOPs, time; returns the JSON line's dict."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -104,12 +245,25 @@ def run(device: torch.device) -> dict:
         dp.train_step(batch)
     flops = float(counter.get_total_flops())
 
-    _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        dp.train_step(batch)
-    _sync(device)  # after the last optimizer step: every update is in
-    dt = time.perf_counter() - t0
+    # closed after the last optimizer step: every update is in
+    dt, inside = _timed_loop(device, steps, lambda: dp.train_step(batch))
+    gap1, dispatch1 = _gap(dt, inside)
+    scan_k = max(1, int(scan))
+    scan_info = {"k": scan_k, "host_gap_frac_scan1": gap1,
+                 "dispatch_frac_scan1": dispatch1, "chunks": steps,
+                 "host_gap_frac": gap1, "dispatch_frac": dispatch1,
+                 "img_per_sec_per_chip": round(bs * steps / dt, 2)}
+    if scan_k > 1:
+        chunk = tuple(t.expand(scan_k, *t.shape).clone() for t in batch)
+        dp.train_steps_batches(chunk)  # builds (captures) the program
+        chunks = -(-steps // scan_k)  # at least the per-step loop's steps
+        dt_k, inside_k = _timed_loop(device, chunks,
+                                     lambda: dp.train_steps_batches(chunk))
+        gap_k, dispatch_k = _gap(dt_k, inside_k)
+        scan_info.update({"chunks": chunks, "host_gap_frac": gap_k,
+                          "dispatch_frac": dispatch_k,
+                          "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
+    recovery = measure_recovery(dp)
 
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     peak, peak_source = PEAK_FLOPS.get(kind, (None, None)) if on_card else (None, None)
@@ -133,6 +287,8 @@ def run(device: torch.device) -> dict:
         "peak_source": peak_source,
         "device_kind": kind,
         "host_load_1m": _host_load(),
+        "recovery": recovery,
+        "scan": scan_info,
     }
 
 
@@ -140,11 +296,14 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--scan", type=int, default=1,
+                   help="also time K steps a dispatch (train_steps_batches "
+                        "over K-stacked copies of the batch)")
     args = p.parse_args(argv)
     from tpu_syncbn_torch import runtime
 
     device = runtime.initialize(args.device)
-    line = run(device)
+    line = run(device, scan=args.scan)
     runtime.master_print(json.dumps(line))
     runtime.shutdown()
     return line

@@ -27,7 +27,13 @@ the copy to the host); ``--resume`` restarts from the newest verified one
 in D at the epoch it was taken. ``--accum-steps K`` splits each batch
 into K microbatches with one gradient all-reduce;
 ``--divergence-guard`` skips a step whose loss or gradients are not
-finite.
+finite. ``--scan-steps K`` runs K optimizer steps as one program
+(``DataParallel.train_steps_batches`` over K-stacked chunks of
+``device_prefetch(scan_steps=K)``: one CUDA graph replay a chunk on the
+card); ``--data-deadline S`` raises ``StallError`` when a batch takes more
+than S seconds to arrive instead of hanging. SIGTERM or SIGINT finishes
+the step (or chunk) in flight, checkpoints the epoch it interrupted (with
+``--ckpt-dir``) and exits 0; ``--resume`` replays that epoch.
 
 Without ``--data-root`` a deterministic synthetic ImageNet-shaped dataset
 stands in; the pipeline, sharding and step are the same. The done line
@@ -104,6 +110,13 @@ def parse_args(argv=None):
     p.add_argument("--divergence-guard", default=None,
                    choices=["skip_step", "halve_lr", "restore_last_good"],
                    help="non-finite loss/grad policy (DataParallel)")
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help="fuse K optimizer steps into one program fed by "
+                        "K-stacked staging chunks (one CUDA graph replay a "
+                        "chunk on the card; 1 = per-step loop)")
+    p.add_argument("--data-deadline", type=float, default=None,
+                   help="seconds before a hung batch fetch raises "
+                        "StallError instead of hanging the job")
     p.add_argument("--async-ckpt", action="store_true",
                    help="checkpoint via the background AsyncCheckpointer "
                         "(the loop pays only the state snapshot)")
@@ -180,8 +193,9 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
     """Train and evaluate on the given datasets; returns the done line's
     numbers (``steps``, ``final_top1``, ``img_per_sec``, ``loss``), the
     epoch the run started at (``start_epoch``: 0, or the resumed
-    checkpoint's) and the per-step host times ``step_s`` and
-    ``data_wait_s`` of this run."""
+    checkpoint's), whether a signal cut it short (``preempted``), and the
+    per-step host times ``step_s`` (a chunk's time over its K steps) and
+    ``data_wait_s`` (per step or chunk) of this run."""
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     model = nn.convert_sync_batchnorm(models.resnet50(
         num_classes=args.num_classes, dtype=dtype, device=device,
@@ -253,6 +267,15 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
         else:
             utils.save_checkpoint(args.ckpt_dir, tag, dp.state_dict())
 
+    def train_batches():
+        it = tdata.device_prefetch(iter(loader), device=device,
+                                   scan_steps=args.scan_steps)
+        if args.data_deadline:
+            # a wedged data worker becomes a catchable StallError at the
+            # deadline instead of an indefinite hang
+            it = runtime.stall_guard(it, args.data_deadline, name="train-batch")
+        return it
+
     tput = utils.ThroughputMeter()
     # a resumed run keeps the logged step monotonic across runs (the JSONL
     # file is append-mode); len(loader) is the real steps an epoch
@@ -260,40 +283,62 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
     loss = float("nan")
     step_s, data_wait_s = [], []
     last_eval = None
+    preempted = False
     scalars = utils.ScalarLogger(args.metrics_log) if args.metrics_log else None
     try:
-        for epoch in range(start_epoch, args.epochs):
-            sampler.set_epoch(epoch)
-            batches = tdata.device_prefetch(iter(loader), device=device)
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                t1 = time.perf_counter()
-                if batch is None:
+        # SIGTERM/SIGINT (a preemption notice): finish the step or chunk in
+        # flight, checkpoint at the epoch boundary, exit 0; the restarted
+        # job resumes at this epoch with --resume
+        with runtime.PreemptionGuard() as guard:
+            for epoch in range(start_epoch, args.epochs):
+                sampler.set_epoch(epoch)
+                batches = train_batches()
+                while not guard.preempted:
+                    t0 = time.perf_counter()
+                    batch = next(batches, None)
+                    t1 = time.perf_counter()
+                    if batch is None:
+                        break
+                    if args.scan_steps > 1:
+                        # a K-stacked chunk: one program, stacked outputs
+                        out = dp.train_steps_batches(batch)
+                        k = int(out.loss.shape[0])
+                        loss, top1 = float(out.loss[-1]), float(out.metrics["top1"][-1])
+                    else:
+                        out = dp.train_step(batch)
+                        k = 1
+                        loss, top1 = float(out.loss), float(out.metrics["top1"])
+                    t2 = time.perf_counter()  # float() waited for the step
+                    data_wait_s.append(t1 - t0)
+                    step_s.append((t2 - t0) / k)
+                    step += k
+                    tput.tick(args.batch_size * k)
+                    if step % 10 < k:
+                        runtime.master_print(
+                            f"e{epoch} s{step}: loss {loss:.4f} top1 {top1:.3f} "
+                            f"{tput.samples_per_sec:.0f} img/s"
+                        )
+                        if scalars:
+                            scalars.log(step, epoch=epoch, loss=loss, top1=top1,
+                                        img_per_sec=tput.samples_per_sec)
+                if guard.preempted:
+                    # tagged with the CURRENT epoch: the resume replays it
+                    # from its deterministic sampler order
+                    save_ckpt(epoch)
+                    if async_ckpt is not None:
+                        async_ckpt.flush()  # durable before the exit
+                    log.warning("preempted: checkpointed at epoch %d boundary; "
+                                "exiting cleanly", epoch)
+                    preempted = True
                     break
-                out = dp.train_step(batch)
-                loss, top1 = float(out.loss), float(out.metrics["top1"])
-                t2 = time.perf_counter()  # float() waited for the step
-                data_wait_s.append(t1 - t0)
-                step_s.append(t2 - t0)
-                step += 1
-                tput.tick(args.batch_size)
-                if step % 10 == 0:
-                    runtime.master_print(
-                        f"e{epoch} s{step}: loss {loss:.4f} top1 {top1:.3f} "
-                        f"{tput.samples_per_sec:.0f} img/s"
-                    )
+                save_ckpt(epoch + 1)
+                if args.eval_every and (epoch + 1) % args.eval_every == 0:
+                    last_eval = run_eval()
+                    runtime.master_print(f"epoch {epoch}: val top1 {last_eval:.4f}")
                     if scalars:
-                        scalars.log(step, epoch=epoch, loss=loss, top1=top1,
-                                    img_per_sec=tput.samples_per_sec)
-            save_ckpt(epoch + 1)
-            if args.eval_every and (epoch + 1) % args.eval_every == 0:
-                last_eval = run_eval()
-                runtime.master_print(f"epoch {epoch}: val top1 {last_eval:.4f}")
-                if scalars:
-                    scalars.log(step, epoch=epoch, val_top1=last_eval)
-            else:
-                last_eval = None  # the model changed since the last eval
+                        scalars.log(step, epoch=epoch, val_top1=last_eval)
+                else:
+                    last_eval = None  # the model changed since the last eval
         if async_ckpt is not None:
             async_ckpt.close()  # every write durable (or raised) before eval
         final_top1 = last_eval if last_eval is not None else run_eval()
@@ -313,7 +358,7 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
                 log.exception("async checkpoint close failed at exit")
     steady = slice(1, None) if len(step_s) > 1 else slice(None)
     summary = {
-        "steps": step, "start_epoch": start_epoch,
+        "steps": step, "start_epoch": start_epoch, "preempted": preempted,
         "final_top1": final_top1, "loss": loss,
         "img_per_sec": tput.samples_per_sec,
         "step_s": step_s, "data_wait_s": data_wait_s,

@@ -53,8 +53,12 @@ _ARGTYPES = {
 }
 
 # the arrival counters of bn_stats, one int32 per column block, per device:
-# allocated zeroed once, and left at zero by every launch
+# allocated zeroed once, at counter_capacity(n_sm) entries, and left at zero
+# by every launch. Once a CUDA graph has recorded a launch on a device its
+# buffer is never replaced (the graph holds its address): a shape needing
+# more counters raises instead.
 _COUNTERS: dict = {}
+_CAPTURED: set = set()
 
 
 def stats_plan(m: int, c: int, itemsize: int, n_sm: int) -> tuple[int, int, int, int]:
@@ -103,19 +107,39 @@ def _launch(name: str, *args, device) -> None:
     _cuda_build.check(lib, err, name)
 
 
-def _counters(device, n: int) -> torch.Tensor:
+def counter_capacity(n_sm: int) -> int:
+    """Arrival counters allocated for a device of ``n_sm`` SMs: enough for
+    every plan of :func:`stats_plan` whose column blocks stay under the
+    512-group cap, i.e. every C up to ``512 · capacity`` channel groups
+    (over 4 million bf16 channels)."""
+    return max(1024, _STATS_BLOCKS_PER_SM * n_sm)
+
+
+def _counters(device, n: int, n_sm: int, capturing: bool | None = None) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters on ``device``. Every
     ``bn_stats`` launch on a device shares them, so calls on one device
-    run in order on one stream at a time (as every caller in the port)."""
+    run in order on one stream at a time (as every caller in the port,
+    a graph replay included). The buffer is made once, before any
+    capture; after a capture on the device it is never replaced."""
     key = device.index
+    if capturing is None:
+        capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        if capturing:
             raise RuntimeError("bn_stats: call it once on this device before "
                                "capturing it in a CUDA graph (its counters "
                                "are allocated on first use)")
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        if key in _CAPTURED:
+            raise RuntimeError(
+                f"bn_stats: this shape needs {n} arrival counters, more than "
+                f"the {buf.numel()} a captured CUDA graph on this device holds; "
+                "replacing them would leave the graph writing freed memory")
+        buf = torch.zeros(max(n, counter_capacity(n_sm)), dtype=torch.int32,
+                          device=device)
         _COUNTERS[key] = buf
+    if capturing:
+        _CAPTURED.add(key)
     return buf
 
 
@@ -135,11 +159,12 @@ def stats(x2: torch.Tensor):
     ``2C + 1`` buffer that one launch fills."""
     m, c = _check_2d(x2)
     itemsize = x2.element_size()
-    gc, n_c, n_m, rows = stats_plan(m, c, itemsize, _tc.sm_count(x2.device))
+    n_sm = _tc.sm_count(x2.device)
+    gc, n_c, n_m, rows = stats_plan(m, c, itemsize, n_sm)
     cols = gc * (16 // itemsize)
     ws = torch.empty((n_m, 2, n_c * cols), dtype=torch.float32, device=x2.device)
     out = torch.empty(2 * c + 1, dtype=torch.float32, device=x2.device)
-    counters = _counters(x2.device, n_c)
+    counters = _counters(x2.device, n_c, n_sm)
     _launch("bn_stats", _DTYPE_CODE[x2.dtype], x2.data_ptr(), ws.data_ptr(),
             counters.data_ptr(), out.data_ptr(),
             m, c, gc, n_c, n_m, rows, device=x2.device)

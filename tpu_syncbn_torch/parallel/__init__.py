@@ -1,7 +1,7 @@
-"""Collectives, the data-parallel trainer, the GAN trainer and (world 1)
-sequence attention."""
+"""Collectives, the data-parallel trainer, the GAN trainer, the fused
+K-step driver and (world 1) sequence attention."""
 
-from tpu_syncbn_torch.parallel import collectives, sequence
+from tpu_syncbn_torch.parallel import collectives, scan_driver, sequence
 from tpu_syncbn_torch.parallel.gan_trainer import GANStepOutput, GANTrainer
 from tpu_syncbn_torch.parallel.trainer import (
     DataParallel,
@@ -11,4 +11,4 @@ from tpu_syncbn_torch.parallel.trainer import (
 )
 
 __all__ = ["DataParallel", "GANStepOutput", "GANTrainer", "StepOutput",
-           "collectives", "resume_latest", "sequence", "sync_module_states"]
+           "collectives", "resume_latest", "scan_driver", "sequence", "sync_module_states"]

@@ -26,26 +26,30 @@ iteration at the DCGAN widths). ``d_loss``, ``g_loss``, ``d_real`` and
 buffers (BN statistics and SNConv's ``u``) are broadcast from rank 0 at
 the end, as the JAX step does.
 
-Not ported: ``monitors`` (ROADMAP A.11) and ``compress`` (A.9) raise
-``NotImplementedError`` for anything but their defaults here;
-``train_steps``, the K-iteration scan, waits for A.8.
+``train_steps`` runs K iterations as one program (one CUDA graph on
+the card). Not ported: ``monitors`` (ROADMAP A.11) and ``compress`` (A.9)
+raise ``NotImplementedError`` for anything but their defaults here.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 from torch import nn
 
-from tpu_syncbn_torch.parallel import collectives
+from tpu_syncbn_torch.parallel import collectives, scan_driver
 from tpu_syncbn_torch.parallel.trainer import (
+    _check_capturable,
+    _ChunkOptimizer,
     _default_group,
     _grads_for_all_reduce,
     _load_named_state_,
     _named_state,
+    _schedule_lrs,
     _to_device,
     sync_module_states,
 )
@@ -132,6 +136,8 @@ class GANTrainer:
         self.step_count = 0
         for model in (generator, discriminator):
             sync_module_states(model, group=self.group)
+        # (K, batch signature) -> captured K-iteration program
+        self._train_steps_cache = scan_driver.ProgramCache(name="gan")
 
     def _update(self, model: nn.Module, optimizer) -> None:
         """Average ``model``'s gradients over the group, then step."""
@@ -140,9 +146,10 @@ class GANTrainer:
         collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
         optimizer.step()
 
-    def train_step(self, real, z_d, z_g) -> GANStepOutput:
-        """One D update, then one G update (module docstring)."""
-        real, z_d, z_g = _to_device((real, z_d, z_g), self.device)
+    def _iteration(self, real, z_d, z_g, update) -> torch.Tensor:
+        """One D update, then one G update (module docstring), each taken
+        by ``update(model, optimizer)`` once its gradients are in. Returns
+        the replica-averaged ``(d_loss, g_loss, d_real, d_fake)``."""
         G, D = self.generator, self.discriminator
         G.train()
         D.train()
@@ -155,7 +162,7 @@ class GANTrainer:
         fake_logits = D(fake)
         d_loss, _ = self.loss_pair(real_logits, fake_logits)
         d_loss.backward()
-        self._update(D, self.d_optimizer)
+        update(D, self.d_optimizer)
 
         # ---- G step, through the just-updated D
         self.g_optimizer.zero_grad(set_to_none=True)
@@ -163,7 +170,7 @@ class GANTrainer:
         g_logits = D(G(z_g))
         _, g_loss = self.loss_pair(torch.zeros_like(g_logits), g_logits)
         g_loss.backward(inputs=g_params)
-        self._update(G, self.g_optimizer)
+        update(G, self.g_optimizer)
 
         with torch.no_grad():
             vals = torch.stack([d_loss.detach(), g_loss.detach(),
@@ -175,9 +182,71 @@ class GANTrainer:
                 collectives.broadcast_(
                     [b for m in (G, D) for b in m.buffers() if b is not None],
                     self.group)
+        return vals
+
+    def train_step(self, real, z_d, z_g) -> GANStepOutput:
+        """One D update, then one G update (module docstring)."""
+        real, z_d, z_g = _to_device((real, z_d, z_g), self.device)
+        vals = self._iteration(real, z_d, z_g, self._update)
         self.step_count += 1
         return GANStepOutput(d_loss=vals[0], g_loss=vals[1],
                              metrics={"d_real": vals[2], "d_fake": vals[3]})
+
+    # -- K iterations as one program ----------------------------------------
+
+    def _build_program(self, k: int, batch):
+        opts = {id(opt): _ChunkOptimizer(opt, k, self.device, None)
+                for opt in (self.g_optimizer, self.d_optimizer)}
+
+        def update(step, model, optimizer):
+            grads = _grads_for_all_reduce(
+                [p for p in model.parameters() if p.requires_grad], self.world)
+            collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+            chunk = opts[id(optimizer)]
+            chunk.step(chunk.lrs[step])
+
+        def body(step, batch_):
+            vals = self._iteration(*batch_, functools.partial(update, step))
+            return {"d_loss": vals[0], "g_loss": vals[1],
+                    "d_real": vals[2], "d_fake": vals[3]}
+
+        def state():
+            ts = [t for _, model, _ in self._nets() for t in
+                  list(model.parameters()) + [b for b in model.buffers() if b is not None]]
+            return ts + [t for c in opts.values() for t in c.state_tensors()]
+
+        prog = scan_driver.build_scan_steps(body, n_steps=k, stacked=True,
+                                            device=self.device, state=state)
+        prog.opts = opts
+        return prog.prepare(batch)
+
+    def train_steps(self, real, z_d, z_g) -> GANStepOutput:
+        """K iterations (one D and one G update each) as one program:
+        every input carries a leading K axis, one slice an iteration.
+        Exactly K sequential :meth:`train_step` calls (the D-then-G order,
+        +2 / +3 ``num_batches_tracked`` an iteration), with stacked
+        ``d_loss``/``g_loss``/``metrics`` of leading dimension K. On the
+        card the K iterations are one CUDA graph, replayed once a call
+        (``parallel.scan_driver``; the optimizers as
+        :class:`~tpu_syncbn_torch.parallel.trainer._ChunkOptimizer` runs
+        them: SGD, or Adam made ``capturable``); on the CPU the same body
+        runs K times. Each distinct K builds and caches its own program."""
+        batch = _to_device((real, z_d, z_g), self.device)
+        k = scan_driver.scan_length(real)
+        _check_capturable(self.device, self.world, self.group)
+        prog = scan_driver.cached_scan_steps(
+            self._train_steps_cache, (k, scan_driver._signature(batch)),
+            lambda: self._build_program(k, batch))
+        for opt in (self.g_optimizer, self.d_optimizer):
+            prog.opts[id(opt)].fill(_schedule_lrs(opt, None, k))
+        out = prog(batch)
+        self.step_count += k
+        return GANStepOutput(d_loss=out["d_loss"], g_loss=out["g_loss"],
+                             metrics={"d_real": out["d_real"], "d_fake": out["d_fake"]})
+
+    @property
+    def program_caches(self) -> tuple:
+        return (self._train_steps_cache,)
 
     def sync_to_models(self) -> tuple[nn.Module, nn.Module]:
         """``(generator, discriminator)``: the port trains the modules in
@@ -224,6 +293,7 @@ class GANTrainer:
             # dtype and device already fit, and the next step would then
             # update the caller's state in place
             opt.load_state_dict(copy.deepcopy(state[f"{net}_opt_state"]))
+        self._train_steps_cache.clear()  # the load replaced optimizer state
         self.step_count = int(state.get("step_count", 0))
 
     def _nets(self):

@@ -1,7 +1,7 @@
 """Data-parallel trainer — the counterpart of
 ``tpu_syncbn.parallel.trainer`` (``StepOutput``, ``DataParallel`` with
-``accum_steps``, ``remat``, ``divergence_guard`` and its state dict, and
-``resume_latest``).
+``accum_steps``, ``remat``, ``divergence_guard``, its state dict and its
+K-step entry points, and ``resume_latest``).
 
 One process per GPU, each with its local shard of the batch. A step is
 forward, local-mean loss, backward, ONE flat all-reduce of every gradient
@@ -19,6 +19,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
+import types
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch.distributed as tdist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpu_syncbn_torch.parallel import collectives
+from tpu_syncbn_torch.parallel import collectives, scan_driver
+from tpu_syncbn_torch.parallel.scan_driver import _map as _map_batch
 from tpu_syncbn_torch.runtime import distributed as dist
 from tpu_syncbn_torch.runtime.distributed import resolve_device
 
@@ -77,20 +81,6 @@ def _stats_replicated_by_construction(model: nn.Module, group) -> bool:
         if module.scope_group() is not group:
             return False
     return True
-
-
-def _map_batch(fn, tree):
-    """``fn`` applied to every array or tensor leaf of a batch (tuples,
-    named tuples, lists and dicts); other leaves pass unchanged."""
-    if isinstance(tree, (np.ndarray, torch.Tensor)):
-        return fn(tree)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_batch(fn, t) for t in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_batch(fn, t) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _map_batch(fn, v) for k, v in tree.items()}
-    return tree
 
 
 def _to_device(tree, device: torch.device):
@@ -191,6 +181,214 @@ def _remat_contexts():
     return contextlib.nullcontext(), recomputing()
 
 
+# -- the K-step body's pieces -------------------------------------------------
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype torch's Adam keeps its step count in."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
+def _schedule_lrs(optimizer, scheduler, k: int) -> list[list[float]]:
+    """Each group's learning rate for the next ``k`` optimizer steps, as
+    ``k`` rows: the current ``lr``, then the scheduler stepped on a saved
+    state (both put back afterwards)."""
+    groups = optimizer.param_groups
+    rows = [[float(g["lr"]) for g in groups]]
+    if scheduler is None or k == 1:
+        return rows * k
+    saved = copy.deepcopy(scheduler.state_dict())
+    lrs = [g["lr"] for g in groups]
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "step() before optimizer.step()"
+            for _ in range(k - 1):
+                scheduler.step()
+                rows.append([float(g["lr"]) for g in groups])
+    finally:
+        scheduler.load_state_dict(saved)
+        for g, lr in zip(groups, lrs):
+            g["lr"] = lr
+    return rows
+
+
+def _advance_scheduler(scheduler, n: int) -> None:
+    """``scheduler.step()`` ``n`` times after a chunk (its steps were
+    taken inside the graph, not by ``optimizer.step()``)."""
+    if scheduler is None:
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(n):
+            scheduler.step()
+
+
+class _ChunkOptimizer:
+    """An optimizer's update as the K-step body applies it: the update of
+    ``optimizer.step()``, with each step's learning rate read from the
+    static ``(K, groups)`` device tensor :attr:`lrs` (written by the host
+    before each chunk), so a captured graph follows a schedule instead of
+    baking in the rate it was recorded with.
+
+    * ``torch.optim.SGD`` (momentum, dampening, Nesterov, weight decay,
+      maximize): torch's multi-tensor update op for op, except the last
+      one: ``param -= lr · d`` multiplies by the lr tensor and then adds,
+      where torch adds with a Python ``alpha`` (a host read of a tensor
+      lr). The two differ by at most one rounding. Missing momentum
+      buffers are made as zeros before the first chunk; with dampening
+      a per-group device flag ``first`` gives torch's undamped first
+      step (buffer = gradient).
+    * ``torch.optim.Adam`` / ``AdamW``: ``optimizer.step()`` with each
+      group's ``lr`` a device tensor. On the card every group becomes
+      ``capturable`` (its step counts live on the device, where the
+      graph updates them); its state is made before the first chunk as
+      torch's first step makes it.
+    * Any other optimizer raises ``ValueError``."""
+
+    def __init__(self, optimizer, n_steps: int, device: torch.device,
+                 first: torch.Tensor | None):
+        if isinstance(optimizer, torch.optim.SGD):
+            self.kind = "sgd"
+        elif isinstance(optimizer, torch.optim.Adam):
+            self.kind = "adam"
+        else:
+            raise ValueError(
+                f"train_steps supports torch.optim.SGD, Adam and AdamW, not "
+                f"{type(optimizer).__name__}: the K-step body must take each "
+                "step's learning rate from the device")
+        self.optimizer = optimizer
+        groups = optimizer.param_groups
+        for g in groups:
+            if g.get("fused") or g.get("differentiable"):
+                raise ValueError(
+                    f"train_steps: {type(optimizer).__name__} with fused or "
+                    "differentiable=True is not supported")
+        self.lrs = torch.zeros((n_steps, len(groups)), dtype=torch.float32,
+                               device=device)
+        state = optimizer.state
+        self.first = first
+        if self.kind == "sgd":
+            fresh = []
+            for g in groups:
+                missing = False
+                if g["momentum"] != 0:
+                    for p in g["params"]:
+                        if p.requires_grad and state[p].get("momentum_buffer") is None:
+                            state[p]["momentum_buffer"] = torch.zeros_like(
+                                p, memory_format=torch.preserve_format)
+                            missing = True
+                fresh.append(1.0 if missing else 0.0)
+            if self.first is None and any(g["dampening"] != 0 for g in groups):
+                self.first = torch.tensor(fresh, dtype=torch.float32, device=device)
+        else:
+            capturable = device.type == "cuda"
+            self.slot = torch.zeros(len(groups), dtype=torch.float32, device=device)
+            for g in groups:
+                if capturable:
+                    g["capturable"] = True
+                for p in g["params"]:
+                    if not p.requires_grad:
+                        continue
+                    st = state[p]
+                    if not st:
+                        st["step"] = (torch.zeros((), dtype=_scalar_dtype(), device=p.device)
+                                      if capturable else torch.tensor(0.0, dtype=_scalar_dtype()))
+                        st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                        st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                        if g["amsgrad"]:
+                            st["max_exp_avg_sq"] = torch.zeros_like(
+                                p, memory_format=torch.preserve_format)
+                    elif capturable and st["step"].device != p.device:
+                        st["step"] = st["step"].to(device=p.device, dtype=_scalar_dtype())
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the optimizer's state, in a fixed order (and the
+        first-step flags), which the body updates in place."""
+        out = []
+        for g in self.optimizer.param_groups:
+            for p in g["params"]:
+                st = self.optimizer.state.get(p, {})
+                out += [v for _, v in sorted(st.items()) if isinstance(v, torch.Tensor)]
+        if self.first is not None:
+            out.append(self.first)
+        return out
+
+    def fill(self, rows) -> None:
+        """Write the chunk's ``(K, groups)`` learning rates (host floats)
+        into :attr:`lrs` without waiting for the device."""
+        src = torch.tensor(rows, dtype=torch.float32)
+        if self.lrs.is_cuda:
+            src = src.pin_memory()  # freed only after the copy ran
+        self.lrs.copy_(src, non_blocking=True)
+
+    @torch.no_grad()
+    def step(self, lr: torch.Tensor) -> None:
+        """One update with the ``(groups,)`` device learning rates ``lr``."""
+        if self.kind == "adam":
+            self.slot.copy_(lr)
+            groups = self.optimizer.param_groups
+            saved = [g["lr"] for g in groups]
+            for i, g in enumerate(groups):
+                g["lr"] = self.slot[i]
+            try:
+                self.optimizer.step()
+            finally:
+                for g, v in zip(groups, saved):
+                    g["lr"] = v
+            return
+        for i, g in enumerate(self.optimizer.param_groups):
+            params = [p for p in g["params"] if p.grad is not None]
+            if params:
+                self._sgd(i, g, params, [p.grad for p in params], lr[i])
+
+    def _sgd(self, i, g, params, grads, lr) -> None:
+        wd, m, d = g["weight_decay"], g["momentum"], g["dampening"]
+        if g["maximize"]:
+            grads = torch._foreach_neg(grads)
+        if wd != 0:
+            if g["maximize"]:
+                torch._foreach_add_(grads, params, alpha=wd)
+            else:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+        if m != 0:
+            bufs = [self.optimizer.state[p]["momentum_buffer"] for p in params]
+            torch._foreach_mul_(bufs, m)
+            if d == 0:
+                torch._foreach_add_(bufs, grads)
+            else:
+                first = self.first[i]
+                torch._foreach_add_(bufs, torch._foreach_mul(
+                    grads, torch.where(first > 0, 1.0, 1.0 - d)))
+                first.zero_()
+            if g["nesterov"]:
+                torch._foreach_add_(grads, bufs, alpha=m)
+            else:
+                grads = bufs
+        torch._foreach_add_(params, torch._foreach_mul(grads, -lr))
+
+
+def _check_capturable(device: torch.device, world: int, group) -> None:
+    """On the card at world > 1 a K-step program holds the collectives in
+    its graph: only NCCL's can be captured."""
+    if device.type == "cuda" and world > 1:
+        backend = tdist.get_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"train_steps on CUDA tensors at world {world} needs an NCCL "
+                f"process group, not {backend!r}: {backend}'s collectives wait "
+                "on the host and cannot run inside a CUDA graph (train_step "
+                "runs the eager loop)")
+
+
+def _select_(ok: torch.Tensor, live: list, old: list) -> None:
+    """In place: each live tensor keeps its new value where ``ok`` and
+    takes back its old one otherwise (``jnp.where`` never passes the
+    not-taken side's NaNs on)."""
+    with torch.no_grad():
+        for t, o in zip(live, old):
+            t.copy_(torch.where(ok, t, o))
+
+
 class DataParallel:
     """Data-parallel training of ``model`` — the recipe's DDP wrap.
 
@@ -233,14 +431,23 @@ class DataParallel:
     ported). The step's metrics gain ``nonfinite`` (1.0 on a skipped
     step) and ``lr_scale`` (its value before the step); the guard state
     ``{"lr_scale", "nonfinite_count"}`` persists in :meth:`state_dict`.
-    Unlike the JAX trainer, which selects old against new state on the
-    device, the port reads the flag on the host, once a step and only
-    when the guard is armed: a device-side select would copy the
-    parameters and optimizer state every step.
+    :meth:`train_step` reads the flag on the host, once a step and only
+    when the guard is armed (a device-side select would copy the
+    parameters and optimizer state every step); the K-step entry points
+    select old against new state on the device, as the JAX trainer does.
 
     ``lr_scheduler`` (a ``torch.optim.lr_scheduler`` over ``optimizer``)
     is stepped by the trainer after each optimizer step it takes, so a
     skipped step does not advance it and a checkpoint carries it.
+
+    :meth:`train_steps` and :meth:`train_steps_batches` run K steps as
+    one program (``parallel.scan_driver``): on the card, K applications
+    of the step body captured into one CUDA graph and replayed once a
+    chunk; on the CPU, the same body K times. They take
+    ``torch.optim.SGD``, ``Adam`` and ``AdamW`` (:class:`_ChunkOptimizer`)
+    and any scheduler but ``ReduceLROnPlateau``; at world > 1 on the card
+    the group must be NCCL's (gloo's collectives wait on the host, which
+    a graph cannot hold).
 
     The model's parameters and buffers must already be on ``device``
     (default ``"cuda"``, which raises without a card)."""
@@ -297,6 +504,10 @@ class DataParallel:
             self._per_step_broadcast = bool(broadcast_buffers)
         self.broadcast_buffers = broadcast_buffers
         sync_module_states(model, group=self.group)
+        # (n_steps, stacked, batch signature) -> captured K-step program
+        self._train_steps_cache = scan_driver.ProgramCache(name="train")
+        # SGD's first-step flags (dampening only), kept across programs
+        self._first_flags: torch.Tensor | None = None
 
     def _split(self, out):
         loss, metrics = out if isinstance(out, tuple) else (out, {})
@@ -323,6 +534,25 @@ class DataParallel:
         loss, metrics = self._split(out)
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def _accumulate(self, batch):
+        """Forward and backward of the batch, in ``accum_steps``
+        microbatches whose gradients accumulate; the loss and metrics are
+        their means."""
+        if self.accum_steps == 1:
+            return self._forward_backward(batch)
+        outs = [self._forward_backward(mb)
+                for mb in _microbatches(batch, self.accum_steps)]
+        loss = torch.stack([l_ for l_, _ in outs]).mean(dtype=torch.float32)
+        metrics = {k: torch.stack([m[k] for _, m in outs]).mean(dtype=torch.float32)
+                   for k in outs[0][1]}
+        return loss, metrics
+
+    def _grads_agreed_finite(self, grads) -> torch.Tensor:
+        """The world's consensus that every local gradient is finite: each
+        replica's flag, reduced with MIN over the group (a device bool)."""
+        finite = torch.stack([flat.isfinite().all() for _, flat in _pack(grads)]).all()
+        return collectives.pmin(finite.to(torch.int32), self.group) > 0
 
     def _optimizer_step(self) -> None:
         """``optimizer.step()``, with every group's ``lr`` times the
@@ -351,21 +581,12 @@ class DataParallel:
         buffers = [b for b in self.model.buffers() if b is not None]
         guarded = self.divergence_guard is not None
         before = _pack(buffers) if guarded else None
-        if self.accum_steps == 1:
-            loss, metrics = self._forward_backward(batch)
-        else:
-            outs = [self._forward_backward(mb)
-                    for mb in _microbatches(batch, self.accum_steps)]
-            loss = torch.stack([l_ for l_, _ in outs]).mean(dtype=torch.float32)
-            metrics = {k: torch.stack([m[k] for _, m in outs]).mean(dtype=torch.float32)
-                       for k in outs[0][1]}
+        loss, metrics = self._accumulate(batch)
         # DDP gradient averaging: one flat all-reduce per dtype
         grads = _grads_for_all_reduce(
             [p for p in self.model.parameters() if p.requires_grad], self.world)
         if guarded:
-            finite = torch.stack(
-                [flat.isfinite().all() for _, flat in _pack(grads)]).all()
-            agreed = collectives.pmin(finite.to(torch.int32), self.group) > 0
+            agreed = self._grads_agreed_finite(grads)
         loss, metrics = self._replica_mean(loss, metrics)
         # the guard's one host read a step
         ok = bool(agreed & torch.isfinite(loss)) if guarded else True
@@ -405,6 +626,132 @@ class DataParallel:
             self.model.train(was_training)
         loss, metrics = self._replica_mean(loss, metrics)
         return StepOutput(loss=loss, metrics=metrics)
+
+    # -- K steps as one program --------------------------------------------
+
+    def _state_tensors(self, chunk) -> list[torch.Tensor]:
+        """Every tensor a K-step body updates in place: parameters,
+        buffers, the optimizer's state."""
+        ts = list(self.model.parameters())
+        ts += [b for b in self.model.buffers() if b is not None]
+        return ts + chunk.opt.state_tensors()
+
+    def _chunk_step(self, chunk, k: int, batch) -> dict:
+        """Step ``k`` of a chunk: :meth:`train_step` with the guard's
+        verdict, the learning rate and the guard state on the device."""
+        guard = self.divergence_guard
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        if guard is not None:
+            if k == 0:
+                chunk.taken.zero_()
+            live = self._state_tensors(chunk)
+            old = [t.detach().clone() for t in live]
+        loss, metrics = self._accumulate(batch)
+        grads = _grads_for_all_reduce(
+            [p for p in self.model.parameters() if p.requires_grad], self.world)
+        if guard is not None:
+            agreed = self._grads_agreed_finite(grads)
+        loss, metrics = self._replica_mean(loss, metrics)
+        # the update runs whatever the verdict; a non-finite one is
+        # undone by the select below
+        if self.world > 1:
+            collectives.psum_flat_(
+                grads, self.group, scale=1.0 / (self.world * self.accum_steps))
+        elif self.accum_steps > 1:
+            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        lr = (chunk.opt.lrs.index_select(0, chunk.taken.view(1))[0]
+              if guard is not None else chunk.opt.lrs[k])
+        if guard == "halve_lr":
+            lr = lr * chunk.lr_scale
+        chunk.opt.step(lr)
+        out = {"loss": loss, **{("m", n): v for n, v in metrics.items()}}
+        if guard is not None:
+            ok = agreed & torch.isfinite(loss)
+            _select_(ok, live, old)
+            with torch.no_grad():
+                out[("m", "nonfinite")] = (~ok).float()
+                out[("m", "lr_scale")] = chunk.lr_scale.clone()
+                chunk.taken.add_(ok.long())
+                chunk.count.add_((~ok).long())
+                if guard == "halve_lr":
+                    chunk.lr_scale.copy_(
+                        torch.where(ok, chunk.lr_scale, chunk.lr_scale * 0.5))
+        if self._per_step_broadcast:
+            collectives.broadcast_(
+                [b for b in self.model.buffers() if b is not None], self.group)
+        return out
+
+    def _build_program(self, n_steps: int, stacked: bool, batch):
+        if isinstance(self.lr_scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
+            raise ValueError("train_steps: ReduceLROnPlateau steps on a metric "
+                             "the chunk has not produced yet; use train_step")
+        opt = _ChunkOptimizer(self.optimizer, n_steps, self.device, self._first_flags)
+        self._first_flags = opt.first
+        chunk = types.SimpleNamespace(
+            opt=opt,
+            taken=torch.zeros((), dtype=torch.int64, device=self.device),
+            lr_scale=torch.ones((), dtype=torch.float32, device=self.device),
+            count=torch.zeros((), dtype=torch.int64, device=self.device))
+        prog = scan_driver.build_scan_steps(
+            functools.partial(self._chunk_step, chunk), n_steps=n_steps,
+            stacked=stacked, device=self.device,
+            state=lambda: self._state_tensors(chunk))
+        prog.chunk = chunk
+        return prog.prepare(batch)
+
+    def _run_scanned(self, batch, n_steps: int, stacked: bool) -> StepOutput:
+        batch = _to_device(batch, self.device)
+        _check_capturable(self.device, self.world, self.group)
+        prog = scan_driver.cached_scan_steps(
+            self._train_steps_cache, (n_steps, stacked, scan_driver._signature(batch)),
+            lambda: self._build_program(n_steps, stacked, batch))
+        chunk = prog.chunk
+        chunk.opt.fill(_schedule_lrs(self.optimizer, self.lr_scheduler, n_steps))
+        guarded = self.divergence_guard is not None
+        if guarded:
+            chunk.lr_scale.fill_(self.guard_state["lr_scale"])
+            chunk.count.fill_(self.guard_state["nonfinite_count"])
+        out = prog(batch)
+        taken = n_steps
+        if guarded:  # the chunk's one host read
+            taken, scale, count = torch.stack(
+                [chunk.taken.double(), chunk.lr_scale.double(),
+                 chunk.count.double()]).tolist()
+            taken = int(taken)
+            self.guard_state = {"lr_scale": scale, "nonfinite_count": int(count)}
+        _advance_scheduler(self.lr_scheduler, taken)
+        loss = out.pop("loss")
+        return StepOutput(loss=loss, metrics={name: v for (_, name), v in out.items()})
+
+    def train_steps(self, batch, n_steps: int) -> StepOutput:
+        """``n_steps`` optimizer steps on the SAME batch as one program
+        (one graph replay on the card). Returns stacked per-step ``loss``
+        and ``metrics`` of leading dimension ``n_steps``. Each distinct
+        ``n_steps`` (and batch shape) builds and caches its own program:
+        call it with a fixed n."""
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        return self._run_scanned(batch, n_steps, False)
+
+    def train_steps_batches(self, batches) -> StepOutput:
+        """One optimizer step per leading-axis slice of ``batches``
+        (stacked to ``(K, B, ...)``, e.g. a chunk of
+        ``data.device_prefetch(scan_steps=K)``) as one program. Exactly K
+        sequential :meth:`train_step` calls on the K slices — parameters,
+        optimizer state, BN buffers, the schedule and the guard's skips —
+        with stacked per-step ``loss``/``metrics`` (``nonfinite`` and
+        ``lr_scale`` too when the guard is armed). The chunk is only read.
+
+        After a chunk the parameters' ``.grad`` hold the last step's
+        gradients in the graph's memory, which the next chunk overwrites."""
+        return self._run_scanned(batches, scan_driver.scan_length(batches), True)
+
+    @property
+    def program_caches(self) -> tuple:
+        """Every :class:`~tpu_syncbn_torch.parallel.scan_driver.ProgramCache`
+        this trainer owns."""
+        return (self._train_steps_cache,)
 
     # -- checkpointing ----------------------------------------------------
 
@@ -448,6 +795,10 @@ class DataParallel:
         # and device already fit, and the next step would then update the
         # caller's state in place
         self.optimizer.load_state_dict(copy.deepcopy(opt_state["optimizer"]))
+        # the load replaced the optimizer's state tensors: a captured
+        # program would go on writing the old ones
+        self._train_steps_cache.clear()
+        self._first_flags = None
         if self.lr_scheduler is not None:
             self.lr_scheduler.load_state_dict(opt_state["lr_scheduler"])
         if self.divergence_guard is not None:
