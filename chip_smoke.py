@@ -52,7 +52,13 @@ falls back to the CPU):
                rank 0's bit for bit, every BN kernel launching 53 x 3 times
                on every rank; then ``python -m tpu_syncbn_torch.launch``
                runs ``train.py`` (ResNet-50) at ``--nproc-per-node 1`` and
-               refuses one process more than the card count;
+               refuses one process more than the card count; the
+               compressed collectives on CUDA tensors (``compressed_pmean``
+               bf16 and int8, ``ef_compressed_pmean``,
+               ``compressed_reduce_scatter``, ``shuffle_sharded_psum``)
+               against float64 reductions within their analytic bounds,
+               two SyncBN steps with ``stats_compress="bf16"`` and the
+               int8 statistics' backward raising;
 7. imagenet  — the real-image data path: the native library must load; a
                seeded JPEG tree of ImageNet's image sizes (4 classes x 160
                train, x 16 val); the train pipeline's img/s with 8 thread
@@ -113,8 +119,9 @@ falls back to the CPU):
 11. bench     — ``python -m tpu_syncbn_torch.bench --scan 8`` in a
                subprocess: exit 0, every key of its JSON line, 0 < mfu <= 1,
                the ``recovery`` block (a truncated newest checkpoint resumes
-               the older step, the async write certifies) and the ``scan``
-               block at K = 8; the line printed;
+               the older step, the async write certifies), the ``scan``
+               block at K = 8 and the ``collectives`` block (wire bytes and
+               ratios on 1 MiB); the line printed;
 12. scan      — K steps as one CUDA graph (``train_steps_batches``,
                ``GANTrainer.train_steps``) for the ResNet-50 slice (the
                example's SGD and a cosine schedule), DCGAN and RetinaNet:
@@ -132,6 +139,19 @@ falls back to the CPU):
                eager steady peak. (The gloo refusal runs in phase 6's
                children: ``train_steps_batches`` on CUDA tensors under
                their gloo group raises.)
+12b. compress — the int8 wire (ROADMAP A.9): its three CUDA kernels
+               (``quant_minmax``, ``quant_encode``, ``quant_decode``)
+               bit-identical to their plain versions at ResNet-50's
+               payload and a ragged one, qmax 127/63/31/1, with and
+               without a residual and a constant chunk; their device
+               times beside bound and plain; the ResNet-50 slice at
+               ``compress="int8"`` with error feedback (one launch of each
+               a step, finite losses, wire ratio 3.879, one step's
+               reduction bitwise against the plain versions on the same
+               gradients, parameters within one rounding, every residual
+               within scale/2, a captured K = 4 chunk bitwise against its
+               body) and its step time against ``"none"`` in turns, eager
+               and captured; one DCGAN iteration at ``compress="bf16"``;
 13. resilience — ``ResilientLoop(scan_steps=4, async_checkpoint=True)`` on
                the ResNet slice: a NaN step under ``restore_last_good``
                restores the last checkpoint and continues; SIGTERM before
@@ -163,7 +183,9 @@ falls back to the CPU):
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
 ratios) and ``{"paths": {...}}`` (phases 9-13's launches, times, the
-bench line, the eager and captured steps and the resilience summaries); the second-to-last line is ``{"kernels": [...]}``; the last line is
+bench line, the eager and captured steps, the compress and resilience
+summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
+attention and int8-wire kernels); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -998,6 +1020,99 @@ def _group_replicas(torch, rank):
     return same, launches, times, refusal
 
 
+GROUP_COMPRESS_N = 100_000  # elements a rank (a multiple of 4 for the scatter)
+F32_U, BF16_U = 2.0 ** -24, 2.0 ** -8  # unit roundoffs
+
+
+def _world_grid(torch, xs, chunk: int = 256):
+    """Per element of the fused payloads ``xs`` (one a rank): its chunk's
+    shared scale and zero point at world ``len(xs)``, in f64."""
+    w, n = len(xs), xs[0].numel()
+    pad = (-n) % chunk
+    blocks = torch.nn.functional.pad(torch.stack(xs).double(), (0, pad)).view(w, -1, chunk)
+    gmin, gmax = blocks.amin(dim=(0, 2)), blocks.amax(dim=(0, 2))
+    scale = (gmax - gmin) / 2 / (127 // w)
+    return (scale.repeat_interleave(chunk)[:n], ((gmax + gmin) / 2).repeat_interleave(chunk)[:n])
+
+
+def _group_compress(torch, rank):
+    """The compressed collectives on CUDA tensors at world 4 over gloo
+    (the int8 kernels on the card), each against a float64 reduction of
+    the four ranks' inputs, as error / analytic bound (<= 1 passes): int8
+    codes are within scale/2 of their values, bf16 rounds each addend and
+    partial sum once; two SyncBN steps with bf16 statistics (the running
+    mean against the f64 global mean, bf16-rounded sums allowed); the int8
+    statistics' backward must raise."""
+    from tpu_syncbn_torch import nn
+    from tpu_syncbn_torch.parallel import collectives as C
+
+    world, w = torch.distributed.group.WORLD, GROUP_WORLD
+    g = torch.Generator(device="cuda").manual_seed(40)
+    xs = [torch.randn(GROUP_COMPRESS_N, device="cuda", generator=g) for _ in range(w)]
+    es = [torch.randn(GROUP_COMPRESS_N, device="cuda", generator=g) * 1e-2 for _ in range(w)]
+    x, e = xs[rank], es[rank]
+    exact = torch.stack([t.double() for t in xs]).sum(0)
+    absum = torch.stack([t.double().abs() for t in xs]).sum(0)
+    out = {}
+
+    def ratio(got, ref, bound):
+        return float(((got.double() - ref).abs() / bound).max())
+
+    scale, zp = _world_grid(torch, xs)
+    slack = 4 * F32_U * (absum + 127 * w * scale + w * zp.abs())
+    out["pmean int8"] = ratio(C.compressed_pmean(x, world, mode="int8"), exact / w,
+                              scale / 2 + slack / w)
+    # each addend rounds once and each of the w - 1 partial sums once
+    out["pmean bf16"] = ratio(C.compressed_pmean(x, world, mode="bf16"), exact / w,
+                              (w + 1) * BF16_U * absum / w + 1e-30)
+    ps = [a + b for a, b in zip(xs, es)]
+    p_exact = torch.stack([t.double() for t in ps]).sum(0)
+    p_scale, p_zp = _world_grid(torch, ps)
+    p_slack = 4 * F32_U * (p_exact.abs() + 127 * w * p_scale + w * p_zp.abs())
+    mean, res = C.ef_compressed_pmean(x, e, world, mode="int8")
+    out["ef_pmean int8"] = ratio(mean, p_exact / w, p_scale / 2 + p_slack / w)
+    out["ef residual"] = float((res.double().abs() / (p_scale / 2 + p_slack)).max())
+    # the scatter: one chunk a shard
+    shard_n = GROUP_COMPRESS_N // w
+    s_scale = torch.stack([t.double().view(w, -1) for t in xs])  # (rank, shard, elem)
+    half = (s_scale.amax(dim=(0, 2)) - s_scale.amin(dim=(0, 2))) / 2 / (127 // w)
+    mine = slice(rank * shard_n, (rank + 1) * shard_n)
+    shard, _ = C.compressed_reduce_scatter(x, world, mode="int8")
+    out["reduce_scatter int8"] = ratio(shard, exact[mine],
+                                       w * half[rank] / 2 + slack[mine] + 1e-30)
+    stages = len(C._prime_factors(w))
+    for mode in ("none", "bf16", "int8"):
+        got = C.shuffle_sharded_psum(x, world, mode=mode)
+        bound = {"none": 4 * w * F32_U * absum + 1e-30,
+                 "bf16": (1 + stages) * 2 * BF16_U * absum + 1e-30,
+                 "int8": w * scale / 2 + slack}[mode]
+        out[f"shuffle {mode}"] = ratio(got, exact, bound)
+
+    # SyncBN with bf16 statistics, two steps on one batch a rank
+    n_, c, h, w_ = GROUP_LAYER
+    xb = [(torch.randn(n_, c, h, w_, generator=g, device="cuda") * 1.5 + 0.3)
+          .contiguous(memory_format=torch.channels_last) for _ in range(w)]
+    bn = nn.SyncBatchNorm(c, channel_axis=1, stats_compress="bf16", device="cuda")
+    for _ in range(2):
+        xx = xb[rank].detach().requires_grad_()
+        y = bn(xx)
+        y.backward(torch.ones_like(y))
+    rows = torch.cat([t.permute(0, 2, 3, 1).reshape(-1, c).double() for t in xb])
+    local = [t.permute(0, 2, 3, 1).reshape(-1, c).double().sum(0).abs() for t in xb]
+    tol_mean = (w + 1) * BF16_U * torch.stack(local).sum(0) / rows.shape[0]
+    want = 0.19 * rows.mean(0)  # two momentum-0.1 updates from 0
+    out["syncbn bf16 running_mean"] = ratio(bn.running_mean, want, 0.19 * tol_mean + 1e-30)
+    out["syncbn bf16 finite"] = 0.0 if bool(torch.isfinite(y).all()
+                                           and torch.isfinite(xx.grad).all()) else 2.0
+    bn8 = nn.SyncBatchNorm(c, channel_axis=1, stats_compress="int8", device="cuda")
+    try:
+        bn8(xb[rank].detach().requires_grad_()).sum().backward()
+        out["int8 stats backward raises"] = 2.0
+    except NotImplementedError as err:
+        out["int8 stats backward raises"] = 0.0 if "no gradient" in str(err) else 2.0
+    return out
+
+
 def _groups_child(rank, d, ref_path):
     """One of the GROUP_WORLD processes: cuda:0, a gloo group through a
     file:// rendezvous, then ``runtime.initialize("cuda")``, which keeps
@@ -1032,6 +1147,7 @@ def _groups_child(rank, d, ref_path):
     del ref
     torch.backends.cudnn.allow_tf32 = True
     out["replicas"] = _group_replicas(torch, rank)
+    out["compress"] = _group_compress(torch, rank)
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     runtime.shutdown()
@@ -1212,6 +1328,14 @@ def phase_groups(torch, card):
         f"on every rank: {refused} ({refusals[0]!r})")
     if not refused:
         failures.append(f"[groups] train_steps_batches under gloo did not raise: {refusals}")
+    summary["compress"] = {}
+    for check in res[0]["compress"]:
+        worst = max(r_["compress"][check] for r_ in res)
+        summary["compress"][check] = worst
+        log(f"[groups] compressed {check}: worst {worst:.3f} of its bound over 4 ranks "
+            f"{'ok' if worst <= 1.0 else 'FAIL'}")
+        if worst > 1.0:
+            failures.append(f"[groups] compressed {check}: {worst:.3f} of its bound")
     for r, r_ in enumerate(res):
         log(f"[groups] rank {r} step times " + ", ".join(
             f"{t:.1f}" for t in r_["replicas"][2]) + " ms: four processes "
@@ -2249,7 +2373,7 @@ def phase_retinanet(torch, card):
 BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
-              "device_kind", "host_load_1m")
+              "device_kind", "host_load_1m", "collectives")
 
 
 def phase_bench():
@@ -2278,6 +2402,16 @@ def phase_bench():
         failures.append(f"[bench] recovery block {rec}")
     if scan.get("k") != SCAN_KS[-1] or not scan.get("img_per_sec_per_chip"):
         failures.append(f"[bench] scan block {scan}")
+    # the compressed wire on 1 MiB a GPU (262,144 f32): bytes and ratios
+    coll = line.get("collectives") or {}
+    modes = coll.get("modes") or {}
+    n = 262_144
+    want = {"fp32": (4 * n, 1.0), "bf16": (2 * n, 2.0), "int8": (n + 8 * 1024, 3.879),
+            "shuffle_sharded": (0, None)}
+    got = {m: (v.get("wire_bytes"), v.get("compression_ratio")) for m, v in modes.items()}
+    if got != want or not all(isinstance(v.get("ms"), (int, float)) and v["ms"] >= 0
+                              for v in modes.values()):
+        failures.append(f"[bench] collectives block {coll}")
     return failures, line
 
 
@@ -2476,6 +2610,9 @@ def _restore_in_place(torch, tr, sd) -> None:
                             v.zero_()
             for g, saved in zip(opt.param_groups, osd["param_groups"]):
                 g["lr"] = saved["lr"]
+        if getattr(tr, "_residual", None) is not None:
+            for n, v in tr._residual_views().items():
+                v.copy_(sd["opt_state"]["residual"][n])
     if getattr(tr, "lr_scheduler", None) is not None:
         tr.lr_scheduler.load_state_dict(copy.deepcopy(sd["opt_state"]["lr_scheduler"]))
     if "step_count" in sd:
@@ -2818,6 +2955,335 @@ def phase_scan(torch, card):
         log(f"[scan/{name}] done in {time.perf_counter() - t1:.1f}s")
     log(f"[scan] phase done in {time.perf_counter() - t0:.1f}s, {len(failures)} failures")
     return failures, out
+
+
+# -- phase 12b: compress — the int8 wire of the gradient all-reduce (A.9) ---
+
+QUANT_KERNELS = ("quant_minmax", "quant_encode", "quant_decode")
+QUANT_SOURCE = "tpu_syncbn_torch/ops/csrc/quant_int8.cu"
+# XLA-fused code in the JAX package, no pallas_call: the per-chunk range,
+# the shared-range encode, the error-feedback mean's dequantize
+QUANT_REPLACES = {
+    "quant_minmax": "tpu_syncbn/parallel/collectives.py:707",
+    "quant_encode": "tpu_syncbn/parallel/collectives.py:715",
+    "quant_decode": "tpu_syncbn/parallel/collectives.py:898",
+}
+QUANT_QMAX = (127, 63, 31, 1)  # worlds 1, 2, 4, 127
+QUANT_RAGGED = 100_003  # not a multiple of the 256-element chunk
+RESNET50_GRADS = 25_557_032  # the slice's trainable parameters
+# f32 operations an element (compare and add; sub, div, rint, clip, mul,
+# add, sub; mul, add, div), against the 67 TFLOP/s f32 peak
+QUANT_OPS = {"quant_minmax": 3, "quant_encode": 9, "quant_decode": 3}
+COMPRESS_STEPS, COMPRESS_K, COMPRESS_TIMED = 3, 4, 3
+
+
+def quant_bytes(k: str, n: int, chunk: int = 256) -> int:
+    """Bytes one call must move with error feedback on: each input read
+    once, each output written once."""
+    nc = -(-n // chunk)
+    if k == "quant_minmax":  # g, e -> ranges
+        return 8 * n + 8 * nc
+    if k == "quant_encode":  # g, e, ranges -> q, scale, zp, e'
+        return 8 * n + 8 * nc + nc * chunk + 8 * nc + 4 * n
+    return nc * chunk + 8 * nc + 4 * n  # q, scale, zp -> the f32 mean
+
+
+def quant_bound_ms(k: str, n: int) -> tuple[float, str]:
+    by_bytes = quant_bytes(k, n) / HBM_BYTES_PER_S * 1e3
+    by_ops = QUANT_OPS[k] * n / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _quant_inputs(torch, n: int, seed: int):
+    """A gradient-like payload and a residual, with one constant chunk
+    (elements 256-511: half = 0, so scale = 1)."""
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n, device="cuda", generator=g_) * 1e-2
+    e = torch.randn(n, device="cuda", generator=g_) * 1e-4
+    g[256:512] = 0.5
+    e[256:512] = 0.0
+    return g, e
+
+
+def _quant_parity(torch, Q, failures) -> dict:
+    """Each kernel against its plain version on the same CUDA tensors: at
+    the ResNet-50 payload and a ragged length, qmax 127 / 63 / 31 / 1, with
+    and without a residual. Gate: every output bit-identical. Returns the
+    largest |kernel - plain| per kernel."""
+    worst = dict.fromkeys(QUANT_KERNELS, 0.0)
+    n_cases = 0
+    for n in (RESNET50_GRADS, QUANT_RAGGED):
+        g, e = _quant_inputs(torch, n, seed=n % 1000)
+        for qmax in QUANT_QMAX:
+            for ee in (e, None):
+                ef = ee is not None
+                rk, rp = Q.minmax(g, ee, chunk=256), Q.minmax_plain(g, ee, 256)
+                qk, sk, zk, resk = Q.encode(g, ee, rk, qmax, chunk=256, want_residual=ef)
+                qp, sp, zp, resp = Q.encode_plain(g, ee, rk, qmax, 256, ef)
+                world = 127 // qmax  # q summed over this many replicas fits
+                dk = Q.decode(qk, sk, zk, world=world, n=n, chunk=256, mean=ef)
+                dp = Q.decode_plain(qk, sk, zk, world, n, ef)
+                pairs = {"quant_minmax": [(rk, rp)],
+                         "quant_encode": [(qk, qp), (sk, sp), (zk, zp)]
+                         + ([(resk, resp)] if ef else []),
+                         "quant_decode": [(dk, dp)]}
+                n_cases += 1
+                bad = []
+                for k, ps in pairs.items():
+                    for a, b in ps:
+                        worst[k] = max(worst[k], float((a.double() - b.double()).abs().max()))
+                        if not torch.equal(a, b):
+                            bad.append(k)
+                if float(sk[1]) != 1.0 or bool((qk[256:512] != 0).any()):
+                    bad.append("constant chunk")
+                if bad:
+                    failures.append(f"[compress] parity n={n} qmax={qmax} ef={ef}: "
+                                    f"{sorted(set(bad))} differ from the plain versions")
+        del g, e
+    log(f"[compress] parity: {n_cases} cases (n = {RESNET50_GRADS} and {QUANT_RAGGED}, "
+        f"qmax {QUANT_QMAX}, with and without a residual, a constant chunk): "
+        f"max |kernel - plain| {json.dumps(worst)} (gate: bit-identical) "
+        f"{'ok' if not failures else 'FAIL'}")
+    return worst
+
+
+def _quant_times(torch, Q, card) -> dict:
+    """Device time of each kernel at the ResNet-50 payload (error feedback
+    on, world 1) beside its bound and its plain version's."""
+    n = RESNET50_GRADS
+    g, e = _quant_inputs(torch, n, seed=5)
+    e2 = torch.empty_like(e)
+    ranges = Q.minmax(g, e, chunk=256)
+    q, s, z, _ = Q.encode(g, e, ranges, 127, chunk=256)
+    calls = {
+        "quant_minmax": (lambda: Q.minmax(g, e, chunk=256),
+                         lambda: Q.minmax_plain(g, e, 256)),
+        "quant_encode": (lambda: Q.encode(g, e, ranges, 127, chunk=256, want_residual=True,
+                                          residual_out=e2),
+                         lambda: Q.encode_plain(g, e, ranges, 127, 256, True)),
+        "quant_decode": (lambda: Q.decode(q, s, z, world=1, n=n, chunk=256, mean=True),
+                         lambda: Q.decode_plain(q, s, z, 1, n, True)),
+    }
+    out = {}
+    for k, (kern, plain) in calls.items():
+        t_k, t_p = _device_ms(torch, kern, 20), _device_ms(torch, plain, 5)
+        bound, by = quant_bound_ms(k, n)
+        out[k] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by=by, library_ms=None)
+        log(f"[compress] {k:12s} n={n} f32 device: kernel={t_k:.4f}ms "
+            f"plain={t_p:.4f}ms bound={bound:.4f}ms ({by}, "
+            f"{quant_bytes(k, n) / 1e6:.1f} MB; {100 * bound / t_k:.1f}% of bound) [{card}]")
+    chain_k = sum(v["ms"] for v in out.values())
+    chain_p = sum(v["plain_ms"] for v in out.values())
+    log(f"[compress] the three a step: kernels {chain_k:.4f}ms, plain chain "
+        f"{chain_p:.4f}ms, bound {sum(v['bound_ms'] for v in out.values()):.4f}ms [{card}]")
+    del g, e, e2, q
+    return out
+
+
+def _compress_trainers(torch, steps, card) -> dict:
+    """The slice's trainers at ``"none"`` and ``"int8"`` side by side,
+    timed in turns (none, int8, int8, none): eager and captured K-step
+    times, host clock and CUDA events, the median a step over both turns;
+    each one's graph pool."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    stacked = scan_driver.stack_batches(steps[:COMPRESS_K])
+    runs = {}
+    for mode in ("none", "int8"):
+        model, dp = _resnet_trainer(torch, compress=mode)
+        dp.train_step(steps[0])  # cuDNN's autotuning and the builds
+        dp.train_steps_batches(stacked)  # captures
+        runs[mode] = (model, dp, {"eager_host": [], "eager_dev": [], "captured_host": [],
+                                  "captured_dev": []})
+    for mode in ("none", "int8", "int8", "none"):
+        _, dp, t = runs[mode]
+        host, dev, _ = _timed_calls(torch, lambda: dp.train_step(steps[0]), COMPRESS_TIMED)
+        t["eager_host"] += host
+        t["eager_dev"] += dev
+        host, dev, _ = _timed_calls(torch, lambda: dp.train_steps_batches(stacked),
+                                    COMPRESS_TIMED)
+        t["captured_host"] += [h / COMPRESS_K for h in host]
+        t["captured_dev"] += [d / COMPRESS_K for d in dev]
+    out = {}
+    for mode, (model, dp, t) in runs.items():
+        prog = _program(dp, COMPRESS_K)
+        out[mode] = {k + "_ms": statistics.median(v) for k, v in t.items()}
+        out[mode].update(pool_bytes=prog.pool_bytes, capture_s=prog.capture_s)
+        o = out[mode]
+        log(f"[compress] compress={mode!r}: eager step host {o['eager_host_ms']:.3f} ms, "
+            f"events {o['eager_dev_ms']:.3f} ms; captured K={COMPRESS_K} a step host "
+            f"{o['captured_host_ms']:.3f} ms, events {o['captured_dev_ms']:.3f} ms "
+            f"(medians of 2 turns x {COMPRESS_TIMED}); capture {prog.capture_s:.2f}s, "
+            f"graph pool {prog.pool_bytes / 2**30:.3f} GiB [{card}]")
+    runs.clear()
+    return out
+
+
+def _compress_slice(torch, Q, card, failures) -> tuple[dict, dict]:
+    """The slice's main path with ``compress="int8"`` (error feedback on):
+    eager steps (one minmax, encode and decode a step; finite losses; the
+    wire ratio), one step's reduction against the plain versions on the
+    same gradients, the residual's bound, a captured K = 4 chunk against
+    its body run eagerly, and the step's cost against ``"none"``."""
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.parallel import collectives as C
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    steps = [_trainer_batch(torch, 500 + i) for i in range(COMPRESS_K)]
+    model, dp = _resnet_trainer(torch, compress="int8")
+    n = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    dp.train_step(steps[0])  # cuDNN's autotuning (not counted)
+    # the main path: every quant count from 0
+    Q.reset_launch_counts()
+    C.reset_tallies()
+    losses = [float(dp.train_step(b).loss) for b in steps[:COMPRESS_STEPS]]
+    launches = Q.launch_counts()
+    ratio = C.compression_tallies()["compression_ratio"]
+    log(f"[compress] int8 + error feedback, {n} gradients in {-(-n // 256)} chunks: "
+        f"{COMPRESS_STEPS} steps, losses {losses}, launches {json.dumps(launches)} "
+        f"(want {COMPRESS_STEPS} each), wire ratio {ratio:.4f} (want 3.879)")
+    if launches != dict.fromkeys(QUANT_KERNELS, COMPRESS_STEPS):
+        failures.append(f"[compress] launches {launches}")
+    if n != RESNET50_GRADS or round(ratio, 3) != 3.879:
+        failures.append(f"[compress] payload {n}, ratio {ratio}")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"[compress] non-finite loss {losses}")
+
+    # one step's reduction, kernels against plain versions, same gradients
+    rec = {}
+    real = dp._reduce_grads_
+
+    def spy(grads):
+        rec["grads"] = [g.clone() for g in grads]
+        rec["e0"] = dp._residual.clone()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        real(grads)
+        b.record()
+        rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        rec["device_ms"] = a.elapsed_time(b)
+        rec["mean"] = C._fuse_f32(grads)
+        rec["e1"] = dp._residual.clone()
+
+    start = dp.state_dict()
+    dp._reduce_grads_ = spy
+    dp.train_step(steps[COMPRESS_STEPS % len(steps)])
+    del dp._reduce_grads_
+    after_k = {k: p.detach().clone() for k, p in model.named_parameters()}
+    dp.load_state_dict(start)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    for p, g in zip(trainable, rec["grads"]):
+        p.grad = g.clone()
+    grads = [p.grad for p in trainable]
+    with bn_ops.kernel_mode("off"):
+        dp._reduce_grads_(grads)
+    mean_off, e1_off = C._fuse_f32(grads), dp._residual.clone()
+    dp._optimizer_step()
+    units = max(float(((after_k[k].double() - p.detach().double()).abs()
+                       / (p.detach().double().abs() * 2 ** -24 + 1e-30)).max())
+                for k, p in model.named_parameters())
+    same = torch.equal(rec["mean"], mean_off) and torch.equal(rec["e1"], e1_off)
+    log(f"[compress] one step, kernels vs plain versions on the same gradients: "
+        f"reduced gradients and residual bit-identical: {same}; parameters "
+        f"{units:.2f} f32 roundings apart (gate 1) {'ok' if same and units <= 1 else 'FAIL'}")
+    if not (same and units <= 1.0):
+        failures.append(f"[compress] the step's reduction differs from the plain versions "
+                        f"(bitwise {same}, parameters {units:.2f} roundings)")
+    # every residual element within half its chunk's step plus one rounding
+    flat = C._fuse_f32(rec["grads"])
+    ranges = Q.minmax_plain(flat, rec["e0"], 256)
+    _, scale, zp, _ = Q.encode_plain(flat, rec["e0"], ranges, 127, 256, False)
+    sc = scale.repeat_interleave(256)[:n].double()
+    p_ = (flat + rec["e0"]).double()
+    slack = 2 ** -24 * (p_.abs() + 127 * sc + zp.repeat_interleave(256)[:n].double().abs())
+    excess = float((rec["e1"].double().abs() - sc / 2 - slack).max())
+    log(f"[compress] residual: max |e| {float(rec['e1'].abs().max()):.3e}, largest "
+        f"|e| - scale/2 - one rounding {excess:.3e} (gate <= 0) "
+        f"{'ok' if excess <= 0 else 'FAIL'}")
+    if excess > 0:
+        failures.append(f"[compress] a residual exceeds its chunk's scale/2 by {excess:.3e}")
+    red = {"host_ms": rec["host_ms"], "device_ms": rec["device_ms"]}
+    del rec
+
+    # a captured K-step chunk against the same body run eagerly
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    start = dp.state_dict()
+    stacked = scan_driver.stack_batches(steps[:COMPRESS_K])
+    l_c = dp.train_steps_batches(stacked).loss.tolist()
+    st_c = dp.state_dict()
+    prog = _program(dp, COMPRESS_K)
+    looped = []
+    for _ in range(2):
+        _restore_in_place(torch, dp, start)
+        looped.append((_dp_losses(prog.loop(stacked)), dp.state_dict()))
+    bitwise = _scan_compare(torch, f"compress/resnet50 int8 K={COMPRESS_K} captured vs the "
+                            "body run eagerly", start, looped[0][1], looped[1][1], st_c,
+                            _flat(looped[0][0]), l_c, failures)
+    torch.backends.cudnn.deterministic = determ
+    if not bitwise:
+        failures.append("[compress] the captured int8 chunk is not bitwise its body")
+    del dp, model, prog
+    torch.cuda.empty_cache()
+    times = _compress_trainers(torch, steps, card)
+    torch.cuda.empty_cache()
+    for kind in ("eager_dev_ms", "captured_dev_ms"):
+        log(f"[compress] int8 costs {times['int8'][kind] - times['none'][kind]:+.3f} ms a "
+            f"step over 'none' ({kind.split('_')[0]}, CUDA events: "
+            f"{times['int8'][kind]:.3f} vs {times['none'][kind]:.3f}) [{card}]")
+    log(f"[compress] the int8 reduction alone in an eager step: host {red['host_ms']:.3f} "
+        f"ms to enqueue, device {red['device_ms']:.3f} ms between CUDA events [{card}]")
+    return launches, {"times": times, "bitwise_chunk": bitwise, "ratio": ratio,
+                      "reduce": red}
+
+
+def _compress_gan(torch, failures) -> float:
+    """One DCGAN iteration at full width with ``compress="bf16"``."""
+    from tpu_syncbn_torch import models, nn, parallel
+
+    G = nn.convert_sync_batchnorm(models.DCGANGenerator(
+        latent_dim=128, device="cuda", generator=torch.Generator().manual_seed(0)))
+    D = nn.convert_sync_batchnorm(models.DCGANDiscriminator(
+        device="cuda", generator=torch.Generator().manual_seed(1)))
+    tr = parallel.GANTrainer(
+        G, D, torch.optim.Adam(G.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+        torch.optim.Adam(D.parameters(), lr=2e-4, betas=(0.5, 0.999)),
+        compress="bf16", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = tr.train_step(torch.rand(GAN_BATCH, 32, 32, 3, device="cuda", generator=g) * 2 - 1,
+                        torch.randn(GAN_BATCH, 128, device="cuda", generator=g),
+                        torch.randn(GAN_BATCH, 128, device="cuda", generator=g))
+    d_loss, g_loss = float(out.d_loss), float(out.g_loss)
+    ok = math.isfinite(d_loss) and math.isfinite(g_loss)
+    log(f"[compress] DCGAN compress='bf16': one iteration d_loss {d_loss:.4f} g_loss "
+        f"{g_loss:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[compress] the bf16 DCGAN iteration is not finite")
+    return d_loss
+
+
+def phase_compress(torch, card):
+    """The compressed gradient wire (ROADMAP A.9): the three int8 kernels
+    against their plain versions and their times, the ResNet-50 slice at
+    int8 with error feedback, and a bf16 DCGAN iteration. Returns
+    (failures, kernel figures, main-path launches, summary)."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    t0 = time.perf_counter()
+    failures = []
+    worst = _quant_parity(torch, Q, failures)
+    times = _quant_times(torch, Q, card)
+    torch.cuda.empty_cache()
+    launches, summary = _compress_slice(torch, Q, card, failures)
+    _compress_gan(torch, failures)
+    torch.cuda.empty_cache()
+    for k in QUANT_KERNELS:
+        times[k]["max_abs_err"] = worst[k]
+    log(f"[compress] phase done in {time.perf_counter() - t0:.1f}s, {len(failures)} failures")
+    return failures, times, launches, summary
 
 
 RES_CHUNKS, RES_K = 3, 4  # ResilientLoop's chunks of K steps
@@ -3544,6 +4010,9 @@ def main() -> int:
     scan_failures, scan = phase_scan(torch, card)
     failures += scan_failures
     torch.cuda.empty_cache()
+    comp_failures, quant, quant_launches, compress = phase_compress(torch, card)
+    failures += comp_failures
+    torch.cuda.empty_cache()
     res_failures, resilience = phase_resilience(torch, card)
     failures += res_failures
     torch.cuda.empty_cache()
@@ -3598,13 +4067,29 @@ def main() -> int:
             "library_ms": None if t["library_ms"] is None
             else n_layers * t["library_ms"],
         })
+    for k in QUANT_KERNELS:  # per ResNet-50 int8 step: one call each
+        t = quant[k]
+        kernels.append({
+            "name": k,
+            "route": "cuda",
+            "source": QUANT_SOURCE,
+            "replaces": QUANT_REPLACES[k],
+            "launches": quant_launches[k],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"groups": groups}), flush=True)
     print(json.dumps({"paths": {
         "gan": {arch: {"launches": gan_launches[arch],
                        "iteration_ms": gan_meds[arch]} for arch in gan_launches},
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
-        "bench": bench_line, "scan": scan, "resilience": resilience}}),
+        "bench": bench_line, "scan": scan, "compress": compress,
+        "resilience": resilience}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
-        "device_kind", "host_load_1m", "recovery", "scan"}
+        "device_kind", "host_load_1m", "recovery", "scan", "collectives"}
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
                  "resumed_step_after_kill", "ckpt_bytes"}
 SCAN_KEYS = {"k", "host_gap_frac_scan1", "dispatch_frac_scan1", "chunks",
              "host_gap_frac", "dispatch_frac", "img_per_sec_per_chip"}
+COLLECTIVES_KEYS = {"payload_mb_per_chip", "world", "modes", "golden_ratio", "measure_s"}
+MODE_KEYS = {"wire_bytes", "ms", "gbytes_per_s", "compression_ratio"}
 
 
 def test_bench_on_the_cpu_prints_its_line():
@@ -50,6 +52,28 @@ def test_bench_on_the_cpu_prints_its_line():
     assert rec["ckpt_bytes"] > 0
     assert set(line["scan"]) == SCAN_KEYS and line["scan"]["k"] == 1
     assert line["scan"]["chunks"] == 2
+    check_collectives_block(line["collectives"], world=1)
+
+
+def check_collectives_block(block, world):
+    """The ``collectives`` block at world 1: 1 MiB of f32 a GPU (262,144
+    elements, 1,024 chunks of 256); fp32 4 B an element, bf16 2, int8 1 +
+    8 B of range a chunk; shuffle-sharding sends nothing at world 1."""
+    assert set(block) == COLLECTIVES_KEYS
+    assert block["world"] == world and block["payload_mb_per_chip"] == 1.0
+    assert block["golden_ratio"] == {"bf16": None, "int8": None}
+    modes = block["modes"]
+    assert set(modes) == {"fp32", "bf16", "int8", "shuffle_sharded"}
+    for m in modes.values():
+        assert set(m) == MODE_KEYS and m["ms"] >= 0
+    n = 262_144
+    assert [modes[k]["wire_bytes"] for k in ("fp32", "bf16", "int8")] == [
+        4 * n, 2 * n, n + 8 * 1024]
+    assert modes["fp32"]["compression_ratio"] == 1.0
+    assert modes["bf16"]["compression_ratio"] == 2.0
+    assert modes["int8"]["compression_ratio"] == 3.879
+    assert modes["shuffle_sharded"]["wire_bytes"] == 0
+    assert modes["shuffle_sharded"]["compression_ratio"] is None
 
 
 def test_bench_scan_block_on_the_cpu():

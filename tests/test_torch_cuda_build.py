@@ -18,9 +18,13 @@ import torch
 from tpu_syncbn_torch.ops import _cuda_build as cb
 from tpu_syncbn_torch.ops import cuda_attention as A
 from tpu_syncbn_torch.ops import cuda_bn as B
+from tpu_syncbn_torch.ops import cuda_quant as Q
 
-STEMS = ["bn_normalize", "bn_stats", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd"]
-ARGTYPES = {**A._ARGTYPES, **B._ARGTYPES}
+STEMS = ["bn_normalize", "bn_stats", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd",
+         "quant_int8"]
+ARGTYPES = {**A._ARGTYPES, **B._ARGTYPES, **Q._ARGTYPES}
+# each source's launchers: one named after it, or quant_int8's three
+LAUNCHERS = {"quant_int8": ["quant_decode", "quant_encode", "quant_minmax"]}
 
 
 def fake_nvcc(tmp_path, body):
@@ -93,33 +97,39 @@ def test_a_failed_build_raises_with_the_compiler_output(
 
 
 def c_launchers():
-    """``{name: [parameter, ...]}`` of every ``extern "C" int flash_*(...)``
-    and ``extern "C" int bn_*(...)`` in ``csrc/*.cu``."""
+    """``{name: [parameter, ...]}`` of every ``extern "C" int flash_*(...)``,
+    ``bn_*(...)`` and ``quant_*(...)`` in ``csrc/*.cu``."""
     found = {}
     for path in cb.sources():
         with open(path) as f:
             src = f.read()
-        for name, params in re.findall(r'extern "C" int ((?:flash|bn)_\w+)\(([^)]*)\)', src):
+        for name, params in re.findall(r'extern "C" int ((?:flash|bn|quant)_\w+)\(([^)]*)\)',
+                                       src):
             found[name] = [" ".join(p.split()) for p in params.split(",")]
     return found
 
 
 def c_kind(param):
-    """pointer, int or float: how ctypes must pass a C parameter."""
+    """pointer, int, long long or float: how ctypes must pass a C parameter."""
     if "*" in param:
         return "pointer"
-    return {"int": "int", "float": "float"}[param.replace("const ", "").rsplit(" ", 1)[0]]
+    return {"int": "int", "float": "float", "long long": "long long"}[
+        param.replace("const ", "").rsplit(" ", 1)[0]]
 
 
-CTYPES_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+CTYPES_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float",
+               ctypes.c_longlong: "long long"}
 
 
 def test_every_c_launcher_has_its_ctypes_argument_types():
-    """One launcher per source, named after it, each bound in
-    ``cuda_attention._ARGTYPES`` or ``cuda_bn._ARGTYPES`` (never both)."""
+    """One launcher per source, named after it (``quant_int8``'s three are
+    ``quant_*``), each bound in exactly one of ``cuda_attention``,
+    ``cuda_bn`` and ``cuda_quant``'s ``_ARGTYPES``."""
     stems = sorted(os.path.splitext(os.path.basename(s))[0] for s in cb.sources())
-    assert not set(A._ARGTYPES) & set(B._ARGTYPES)
-    assert sorted(c_launchers()) == sorted(ARGTYPES) == stems
+    tables = (A._ARGTYPES, B._ARGTYPES, Q._ARGTYPES)
+    assert sum(len(t) for t in tables) == len(ARGTYPES)
+    want = sorted(n for s in stems for n in LAUNCHERS.get(s, [s]))
+    assert sorted(c_launchers()) == sorted(ARGTYPES) == want
 
 
 @pytest.mark.parametrize("name", sorted(ARGTYPES))

@@ -281,8 +281,9 @@ def test_trainer_refuses_what_is_not_ported():
     opt = torch.optim.Adam(G.parameters())
     with pytest.raises(NotImplementedError, match="A.11"):
         parallel.GANTrainer(G, D, opt, opt, monitors=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        parallel.GANTrainer(G, D, opt, opt, compress="bf16", device="cpu")
+    with pytest.raises(ValueError, match="compression mode"):
+        parallel.GANTrainer(G, D, opt, opt, compress="fp8", device="cpu")
+    assert parallel.GANTrainer(G, D, opt, opt, compress="bf16", device="cpu").compress == "bf16"
     with pytest.raises(ValueError, match="loss must be one of"):
         parallel.GANTrainer(G, D, opt, opt, loss="wgan", device="cpu")
     out = parallel.GANTrainer(G, D, opt, opt, device="cpu").generate(

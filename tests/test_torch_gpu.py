@@ -781,3 +781,81 @@ def test_gan_train_steps_replays_the_iterations_bit_for_bit(cuda_triton, determi
     sa, sb = tr.state_dict(), ref.state_dict()
     for key in ("g_params", "d_params", "g_rest", "d_rest"):
         assert all(torch.equal(sa[key][k], sb[key][k]) for k in sa[key]), key
+
+
+# -- the int8 wire's kernels (csrc/quant_int8.cu) ----------------------------
+
+
+@pytest.mark.parametrize("n", [25_557_032, 100_003], ids=["resnet50", "ragged"])
+@pytest.mark.parametrize("qmax", [127, 63, 1])
+def test_quant_kernels_are_their_plain_versions_bit_for_bit(cuda_nvcc, n, qmax):
+    """minmax, encode (with and without a residual) and decode against the
+    plain versions on the same CUDA tensors: every output equal, a
+    constant chunk at scale 1, one launch each."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    g_ = torch.Generator(device="cuda").manual_seed(n % 97)
+    g = torch.randn(n, device="cuda", generator=g_) * 1e-2
+    e = torch.randn(n, device="cuda", generator=g_) * 1e-4
+    g[256:512], e[256:512] = 0.5, 0.0
+    for ee in (e, None):
+        Q.reset_launch_counts()
+        r = Q.minmax(g, ee, chunk=256)
+        assert torch.equal(r, Q.minmax_plain(g, ee, 256))
+        got = Q.encode(g, ee, r, qmax, chunk=256, want_residual=ee is not None)
+        want = Q.encode_plain(g, ee, r, qmax, 256, ee is not None)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        q, scale, zp, _ = got
+        assert float(scale[1]) == 1.0 and not bool(q[256:512].any())
+        world = 127 // qmax
+        for mean in (False, True):
+            assert torch.equal(Q.decode(q, scale, zp, world=world, n=n, chunk=256, mean=mean),
+                               Q.decode_plain(q, scale, zp, world, n, mean))
+        assert Q.launch_counts() == {"quant_minmax": 1, "quant_encode": 1, "quant_decode": 2}
+
+
+def test_quant_encode_writes_the_residual_in_place(cuda_nvcc):
+    """residual_out may be the incoming residual itself (the trainer's
+    buffer): each element is read before it is written."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    g_ = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(70_001, device="cuda", generator=g_)
+    e = torch.randn(70_001, device="cuda", generator=g_) * 1e-2
+    r = Q.minmax(g, e, chunk=256)
+    _, _, _, want = Q.encode_plain(g, e, r, 127, 256, True)
+    buf = e.clone()
+    _, _, _, got = Q.encode(g, buf, r, 127, chunk=256, want_residual=True, residual_out=buf)
+    assert got is buf and torch.equal(buf, want)
+
+
+def test_quant_wrappers_raise_instead_of_falling_back_on_the_card(cuda_nvcc):
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    g = torch.ones(300, device="cuda")
+    with pytest.raises(ValueError, match="1-D"):
+        Q.minmax(g.view(3, 100), chunk=256)
+    with pytest.raises(ValueError, match="qmax"):
+        Q.encode(g, None, Q.minmax(g, chunk=256), 0, chunk=256)
+    with bn_ops.kernel_mode("on"), pytest.raises(RuntimeError, match="needs CUDA"):
+        Q.minmax(torch.ones(300), chunk=256)
+
+
+def test_int8_ef_chunk_replays_the_body_bit_for_bit(cuda_triton, deterministic_cudnn):
+    """K = 3 int8 steps with error feedback as one graph replay, equal bit
+    for bit to the same body run eagerly from the same state, the residual
+    included; the graph recorded one minmax, encode and decode a step."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    chunk = scan_driver.stack_batches([_card_batch(i) for i in range(3)])
+    _, dp = _card_trainer(compress="int8")
+    Q.reset_launch_counts()
+    out = dp.train_steps_batches(chunk)
+    assert Q.launch_counts() == dict.fromkeys(Q.LAUNCHES, scan_driver.WARMUP_STEPS + 3)
+    _, ref = _card_trainer(compress="int8")
+    want = _body_run_eagerly(ref, chunk)
+    torch.testing.assert_close(out.loss, want["loss"], rtol=0, atol=0)
+    assert _same_training_state(dp, ref)
+    assert torch.equal(dp._residual, ref._residual) and bool(dp._residual.abs().max() > 0)

@@ -485,8 +485,9 @@ def test_modules_take_a_spec_and_refuse_what_they_cannot_honour():
         nn.BatchNorm2d(C, stats_compress="bf16", device="cpu")
     with pytest.raises(ValueError, match="not both"):
         nn.SyncBatchNorm(C, process_group=object(), group_size=2, device="cpu")
-    with pytest.raises(ValueError, match="stats_compress"):
-        nn.SyncBatchNorm(C, stats_compress="int8", device="cpu")
+    with pytest.raises(ValueError, match="compression mode"):
+        nn.SyncBatchNorm(C, stats_compress="fp8", device="cpu")
+    assert nn.SyncBatchNorm(C, stats_compress="int8", device="cpu").stats_compress == "int8"
     m = nn.SyncBatchNorm(C, group_size=[[0, 3], [1, 2]], device="cpu")
     assert m.group_size == ((0, 3), (1, 2))
     assert "group_size=((0, 3), (1, 2))" in repr(m)
@@ -495,8 +496,11 @@ def test_modules_take_a_spec_and_refuse_what_they_cannot_honour():
     model = models.resnet18(num_classes=10, small_input=True, width=8, device="cpu")
     with pytest.raises(ValueError, match="not both"):
         nn.convert_sync_batchnorm(model, process_group=object(), group_size=2)
-    with pytest.raises(ValueError, match="stats_compress"):
-        nn.convert_sync_batchnorm(model, stats_compress="bf16")
+    with pytest.raises(ValueError, match="compression mode"):
+        nn.convert_sync_batchnorm(model, stats_compress="fp8")
+    conv = nn.convert_sync_batchnorm(model, group_size=np.int64(2), stats_compress="bf16")
+    assert all(b.stats_compress == "bf16" for b in conv.modules()
+               if isinstance(b, nn.SyncBatchNorm))
     conv = nn.convert_sync_batchnorm(model, group_size=np.int64(2))
     bns = [b for b in conv.modules() if isinstance(b, nn.SyncBatchNorm)]
     assert len(bns) == 20 and all(type(b.group_size) is int and b.group_size == 2
@@ -504,10 +508,17 @@ def test_modules_take_a_spec_and_refuse_what_they_cannot_honour():
     nn.convert_sync_batchnorm(conv)  # re-scoped in place to the whole world
     assert all(b.group_size is None for b in bns)
 
-    with pytest.raises(ValueError, match="stats_compress"):
-        bn_ops.batch_norm_train(x, None, None, None, None, None, stats_compress="bf16")
-    with pytest.raises(ValueError, match="stats_compress"):
-        bn_ops.sync_moments(x, stats_compress="int8")
+    with pytest.raises(ValueError, match="compression mode"):
+        bn_ops.batch_norm_train(x, None, None, None, None, None, stats_compress="fp8")
+    with pytest.raises(ValueError, match="compression mode"):
+        bn_ops.sync_moments(x, stats_compress="fp8")
+    # without a group a lossy mode is accepted and ignored (JAX's
+    # axis_name=None): the local statistics are exact
+    y, _ = bn_ops.batch_norm_train(x + 1.5, None, None, None, None, None,
+                                   stats_compress="bf16")
+    assert torch.equal(y, bn_ops.batch_norm_train(x + 1.5, None, None, None, None, None)[0])
+    assert torch.equal(bn_ops.sync_moments(x + 0.3, stats_compress="int8")[1],
+                       bn_ops.sync_moments(x + 0.3)[1])
 
 
 def test_meshes_over_the_process_group(world4):

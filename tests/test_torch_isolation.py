@@ -89,14 +89,18 @@ def test_importing_every_module_loads_no_jax():
                                     "tpu_syncbn_torch.parallel.scan_driver",
                                     "tpu_syncbn_torch.runtime.resilience",
                                     "tpu_syncbn_torch.testing.faults",
-                                    "tpu_syncbn_torch.obs.telemetry"])
+                                    "tpu_syncbn_torch.obs.telemetry",
+                                    "tpu_syncbn_torch.parallel.collectives",
+                                    "tpu_syncbn_torch.ops.quant_int8",
+                                    "tpu_syncbn_torch.ops.cuda_quant"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
     """The launcher, its entry point, the backend probe, the data path
     with its native bindings, meters, checkpoints, the trainer, the
     ImageNet entry point, the GAN and detection models, the GAN trainer,
     the bench, the GAN and RetinaNet entry points, the fused K-step
-    driver, the resilience layer, the fault injectors and the counters,
-    each
+    driver, the resilience layer, the fault injectors, the counters, and
+    the compressed collectives with their int8 kernels' dispatch and
+    binding, each
     imported alone in a fresh process (as ``python -m ...`` starts), pull
     in nothing of JAX; the launcher's help runs."""
     code = (

@@ -7,7 +7,8 @@ JSON line:
      "unit": "img/s/gpu", "backend", "bn_backend", "chips", "per_chip_batch",
      "image_side", "steps", "compile_warmup_s", "mfu", "flops_per_step",
      "flops_source", "peak_flops", "peak_source", "device_kind",
-     "host_load_1m", "recovery": {...}, "scan": {...}}
+     "host_load_1m", "recovery": {...}, "scan": {...},
+     "collectives": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
@@ -41,6 +42,11 @@ replay a chunk on the card), for ceil(steps / K) chunks (at least as
 many steps as the per-step loop), and the block
 gives that loop's fraction and img/s beside the per-step loop's
 (``host_gap_frac_scan1``).
+
+``collectives`` (:func:`measure_collectives`) is the compressed wire on a
+1 MiB-a-GPU f32 payload: per mode (``fp32``, ``bf16``, ``int8``,
+``shuffle_sharded``) the bytes it puts on the wire, the time a call and
+the compression ratio against fp32.
 """
 
 from __future__ import annotations
@@ -216,6 +222,77 @@ def _gap(wall: float, inside: float) -> tuple[float, float]:
     return round(max(0.0, 1.0 - frac), 6), round(frac, 6)
 
 
+def measure_collectives(device: torch.device, *, payload_mb: float = 1.0,
+                        steps: int = 5) -> dict:
+    """The ``collectives`` block (``bench.py``'s ``measure_collectives``):
+    one flat f32 payload of ``payload_mb`` MiB a GPU through
+    ``compressed_pmean`` at ``"none"`` (``fp32``), ``"bf16"`` and
+    ``"int8"``, and through ``shuffle_sharded_psum`` (exact), over the
+    default group:
+
+    * ``wire_bytes`` — what a call puts on the wire a replica: the f32
+      payload for ``fp32`` (an all-reduce's input, at any world size), the
+      compressed accounting (``collectives.compression_tallies``) for the
+      lossy modes, the ppermute tallies for ``shuffle_sharded`` (0 at world
+      1, where it issues none);
+    * ``ms`` — a call's time (mean of ``steps``, closed by a synchronize),
+      quantize and dequantize kernels included; ``gbytes_per_s`` — wire
+      bytes over it; ``compression_ratio`` — fp32's wire over the mode's.
+
+    ``golden_ratio`` is null for both lossy modes: the JAX bench reads it
+    from its audit layer's pinned program contracts, which are not ported
+    (ROADMAP A.14)."""
+    from tpu_syncbn_torch.parallel import collectives as coll
+    from tpu_syncbn_torch.parallel.trainer import _default_group
+
+    t_start = time.perf_counter()
+    group = _default_group()
+    world = coll.world_size(group)
+    n = max(1024, int(payload_mb * (1 << 20) / 4))
+    x = torch.ones(n, dtype=torch.float32, device=device)
+    calls = {
+        "fp32": lambda: coll.compressed_pmean(x, group, mode="none"),
+        "bf16": lambda: coll.compressed_pmean(x, group, mode="bf16"),
+        "int8": lambda: coll.compressed_pmean(x, group, mode="int8"),
+        "shuffle_sharded": lambda: coll.shuffle_sharded_psum(x, group),
+    }
+    modes, fp32_bytes = {}, None
+    for mode, fn in calls.items():
+        fn()  # warm: builds the kernels
+        _sync(device)
+        coll.reset_tallies()
+        fn()
+        if mode == "fp32":
+            wire = n * 4
+        elif mode == "shuffle_sharded":
+            wire = coll.tallies().get("ppermute", {}).get("bytes", 0)
+        else:
+            wire = coll.compression_tallies()["compressed_bytes"]
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        _sync(device)
+        dt = (time.perf_counter() - t0) / steps
+        if mode == "fp32":
+            fp32_bytes = wire
+        modes[mode] = {
+            "wire_bytes": wire,
+            "ms": round(dt * 1e3, 3),
+            "gbytes_per_s": round(wire / max(dt, 1e-9) / 1e9, 3) if wire else None,
+            "compression_ratio": (round(fp32_bytes / wire, 3)
+                                  if wire and fp32_bytes else None),
+        }
+    coll.reset_tallies()
+    return {
+        "payload_mb_per_chip": payload_mb,
+        "world": world,
+        "modes": modes,
+        "golden_ratio": {"bf16": None, "int8": None},
+        "measure_s": round(time.perf_counter() - t_start, 3),
+    }
+
+
 def run(device: torch.device, scan: int = 1) -> dict:
     """Build, warm up, count FLOPs, time; returns the JSON line's dict."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -264,6 +341,7 @@ def run(device: torch.device, scan: int = 1) -> dict:
                           "dispatch_frac": dispatch_k,
                           "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
     recovery = measure_recovery(dp)
+    collectives = measure_collectives(device)
 
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     peak, peak_source = PEAK_FLOPS.get(kind, (None, None)) if on_card else (None, None)
@@ -289,6 +367,7 @@ def run(device: torch.device, scan: int = 1) -> dict:
         "host_load_1m": _host_load(),
         "recovery": recovery,
         "scan": scan_info,
+        "collectives": collectives,
     }
 
 

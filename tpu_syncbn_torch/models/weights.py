@@ -28,7 +28,8 @@ transpose: both keep matrices in ``x @ W`` (in, out) order.
 dicts of numpy arrays, the optax state as its named tuples) into a port
 ``DataParallel``: parameters and BN buffers as above, optax's momentum
 ``trace`` into SGD's ``momentum_buffer``, the schedule's ``count`` into the
-trainer's scheduler, and the divergence guard's state.
+trainer's scheduler, the divergence guard's state, and the error-feedback
+residual (this rank's row of it).
 
 ``load_jax_gan_trainer_state(trainer, state)`` carries a JAX
 ``GANTrainer.state_dict()`` into the port's ``GANTrainer``: both networks'
@@ -148,12 +149,13 @@ def _named_tuples(tree) -> list:
     return []
 
 
-def load_jax_trainer_state(trainer, state: Mapping) -> None:
+def load_jax_trainer_state(trainer, state: Mapping, *, rank: int | None = None) -> None:
     """Carry a JAX ``DataParallel.state_dict()`` into the port's
     ``DataParallel`` ``trainer`` in place. ``state`` is the JAX tree as
     its checkpoint stores it: ``params`` and ``rest`` nested dicts of numpy
     arrays, ``opt_state`` the optax state (its named tuples kept), wrapped
-    as ``(opt_state, guard)`` when the JAX trainer's guard is armed.
+    as ``(opt_state, guard)`` when the JAX trainer's guard is armed and
+    then as ``(..., residual)`` when it keeps an error-feedback residual.
 
     * params and BN buffers, as :func:`load_jax_params`;
     * optax's momentum ``trace`` becomes ``torch.optim.SGD``'s
@@ -162,13 +164,21 @@ def load_jax_trainer_state(trainer, state: Mapping) -> None:
       empty buffer's first step);
     * a schedule's ``count`` (optimizer steps taken) becomes the trainer's
       ``lr_scheduler`` position: after ``count`` scheduler steps;
-    * the guard's ``lr_scale`` and ``nonfinite_count``.
+    * the guard's ``lr_scale`` and ``nonfinite_count``;
+    * the error-feedback residual, which the JAX trainer stores with a
+      leading world axis: ``rank``'s row (default: this process's rank in
+      the trainer's group), each leaf mapped by name and layout as a
+      parameter is. The port's trainer must keep a residual exactly when
+      the JAX one did.
 
     Only SGD's state is carried: an optax state holding anything but
     ``trace`` and ``count`` (Adam's moments, say) raises ``ValueError``."""
     load_jax_params(trainer.model, {**_flatten(state["params"]),
                                     **_flatten(state["rest"])})
     opt_state = state["opt_state"]
+    if trainer._residual is not None:
+        opt_state, residual = opt_state
+        _carry_residual(trainer, residual, rank)
     if trainer.divergence_guard is not None:
         opt_state, guard = opt_state
         trainer.guard_state = {"lr_scale": float(guard["lr_scale"]),
@@ -201,6 +211,33 @@ def load_jax_trainer_state(trainer, state: Mapping) -> None:
                                # past 1: no "step before optimizer.step" warning
                                "_step_count": counts[0] + 1})
         sched.step()
+
+
+def _carry_residual(trainer, residual: Mapping, rank: int | None) -> None:
+    """Row ``rank`` of the JAX residual (leaves ``(world, *shape)``) into
+    the trainer's residual, by the port's parameter names and layouts."""
+    from tpu_syncbn_torch.parallel import collectives
+
+    if rank is None:
+        rank = collectives._rank(trainer.group)
+    views = trainer._residual_views()
+    flat = _flatten(residual)
+    names = {}
+    for key, value in flat.items():
+        arr = np.asarray(value)
+        if arr.ndim == 0 or arr.shape[0] <= rank:
+            raise ValueError(f"residual {key}: shape {arr.shape} has no row {rank}")
+        name, row = _port_name(key, arr[rank], trainer.model)
+        if name not in views or tuple(views[name].shape) != row.shape:
+            raise ValueError(f"residual {key}: the port has no residual {name!r} "
+                             f"of shape {row.shape}")
+        names[name] = row
+    missing = sorted(set(views) - set(names))
+    if missing:
+        raise KeyError(f"no JAX residual for {missing[:8]}")
+    with torch.no_grad():
+        for name, row in names.items():
+            views[name].copy_(torch.from_numpy(np.array(row, order="C")))
 
 
 def _carry_adam(optimizer: torch.optim.Optimizer, model: nn.Module,

@@ -26,6 +26,8 @@ from torch import nn
 
 from tpu_syncbn_torch.ops import batch_norm as bn_ops
 from tpu_syncbn_torch.parallel.collectives import (
+    ALONE,
+    check_group_compress,
     group_for,
     normalize_group_spec,
     world_size,
@@ -98,7 +100,9 @@ class BatchNorm(nn.Module):
         #: None, an int (contiguous subgroups) or a rank partition as
         #: nested tuples (``collectives.normalize_group_spec``)
         self.group_size = _check_scope(process_group, group_size)
-        bn_ops.check_stats_compress(stats_compress)
+        #: wire of the cross-replica moment reduction: exact f32 unless a
+        #: lossy mode is asked for (the count stays exact either way)
+        self.stats_compress = bn_ops.check_stats_compress(stats_compress)
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, dtype=dtype, device=dev))
             self.bias = nn.Parameter(torch.zeros(num_features, dtype=dtype, device=dev))
@@ -123,6 +127,8 @@ class BatchNorm(nn.Module):
              f"{self.track_running_stats}, channel_axis={self.channel_axis}")
         if self.group_size is not None:
             s += f", group_size={self.group_size}"
+        if self.stats_compress != "none":
+            s += f", stats_compress={self.stats_compress!r}"
         return s
 
     def _check_input(self, x: torch.Tensor) -> None:
@@ -151,7 +157,8 @@ class BatchNorm(nn.Module):
             self.weight, self.bias,
             momentum=self.momentum, eps=self.eps,
             channel_axis=self.channel_axis,
-            process_group=self._sync_group(), mask=mask,
+            process_group=self._sync_group(),
+            stats_compress=self.stats_compress, mask=mask,
         )
         if self.track_running_stats and not _RECOMPUTING.get():
             with torch.no_grad():
@@ -204,7 +211,14 @@ class SyncBatchNorm(BatchNorm):
     In training mode with more than one replica in the group, per-channel
     moments are summed across it with one all-reduce (and the backward's
     two sums with one more). In eval mode, or at world 1, it is plain BN
-    with no collective."""
+    with no collective.
+
+    ``stats_compress`` (``"bf16"`` or ``"int8"``; ``"none"`` by default)
+    puts the moments on a lossy wire, at every world size in training mode
+    (at world 1 through ``collectives.ALONE``, so they round as on the JAX
+    package's mesh of one), through the plain ops rather than the fused
+    kernels; int8 statistics have no gradient (``ops.batch_norm``). It
+    does not combine with ``group_size``."""
 
     def scope_group(self):
         """The group this layer's training statistics sum over, or None
@@ -219,7 +233,13 @@ class SyncBatchNorm(BatchNorm):
         return group if world_size(group) > 1 else None
 
     def _sync_group(self):
-        return self.scope_group() if self.training else None
+        if not self.training:
+            return None
+        check_group_compress(self.group_size, self.stats_compress)
+        group = self.scope_group()
+        if group is None and self.stats_compress != "none":
+            return ALONE
+        return group
 
     @classmethod
     def convert_sync_batchnorm(cls, module, process_group=None,

@@ -16,11 +16,23 @@ pass a group to sync across its replicas, and ``group_size`` (an int for
 contiguous subgroups, or an explicit rank partition) to sync only within
 this rank's subgroup of it (``parallel.collectives.group_for``).
 
+``stats_compress`` (``"none"`` | ``"bf16"`` | ``"int8"``) puts the
+statistics' ``(Σx, Σx²)`` on a lossy wire when there is a group to sync
+over (the count stays exact); without one it is ignored, as the JAX
+``sync_moments`` ignores it without an ``axis_name``. It does not combine
+with ``group_size``. ``collectives.ALONE`` is the group of one replica:
+compressed statistics still round there, as on the JAX package's mesh of
+one. bf16 statistics are differentiable (the cotangent rounds to bf16 on
+its way back, as JAX's autodiff of the cast does); int8 statistics have no
+gradient, as in the JAX package (its shared range is an all-reduce MAX):
+their backward raises.
+
 The training path without a mask goes through the fused kernels of
 :mod:`tpu_syncbn_torch.ops.triton_bn`, which take a view whose channel
-axis is the dense last one and raise on any other CUDA tensor. A mask, as
-in the JAX package, takes the plain PyTorch ops below; so does a CPU
-tensor of another layout, which has no kernel to run anyway.
+axis is the dense last one and raise on any other CUDA tensor. A mask or
+compressed statistics, as in the JAX package, take the plain PyTorch ops
+below (the fused backward's exact all-reduce must stay exact); so does a
+CPU tensor of another layout, which has no kernel to run anyway.
 """
 
 from __future__ import annotations
@@ -33,10 +45,14 @@ from tpu_syncbn_torch.ops._triton_common import get_mode as get_kernel_mode
 from tpu_syncbn_torch.ops._triton_common import mode as kernel_mode
 from tpu_syncbn_torch.ops._triton_common import set_mode as set_kernel_mode
 from tpu_syncbn_torch.ops._triton_common import use_kernel
+from tpu_syncbn_torch.parallel import collectives
 from tpu_syncbn_torch.parallel.collectives import (
     _tally,
+    check_compress_mode,
+    check_group_compress,
     group_for,
     moments_from_stats,
+    psum,
     world_size,
 )
 
@@ -49,25 +65,20 @@ __all__ = [
 
 
 def check_stats_compress(mode: str) -> str:
-    """Statistics ride the wire exactly (``"none"``); the JAX package's
-    lossy ``"bf16"``/``"int8"`` moment reduction is not ported yet, so any
-    other value raises."""
-    if mode != "none":
-        raise ValueError(
-            f"stats_compress={mode!r}: only 'none' (exact float32 "
-            "statistics) is supported by tpu_syncbn_torch"
-        )
-    return mode
+    """The statistics' wire mode: one of ``collectives.COMPRESS_MODES``
+    (``"none"``, exact float32, by default), else ``ValueError``."""
+    return check_compress_mode(mode)
 
 
 def _sync_group(process_group, group_size, stats_compress):
     """The group the statistics sum over: ``process_group``, or this
     rank's subgroup of it for a ``group_size`` spec; ``None`` without a
     ``process_group`` (local statistics, as the JAX ``axis_name=None``
-    ignores ``group_size``)."""
+    ignores ``group_size`` and ``stats_compress``)."""
     check_stats_compress(stats_compress)
     if process_group is None:
         return None
+    check_group_compress(group_size, stats_compress)
     return group_for(group_size, process_group)
 
 
@@ -111,7 +122,8 @@ def sync_moments(
 
     ``mask`` (broadcastable to x, channel-axis size 1) marks the valid
     elements: the uneven/empty-shard contract. Differentiable (the
-    all-reduce's gradient is an all-reduce)."""
+    all-reduce's gradient is an all-reduce), except under
+    ``stats_compress="int8"``, whose backward raises (module docstring)."""
     group = _sync_group(process_group, group_size, stats_compress)
     if mask is None:
         s, sq, count = batch_norm_stats(x, channel_axis=channel_axis)
@@ -122,10 +134,67 @@ def sync_moments(
         s = (xf * mf).sum(dim=axes)
         sq = (xf * xf * mf).sum(dim=axes)
         count = mf.sum(dim=axes)
+    if group is not None and stats_compress != "none":
+        return _compressed_moments(s, sq, count, group, stats_compress)
     if world_size(group) > 1:
         return _differentiable_reduce_moments(s, sq, count, group)
     mean, var = moments_from_stats(s, sq, count)
     return mean, var, count
+
+
+class _Bf16Sums(torch.autograd.Function):
+    """``(Σx, Σx²)`` summed over ``group`` on the bf16 wire, with the JAX
+    package's gradient: there the sum's output is replica-invariant, so the
+    replicas' cotangents are summed in f32 where the statistics meet the
+    activations, then rounded to bf16 once by the cast's transpose, and
+    the sum's own transpose moves nothing. So the backward all-reduces the
+    f32 cotangent and rounds the total through bf16."""
+
+    @staticmethod
+    def forward(ctx, payload, group):
+        ctx.group = group
+        wire = payload.to(torch.bfloat16)
+        collectives._tally_compressed(payload.numel() * 4, wire.numel() * 2)
+        return psum(wire, group).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = psum(grad.contiguous(), ctx.group)
+        return total.to(torch.bfloat16).to(torch.float32), None
+
+
+class _Int8Sums(torch.autograd.Function):
+    """``(Σx, Σx²)`` summed over ``group`` on the int8 wire
+    (``collectives.compressed_psum``). No backward: the JAX package's
+    gradient through this reduction raises (``jax.grad`` has no rule for
+    the range's ``pmax``), so the port's does too rather than invent one."""
+
+    @staticmethod
+    def forward(ctx, payload, group):
+        return collectives.compressed_psum(payload.detach(), group, mode="int8")
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "stats_compress='int8': int8 SyncBN statistics have no gradient. "
+            "Their shared quantization range is an all-reduce MAX, which has "
+            "no differentiation rule (the JAX package raises 'Differentiation "
+            "rule for pmax not implemented' here too); train with "
+            "stats_compress='bf16' or 'none'")
+
+
+def _compressed_moments(s, sq, count, group, mode):
+    """``reduce_moments(mode=...)`` for the module path: ``(Σx, Σx²)`` on
+    the lossy wire, at every world size (``collectives.ALONE`` included),
+    the count exact. bf16 through :class:`_Bf16Sums` (JAX's gradient),
+    int8 through :class:`_Int8Sums`, whose backward raises."""
+    c = s.shape[0]
+    payload = torch.cat([s, sq])
+    sums = _Bf16Sums if mode == "bf16" else _Int8Sums
+    total = sums.apply(payload, group)
+    tcount = psum(count.reshape(-1), group).reshape(count.shape)
+    mean, var = moments_from_stats(total[:c], total[c:], tcount)
+    return mean, var, tcount
 
 
 def _differentiable_reduce_moments(s, sq, count, group):
@@ -230,10 +299,13 @@ def batch_norm_train(
 
     Returns ``(y, (new_running_mean, new_running_var,
     new_num_batches_tracked))``; the triple is ``(None, None, None)`` when
-    no running stats are tracked. The new stats carry no gradient."""
+    no running stats are tracked. The new stats carry no gradient.
+    ``stats_compress`` puts the statistics on a lossy wire when
+    ``process_group`` is given (module docstring)."""
     group = _sync_group(process_group, group_size, stats_compress)
+    compressed = group is not None and stats_compress != "none"
     xv = x.movedim(channel_axis, -1)
-    if mask is None and (xv.is_contiguous() or use_kernel(xv)):
+    if mask is None and not compressed and (xv.is_contiguous() or use_kernel(xv)):
         # fused kernel path: stats kernel, one all-reduce, normalize
         # kernel; hand-derived backward with one all-reduce. A tensor the
         # kernels would run on goes here whatever its layout, so one they
@@ -246,7 +318,8 @@ def batch_norm_train(
         y = yv.movedim(-1, channel_axis)
     else:
         mean, var, count = sync_moments(
-            x, channel_axis=channel_axis, process_group=group, mask=mask,
+            x, channel_axis=channel_axis, process_group=group,
+            stats_compress=stats_compress if compressed else "none", mask=mask,
         )
         y = batch_norm_elemt(
             x, mean, var, weight, bias, eps, channel_axis=channel_axis

@@ -15,19 +15,34 @@ ResNet-50's 53 layers share one set.
 Every collective issued is tallied per call (:func:`tallies`): op name,
 calls and the bytes of the per-replica payload. The JAX package tallies at
 trace time, once per compiled program; here each call counts.
+
+The compressed collectives (the second half of the module) put a lossy
+wire dtype on a reduction: ``"bf16"`` casts, ``"int8"`` quantizes the
+fused float payload per chunk on a range shared by the world (the kernels
+of :mod:`tpu_syncbn_torch.ops.quant_int8`). Their "tree" is a tensor, a
+list or tuple of tensors, or a name-keyed dict of them, flattened in its
+own order (a dict in insertion order, where JAX sorts keys); non-float
+leaves ride an exact sum. Unlike the plain collectives they do their
+arithmetic at every world size, world 1 included: only the wire call is
+skipped there, as the JAX package rounds on a mesh of one too.
+:func:`compression_tallies` counts their logical and wire bytes.
 """
 
 from __future__ import annotations
 
+import math
 import operator
 import threading
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 import torch.distributed as tdist
 
 _lock = threading.Lock()
 _TALLIES: dict[str, list[int]] = {}  # op -> [calls, bytes]
+# compressed calls: [wire bytes, bytes saved against the logical payload,
+# logical / wire of the last call]
+_COMPRESSED: list = [0, 0, None]
 # (partition, id(parent)) -> (this rank's group or None, parent): the
 # parent is held so its id cannot be reused while the entry lives
 _GROUPS: dict[tuple, tuple] = {}
@@ -62,13 +77,32 @@ def bytes_total() -> int:
 def reset_tallies() -> None:
     with _lock:
         _TALLIES.clear()
+        _COMPRESSED[:] = [0, 0, None]
+
+
+class _Alone:
+    """The group of this replica alone, where ``None`` would mean "do not
+    sync": every collective over it is the identity, but a compressed one
+    still rounds (the JAX package's mesh of one). ``SyncBatchNorm`` with
+    ``stats_compress`` passes it at world 1."""
+
+    def __repr__(self) -> str:
+        return "collectives.ALONE"
+
+
+ALONE = _Alone()
 
 
 def world_size(group) -> int:
-    """Replicas in ``group``; 1 for ``None`` or without a process group."""
-    if group is None or not (tdist.is_available() and tdist.is_initialized()):
+    """Replicas in ``group``; 1 for ``None``, :data:`ALONE`, or without a
+    process group."""
+    if group is None or group is ALONE or not (tdist.is_available() and tdist.is_initialized()):
         return 1
     return tdist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return 0 if world_size(group) == 1 else tdist.get_rank(group)
 
 
 def _all_reduce(op: str, tensor: torch.Tensor, group, red) -> torch.Tensor:
@@ -151,6 +185,61 @@ def reduce_scatter(tensor: torch.Tensor, group, *,
         tdist.all_reduce(total, group=group)
         out = total.chunk(n)[tdist.get_rank(group)].contiguous()
     return out.movedim(0, scatter_dimension)
+
+
+def ppermute(tensor: torch.Tensor, perm: Sequence[tuple[int, int]], group) -> torch.Tensor:
+    """Point-to-point permutation (``lax.ppermute``): ``perm`` holds
+    ``(source, destination)`` pairs of ranks of ``group``; this rank sends
+    ``tensor`` to each destination it is the source of, and returns what
+    its source sent it, or zeros when no pair names it as a destination.
+    One ``batch_isend_irecv`` of the pairs that involve this rank. gloo
+    sends host memory only, so there a CUDA tensor goes through the host."""
+    me = _rank(group)
+    x = tensor.contiguous()
+    _tally("ppermute", [x])
+    if world_size(group) == 1:
+        return x.clone() if (me, me) in perm else torch.zeros_like(x)
+    host = x.is_cuda and tdist.get_backend(group) == "gloo"
+    send = x.cpu() if host else x
+    out = torch.zeros_like(send)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(send)
+        elif src == me:
+            ops.append(tdist.P2POp(tdist.isend, send, tdist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(tdist.P2POp(tdist.irecv, out, tdist.get_global_rank(group, src), group))
+    if ops:
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(tensor.device) if host else out
+
+
+def _prime_factors(n: int) -> list:
+    """Ascending prime factorization (with multiplicity); empty for 1."""
+    fs, f = [], 2
+    while n > 1:
+        while n % f == 0:
+            fs.append(f)
+            n //= f
+        f += 1 if f == 2 else 2
+    return fs
+
+
+def _stage_perm(groups: tuple, stride: int, f: int, k: int) -> list:
+    """(source, dest) ppermute pairs for shift ``k`` of a radix-``f``
+    mixed-radix butterfly stage at ``stride``, within equal-size replica
+    ``groups`` (arbitrary membership): each member receives from the
+    group member whose position digit at this stride is ``k`` ahead
+    (mod f)."""
+    perm = []
+    for g in groups:
+        for pos, rank in enumerate(g):
+            d = (pos // stride) % f
+            src_pos = pos + (((d + k) % f) - d) * stride
+            perm.append((g[src_pos], rank))
+    return perm
 
 
 def psum_flat_(tensors: Sequence[torch.Tensor], group, *,
@@ -320,6 +409,17 @@ def moments_from_stats(
     return mean, var
 
 
+def check_group_compress(group_size, mode: str) -> None:
+    """Lossy statistics cannot be scoped to subgroups: the JAX group
+    butterfly re-fuses its payload at f32, so the two flags together raise
+    there instead of silently un-compressing, and here alike."""
+    if group_size is not None and mode != "none":
+        raise ValueError(
+            f"compressed SyncBN stats (mode={mode!r}) cannot be combined with "
+            f"group_size={group_size!r}: the group butterfly re-fuses payloads "
+            "at f32 — sync the full axis or keep stats exact")
+
+
 def reduce_moments(
     local_sum: torch.Tensor,
     local_sumsq: torch.Tensor,
@@ -327,6 +427,7 @@ def reduce_moments(
     group,
     *,
     group_size=None,
+    mode: str = "none",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Count-weighted global (mean, biased var, count) from per-replica
     partial sums: ONE fused all-reduce of ``cat(Σx, Σx², n)`` in f32,
@@ -334,19 +435,412 @@ def reduce_moments(
     ``group_size`` is given (:func:`group_for`).
 
     ``local_count`` is a scalar or per-channel tensor; uneven and empty
-    shards are exact (an empty shard adds zeros)."""
+    shards are exact (an empty shard adds zeros).
+
+    ``mode`` (default ``"none"``: exact f32) puts ``(Σx, Σx²)`` on a lossy
+    wire through :func:`compressed_psum`; the count always rides an exact
+    f32 sum (it feeds the safe divide and the empty-shard semantics).
+    ``group_size`` with a lossy mode raises (:func:`check_group_compress`)."""
+    check_compress_mode(mode)
+    check_group_compress(group_size, mode)
     group = group_for(group_size, group)
     c = local_sum.shape[0]
     count_vec = local_count.to(torch.float32).reshape(-1)
-    payload = torch.cat([
-        local_sum.to(torch.float32),
-        local_sumsq.to(torch.float32),
-        count_vec,
-    ])
-    total = psum(payload, group)
-    s, sq = total[:c], total[c:2 * c]
-    count = total[2 * c:]
+    if mode != "none":
+        s, sq = compressed_psum([local_sum, local_sumsq], group, mode=mode)
+        count = psum(count_vec, group)
+    else:
+        payload = torch.cat([
+            local_sum.to(torch.float32),
+            local_sumsq.to(torch.float32),
+            count_vec,
+        ])
+        total = psum(payload, group)
+        s, sq = total[:c], total[c:2 * c]
+        count = total[2 * c:]
     if local_count.dim() == 0:
         count = count.reshape(())
     mean, var = moments_from_stats(s, sq, count)
     return mean, var, count
+
+
+# -- compressed collectives ---------------------------------------------------
+# (EQuARX-style quantized all-reduce, arxiv 2506.17615; DS-Sync
+# shuffle-sharding, arxiv 2007.03298)
+
+#: Wire-compression modes of every ``compressed_*`` function (and the
+#: trainers' ``compress=``): ``"none"`` exact f32, ``"bf16"`` a cast (2 B an
+#: element), ``"int8"`` chunk-quantized (1 B an element + one f32
+#: (min, max) pair a chunk).
+COMPRESS_MODES = ("none", "bf16", "int8")
+
+#: Elements per quantization chunk: one (scale, zero-point) pair is shared
+#: by this many consecutive elements of the fused payload.
+DEFAULT_CHUNK_ELEMS = 256
+
+
+def check_compress_mode(mode: str) -> str:
+    if mode not in COMPRESS_MODES:
+        raise ValueError(
+            f"compression mode must be one of {COMPRESS_MODES}, got {mode!r}"
+        )
+    return mode
+
+
+def _tally_compressed(logical_bytes: int, wire_bytes: int) -> None:
+    """Count one compressed call: its wire bytes, the bytes it saved
+    against the logical payload, and its ratio (:func:`compression_tallies`).
+    At every world size, as the JAX inventory counts on a mesh of one."""
+    with _lock:
+        _COMPRESSED[0] += int(wire_bytes)
+        _COMPRESSED[1] += max(0, int(logical_bytes) - int(wire_bytes))
+        if wire_bytes:
+            _COMPRESSED[2] = logical_bytes / wire_bytes
+
+
+def compression_tallies() -> dict:
+    """``{"compressed_bytes", "saved_bytes", "compression_ratio"}`` since
+    the last :func:`reset_tallies`: the wire bytes of every compressed
+    call, what they saved against the f32 (logical) payload, and logical
+    / wire of the last call (``None`` before the first). The plain
+    collectives they issue tally their own bytes in :func:`tallies`."""
+    with _lock:
+        wire, saved, ratio = _COMPRESSED
+        return {"compressed_bytes": wire, "saved_bytes": saved,
+                "compression_ratio": ratio}
+
+
+def _nbytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _flatten_tree(tree):
+    """``(leaves, rebuild)`` of a tensor, a list or tuple of tensors, or a
+    name-keyed dict of them; ``rebuild(leaves)`` makes the same kind."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda ls: ls[0]
+    if isinstance(tree, Mapping):
+        keys = list(tree)
+        return [tree[k] for k in keys], lambda ls: dict(zip(keys, ls))
+    if isinstance(tree, (list, tuple)):
+        kind = type(tree)
+        return list(tree), lambda ls: kind(ls)
+    raise TypeError(f"expected a tensor, a list/tuple or a dict of tensors, "
+                    f"got {type(tree).__name__}")
+
+
+def _split_float_leaves(tree):
+    """``(rebuild, float leaves, their indices, all leaves)``: the
+    compressed paths quantize floating leaves and move anything else (int
+    flags, counters) through an exact sum."""
+    leaves, rebuild = _flatten_tree(tree)
+    fidx = [i for i, t in enumerate(leaves) if t.is_floating_point()]
+    return rebuild, [leaves[i] for i in fidx], fidx, leaves
+
+
+def _fuse_f32(leaves) -> torch.Tensor:
+    """One flat f32 payload of ``leaves`` (quantization chunks then span
+    leaf boundaries), in their order, each in its logical order."""
+    parts = [t.reshape(-1).to(torch.float32) for t in leaves]
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
+
+
+def _unfuse(flat: torch.Tensor, like_leaves, *, cast: bool = True) -> list:
+    out, offset = [], 0
+    for t in like_leaves:
+        n = t.numel()
+        piece = flat[offset:offset + n].reshape(t.shape)
+        out.append(piece.to(t.dtype) if cast else piece)
+        offset += n
+    return out
+
+
+def _reassemble(rebuild, leaves, fidx, freduced, exact):
+    """The compressed float leaves and the exactly reduced others back in
+    the tree's order (one implementation for :func:`compressed_psum` and
+    :func:`ef_compressed_pmean`)."""
+    out = list(leaves)
+    fset = set(fidx)
+    for i, t in zip(fidx, freduced):
+        out[i] = t
+    it = iter(exact)
+    for i in range(len(out)):
+        if i not in fset:
+            out[i] = next(it)
+    return rebuild(out)
+
+
+def _chunk_pad(flat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``flat`` padded with zeros to whole chunks (the zeros enter the last
+    chunk's range, as in the JAX package)."""
+    pad = (-flat.numel()) % chunk
+    return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+
+def _psum_list(tensors: list, group) -> list:
+    """Each tensor summed across ``group`` with ONE all-reduce of their
+    concatenation (one dtype); the tensors themselves at world 1."""
+    if world_size(group) == 1:
+        return tensors
+    total = psum(torch.cat([t.reshape(-1) for t in tensors]), group)
+    return [part.view(t.shape) for part, t in zip(total.split([t.numel() for t in tensors]),
+                                                     tensors)]
+
+
+def _int8_qparams(flat: torch.Tensor, group, world: int, chunk: int, *,
+                  residual: torch.Tensor | None = None, want_residual: bool = False,
+                  residual_out: torch.Tensor | None = None):
+    """Shared-range asymmetric int8 codes of ``p = flat (+ residual)`` in
+    chunks of ``chunk``: ``(q, scale, zp, qmax, new residual or None)``.
+
+    The range is the WORLD range (one small f32 all-reduce MAX of the
+    per-chunk ``(-min, max)`` pairs), so every replica quantizes on one
+    grid, and per-element magnitudes are budgeted to ``qmax = 127 //
+    world``: a world sum stays within ±127, so the int8 all-reduce is
+    exact. The budget vanishes past 127 replicas, so int8 refuses them
+    (use ``"bf16"``). The kernels are :mod:`~tpu_syncbn_torch.ops.quant_int8`'s
+    (the plain version for a CPU tensor)."""
+    from tpu_syncbn_torch.ops import quant_int8
+
+    if world > 127:
+        raise ValueError(
+            f"int8 compression supports axis sizes up to 127, got "
+            f"{world}: the no-overflow element budget 127 // world is "
+            "zero, so world-sums would wrap int8 — use mode='bf16'"
+        )
+    qmax = 127 // world
+    ranges = pmax(quant_int8.minmax(flat, residual, chunk=chunk), group)
+    q, scale, zp, res = quant_int8.encode(flat, residual, ranges, qmax, chunk=chunk,
+                                          want_residual=want_residual,
+                                          residual_out=residual_out)
+    return q, scale, zp, qmax, res
+
+
+def _compressed_mean_flat(flat: torch.Tensor, group, *, mode: str, logical: int,
+                          chunk: int = DEFAULT_CHUNK_ELEMS,
+                          residual: torch.Tensor | None = None,
+                          residual_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The replica mean of the flat f32 payload ``flat`` over a lossy wire,
+    f32. With ``residual`` (error feedback) each replica reduces ``p = flat
+    + residual`` and its new residual ``p − C(p)`` is written into
+    ``residual_out`` (``residual`` itself by default). ``logical`` is the
+    payload's bytes in its own dtypes, for the tallies."""
+    from tpu_syncbn_torch.ops import quant_int8
+
+    world = world_size(group)
+    if residual is not None and residual_out is None:
+        residual_out = residual
+    if mode == "bf16":
+        p = flat if residual is None else flat + residual
+        cast = p.to(torch.bfloat16)
+        _tally_compressed(logical, cast.numel() * 2)
+        if residual is not None:
+            residual_out.copy_(p - cast.to(torch.float32))
+        return psum(cast, group).to(torch.float32) * (1.0 / world)
+    q, scale, zp, _, _ = _int8_qparams(flat, group, world, chunk, residual=residual,
+                                       want_residual=residual is not None,
+                                       residual_out=residual_out)
+    _tally_compressed(logical, q.numel() + 8 * scale.numel())
+    return quant_int8.decode(psum(q, group), scale, zp, world=world, n=flat.numel(),
+                             chunk=chunk, mean=True)
+
+
+def compressed_psum(tree, group, *, mode: str, chunk_size: int = DEFAULT_CHUNK_ELEMS):
+    """All-reduce SUM with a compressed wire dtype:
+
+    * ``"none"`` — each leaf's exact :func:`psum`;
+    * ``"bf16"`` — float leaves cast to bfloat16 for the wire, summed in
+      bf16, cast back: 2× fewer bytes, exact when the addends and sums are
+      bf16-representable;
+    * ``"int8"`` — float leaves fused into one flat f32 payload, quantized
+      per chunk on the world's shared range (:func:`_int8_qparams`), summed
+      as int8, dequantized: ~4× fewer bytes.
+
+    Non-float leaves (counts, flags) always ride an exact sum. Returns the
+    tree's kind with every leaf summed, in its dtype."""
+    from tpu_syncbn_torch.ops import quant_int8
+
+    check_compress_mode(mode)
+    leaves, rebuild = _flatten_tree(tree)
+    if mode == "none":
+        return rebuild([psum(t, group) for t in leaves])
+    rebuild, fleaves, fidx, leaves = _split_float_leaves(tree)
+    exact = [psum(t, group) for i, t in enumerate(leaves) if i not in set(fidx)]
+    if not fleaves:
+        return rebuild(exact)
+    world = world_size(group)
+    logical = _nbytes(fleaves)
+    if mode == "bf16":
+        cast = [t.to(torch.bfloat16) for t in fleaves]
+        _tally_compressed(logical, _nbytes(cast))
+        fsummed = [s.to(t.dtype) for s, t in zip(_psum_list(cast, group), fleaves)]
+    else:
+        flat = _fuse_f32(fleaves)
+        q, scale, zp, _, _ = _int8_qparams(flat, group, world, chunk_size)
+        # the int8 payload plus the f32 (-min, max) pair a chunk that the
+        # range all-reduce moves
+        _tally_compressed(logical, q.numel() + 8 * scale.numel())
+        summed = quant_int8.decode(psum(q, group), scale, zp, world=world, n=flat.numel(),
+                                   chunk=chunk_size)
+        fsummed = _unfuse(summed, fleaves)
+    return _reassemble(rebuild, leaves, fidx, fsummed, exact)
+
+
+def compressed_pmean(tree, group, *, mode: str, chunk_size: int = DEFAULT_CHUNK_ELEMS):
+    """:func:`compressed_psum` followed by the division by the world size —
+    DDP's gradient averaging on a compressed wire. The division happens
+    after the dequantize, in each leaf's dtype (integer leaves become the
+    float mean, as ``lax.pmean`` gives). Every division by the world size
+    here is a multiplication by its f32 reciprocal, as XLA's CPU backend
+    computes the JAX package's ``/ world`` (``ops.quant_int8``)."""
+    world = world_size(group)
+    summed, rebuild = _flatten_tree(compressed_psum(tree, group, mode=mode,
+                                                    chunk_size=chunk_size))
+    return rebuild([t * (1.0 / world) for t in summed])
+
+
+def init_error_feedback(tree):
+    """A zero residual for ``tree``: an f32 zero tensor of each float
+    leaf's shape, and a zero-size placeholder for every other leaf, so the
+    residual keeps the tree's structure."""
+    leaves, rebuild = _flatten_tree(tree)
+    return rebuild([torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                    if t.is_floating_point()
+                    else torch.zeros((0,), dtype=torch.float32, device=t.device)
+                    for t in leaves])
+
+
+def ef_compressed_pmean(tree, residual, group, *, mode: str,
+                        chunk_size: int = DEFAULT_CHUNK_ELEMS):
+    """Error-feedback compressed gradient mean (EF-SGD lineage): each
+    replica reduces ``p = g + e`` instead of ``g`` and keeps ``e' = p −
+    C(p)``, its own quantization error, so the error is sent again until
+    it lands instead of accumulating. Returns ``(mean over replicas of
+    C(p), e')``; ``residual`` is this replica's state, of
+    :func:`init_error_feedback`'s structure. ``mode="none"`` is the exact
+    :func:`pmean` with the residual untouched."""
+    check_compress_mode(mode)
+    world = world_size(group)
+    leaves, rebuild = _flatten_tree(tree)
+    if mode == "none":
+        return rebuild([pmean(t, group) for t in leaves]), residual
+    rebuild, fleaves, fidx, leaves = _split_float_leaves(tree)
+    if not fleaves:
+        return rebuild([pmean(t, group) for t in leaves]), residual
+    res_leaves, res_rebuild = _flatten_tree(residual)
+    if len(res_leaves) != len(leaves):
+        raise ValueError(
+            f"residual tree has {len(res_leaves)} leaves, expected "
+            f"{len(leaves)} (init with init_error_feedback)"
+        )
+    fres = [res_leaves[i] for i in fidx]
+    exact = [pmean(t, group) for i, t in enumerate(leaves) if i not in set(fidx)]
+    flat, flat_res = _fuse_f32(fleaves), _fuse_f32(fres)
+    new_flat = torch.empty_like(flat_res)
+    mean = _compressed_mean_flat(flat, group, mode=mode, logical=_nbytes(fleaves),
+                                 chunk=chunk_size, residual=flat_res,
+                                 residual_out=new_flat)
+    res_out = list(res_leaves)
+    for i, r in zip(fidx, _unfuse(new_flat, fres, cast=False)):
+        res_out[i] = r
+    return (_reassemble(rebuild, leaves, fidx, _unfuse(mean, fleaves), exact),
+            res_rebuild(res_out))
+
+
+def compressed_reduce_scatter(x: torch.Tensor, group, *, mode: str,
+                              want_residual: bool = False):
+    """Compressed reduce-scatter for the ZeRO path: ``x`` is a flat vector
+    whose length divides by the world size; returns ``(this rank's summed
+    shard as f32, residual or None)``.
+
+    int8 quantizes one chunk per scatter shard (the chunk boundaries are
+    the shard boundaries, so each rank dequantizes its shard with its own
+    (scale, zero-point) pair) under the same overflow budget as
+    :func:`compressed_psum`, so the int8 reduce-scatter is exact; on gloo
+    it is :func:`reduce_scatter`'s all-reduce and slice, exact alike.
+    ``want_residual`` also returns this replica's full-size f32 error
+    ``x − C(x)`` for error feedback."""
+    from tpu_syncbn_torch.ops import quant_int8
+
+    check_compress_mode(mode)
+    world = world_size(group)
+    n = x.numel()
+    if n % world:
+        raise ValueError(f"payload size {n} must divide by the axis size {world}")
+    xf = x.reshape(-1).to(torch.float32).contiguous()
+    if mode == "none":
+        return reduce_scatter(xf, group), (torch.zeros_like(xf) if want_residual else None)
+    if mode == "bf16":
+        cast = xf.to(torch.bfloat16)
+        _tally_compressed(n * 4, n * 2)
+        shard = reduce_scatter(cast, group).to(torch.float32)
+        return shard, (xf - cast.to(torch.float32) if want_residual else None)
+    chunk = n // world
+    q, scale, zp, _, res = _int8_qparams(xf, group, world, chunk, want_residual=want_residual)
+    _tally_compressed(n * 4, q.numel() + 8 * world)
+    me = _rank(group)
+    shard = quant_int8.decode(reduce_scatter(q, group), scale[me:me + 1].contiguous(),
+                              zp[me:me + 1].contiguous(), world=world, n=chunk, chunk=chunk)
+    return shard, res
+
+
+def shuffle_sharded_psum(tree, group, *, num_shards: int | None = None, mode: str = "none",
+                         chunk_size: int = DEFAULT_CHUNK_ELEMS):
+    """DS-Sync-style shuffle-sharded all-reduce (arxiv 2007.03298): the
+    fused payload is cut into ``num_shards`` shards (default: the world
+    size), and shard ``j`` is summed by its own mixed-radix butterfly of
+    :func:`ppermute` stages over the world rotated by ``j``
+    (:func:`_stage_perm`), so each stage of each shard uses other links.
+    Same total bytes as one butterfly.
+
+    ``"bf16"`` runs the butterflies on the bf16 payload; ``"int8"``
+    quantizes once up front on the shared range (its budget keeps every
+    partial sum exact) and dequantizes once at the end. Exact for
+    ``"none"``. Every leaf, float or not, rides the fused f32 payload and
+    comes back in its dtype. The tree itself at world 1."""
+    from tpu_syncbn_torch.ops import quant_int8
+
+    check_compress_mode(mode)
+    world = world_size(group)
+    if world == 1:
+        return tree
+    shards = world if num_shards is None else int(num_shards)
+    if shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {shards}")
+    leaves, rebuild = _flatten_tree(tree)
+    flat = _fuse_f32(leaves)
+    logical = flat.numel() * 4
+    if mode == "bf16":
+        payload = flat.to(torch.bfloat16)
+        _tally_compressed(logical, payload.numel() * 2)
+    elif mode == "int8":
+        q, scale, zp, _, _ = _int8_qparams(flat, group, world, chunk_size)
+        payload = q
+        _tally_compressed(logical, q.numel() + 8 * scale.numel())
+    else:
+        payload = flat
+    size = payload.numel()
+    payload = _chunk_pad(payload, shards) if size % shards else payload
+    segs = payload.view(shards, -1)
+    factors = _prime_factors(world)
+    outs = []
+    for j in range(shards):
+        # shard j's butterfly runs over the world rotated by j: same
+        # stage count, other (source, destination) links at every stage
+        order = tuple((r + j) % world for r in range(world))
+        seg = segs[j]
+        stride = 1
+        for f in factors:
+            acc = seg
+            for k in range(1, f):
+                acc = acc + ppermute(seg, _stage_perm((order,), stride, f, k), group)
+            seg = acc
+            stride *= f
+        outs.append(seg)
+    summed = torch.cat(outs)[:size]
+    if mode == "bf16":
+        summed = summed.to(torch.float32)
+    elif mode == "int8":
+        summed = quant_int8.decode(summed, scale, zp, world=world, n=flat.numel(),
+                                   chunk=chunk_size)
+    return rebuild(_unfuse(summed, leaves))

@@ -27,8 +27,12 @@ buffers (BN statistics and SNConv's ``u``) are broadcast from rank 0 at
 the end, as the JAX step does.
 
 ``train_steps`` runs K iterations as one program (one CUDA graph on
-the card). Not ported: ``monitors`` (ROADMAP A.11) and ``compress`` (A.9)
-raise ``NotImplementedError`` for anything but their defaults here.
+the card). ``compress`` puts both networks' gradient mean on a compressed
+wire (``collectives.compressed_pmean``, at every world size), stateless:
+error feedback is a ``DataParallel`` feature, as in the JAX package.
+Losses, metrics and the buffer broadcast stay exact. Not ported:
+``monitors`` (ROADMAP A.11) raises ``NotImplementedError`` for anything
+but its default here.
 """
 
 from __future__ import annotations
@@ -90,7 +94,10 @@ class GANTrainer:
     ``torch.optim.Adam(params, lr, betas=(0.5, 0.999))``).
 
     ``group`` is the process group to average over (``None``: the default
-    world group). Both models must already be on ``device`` (default
+    world group). ``compress`` (``"none"``, ``"bf16"`` or ``"int8"``) is
+    the wire of both networks' gradient mean: each network's gradients
+    fused in ``named_parameters()`` order, no error feedback (prefer
+    ``"bf16"`` for GANs). Both models must already be on ``device`` (default
     ``"cuda"``, which raises without a card); their parameters and buffers
     are broadcast from rank 0 at construction."""
 
@@ -113,10 +120,7 @@ class GANTrainer:
             raise NotImplementedError(
                 "GANTrainer(monitors=...): the on-device monitors are not "
                 "ported yet (ROADMAP A.11); use monitors=False")
-        if compress != "none":
-            raise NotImplementedError(
-                f"GANTrainer(compress={compress!r}): compressed gradient "
-                "all-reduce is not ported yet (ROADMAP A.9); use 'none'")
+        self.compress = collectives.check_compress_mode(compress)
         self.device = resolve_device(device)
         for net, model in (("generator", generator), ("discriminator", discriminator)):
             for name, t in list(model.named_parameters()) + list(model.named_buffers()):
@@ -139,11 +143,23 @@ class GANTrainer:
         # (K, batch signature) -> captured K-iteration program
         self._train_steps_cache = scan_driver.ProgramCache(name="gan")
 
+    def _average_grads_(self, model: nn.Module) -> None:
+        """Average ``model``'s gradients over the group in place: one flat
+        exact all-reduce (none at world 1), or ``compress``'s wire."""
+        grads = _grads_for_all_reduce(
+            [p for p in model.parameters() if p.requires_grad],
+            self.world > 1 or self.compress != "none")
+        if self.compress == "none":
+            collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+            return
+        with torch.no_grad():
+            for g, mean in zip(grads, collectives.compressed_pmean(
+                    grads, self.group, mode=self.compress)):
+                g.copy_(mean)
+
     def _update(self, model: nn.Module, optimizer) -> None:
         """Average ``model``'s gradients over the group, then step."""
-        grads = _grads_for_all_reduce(
-            [p for p in model.parameters() if p.requires_grad], self.world)
-        collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+        self._average_grads_(model)
         optimizer.step()
 
     def _iteration(self, real, z_d, z_g, update) -> torch.Tensor:
@@ -199,9 +215,7 @@ class GANTrainer:
                 for opt in (self.g_optimizer, self.d_optimizer)}
 
         def update(step, model, optimizer):
-            grads = _grads_for_all_reduce(
-                [p for p in model.parameters() if p.requires_grad], self.world)
-            collectives.psum_flat_(grads, self.group, scale=1.0 / self.world)
+            self._average_grads_(model)
             chunk = opts[id(optimizer)]
             chunk.step(chunk.lrs[step])
 

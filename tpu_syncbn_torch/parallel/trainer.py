@@ -1,7 +1,8 @@
 """Data-parallel trainer — the counterpart of
 ``tpu_syncbn.parallel.trainer`` (``StepOutput``, ``DataParallel`` with
-``accum_steps``, ``remat``, ``divergence_guard``, its state dict and its
-K-step entry points, and ``resume_latest``).
+``accum_steps``, ``remat``, ``divergence_guard``, the compressed gradient
+all-reduce with error feedback, its state dict and its K-step entry
+points, and ``resume_latest``).
 
 One process per GPU, each with its local shard of the batch. A step is
 forward, local-mean loss, backward, ONE flat all-reduce of every gradient
@@ -127,12 +128,13 @@ def _unpack_(packed) -> None:
                 t.copy_(part.view_as(t))
 
 
-def _grads_for_all_reduce(params, world: int) -> list[torch.Tensor]:
-    """The gradients of ``params`` to all-reduce. At world > 1 a parameter
-    that requires grad but got none on this rank (its loss did not reach
-    it) gets a zero gradient, so all ranks send buffers of one size (the
-    JAX trainers' gradients cover every parameter too)."""
-    if world > 1:
+def _grads_for_all_reduce(params, fill: bool) -> list[torch.Tensor]:
+    """The gradients of ``params`` to all-reduce. With ``fill`` (at world
+    > 1, and on a compressed wire, whose fused payload has a fixed layout)
+    a parameter that requires grad but got none on this rank (its loss did
+    not reach it) gets a zero gradient, so all ranks send buffers of one
+    size (the JAX trainers' gradients cover every parameter too)."""
+    if fill:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -449,6 +451,38 @@ class DataParallel:
     the group must be NCCL's (gloo's collectives wait on the host, which
     a graph cannot hold).
 
+    ``compress`` (default ``"none"``) puts the gradient all-reduce on a
+    compressed wire (``collectives.compressed_pmean``): ``"bf16"`` halves
+    the bytes, ``"int8"`` quarters them (chunk-quantized on a range shared
+    by the world, ``ops.quant_int8``'s kernels on the card). The arithmetic
+    runs at every world size, world 1 included, where only the wire call
+    is skipped (the JAX trainer quantizes on a mesh of one too). Under a
+    lossy mode the step's loss and metrics ride bf16 as well (reporting
+    scalars); the guard's finiteness consensus, SyncBN's count and
+    :meth:`eval_step` stay exact, and SyncBN's moments compress only by
+    their own ``stats_compress``. ``grad_compression="bf16"`` is the
+    legacy stateless hook (DDP's ``bf16_compress_hook``: gradients cast to
+    bf16 for the mean and back); it excludes ``compress``.
+
+    ``error_feedback`` (default: on for ``"int8"``, off for ``"bf16"``;
+    ``True`` with ``"none"`` raises) keeps a per-replica f32 residual:
+    each replica reduces ``gradients + residual`` and keeps its own
+    quantization error for the next step (``collectives.ef_compressed_pmean``).
+    The int8 payload fuses the gradients of every parameter that requires
+    grad in ``named_parameters()`` order, each in its logical contiguous
+    order, in chunks of 256 (the JAX trainer fuses its leaves in
+    ``jax.tree_util`` order with JAX layouts, so the two fill chunks with
+    other elements: their int8 grids differ while the function is the
+    same). The residual is the trainer's own state (one flat f32 buffer
+    of that payload, one gradient's size): a guarded skip keeps it, it
+    rides the K-step programs' state (selected on the device under the
+    guard), :meth:`state_dict` carries it per parameter (this replica's:
+    a checkpoint saved by the master gives every rank the master's
+    residual, where the JAX checkpoint stores one row a replica),
+    :meth:`reset_compression_residual` zeroes it, and
+    ``ResilientLoop``'s ``restore_last_good`` calls that.
+    :meth:`set_compress` switches the wire mode between steps.
+
     The model's parameters and buffers must already be on ``device``
     (default ``"cuda"``, which raises without a card)."""
 
@@ -464,10 +498,26 @@ class DataParallel:
         remat: bool = False,
         divergence_guard: str | None = None,
         lr_scheduler=None,
+        grad_compression: str | None = None,
+        compress: str = "none",
+        error_feedback: bool | None = None,
         device: str | torch.device | None = "cuda",
     ):
         if accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
+        if grad_compression not in (None, "bf16"):
+            raise ValueError(
+                f"grad_compression must be None or 'bf16', got {grad_compression!r}")
+        collectives.check_compress_mode(compress)
+        if grad_compression is not None and compress != "none":
+            raise ValueError(
+                "grad_compression (legacy bf16 hook) and compress are "
+                "mutually exclusive — use compress='bf16'")
+        if error_feedback and compress == "none":
+            raise ValueError(
+                "error_feedback=True needs a lossy compress mode "
+                "('bf16'/'int8') — there is no compression error to "
+                "feed back on the exact fp32 wire")
         if divergence_guard not in GUARD_POLICIES:
             raise ValueError(
                 "divergence_guard must be None, 'skip_step', 'halve_lr', "
@@ -504,8 +554,24 @@ class DataParallel:
             self._per_step_broadcast = bool(broadcast_buffers)
         self.broadcast_buffers = broadcast_buffers
         sync_module_states(model, group=self.group)
+        self.compress = compress
+        self.grad_compression = grad_compression
+        #: whether an error-feedback residual is kept (fixed at
+        #: construction; set_compress never changes it)
+        self._ef = compress != "none" and (
+            error_feedback if error_feedback is not None else compress == "int8")
+        #: (name, parameter) of every parameter the gradients cover, in the
+        #: fused payload's order
+        self._trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        #: the error-feedback residual: one flat f32 buffer over the fused
+        #: payload, this replica's own
+        self._residual = (torch.zeros(sum(p.numel() for _, p in self._trainable),
+                                      dtype=torch.float32, device=self.device)
+                          if self._ef else None)
         # (n_steps, stacked, batch signature) -> captured K-step program
         self._train_steps_cache = scan_driver.ProgramCache(name="train")
+        # compress mode -> its parked program cache (set_compress)
+        self._mode_programs: dict[str, scan_driver.ProgramCache] = {}
         # SGD's first-step flags (dampening only), kept across programs
         self._first_flags: torch.Tensor | None = None
 
@@ -513,15 +579,50 @@ class DataParallel:
         loss, metrics = out if isinstance(out, tuple) else (out, {})
         return loss, dict(metrics)
 
-    def _replica_mean(self, loss, metrics):
-        """Loss and metrics averaged over replicas, in one all-reduce."""
-        if self.world == 1:
+    def _replica_mean(self, loss, metrics, lossy: bool = False):
+        """Loss and metrics averaged over replicas, in one all-reduce; with
+        ``lossy`` on the bf16 wire, at every world size (the training step
+        under a lossy ``compress``)."""
+        if self.world == 1 and not lossy:
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}
         keys = list(metrics)
         vals = torch.stack([loss.detach().float()]
                            + [metrics[k].detach().float() for k in keys])
-        vals = collectives.pmean(vals, self.group)
+        if lossy:
+            vals = collectives.compressed_pmean(vals, self.group, mode="bf16")
+        else:
+            vals = collectives.pmean(vals, self.group)
         return vals[0], {k: vals[i + 1] for i, k in enumerate(keys)}
+
+    def _fill_grads(self) -> bool:
+        return self.world > 1 or self.compress != "none" or self.grad_compression is not None
+
+    def _reduce_grads_(self, grads) -> None:
+        """Average ``grads`` over the replicas and the microbatches, in
+        place: one flat exact all-reduce a dtype (none at world 1), or the
+        compressed wire of ``compress`` (with the residual under error
+        feedback) or of the legacy ``grad_compression`` hook."""
+        if self.compress == "none" and self.grad_compression is None:
+            if self.world > 1:
+                collectives.psum_flat_(
+                    grads, self.group, scale=1.0 / (self.world * self.accum_steps))
+            elif self.accum_steps > 1:
+                torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+            return
+        if self.accum_steps > 1:
+            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        with torch.no_grad():
+            if self.grad_compression == "bf16":
+                # bf16_compress_hook: the mean taken in bf16
+                wire = torch.cat([g.reshape(-1).to(torch.bfloat16) for g in grads])
+                mean = collectives.psum(wire, self.group) / self.world
+            else:
+                flat = collectives._fuse_f32(grads)
+                mean = collectives._compressed_mean_flat(
+                    flat, self.group, mode=self.compress,
+                    logical=collectives._nbytes(grads), residual=self._residual)
+            for g, part in zip(grads, mean.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
 
     def _forward_backward(self, batch):
         """Forward and backward of one (micro)batch; gradients accumulate
@@ -582,20 +683,18 @@ class DataParallel:
         guarded = self.divergence_guard is not None
         before = _pack(buffers) if guarded else None
         loss, metrics = self._accumulate(batch)
-        # DDP gradient averaging: one flat all-reduce per dtype
+        # DDP gradient averaging: one flat all-reduce per dtype, or the
+        # compressed wire
         grads = _grads_for_all_reduce(
-            [p for p in self.model.parameters() if p.requires_grad], self.world)
+            [p for p in self.model.parameters() if p.requires_grad], self._fill_grads())
         if guarded:
             agreed = self._grads_agreed_finite(grads)
-        loss, metrics = self._replica_mean(loss, metrics)
+        loss, metrics = self._replica_mean(loss, metrics, self.compress != "none")
         # the guard's one host read a step
         ok = bool(agreed & torch.isfinite(loss)) if guarded else True
         if ok:
-            if self.world > 1:
-                collectives.psum_flat_(
-                    grads, self.group, scale=1.0 / (self.world * self.accum_steps))
-            elif self.accum_steps > 1:
-                torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+            # a skipped step never reduces, so it keeps the residual
+            self._reduce_grads_(grads)
             self._optimizer_step()
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
@@ -631,9 +730,11 @@ class DataParallel:
 
     def _state_tensors(self, chunk) -> list[torch.Tensor]:
         """Every tensor a K-step body updates in place: parameters,
-        buffers, the optimizer's state."""
+        buffers, the optimizer's state and the error-feedback residual."""
         ts = list(self.model.parameters())
         ts += [b for b in self.model.buffers() if b is not None]
+        if self._residual is not None:
+            ts.append(self._residual)
         return ts + chunk.opt.state_tensors()
 
     def _chunk_step(self, chunk, k: int, batch) -> dict:
@@ -649,17 +750,13 @@ class DataParallel:
             old = [t.detach().clone() for t in live]
         loss, metrics = self._accumulate(batch)
         grads = _grads_for_all_reduce(
-            [p for p in self.model.parameters() if p.requires_grad], self.world)
+            [p for p in self.model.parameters() if p.requires_grad], self._fill_grads())
         if guard is not None:
             agreed = self._grads_agreed_finite(grads)
-        loss, metrics = self._replica_mean(loss, metrics)
-        # the update runs whatever the verdict; a non-finite one is
-        # undone by the select below
-        if self.world > 1:
-            collectives.psum_flat_(
-                grads, self.group, scale=1.0 / (self.world * self.accum_steps))
-        elif self.accum_steps > 1:
-            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        loss, metrics = self._replica_mean(loss, metrics, self.compress != "none")
+        # the update (and the residual's) runs whatever the verdict; a
+        # non-finite one is undone by the select below
+        self._reduce_grads_(grads)
         lr = (chunk.opt.lrs.index_select(0, chunk.taken.view(1))[0]
               if guard is not None else chunk.opt.lrs[k])
         if guard == "halve_lr":
@@ -750,8 +847,57 @@ class DataParallel:
     @property
     def program_caches(self) -> tuple:
         """Every :class:`~tpu_syncbn_torch.parallel.scan_driver.ProgramCache`
-        this trainer owns."""
-        return (self._train_steps_cache,)
+        this trainer owns: the live mode's first, then any parked by
+        :meth:`set_compress`."""
+        parked = [c for c in self._mode_programs.values()
+                  if c is not self._train_steps_cache]
+        return (self._train_steps_cache, *parked)
+
+    # -- compression --------------------------------------------------------
+
+    def reset_compression_residual(self) -> bool:
+        """Zero the error-feedback residual in place; returns whether there
+        was one. ``ResilientLoop``'s ``restore_last_good`` calls it: after
+        a divergence rollback the restored residual holds the quantization
+        error of a trajectory that has been unwound. An ordinary resume
+        keeps the checkpointed residual."""
+        if self._residual is None:
+            return False
+        with torch.no_grad():
+            self._residual.zero_()
+        return True
+
+    def set_compress(self, mode: str) -> bool:
+        """Switch the gradient wire between steps; returns whether anything
+        changed. Whether a residual is kept is fixed at construction (build
+        the trainer at the lossiest mode you will select, e.g. ``"int8"``;
+        under ``"none"`` the residual passes through untouched). Each
+        mode's K-step programs are parked on a switch away and recalled on
+        the switch back, so a mode revisited captures nothing anew. The
+        residual's content belongs to its wire format, so it is zeroed at
+        every switch. Not for the legacy ``grad_compression`` hook."""
+        collectives.check_compress_mode(mode)
+        if self.grad_compression is not None:
+            raise ValueError(
+                "set_compress does not apply to the legacy "
+                "grad_compression hook — construct with compress= instead")
+        if mode == self.compress:
+            return False
+        self._mode_programs[self.compress] = self._train_steps_cache
+        self.compress = mode
+        parked = self._mode_programs.get(mode)
+        self._train_steps_cache = (parked if parked is not None
+                                   else scan_driver.ProgramCache(name="train"))
+        self.reset_compression_residual()
+        return True
+
+    def _residual_views(self) -> dict:
+        """``{name: view}`` of the residual buffer, one a parameter."""
+        views, offset = {}, 0
+        for name, p in self._trainable:
+            views[name] = self._residual[offset:offset + p.numel()].view(p.shape)
+            offset += p.numel()
+        return views
 
     # -- checkpointing ----------------------------------------------------
 
@@ -759,7 +905,8 @@ class DataParallel:
         """Full training state, as copies: ``params`` and ``rest`` (every
         buffer) by name, and ``opt_state`` with the optimizer's
         ``state_dict()``, the scheduler's when the trainer owns one, and
-        the guard state when it is armed — feed it to
+        the guard state when it is armed, and this replica's error-feedback
+        ``residual`` by parameter name when it is kept — feed it to
         ``utils.checkpoint.save_checkpoint`` on the master. The copies stay
         valid while later steps update the live tensors in place."""
         opt_state = {"optimizer": copy.deepcopy(self.optimizer.state_dict())}
@@ -767,6 +914,9 @@ class DataParallel:
             opt_state["lr_scheduler"] = copy.deepcopy(self.lr_scheduler.state_dict())
         if self.divergence_guard is not None:
             opt_state["guard"] = dict(self.guard_state)
+        if self._residual is not None:
+            opt_state["residual"] = {n: v.detach().clone()
+                                     for n, v in self._residual_views().items()}
         return {**_named_state(self.model), "opt_state": opt_state}
 
     def load_state_dict(self, state: dict) -> None:
@@ -781,23 +931,37 @@ class DataParallel:
             want.add("lr_scheduler")
         if self.divergence_guard is not None:
             want.add("guard")
+        if self._residual is not None:
+            want.add("residual")
         if set(opt_state) != want:
             raise ValueError(
                 "opt_state structure mismatch: this checkpoint was saved "
-                "by a trainer with a different optimizer, lr_scheduler or "
-                f"divergence_guard setting than this one (it holds "
+                "by a trainer with a different optimizer, lr_scheduler, "
+                f"divergence_guard or error_feedback setting than this one (it holds "
                 f"{sorted(opt_state)}, this trainer {sorted(want)}). Rebuild "
                 "the trainer with the same settings to resume the optimizer "
                 "state."
             )
+        if self._residual is not None:
+            views = self._residual_views()
+            got = opt_state["residual"]
+            if set(got) != set(views) or any(tuple(got[n].shape) != tuple(v.shape)
+                                             for n, v in views.items()):
+                raise ValueError("residual mismatch: the checkpoint's residual "
+                                 "names or shapes differ from the model's parameters")
         _load_named_state_(self.model, state["params"], state["rest"])
+        if self._residual is not None:
+            with torch.no_grad():
+                for n, v in views.items():
+                    v.copy_(got[n])
         # a copy: torch's load keeps the given tensors where their dtype
         # and device already fit, and the next step would then update the
         # caller's state in place
         self.optimizer.load_state_dict(copy.deepcopy(opt_state["optimizer"]))
         # the load replaced the optimizer's state tensors: a captured
-        # program would go on writing the old ones
-        self._train_steps_cache.clear()
+        # program (parked ones too) would go on writing the old ones
+        for cache in self.program_caches:
+            cache.clear()
         self._first_flags = None
         if self.lr_scheduler is not None:
             self.lr_scheduler.load_state_dict(opt_state["lr_scheduler"])

@@ -20,9 +20,9 @@ port never imports it):
 Not ported yet: the JAX loop's live-monitoring hooks (``obs.server``
 with the loop's readiness, ``flightrec``, ``memwatch``, ``numerics``,
 ``stepstats``: ROADMAP A.11),
-its wire tally (A.9), the autopilot (A.14) and serving publications
-(A.12); the constructor arguments that need them raise
-``NotImplementedError``.
+its wire tally (``DispatchWireTally``, A.11), the autopilot (A.14) and
+serving publications (A.12); the constructor arguments that need them
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -525,6 +525,12 @@ class ResilientLoop:
                 self.step)
             return
         restored = resume_latest(self.trainer, self.ckpt_dir)
+        # the restored error-feedback residual holds quantization error of
+        # the unwound trajectory: zero it so the recovered run does not
+        # replay stale updates (an ordinary resume keeps it)
+        reset = getattr(self.trainer, "reset_compression_residual", None)
+        if callable(reset):
+            reset()
         self.counters.bump("divergence_restores")
         self._log.warning(
             "non-finite loss/grads at step %d: restored last good "
