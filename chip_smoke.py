@@ -1113,6 +1113,155 @@ def _group_compress(torch, rank):
     return out
 
 
+GROUP_ZERO_BATCH = 8  # images a rank in the ZeRO part (global 32)
+GAN_TOL = dict(rtol=2e-4, atol=1e-5)  # the GAN tests' parameter tolerance
+
+
+def _close_ratio(a: dict, b: dict, atol: float = 1e-5, rtol: float = 1e-7) -> float:
+    """Worst |a - b| / (atol + rtol |b|) over every tensor: <= 1 is the JAX
+    tests' ``trees_close`` (``assert_allclose`` at atol 1e-5, its default
+    rtol 1e-7)."""
+    return max(float(((a[k].double() - b[k].double()).abs()
+                      / (atol + rtol * b[k].double().abs())).max()) for k in b)
+
+
+def _scatter_bound_ratio(torch, p, shard, group) -> float:
+    """One int8 reduce-scatter (one chunk a shard) against the float64 sum
+    of the group's inputs ``p`` on this rank's shard, as error / analytic
+    bound (<= 1 passes): each rank's code is within scale/2 of its value,
+    plus 4 f32 roundings of the terms (``_group_compress``'s bound)."""
+    from tpu_syncbn_torch.parallel import collectives as C
+
+    w, me = C.world_size(group), C._rank(group)
+    rows = C.all_gather(p, group).double()  # (rank, n)
+    n = rows.shape[1] // w
+    mine = slice(me * n, (me + 1) * n)
+    blocks = rows.view(w, w, n)  # (rank, shard, element)
+    half = (blocks.amax(dim=(0, 2)) - blocks.amin(dim=(0, 2))) / 2 / (127 // w)
+    zp = (blocks.amax(dim=(0, 2)) + blocks.amin(dim=(0, 2))) / 2
+    exact = rows.sum(0)[mine]
+    absum = rows.abs().sum(0)[mine]
+    slack = 4 * F32_U * (absum + 127 * w * half[me] + w * zp[me].abs())
+    return float(((shard.double() - exact).abs() / (w * half[me] / 2 + slack + 1e-30)).max())
+
+
+def _group_zero(torch, rank):
+    """The sharded weight update at world 4 (ROADMAP A.10), f32 ResNet-50
+    with TF32 off and cuDNN deterministic at GROUP_ZERO_BATCH images a
+    rank: SpecLayout.zero() and SpecLayout.fsdp(data=2, fsdp=2) against
+    plain DataParallel for ZERO_STEPS SGD-momentum steps on the same
+    shards (every loss's relative error; parameters and running
+    statistics after each step, as ``trees_close`` ratios); Adam's
+    state numel against padded / shard_world; build_redistribute against
+    unshard_params; int8 under fsdp (finite losses; the reduce-scatter
+    within its analytic bound); a DCGAN GANTrainer under a composed
+    replicated layout against group= training (Adam's eps 1e-3, as the
+    GAN tests: eps 1e-8 turns a gradient that cancels to ~0 into ±lr)."""
+    from tpu_syncbn_torch import models, nn, parallel
+    from tpu_syncbn_torch.parallel import collectives as C
+    from tpu_syncbn_torch.parallel.layout import SpecLayout
+    from tpu_syncbn_torch.parallel.redistribute import build_redistribute
+    from tpu_syncbn_torch.parallel.zero import unshard_params
+
+    B = GROUP_ZERO_BATCH
+    g = torch.Generator(device="cuda").manual_seed(200)
+    glob = [(torch.randn(GROUP_WORLD * B, IMAGE_SIZE, IMAGE_SIZE, 3, generator=g, device="cuda"),
+             torch.randint(0, 1000, (GROUP_WORLD * B,), generator=g, device="cuda"))
+            for _ in range(ZERO_STEPS)]
+    mine = [(x[rank * B:(rank + 1) * B], y[rank * B:(rank + 1) * B]) for x, y in glob]
+
+    def build(opt="sgdm", **kw):
+        model = nn.convert_sync_batchnorm(models.resnet50(
+            num_classes=1000, device="cuda", generator=torch.Generator().manual_seed(0)))
+        o = (torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9) if opt == "sgdm"
+             else torch.optim.Adam(model.parameters(), lr=1e-3))
+        return model, parallel.DataParallel(model, o, _loss_fn, device="cuda", **kw)
+
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, runs = {}, {}
+    for tag, kw in (("dp", {}), ("zero", {"layout": SpecLayout.zero()}),
+                    ("fsdp", {"layout": SpecLayout.fsdp(data=2, fsdp=2)})):
+        model, dp = build(**kw)
+        losses, params, bufs = [], [], []
+        for b in mine:
+            losses.append(float(dp.train_step(b).loss))
+            params.append({n: p.detach().clone() for n, p in model.named_parameters()})
+            bufs.append({n: t.detach().clone() for n, t in model.named_buffers()
+                         if t.is_floating_point()})
+        runs[tag] = (losses, params, bufs)
+        if tag == "fsdp":
+            full = unshard_params(dp._flat, dp._shards, dp._shard_group)
+            red = build_redistribute(dp._flat, dp.layout)(dp._shards)
+            out["redistribute_bitwise"] = all(torch.equal(red[n].cpu(), full[n]) for n in full)
+        del dp, model
+        torch.cuda.empty_cache()
+    l0, p0, b0 = runs.pop("dp")
+    for tag, (losses, params, bufs) in runs.items():
+        out[tag] = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, l0)),
+                    "param_ratio": [_close_ratio(p, q) for p, q in zip(params, p0)],
+                    "buffer_ratio": [_close_ratio(b, c) for b, c in zip(bufs, b0)]}
+    runs.clear()
+    for tag, kw in (("zero", {"layout": SpecLayout.zero()}),
+                    ("fsdp", {"layout": SpecLayout.fsdp(data=2, fsdp=2)})):
+        model, dp = build("adam", **kw)
+        dp.train_step(mine[0])
+        st = dp.optimizer.state[dp._shards["float32"]]
+        out[tag]["adam_numel"] = [st["exp_avg"].numel(), st["exp_avg_sq"].numel(),
+                                  dp._flat.padded["float32"] // dp._shard_world]
+        del dp, model
+        torch.cuda.empty_cache()
+    # int8 under fsdp: the trainer's compressed reduce-scatters, spied
+    model, dp = build("adam", layout=SpecLayout.fsdp(data=2, fsdp=2), compress="int8")
+    real, ratios = C.compressed_reduce_scatter, []
+
+    def spy(x, group, **kw):
+        shard, res = real(x, group, **kw)
+        ratios.append(_scatter_bound_ratio(torch, x, shard, group))
+        return shard, res
+
+    C.compressed_reduce_scatter = spy
+    try:
+        losses = [float(dp.train_step(b).loss) for b in mine]
+    finally:
+        C.compressed_reduce_scatter = real
+    out["int8"] = {"losses": losses, "finite": all(math.isfinite(v) for v in losses),
+                   "bound_ratio": max(ratios), "calls": len(ratios)}
+    del dp, model
+    torch.cuda.empty_cache()
+    # GANTrainer under a composed replicated layout against group=
+    gan = {}
+    for tag, kw in (("layout", {"layout": SpecLayout({"data": 2, "fsdp": 2},
+                                                     param_shard_axis=None)}),
+                    ("group", {"group": torch.distributed.group.WORLD})):
+        G = nn.convert_sync_batchnorm(models.DCGANGenerator(
+            latent_dim=128, device="cuda", generator=torch.Generator().manual_seed(0)))
+        D = nn.convert_sync_batchnorm(models.DCGANDiscriminator(
+            device="cuda", generator=torch.Generator().manual_seed(1)))
+        tr = parallel.GANTrainer(
+            G, D, torch.optim.Adam(G.parameters(), lr=2e-4, betas=(0.5, 0.999), eps=1e-3),
+            torch.optim.Adam(D.parameters(), lr=2e-4, betas=(0.5, 0.999), eps=1e-3),
+            device="cuda", **kw)
+        gg = torch.Generator(device="cuda").manual_seed(13 + rank)
+        n = GAN_BATCH // GROUP_WORLD
+        o = tr.train_step(torch.rand(n, 32, 32, 3, device="cuda", generator=gg) * 2 - 1,
+                          torch.randn(n, 128, device="cuda", generator=gg),
+                          torch.randn(n, 128, device="cuda", generator=gg))
+        gan[tag] = ([float(o.d_loss), float(o.g_loss)],
+                    {f"{k}.{n_}": v.detach().clone() for k, m in (("g", G), ("d", D))
+                     for n_, v in list(m.named_parameters()) + list(m.named_buffers())
+                     if v.is_floating_point()})
+    (ll, sl), (lg, sg) = gan["layout"], gan["group"]
+    out["gan"] = {"finite": all(math.isfinite(v) for v in ll),
+                  "loss_rel": max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ll, lg)),
+                  "state_ratio": max(float(((sl[k].double() - v.double()).abs()
+                                            / (GAN_TOL["atol"] + GAN_TOL["rtol"]
+                                               * v.double().abs())).max())
+                                     for k, v in sg.items())}
+    torch.backends.cudnn.deterministic = determ
+    return out
+
+
 def _groups_child(rank, d, ref_path):
     """One of the GROUP_WORLD processes: cuda:0, a gloo group through a
     file:// rendezvous, then ``runtime.initialize("cuda")``, which keeps
@@ -1145,12 +1294,79 @@ def _groups_child(rank, d, ref_path):
     ref = torch.load(ref_path, map_location="cpu")
     out["trainer"] = _group_trainer_check(torch, rank, ref)
     del ref
+    t0 = time.perf_counter()
+    out["zero"] = _group_zero(torch, rank)
+    out["zero"]["seconds"] = time.perf_counter() - t0
     torch.backends.cudnn.allow_tf32 = True
     out["replicas"] = _group_replicas(torch, rank)
     out["compress"] = _group_compress(torch, rank)
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     runtime.shutdown()
+
+
+def _groups_zero_summary(res, summary, card) -> list:
+    """The ZeRO part of the children's results: gates and lines."""
+    failures = []
+    z = [r_["zero"] for r_ in res]
+    summary["zero"] = {}
+    for tag, shard_world in (("zero", GROUP_WORLD), ("fsdp", 2)):
+        loss = max(r_[tag]["loss_rel"] for r_ in z)
+        params = [max(r_[tag]["param_ratio"][i] for r_ in z) for i in range(ZERO_STEPS)]
+        bufs = [max(r_[tag]["buffer_ratio"][i] for r_ in z) for i in range(ZERO_STEPS)]
+        numel_ok = all(r_[tag]["adam_numel"][0] == r_[tag]["adam_numel"][1]
+                       == r_[tag]["adam_numel"][2] for r_ in z)
+        # zero reduces in the plain trainer's order (one all-reduce of the
+        # same flat buffer over the world), so its whole trajectory is
+        # held; fsdp sums the two axes in turn, so its first gradients
+        # differ by f32 roundings, which the second step amplifies as the
+        # trainer check's floor says (ResNet-50 at initialization): its
+        # state is held after the first step, shown after the last
+        n_gated = ZERO_STEPS if tag == "zero" else 1
+        ok = (loss <= 1e-5 and max(params[:n_gated] + bufs[:n_gated]) <= 1.0
+              and numel_ok)
+        summary["zero"][tag] = {"loss_rel": loss, "param_ratio": params, "buffer_ratio": bufs,
+                                "adam_numel": z[0][tag]["adam_numel"]}
+        log(f"[groups] {tag} (shard world {shard_world}) vs plain DataParallel, f32 "
+            f"ResNet-50 at {GROUP_ZERO_BATCH} a rank, {ZERO_STEPS} SGD-momentum steps on "
+            f"the same shards: loss rel err {loss:.2e} (tol 1e-5); after each step "
+            f"parameters {[round(v, 3) for v in params]} and running statistics "
+            f"{[round(v, 3) for v in bufs]} of trees_close (atol 1e-5; "
+            + ("every step gated" if tag == "zero" else "the first step gated, the "
+               "second shown") + f"); Adam state a rank {z[0][tag]['adam_numel'][0]} = "
+            f"padded / shard world {z[0][tag]['adam_numel'][2]} on every rank: "
+            f"{numel_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[groups] {tag} disagrees with plain DataParallel")
+    red = all(r_["redistribute_bitwise"] for r_ in z)
+    i8 = [r_["int8"] for r_ in z]
+    bound = max(r_["bound_ratio"] for r_ in i8)
+    finite = all(r_["finite"] for r_ in i8)
+    gan_ok = all(r_["gan"]["finite"] for r_ in z)
+    gan_loss = max(r_["gan"]["loss_rel"] for r_ in z)
+    gan_state = max(r_["gan"]["state_ratio"] for r_ in z)
+    summary["zero"].update(redistribute_bitwise=red, int8_bound_ratio=bound,
+                           int8_losses=i8[0]["losses"], gan_loss_rel=gan_loss,
+                           gan_state_ratio=gan_state,
+                           seconds=max(r_["seconds"] for r_ in z))
+    log(f"[groups] build_redistribute's tree bitwise equal to unshard_params on every "
+        f"rank: {red} {'ok' if red else 'FAIL'}")
+    log(f"[groups] int8 under fsdp(data=2, fsdp=2), Adam: losses {i8[0]['losses']} finite "
+        f"on every rank: {finite}; each compressed reduce-scatter ({i8[0]['calls']} a rank) "
+        f"within {bound:.3f} of its analytic bound of a float64 reduction "
+        f"{'ok' if finite and bound <= 1.0 else 'FAIL'}")
+    log(f"[groups] DCGAN GANTrainer(layout=SpecLayout(data=2, fsdp=2, replicated)) vs "
+        f"group= world 4, one iteration: finite {gan_ok}, losses rel err {gan_loss:.2e} "
+        f"(tol 1e-5), state worst {gan_state:.3f} of rtol 2e-4 / atol 1e-5 "
+        f"{'ok' if gan_ok and gan_loss <= 1e-5 and gan_state <= 1 else 'FAIL'}")
+    log(f"[groups] the ZeRO part took {summary['zero']['seconds']:.1f}s a rank [{card}]")
+    if not red:
+        failures.append("[groups] build_redistribute differs from unshard_params")
+    if not finite or bound > 1.0:
+        failures.append(f"[groups] int8 under fsdp: finite {finite}, bound ratio {bound:.3f}")
+    if not gan_ok or gan_loss > 1e-5 or gan_state > 1.0:
+        failures.append("[groups] the GAN under a composed layout disagrees with group=")
+    return failures
 
 
 def _update_rel_err(before, after, want_after) -> float:
@@ -1341,6 +1557,7 @@ def phase_groups(torch, card):
             f"{t:.1f}" for t in r_["replicas"][2]) + " ms: four processes "
             f"time-slicing one card through gloo host copies, not a throughput "
             f"figure [{card}]")
+    failures += _groups_zero_summary(res, summary, card)
     log(f"[groups] four processes: {secs:.1f}s from spawn to join")
     failures += _launcher_on_the_card()
     return summary, failures
@@ -2601,6 +2818,9 @@ def _restore_in_place(torch, tr, sd) -> None:
     with torch.no_grad():
         for model, opt, params, rest, osd in nets:
             _load_named_state_(model, params, rest)
+            if getattr(tr, "zero", False):  # the shards, and their state's slices
+                osd = copy.deepcopy(osd)
+                tr._reshard_from_model(osd)
             for i, st in opt.state_dict()["state"].items():
                 for key, v in st.items():
                     if isinstance(v, torch.Tensor):
@@ -2611,7 +2831,8 @@ def _restore_in_place(torch, tr, sd) -> None:
             for g, saved in zip(opt.param_groups, osd["param_groups"]):
                 g["lr"] = saved["lr"]
         if getattr(tr, "_residual", None) is not None:
-            for n, v in tr._residual_views().items():
+            views = tr._residual if tr.zero else tr._residual_views()
+            for n, v in views.items():
                 v.copy_(sd["opt_state"]["residual"][n])
     if getattr(tr, "lr_scheduler", None) is not None:
         tr.lr_scheduler.load_state_dict(copy.deepcopy(sd["opt_state"]["lr_scheduler"]))
@@ -2988,8 +3209,8 @@ def quant_bytes(k: str, n: int, chunk: int = 256) -> int:
     return nc * chunk + 8 * nc + 4 * n  # q, scale, zp -> the f32 mean
 
 
-def quant_bound_ms(k: str, n: int) -> tuple[float, str]:
-    by_bytes = quant_bytes(k, n) / HBM_BYTES_PER_S * 1e3
+def quant_bound_ms(k: str, n: int, chunk: int = 256) -> tuple[float, str]:
+    by_bytes = quant_bytes(k, n, chunk) / HBM_BYTES_PER_S * 1e3
     by_ops = QUANT_OPS[k] * n / F32_FLOPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
@@ -3047,6 +3268,68 @@ def _quant_parity(torch, Q, failures) -> dict:
     return worst
 
 
+# the ZeRO reduce-scatter's chunks: one a scatter shard of ResNet-50's
+# gradients, at world 1 (the whole payload) and world 4
+QUANT_ZERO_CHUNKS = ((RESNET50_GRADS, 1), (RESNET50_GRADS // 4, 4))
+
+
+def _quant_zero_shapes(torch, Q, card, failures) -> dict:
+    """The three kernels at the ZeRO reduce-scatter's chunk sizes (the
+    tiled launch shape), with and without a residual: every output
+    bit-identical to the plain version, and each kernel's device time
+    beside its bound (error feedback on). Returns {"<kernel> chunk=<c>":
+    {"ms", "bound_ms", "bound_by"}}."""
+    n = RESNET50_GRADS
+    g, e = _quant_inputs(torch, n, seed=7)
+    out, bad, worst = {}, [], 0.0
+    for chunk, world in QUANT_ZERO_CHUNKS:
+        qmax = 127 // world
+        for ee in (e, None):
+            ef = ee is not None
+            rk = Q.minmax(g, ee, chunk=chunk)
+            qk, sk, zk, resk = Q.encode(g, ee, rk, qmax, chunk=chunk, want_residual=ef)
+            want = {"quant_minmax": [Q.minmax_plain(g, ee, chunk)],
+                    "quant_encode": [t for t in Q.encode_plain(g, ee, rk, qmax, chunk, ef)
+                                     if t is not None],
+                    "quant_decode": [Q.decode_plain(qk, sk, zk, world, n, ef)]}
+            got = {"quant_minmax": [rk],
+                   "quant_encode": [t for t in (qk, sk, zk, resk) if t is not None],
+                   "quant_decode": [Q.decode(qk, sk, zk, world=world, n=n, chunk=chunk,
+                                             mean=ef)]}
+            for k in QUANT_KERNELS:
+                for a, b in zip(got[k], want[k]):
+                    worst = max(worst, float((a.double() - b.double()).abs().max()))
+                    if not torch.equal(a, b):
+                        bad.append(f"{k} chunk={chunk} ef={ef}")
+        r = Q.minmax(g, e, chunk=chunk)
+        q, s_, z, _ = Q.encode(g, e, r, qmax, chunk=chunk)
+        e2 = torch.empty_like(e)
+        calls = {"quant_minmax": lambda: Q.minmax(g, e, chunk=chunk),
+                 "quant_encode": lambda: Q.encode(g, e, r, qmax, chunk=chunk,
+                                                  want_residual=True, residual_out=e2),
+                 "quant_decode": lambda: Q.decode(q, s_, z, world=world, n=n, chunk=chunk,
+                                                  mean=True)}
+        plains = {"quant_minmax": lambda: Q.minmax_plain(g, e, chunk),
+                  "quant_encode": lambda: Q.encode_plain(g, e, r, qmax, chunk, True),
+                  "quant_decode": lambda: Q.decode_plain(q, s_, z, world, n, True)}
+        for k, fn in calls.items():
+            t, t_p = _device_ms(torch, fn, 20), _device_ms(torch, plains[k], 5)
+            bound, by = quant_bound_ms(k, n, chunk)
+            out[f"{k} chunk={chunk}"] = {"ms": t, "plain_ms": t_p, "bound_ms": bound,
+                                         "bound_by": by}
+            log(f"[compress] {k:12s} n={n} chunk={chunk} ({-(-n // chunk)} chunks, the ZeRO "
+                f"scatter at world {world}) f32 device: kernel={t:.4f}ms plain={t_p:.4f}ms "
+                f"bound={bound:.4f}ms ({by}; {100 * bound / t:.1f}% of bound) [{card}]")
+        del r, q, s_, z, e2
+    log(f"[compress] parity at the ZeRO chunks (n = {n}, chunk = n and n/4, qmax 127 "
+        f"and 31, with and without a residual): max |kernel - plain| {worst:.3e} (gate: "
+        f"bit-identical) {'ok' if not bad else 'FAIL'}")
+    if bad:
+        failures.append(f"[compress] ZeRO chunks differ from the plain versions: {bad}")
+    del g, e
+    return out
+
+
 def _quant_times(torch, Q, card) -> dict:
     """Device time of each kernel at the ResNet-50 payload (error feedback
     on, world 1) beside its bound and its plain version's."""
@@ -3080,43 +3363,90 @@ def _quant_times(torch, Q, card) -> dict:
     return out
 
 
-def _compress_trainers(torch, steps, card) -> dict:
-    """The slice's trainers at ``"none"`` and ``"int8"`` side by side,
-    timed in turns (none, int8, int8, none): eager and captured K-step
-    times, host clock and CUDA events, the median a step over both turns;
-    each one's graph pool."""
+def _trainers_in_turns(torch, tag, builders: dict, steps, k: int, timed: int,
+                       card) -> dict:
+    """Two trainers (``builders``: mode -> ``(model, dp)`` factory) side by
+    side, timed in turns (a, b, b, a): eager and captured K-step times,
+    host clock and CUDA events, the median a step over both turns; each
+    one's graph pool, capture seconds and the bytes it holds between
+    steps for the weights."""
     from tpu_syncbn_torch.parallel import scan_driver
 
-    stacked = scan_driver.stack_batches(steps[:COMPRESS_K])
+    stacked = scan_driver.stack_batches(steps[:k])
     runs = {}
-    for mode in ("none", "int8"):
-        model, dp = _resnet_trainer(torch, compress=mode)
+    for mode, build in builders.items():
+        model, dp = build()
         dp.train_step(steps[0])  # cuDNN's autotuning and the builds
         dp.train_steps_batches(stacked)  # captures
         runs[mode] = (model, dp, {"eager_host": [], "eager_dev": [], "captured_host": [],
                                   "captured_dev": []})
-    for mode in ("none", "int8", "int8", "none"):
+    a, b = list(builders)
+    for mode in (a, b, b, a):
         _, dp, t = runs[mode]
-        host, dev, _ = _timed_calls(torch, lambda: dp.train_step(steps[0]), COMPRESS_TIMED)
+        host, dev, _ = _timed_calls(torch, lambda: dp.train_step(steps[0]), timed)
         t["eager_host"] += host
         t["eager_dev"] += dev
-        host, dev, _ = _timed_calls(torch, lambda: dp.train_steps_batches(stacked),
-                                    COMPRESS_TIMED)
-        t["captured_host"] += [h / COMPRESS_K for h in host]
-        t["captured_dev"] += [d / COMPRESS_K for d in dev]
+        host, dev, _ = _timed_calls(torch, lambda: dp.train_steps_batches(stacked), timed)
+        t["captured_host"] += [h / k for h in host]
+        t["captured_dev"] += [d / k for d in dev]
     out = {}
     for mode, (model, dp, t) in runs.items():
-        prog = _program(dp, COMPRESS_K)
-        out[mode] = {k + "_ms": statistics.median(v) for k, v in t.items()}
-        out[mode].update(pool_bytes=prog.pool_bytes, capture_s=prog.capture_s)
+        prog = _program(dp, k)
+        out[mode] = {key + "_ms": statistics.median(v) for key, v in t.items()}
+        out[mode].update(pool_bytes=prog.pool_bytes, capture_s=prog.capture_s,
+                         held_bytes=_held_bytes(dp))
         o = out[mode]
-        log(f"[compress] compress={mode!r}: eager step host {o['eager_host_ms']:.3f} ms, "
-            f"events {o['eager_dev_ms']:.3f} ms; captured K={COMPRESS_K} a step host "
+        log(f"[{tag}] {mode}: eager step host {o['eager_host_ms']:.3f} ms, "
+            f"events {o['eager_dev_ms']:.3f} ms; captured K={k} a step host "
             f"{o['captured_host_ms']:.3f} ms, events {o['captured_dev_ms']:.3f} ms "
-            f"(medians of 2 turns x {COMPRESS_TIMED}); capture {prog.capture_s:.2f}s, "
-            f"graph pool {prog.pool_bytes / 2**30:.3f} GiB [{card}]")
+            f"(medians of 2 turns x {timed}); capture {prog.capture_s:.2f}s, graph pool "
+            f"{prog.pool_bytes / 2**30:.3f} GiB; parameters + optimizer state held between "
+            f"steps {o['held_bytes'] / 1e6:.1f} MB [{card}]")
     runs.clear()
+    for kind in ("eager_dev_ms", "captured_dev_ms"):
+        log(f"[{tag}] {b} costs {out[b][kind] - out[a][kind]:+.3f} ms a step over {a} "
+            f"({kind.split('_')[0]}, CUDA events: {out[b][kind]:.3f} vs {out[a][kind]:.3f}) "
+            f"[{card}]")
     return out
+
+
+def _held_bytes(dp) -> int:
+    """Bytes a rank holds between steps for the weights: the module's
+    parameters, the shards under a sharding layout, the optimizer's state
+    and the error-feedback residual."""
+    ts = list(dp.model.parameters())
+    if dp.zero:
+        ts += list(dp._shards.values())
+    for st in dp.optimizer.state.values():
+        ts += [v for v in st.values() if hasattr(v, "numel")]
+    ts += dp._residuals()
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _chunk_vs_body(torch, dp, steps, k: int, tag: str, failures) -> bool:
+    """A captured ``k``-step chunk of ``dp`` from its current state held
+    bitwise against the same body run eagerly from that state (cuDNN
+    deterministic), as [scan] does; a failure is appended when not."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    start = dp.state_dict()
+    stacked = scan_driver.stack_batches(steps[:k])
+    l_c = dp.train_steps_batches(stacked).loss.tolist()
+    st_c = dp.state_dict()
+    prog = _program(dp, k)
+    looped = []
+    for _ in range(2):
+        _restore_in_place(torch, dp, start)
+        looped.append((_dp_losses(prog.loop(stacked)), dp.state_dict()))
+    bitwise = _scan_compare(torch, f"{tag} K={k} captured vs the body run eagerly", start,
+                            looped[0][1], looped[1][1], st_c, _flat(looped[0][0]), l_c,
+                            failures)
+    torch.backends.cudnn.deterministic = determ
+    if not bitwise:
+        failures.append(f"[{tag}] the captured chunk is not bitwise its body")
+    return bitwise
 
 
 def _compress_slice(torch, Q, card, failures) -> tuple[dict, dict]:
@@ -3127,7 +3457,6 @@ def _compress_slice(torch, Q, card, failures) -> tuple[dict, dict]:
     its body run eagerly, and the step's cost against ``"none"``."""
     from tpu_syncbn_torch.ops import batch_norm as bn_ops
     from tpu_syncbn_torch.parallel import collectives as C
-    from tpu_syncbn_torch.parallel import scan_driver
 
     steps = [_trainer_batch(torch, 500 + i) for i in range(COMPRESS_K)]
     model, dp = _resnet_trainer(torch, compress="int8")
@@ -3208,32 +3537,13 @@ def _compress_slice(torch, Q, card, failures) -> tuple[dict, dict]:
     red = {"host_ms": rec["host_ms"], "device_ms": rec["device_ms"]}
     del rec
 
-    # a captured K-step chunk against the same body run eagerly
-    determ = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    start = dp.state_dict()
-    stacked = scan_driver.stack_batches(steps[:COMPRESS_K])
-    l_c = dp.train_steps_batches(stacked).loss.tolist()
-    st_c = dp.state_dict()
-    prog = _program(dp, COMPRESS_K)
-    looped = []
-    for _ in range(2):
-        _restore_in_place(torch, dp, start)
-        looped.append((_dp_losses(prog.loop(stacked)), dp.state_dict()))
-    bitwise = _scan_compare(torch, f"compress/resnet50 int8 K={COMPRESS_K} captured vs the "
-                            "body run eagerly", start, looped[0][1], looped[1][1], st_c,
-                            _flat(looped[0][0]), l_c, failures)
-    torch.backends.cudnn.deterministic = determ
-    if not bitwise:
-        failures.append("[compress] the captured int8 chunk is not bitwise its body")
-    del dp, model, prog
+    bitwise = _chunk_vs_body(torch, dp, steps, COMPRESS_K, "compress/resnet50 int8", failures)
+    del dp, model
     torch.cuda.empty_cache()
-    times = _compress_trainers(torch, steps, card)
+    times = _trainers_in_turns(
+        torch, "compress", {m: functools.partial(_resnet_trainer, torch, compress=m)
+                            for m in ("none", "int8")}, steps, COMPRESS_K, COMPRESS_TIMED, card)
     torch.cuda.empty_cache()
-    for kind in ("eager_dev_ms", "captured_dev_ms"):
-        log(f"[compress] int8 costs {times['int8'][kind] - times['none'][kind]:+.3f} ms a "
-            f"step over 'none' ({kind.split('_')[0]}, CUDA events: "
-            f"{times['int8'][kind]:.3f} vs {times['none'][kind]:.3f}) [{card}]")
     log(f"[compress] the int8 reduction alone in an eager step: host {red['host_ms']:.3f} "
         f"ms to enqueue, device {red['device_ms']:.3f} ms between CUDA events [{card}]")
     return launches, {"times": times, "bitwise_chunk": bitwise, "ratio": ratio,
@@ -3276,14 +3586,182 @@ def phase_compress(torch, card):
     failures = []
     worst = _quant_parity(torch, Q, failures)
     times = _quant_times(torch, Q, card)
+    zero_shapes = _quant_zero_shapes(torch, Q, card, failures)
     torch.cuda.empty_cache()
     launches, summary = _compress_slice(torch, Q, card, failures)
+    summary["zero_chunks"] = zero_shapes
     _compress_gan(torch, failures)
     torch.cuda.empty_cache()
     for k in QUANT_KERNELS:
         times[k]["max_abs_err"] = worst[k]
     log(f"[compress] phase done in {time.perf_counter() - t0:.1f}s, {len(failures)} failures")
     return failures, times, launches, summary
+
+
+# -- phase: zero — the sharded weight update (ROADMAP A.10) ----------------
+
+ZERO_STEPS, ZERO_K, ZERO_TIMED = 2, 4, 3
+
+
+def _zero_trainer(torch, **kw):
+    """bf16 ResNet-50 SyncBN from seed-0 weights with Adam(1e-3), at world
+    1: replicated (no layout), or under ``kw``'s layout."""
+    from tpu_syncbn_torch import models, nn, parallel
+
+    model = nn.convert_sync_batchnorm(models.resnet50(
+        num_classes=1000, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(0)))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    return model, parallel.DataParallel(model, opt, _loss_fn, device="cuda", **kw)
+
+
+def _adam_moments(dp) -> dict:
+    """``{"<param>/<exp_avg|exp_avg_sq>": tensor}`` per parameter, from
+    the flat shards under a sharding layout (world 1: a shard is the
+    whole padded vector)."""
+    out = {}
+    if dp.zero:
+        for key in ("exp_avg", "exp_avg_sq"):
+            views = dp._flat.unflatten({dt: dp.optimizer.state[s][key]
+                                        for dt, s in dp._shards.items()})
+            out.update({f"{n}/{key}": v for n, v in views.items()})
+        return out
+    for n, p in dp.model.named_parameters():
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[f"{n}/{key}"] = dp.optimizer.state[p][key]
+    return out
+
+
+def _zero_eager_gate(torch, steps, failures) -> dict:
+    """ZERO_STEPS eager steps replicated and under SpecLayout.zero() from the
+    same weights and batches (cuDNN deterministic): parameters and Adam's
+    moments within one f32 rounding of each tensor's norm (bitwise
+    expected, printed). Returns the held bytes of each."""
+    from tpu_syncbn_torch.parallel.layout import SpecLayout
+
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for tag, kw in (("replicated", {}), ("zero", {"layout": SpecLayout.zero()})):
+        model, dp = _zero_trainer(torch, **kw)
+        losses = [float(dp.train_step(b).loss) for b in steps[:ZERO_STEPS]]
+        state = {f"{n}": p.detach().clone() for n, p in model.named_parameters()}
+        state.update({k: v.clone() for k, v in _adam_moments(dp).items()})
+        runs[tag] = (losses, state, _held_bytes(dp))
+        del dp, model
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = determ
+    (l_r, s_r, b_r), (l_z, s_z, b_z) = runs["replicated"], runs["zero"]
+    units = max(float((s_z[k].double() - v.double()).norm())
+                / (SCAN_ROUNDING * max(float(v.double().norm()), 1e-30)) for k, v in s_r.items())
+    bitwise = l_z == l_r and all(torch.equal(s_z[k], v) for k, v in s_r.items())
+    ok = units <= 1.0 and set(s_z) == set(s_r)
+    log(f"[zero] {ZERO_STEPS} eager steps, SpecLayout.zero() against zero=False, same "
+        f"weights and batches: losses {[round(v, 5) for v in l_z]} vs "
+        f"{[round(v, 5) for v in l_r]}; parameters and Adam moments ({len(s_r)} tensors) "
+        f"at most {units:.3f} f32 roundings of their norm apart (gate 1); bitwise equal: "
+        f"{bitwise} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[zero] the sharded step differs from the replicated one "
+                        f"({units:.3f} roundings)")
+    return {"replicated": b_r, "zero": b_z, "bitwise": bitwise, "roundings": units}
+
+
+def _zero_int8(torch, steps, card, failures) -> dict:
+    """The int8 wire under SpecLayout.zero() with error feedback: the main
+    path's eager steps (each int8 kernel once a step, at one chunk = the
+    whole payload, and the BN kernels 53 times a step; finite losses), then
+    one step's scattered shard and new residual held bitwise against the
+    plain versions on the same gradients and residual."""
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+    from tpu_syncbn_torch.ops import triton_bn as T
+    from tpu_syncbn_torch.parallel.layout import SpecLayout
+
+    model, dp = _zero_trainer(torch, layout=SpecLayout.zero(), compress="int8")
+    dp.train_step(steps[0])  # cuDNN's autotuning (not counted)
+    Q.reset_launch_counts()
+    T.reset_launch_counts()  # the main path of this phase: counts from 0
+    losses = [float(dp.train_step(b).loss) for b in steps[:ZERO_STEPS]]
+    q_launch, bn_launch = Q.launch_counts(), T.launch_counts()
+    ok_launch = (q_launch == dict.fromkeys(QUANT_KERNELS, ZERO_STEPS)
+                 and all(v == BN_LAYERS * ZERO_STEPS for v in bn_launch.values()))
+    log(f"[zero] int8 + error feedback under SpecLayout.zero(): {ZERO_STEPS} steps, losses "
+        f"{losses}, int8 launches {json.dumps(q_launch)}, BN launches "
+        f"{json.dumps(bn_launch)} (want {ZERO_STEPS} and {BN_LAYERS * ZERO_STEPS} each) "
+        f"{'ok' if ok_launch else 'FAIL'}")
+    if not ok_launch or not all(math.isfinite(v) for v in losses):
+        failures.append(f"[zero] int8 path: launches {q_launch} {bn_launch}, losses {losses}")
+    rec = {}
+    real = dp._scatter_grads
+
+    def spy(grads):
+        rec["grads"] = [g.clone() for g in grads]
+        rec["e0"] = {dt: r.clone() for dt, r in dp._residual.items()}
+        out = real(grads)
+        rec["shard"] = {dt: v.clone() for dt, v in out.items()}
+        rec["e1"] = {dt: r.clone() for dt, r in dp._residual.items()}
+        return out
+
+    dp._scatter_grads = spy
+    dp.train_step(steps[ZERO_STEPS % len(steps)])
+    del dp._scatter_grads
+    with torch.no_grad():
+        for dt, r in dp._residual.items():
+            r.copy_(rec["e0"][dt])
+    with bn_ops.kernel_mode("off"):
+        plain = dp._scatter_grads([g.clone() for g in rec["grads"]])
+    same = all(torch.equal(rec["shard"][dt], plain[dt]) for dt in plain) and all(
+        torch.equal(rec["e1"][dt], dp._residual[dt]) for dt in plain)
+    n = dp._flat.padded["float32"]
+    log(f"[zero] one step's int8 reduce-scatter ({n} gradients, one chunk: the shard), "
+        f"kernels vs plain versions on the same gradients and residual: scattered shard "
+        f"and new residual bit-identical: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("[zero] the int8 reduce-scatter differs from its plain version")
+    del dp, model, rec
+    return {"launches": q_launch, "bn_launches": bn_launch, "bitwise": same,
+            "losses": losses}
+
+
+def phase_zero(torch, card, zero_chunks):
+    """ZeRO at world 1 on the card (ROADMAP A.10): bf16 ResNet-50 SyncBN,
+    batch 64 at 224², Adam, under SpecLayout.zero() — the flat layout, the
+    gather, the scatter, the shard optimizer and its rebinding all run
+    (the shard world is 1). Gates: the eager steps against zero=False, a
+    captured chunk against its body, the int8 path's launches and its
+    reduce-scatter against the plain versions. Prints the step costs, the
+    bytes held between steps and the int8 kernels' times at chunk = n
+    (measured in [compress]). Returns (failures, summary)."""
+    from tpu_syncbn_torch.parallel.layout import SpecLayout
+
+    t0 = time.perf_counter()
+    failures = []
+    steps = [_trainer_batch(torch, 700 + i) for i in range(ZERO_K)]
+    held = _zero_eager_gate(torch, steps, failures)
+    torch.cuda.empty_cache()
+    model, dp = _zero_trainer(torch, layout=SpecLayout.zero())
+    dp.train_step(steps[0])  # Adam's state exists before the capture
+    bitwise = _chunk_vs_body(torch, dp, steps, ZERO_K, "zero", failures)
+    del dp, model
+    torch.cuda.empty_cache()
+    int8 = _zero_int8(torch, steps, card, failures)
+    for k in QUANT_KERNELS:
+        z = zero_chunks[f"{k} chunk={RESNET50_GRADS}"]
+        log(f"[zero] {k} at the int8 path's chunk = n = {RESNET50_GRADS}: {z['ms']:.4f} ms, "
+            f"bound {z['bound_ms']:.4f} ms ({100 * z['bound_ms'] / z['ms']:.1f}% of bound) "
+            f"[{card}]")
+    torch.cuda.empty_cache()
+    times = _trainers_in_turns(
+        torch, "zero", {"replicated": functools.partial(_zero_trainer, torch),
+                        "zero": functools.partial(_zero_trainer, torch,
+                                                  layout=SpecLayout.zero())},
+        steps, ZERO_K, ZERO_TIMED, card)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[zero] phase done in {secs:.1f}s, {len(failures)} failures [{card}]")
+    return failures, {"held_bytes": held, "captured_bitwise": bitwise, "int8": int8,
+                      "times": times, "seconds": secs}
 
 
 RES_CHUNKS, RES_K = 3, 4  # ResilientLoop's chunks of K steps
@@ -4013,6 +4491,9 @@ def main() -> int:
     comp_failures, quant, quant_launches, compress = phase_compress(torch, card)
     failures += comp_failures
     torch.cuda.empty_cache()
+    zero_failures, zero = phase_zero(torch, card, compress["zero_chunks"])
+    failures += zero_failures
+    torch.cuda.empty_cache()
     res_failures, resilience = phase_resilience(torch, card)
     failures += res_failures
     torch.cuda.empty_cache()
@@ -4069,6 +4550,7 @@ def main() -> int:
         })
     for k in QUANT_KERNELS:  # per ResNet-50 int8 step: one call each
         t = quant[k]
+        zc = compress["zero_chunks"][f"{k} chunk={RESNET50_GRADS}"]
         kernels.append({
             "name": k,
             "route": "cuda",
@@ -4081,6 +4563,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            # the ZeRO reduce-scatter's shape ([zero]'s int8 path): one chunk
+            # of the whole payload at world 1
+            "zero_chunk": {"chunk": RESNET50_GRADS, "launches": zero["int8"]["launches"][k],
+                           **zc},
         })
     print(json.dumps({"groups": groups}), flush=True)
     print(json.dumps({"paths": {
@@ -4088,7 +4574,7 @@ def main() -> int:
                        "iteration_ms": gan_meds[arch]} for arch in gan_launches},
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
-        "bench": bench_line, "scan": scan, "compress": compress,
+        "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
         "resilience": resilience}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

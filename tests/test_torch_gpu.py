@@ -859,3 +859,57 @@ def test_int8_ef_chunk_replays_the_body_bit_for_bit(cuda_triton, deterministic_c
     torch.testing.assert_close(out.loss, want["loss"], rtol=0, atol=0)
     assert _same_training_state(dp, ref)
     assert torch.equal(dp._residual, ref._residual) and bool(dp._residual.abs().max() > 0)
+
+
+# -- ZeRO (parallel/zero.py) and the int8 kernels' tiled shape ------------------
+
+
+@pytest.mark.parametrize("n,chunk,qmax", [(25_557_032, 25_557_032, 127),
+                                          (25_557_032, 6_389_258, 31),
+                                          (100_003, 40_000, 63)],
+                         ids=["zero-world1", "zero-world4", "ragged"])
+def test_quant_kernels_at_the_zero_scatter_chunks_bit_for_bit(cuda_nvcc, n, chunk, qmax):
+    """Chunks above WARP_CHUNK_MAX take the tiled launch shape: minmax (two
+    launches), encode and decode bit-identical to the plain versions, with
+    and without a residual; one count a wrapper call."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    assert chunk > Q.WARP_CHUNK_MAX
+    g_ = torch.Generator(device="cuda").manual_seed(chunk % 97)
+    g = torch.randn(n, device="cuda", generator=g_) * 1e-2
+    e = torch.randn(n, device="cuda", generator=g_) * 1e-4
+    for ee in (e, None):
+        Q.reset_launch_counts()
+        r = Q.minmax(g, ee, chunk=chunk)
+        assert torch.equal(r, Q.minmax_plain(g, ee, chunk))
+        got = Q.encode(g, ee, r, qmax, chunk=chunk, want_residual=ee is not None)
+        want = Q.encode_plain(g, ee, r, qmax, chunk, ee is not None)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        q, scale, zp, _ = got
+        for mean in (False, True):
+            assert torch.equal(Q.decode(q, scale, zp, world=127 // qmax, n=n, chunk=chunk,
+                                        mean=mean),
+                               Q.decode_plain(q, scale, zp, 127 // qmax, n, mean))
+        assert Q.launch_counts() == {"quant_minmax": 1, "quant_encode": 1, "quant_decode": 2}
+
+
+def test_zero_chunk_replays_the_body_bit_for_bit(cuda_triton, deterministic_cudnn):
+    """``zero=True`` on the card: K = 3 steps under ``skip_step`` with a NaN
+    image in step 2 as one graph replay, equal bit for bit to the body run
+    eagerly (shards, optimizer state and module parameters); the module
+    equals the shards after the gather."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    batches = [_card_batch(i, nan_image=3 if i == 1 else None) for i in range(3)]
+    chunk = scan_driver.stack_batches(batches)
+    _, dp = _card_trainer(divergence_guard="skip_step", zero=True)
+    out = dp.train_steps_batches(chunk)
+    assert out.metrics["nonfinite"].tolist() == [0.0, 1.0, 0.0]
+    _, ref = _card_trainer(divergence_guard="skip_step", zero=True)
+    want = _body_run_eagerly(ref, chunk)
+    torch.testing.assert_close(out.loss, want["loss"], rtol=0, atol=0, equal_nan=True)
+    assert _same_training_state(dp, ref)
+    assert torch.equal(dp._shards["float32"], ref._shards["float32"])
+    full = dp._flat.flatten(dict(dp._trainable))["float32"]
+    assert torch.equal(full, dp._shards["float32"])

@@ -92,7 +92,10 @@ def test_importing_every_module_loads_no_jax():
                                     "tpu_syncbn_torch.obs.telemetry",
                                     "tpu_syncbn_torch.parallel.collectives",
                                     "tpu_syncbn_torch.ops.quant_int8",
-                                    "tpu_syncbn_torch.ops.cuda_quant"])
+                                    "tpu_syncbn_torch.ops.cuda_quant",
+                                    "tpu_syncbn_torch.parallel.layout",
+                                    "tpu_syncbn_torch.parallel.zero",
+                                    "tpu_syncbn_torch.parallel.redistribute"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
     """The launcher, its entry point, the backend probe, the data path
     with its native bindings, meters, checkpoints, the trainer, the
@@ -100,7 +103,8 @@ def test_the_runtime_entry_points_alone_load_no_jax(module):
     the bench, the GAN and RetinaNet entry points, the fused K-step
     driver, the resilience layer, the fault injectors, the counters, and
     the compressed collectives with their int8 kernels' dispatch and
-    binding, each
+    binding, and the layouts with the ZeRO store and its redistribution,
+    each
     imported alone in a fresh process (as ``python -m ...`` starts), pull
     in nothing of JAX; the launcher's help runs."""
     code = (
@@ -180,6 +184,8 @@ def test_entry_points_default_to_the_card_and_refuse_to_fall_back(no_card):
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     with pytest.raises(RuntimeError, match=msg):
         parallel.DataParallel(model, opt, lambda m, b: m(b).sum())
+    with pytest.raises(RuntimeError, match=msg):
+        parallel.SpecLayout.zero()
     with pytest.raises(RuntimeError, match=msg):
         data.device_prefetch(iter([np.zeros(2)]))
     with pytest.raises(RuntimeError, match=msg):

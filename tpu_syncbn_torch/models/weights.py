@@ -29,7 +29,9 @@ dicts of numpy arrays, the optax state as its named tuples) into a port
 ``DataParallel``: parameters and BN buffers as above, optax's momentum
 ``trace`` into SGD's ``momentum_buffer``, the schedule's ``count`` into the
 trainer's scheduler, the divergence guard's state, and the error-feedback
-residual (this rank's row of it).
+residual (this rank's row of it); from a JAX ``zero=True`` or
+``SpecLayout.fsdp`` trainer too, whose trace and residual are padded flat
+vectors in ``jax.tree_util`` order (into a port trainer sharded or not).
 
 ``load_jax_gan_trainer_state(trainer, state)`` carries a JAX
 ``GANTrainer.state_dict()`` into the port's ``GANTrainer``: both networks'
@@ -171,14 +173,25 @@ def load_jax_trainer_state(trainer, state: Mapping, *, rank: int | None = None) 
       parameter is. The port's trainer must keep a residual exactly when
       the JAX one did.
 
+    A JAX ``zero=True`` or ``SpecLayout.fsdp`` trainer stores its trace
+    and residual as padded flat vectors, one a dtype, in ``jax.tree_util``
+    order of its params tree (sorted keys, HWIO kernels): that order is
+    recomputed from the ``params`` tree the state carries, each slice
+    mapped to its parameter, then laid out as the port's trainer keeps it
+    (per parameter, or re-flattened into its own shards under a sharding
+    layout, whatever the two shard worlds). A replicated JAX state carries
+    into a sharded port trainer alike.
+
     Only SGD's state is carried: an optax state holding anything but
     ``trace`` and ``count`` (Adam's moments, say) raises ``ValueError``."""
     load_jax_params(trainer.model, {**_flatten(state["params"]),
                                     **_flatten(state["rest"])})
+    if trainer.zero:
+        trainer._cut_shards()
     opt_state = state["opt_state"]
     if trainer._residual is not None:
         opt_state, residual = opt_state
-        _carry_residual(trainer, residual, rank)
+        _carry_residual(trainer, residual, rank, state["params"])
     if trainer.divergence_guard is not None:
         opt_state, guard = opt_state
         trainer.guard_state = {"lr_scale": float(guard["lr_scale"]),
@@ -196,12 +209,17 @@ def load_jax_trainer_state(trainer, state: Mapping, *, rank: int | None = None) 
     if len(traces) > 1 or len(set(counts)) > 1:
         raise ValueError(f"expected one momentum trace and one schedule "
                          f"count, got {len(traces)} and {counts}")
-    params = dict(trainer.model.named_parameters())
-    for key, value in (_flatten(traces[0]).items() if traces else ()):
-        name, arr = _port_name(key, value, trainer.model)
-        p = params[name]
-        trainer.optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
-            np.array(arr, order="C")).to(device=p.device, dtype=p.dtype)
+    if traces:
+        momentum = _by_port_name(traces[0], state["params"], trainer.model)
+        if trainer.zero:
+            for dt, shard in _port_shards(trainer, momentum).items():
+                trainer.optimizer.state[trainer._shards[dt]]["momentum_buffer"] = shard
+        else:
+            params = dict(trainer.model.named_parameters())
+            for name, arr in momentum.items():
+                p = params[name]
+                trainer.optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
+                    np.array(arr, order="C")).to(device=p.device, dtype=p.dtype)
     if counts and counts[0] and trainer.lr_scheduler is not None:
         # position the scheduler one step short, then step it: the
         # scheduler sets every group's lr for step ``count`` itself
@@ -213,25 +231,102 @@ def load_jax_trainer_state(trainer, state: Mapping, *, rank: int | None = None) 
         sched.step()
 
 
-def _carry_residual(trainer, residual: Mapping, rank: int | None) -> None:
-    """Row ``rank`` of the JAX residual (leaves ``(world, *shape)``) into
-    the trainer's residual, by the port's parameter names and layouts."""
+def _sort_key(k):
+    """``jax.tree_util``'s order of one dict level: integer keys (an nnx
+    list's, also as digit strings after a round trip through a checkpoint)
+    by value, others by string."""
+    if isinstance(k, (int, np.integer)) or (isinstance(k, str) and k.isdigit()):
+        return (0, int(k), "")
+    return (1, 0, str(k))
+
+
+def _jax_leaves(tree: Mapping, prefix: str = "") -> list:
+    """``(dotted name, array)`` of every leaf of a JAX params tree, in
+    ``jax.tree_util`` order (sorted keys at every level)."""
+    out = []
+    for key in sorted(tree, key=_sort_key):
+        value, name = tree[key], f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out += _jax_leaves(value, name + ".")
+        else:
+            out.append((name, np.asarray(value)))
+    return out
+
+
+def _dtype_name(arr) -> str:
+    return "bfloat16" if "bfloat16" in str(arr.dtype) else str(arr.dtype)
+
+
+def _by_port_name(tree: Mapping, params: Mapping, model: nn.Module) -> dict:
+    """``{port parameter name: array in the port's layout}`` of a JAX tree
+    shaped like the params (a momentum trace, a residual row), or of its
+    ZeRO form, ``{dtype: padded flat vector}`` in ``jax.tree_util`` order
+    of ``params``."""
+    leaves = _jax_leaves(params)
+    dtypes = {_dtype_name(a) for _, a in leaves}
+    flat = _flatten(tree)
+    if flat and set(flat) <= dtypes and all(np.ndim(v) == 1 for v in flat.values()):
+        offsets = dict.fromkeys(flat, 0)
+        split = {}
+        for key, arr in leaves:
+            dt = _dtype_name(arr)
+            off = offsets[dt]
+            split[key] = np.asarray(flat[dt])[off:off + arr.size].reshape(arr.shape)
+            offsets[dt] = off + arr.size
+        for dt, off in offsets.items():
+            if np.asarray(flat[dt]).size < off:
+                raise ValueError(f"flat {dt} vector of {np.asarray(flat[dt]).size} holds "
+                                 f"less than the params tree's {off} elements")
+        flat = split
+    return dict(_port_name(key, value, model) for key, value in flat.items())
+
+
+def _port_flat(trainer, by_name: Mapping) -> dict:
+    """``{dtype: padded flat vector}`` of ``by_name`` (every trainable
+    parameter's array) in the sharded ``trainer``'s layout, on its device."""
+    named = dict(trainer._trainable)
+    missing = sorted(set(named) - set(by_name))
+    if missing:
+        raise KeyError(f"no JAX value for {missing[:8]}")
+    full = trainer._flat.flatten({
+        n: torch.from_numpy(np.array(by_name[n], order="C")).to(p.dtype)
+        for n, p in named.items()})
+    return {dt: v.to(trainer.device) for dt, v in full.items()}
+
+
+def _port_shards(trainer, by_name: Mapping) -> dict:
+    """``{dtype: this rank's shard}`` of :func:`_port_flat`."""
+    w, r = trainer._shard_world, trainer._shard_rank
+    return {dt: v.view(w, -1)[r].clone() for dt, v in _port_flat(trainer, by_name).items()}
+
+
+def _carry_residual(trainer, residual: Mapping, rank: int | None,
+                    params: Mapping) -> None:
+    """Row ``rank`` of the JAX residual (leaves ``(world, *shape)``, or
+    ``{dtype: (world, padded)}`` from a sharding layout) into the
+    trainer's residual, by the port's parameter names and layouts."""
     from tpu_syncbn_torch.parallel import collectives
 
     if rank is None:
         rank = collectives._rank(trainer.group)
-    views = trainer._residual_views()
-    flat = _flatten(residual)
-    names = {}
-    for key, value in flat.items():
+    rows = {}
+    for key, value in _flatten(residual).items():
         arr = np.asarray(value)
         if arr.ndim == 0 or arr.shape[0] <= rank:
             raise ValueError(f"residual {key}: shape {arr.shape} has no row {rank}")
-        name, row = _port_name(key, arr[rank], trainer.model)
+        if arr[rank].size:  # a non-float group's placeholder is empty
+            rows[key] = arr[rank]
+    names = _by_port_name(rows, params, trainer.model)
+    if trainer.zero:  # per replica, over the whole padded vector
+        with torch.no_grad():
+            for dt, full in _port_flat(trainer, names).items():
+                trainer._residual[dt].copy_(full)
+        return
+    views = trainer._residual_views()
+    for name, row in names.items():
         if name not in views or tuple(views[name].shape) != row.shape:
-            raise ValueError(f"residual {key}: the port has no residual {name!r} "
+            raise ValueError(f"residual: the port has no residual {name!r} "
                              f"of shape {row.shape}")
-        names[name] = row
     missing = sorted(set(views) - set(names))
     if missing:
         raise KeyError(f"no JAX residual for {missing[:8]}")

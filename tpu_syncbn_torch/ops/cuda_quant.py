@@ -6,7 +6,8 @@
 what bounds it), built with ``nvcc`` for ``sm_90a`` at the first launch of
 any CUDA kernel of the port (``_cuda_build``) and bound here with
 ``ctypes``. Each runs on PyTorch's current stream and allocates nothing:
-the dispatch module allocates the outputs. These functions take CUDA
+the dispatch module allocates the outputs, and minmax's scratch for
+chunks above ``quant_int8.WARP_CHUNK_MAX``. These functions take CUDA
 tensors only and check nothing the dispatch module has not.
 """
 
@@ -22,7 +23,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "quant_minmax": [_P, _P, _L, _I, _L, _P, _P],
+    "quant_minmax": [_P, _P, _L, _I, _L, _P, _P, _L, _P],
     "quant_encode": [_P, _P, _L, _I, _L, _P, _I, _P, _P, _P, _P, _P],
     "quant_decode": [_P, _P, _P, _L, _I, _L, _I, _I, _P, _P],
 }
@@ -41,9 +42,9 @@ def _launch(name: str, *args, device) -> None:
     _cuda_build.check(lib, err, name)
 
 
-def minmax(g, e, n: int, chunk: int, n_chunks: int, ranges) -> None:
+def minmax(g, e, n: int, chunk: int, n_chunks: int, ranges, partial) -> None:
     _launch("quant_minmax", _ptr(g), _ptr(e), n, chunk, n_chunks, _ptr(ranges),
-            device=g.device)
+            _ptr(partial), 0 if partial is None else partial.numel(), device=g.device)
 
 
 def encode(g, e, n: int, chunk: int, n_chunks: int, ranges, qmax: int, q, scale, zp,

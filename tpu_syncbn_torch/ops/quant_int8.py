@@ -39,6 +39,14 @@ from tpu_syncbn_torch.ops import cuda_quant
 #: Kernel launches per entry point since the last :func:`reset_launch_counts`.
 LAUNCHES = {"quant_minmax": 0, "quant_encode": 0, "quant_decode": 0}
 
+#: The kernels' two launch shapes (``csrc/quant_int8.cu``): a chunk of at
+#: most this many elements is one warp's; a larger one (the ZeRO
+#: reduce-scatter's one chunk a shard) is cut into tiles of :data:`TILE`
+#: elements, one block each, and minmax then finishes each chunk over its
+#: tiles in a second launch from a scratch of two floats a tile.
+WARP_CHUNK_MAX = 4096
+TILE = 4096
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -82,8 +90,12 @@ def minmax(g: torch.Tensor, e: torch.Tensor | None = None, *, chunk: int) -> tor
         return minmax_plain(g, e, chunk)
     n_chunks = _tc.cdiv(g.numel(), chunk)
     ranges = torch.empty(2 * n_chunks, dtype=torch.float32, device=g.device)
+    partial = None
+    if chunk > WARP_CHUNK_MAX:  # the tiled shape's per-tile (min, max)
+        partial = torch.empty(2 * n_chunks * _tc.cdiv(chunk, TILE), dtype=torch.float32,
+                              device=g.device)
     if n_chunks:
-        cuda_quant.minmax(g, e, g.numel(), chunk, n_chunks, ranges)
+        cuda_quant.minmax(g, e, g.numel(), chunk, n_chunks, ranges, partial)
         LAUNCHES["quant_minmax"] += 1
     return ranges
 

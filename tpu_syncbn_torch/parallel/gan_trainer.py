@@ -53,6 +53,7 @@ from tpu_syncbn_torch.parallel.trainer import (
     _grads_for_all_reduce,
     _load_named_state_,
     _named_state,
+    _rewire_syncbn_groups,
     _schedule_lrs,
     _to_device,
     sync_module_states,
@@ -94,7 +95,13 @@ class GANTrainer:
     ``torch.optim.Adam(params, lr, betas=(0.5, 0.999))``).
 
     ``group`` is the process group to average over (``None``: the default
-    world group). ``compress`` (``"none"``, ``"bf16"`` or ``"int8"``) is
+    world group). ``layout`` (a :class:`~tpu_syncbn_torch.parallel.layout.SpecLayout`
+    with replicated parameters, e.g. ``SpecLayout({"data": 2, "fsdp": 2},
+    param_shard_axis=None)``) replaces it: its composed batch group is the
+    statistics' and the gradients' group, and both networks' default-group
+    SyncBN layers are rewired to it; a layout with a ``param_shard_axis``
+    raises (GAN state stays replicated), and so do ``group`` and
+    ``layout`` together. ``compress`` (``"none"``, ``"bf16"`` or ``"int8"``) is
     the wire of both networks' gradient mean: each network's gradients
     fused in ``named_parameters()`` order, no error feedback (prefer
     ``"bf16"`` for GANs). Both models must already be on ``device`` (default
@@ -110,6 +117,7 @@ class GANTrainer:
         *,
         loss: str = "bce",
         group=None,
+        layout=None,
         monitors: bool | str = False,
         compress: str = "none",
         device: str | torch.device | None = "cuda",
@@ -134,6 +142,21 @@ class GANTrainer:
         self.d_optimizer = d_optimizer
         self.loss = loss
         self.loss_pair = loss_pair(loss)
+        self.layout = layout
+        if layout is not None:
+            if group is not None:
+                raise ValueError("pass either layout= or group=, not both — the "
+                                 "layout owns the groups")
+            if layout.param_shard_axis is not None:
+                raise ValueError(
+                    "GANTrainer keeps params replicated — use a layout "
+                    "without a param shard axis"
+                )
+            layout.check(compress=compress)
+            group = layout.batch_group()
+            if isinstance(layout.stat_axes, tuple):
+                _rewire_syncbn_groups(generator, group)
+                _rewire_syncbn_groups(discriminator, group)
         self.group = group if group is not None else _default_group()
         self.world = collectives.world_size(self.group)
         #: iterations taken (one D and one G update each)

@@ -1,8 +1,8 @@
 """Data-parallel trainer — the counterpart of
 ``tpu_syncbn.parallel.trainer`` (``StepOutput``, ``DataParallel`` with
 ``accum_steps``, ``remat``, ``divergence_guard``, the compressed gradient
-all-reduce with error feedback, its state dict and its K-step entry
-points, and ``resume_latest``).
+all-reduce with error feedback, ZeRO and the ``SpecLayout`` layouts, its
+state dict and its K-step entry points, and ``resume_latest``).
 
 One process per GPU, each with its local shard of the batch. A step is
 forward, local-mean loss, backward, ONE flat all-reduce of every gradient
@@ -82,6 +82,60 @@ def _stats_replicated_by_construction(model: nn.Module, group) -> bool:
         if module.scope_group() is not group:
             return False
     return True
+
+
+def _rewire_syncbn_groups(model: nn.Module, group) -> None:
+    """Point every default-group SyncBatchNorm at a composed layout's
+    batch group: statistics sync over ALL batch replicas, and a composed
+    layout shards the batch over more than one mesh axis. Modules given a
+    process group of their own are left alone; a group-scoped one
+    (``group_size``) raises, as the JAX trainer's does."""
+    from tpu_syncbn_torch.nn.normalization import SyncBatchNorm
+
+    for module in model.modules():
+        if isinstance(module, SyncBatchNorm) and module.process_group is None:
+            if module.group_size is not None:
+                raise ValueError(
+                    "group-scoped SyncBN cannot ride a composed layout: "
+                    "the butterfly group reduction is single-axis "
+                    f"(module syncs groups of {module.group_size})"
+                )
+            module.process_group = group
+
+
+def _resolve_layout(layout, mesh, zero: bool, process_group, device):
+    """The trainer's ``SpecLayout``, resolved as the JAX trainer resolves
+    it: none given is ``data_parallel()`` (``None`` here: built on first
+    read of ``DataParallel.layout``), or ``zero()`` when ``zero``; a mesh
+    alone is adopted. ``process_group`` is the 1-D surface and takes no
+    layout."""
+    from tpu_syncbn_torch.parallel.layout import SpecLayout
+
+    if process_group is not None and (layout is not None or mesh is not None or zero):
+        raise ValueError(
+            "process_group= is the 1-D data-parallel surface: pass a layout "
+            "(or zero=True, or mesh=) without it — the layout owns the groups")
+    if layout is None:
+        if mesh is not None:
+            return SpecLayout.from_mesh(
+                mesh, param_shard_axis="data" if zero else "auto", device=device)
+        if zero:
+            return SpecLayout.zero(device=device)
+        return None
+    if mesh is not None and mesh is not layout.mesh:
+        raise ValueError(
+            "pass either layout= or mesh=, not both — the layout "
+            "owns the mesh"
+        )
+    if zero and layout.param_shard_axis is None:
+        raise ValueError(
+            "zero=True needs a param-sharding layout: use "
+            "SpecLayout.zero() or SpecLayout.fsdp()"
+        )
+    if layout.device != device:
+        raise ValueError(f"the layout's mesh is on {layout.device.type}, the "
+                         f"trainer on {device.type}")
+    return layout
 
 
 def _to_device(tree, device: torch.device):
@@ -483,6 +537,40 @@ class DataParallel:
     ``ResilientLoop``'s ``restore_last_good`` calls that.
     :meth:`set_compress` switches the wire mode between steps.
 
+    ``zero=True`` and ``layout=`` (a :class:`~tpu_syncbn_torch.parallel.layout.SpecLayout`;
+    ``mesh=`` adopts a ``DeviceMesh`` instead) shard the weight update, as
+    the JAX trainer does (ZeRO; beyond DDP, which replicates parameters
+    and optimizer state). No layout is ``SpecLayout.data_parallel()``, or
+    ``SpecLayout.zero()`` with ``zero=True``; ``SpecLayout.fsdp(data=,
+    fsdp=)`` composes DP×FSDP: the batch sharded over both axes (SyncBN
+    layers on the default group are rewired to the composed batch group,
+    a group-scoped one raises), the update sharded over ``fsdp``.
+    ``process_group=`` is the 1-D surface and excludes all three; a layout
+    with tensor-parallel ``rules`` raises ``NotImplementedError`` (ROADMAP
+    A.13). Under a sharding layout:
+
+    * one flat shard a dtype (:class:`~tpu_syncbn_torch.parallel.zero.FlatLayout`
+      over the trainable parameters in ``named_parameters()`` order, padded
+      to the shard world) is the canonical parameter state. The user's
+      optimizer is rebound in place — its one param group's ``params``
+      become the shards (``nn.Parameter``) and its state is cleared, so an
+      ``lr_scheduler`` keeps working and Adam's moments are born
+      1/``shard_world``. It must be elementwise (``zero.check_elementwise``);
+    * a step: local gradients (``accum_steps``, ``remat`` as ever), the
+      guard's consensus on them, the flatten, then per dtype one
+      reduce-scatter over the shard group (``grad_compression="bf16"``: in
+      bf16; ``compress=``: ``collectives.compressed_reduce_scatter``, one
+      int8 chunk a shard, with a per-replica residual of the padded length
+      under error feedback, which covers the scatter stage only), a sum
+      over the cross axes when composed, ``/ replica_world``; the optimizer
+      step on the shards; then one all-gather a dtype writes the full
+      parameters back into the module, which is never stale for
+      :meth:`eval_step`, :meth:`state_dict` or a user's read. Freeing the
+      full parameters between steps (ZeRO-3 storage) is not done;
+    * :meth:`state_dict` holds the optimizer state as full padded flat
+      vectors (gathered to every rank), and :meth:`load_state_dict`
+      rejects a zero-mode or shard-world mismatch with the JAX messages.
+
     The model's parameters and buffers must already be on ``device``
     (default ``"cuda"``, which raises without a card)."""
 
@@ -501,6 +589,9 @@ class DataParallel:
         grad_compression: str | None = None,
         compress: str = "none",
         error_feedback: bool | None = None,
+        zero: bool = False,
+        layout=None,
+        mesh=None,
         device: str | torch.device | None = "cuda",
     ):
         if accum_steps < 1:
@@ -535,6 +626,15 @@ class DataParallel:
                     f"{name} lives on {t.device}, not on the trainer's "
                     f"device {self.device}; move the model first"
                 )
+        self._layout = _resolve_layout(layout, mesh, zero, process_group, self.device)
+        if self._layout is not None:
+            if self._layout.rules:
+                raise NotImplementedError(
+                    "DataParallel with tensor-parallel rules: parallel/tensor.py "
+                    "is not ported yet (ROADMAP A.13)")
+            self._layout.check(compress=compress)
+            if isinstance(self._layout.stat_axes, tuple):
+                _rewire_syncbn_groups(model, self._layout.batch_group())
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -544,9 +644,15 @@ class DataParallel:
         self.lr_scheduler = lr_scheduler
         #: the guard's persistent state (checkpointed with the optimizer's)
         self.guard_state = {"lr_scale": 1.0, "nonfinite_count": 0}
-        self.group = process_group if process_group is not None else _default_group()
+        if self._layout is not None:
+            self.group = self._layout.batch_group()
+        else:
+            self.group = process_group if process_group is not None else _default_group()
+        self._legacy_group = process_group is not None
         #: replicas the gradients average over
         self.world = collectives.world_size(self.group)
+        #: whether the weight update is sharded (ZeRO / FSDP)
+        self.zero = self._layout is not None and self._layout.param_shard_axis is not None
         if broadcast_buffers == "auto":
             self._per_step_broadcast = not _stats_replicated_by_construction(
                 model, self.group)
@@ -563,17 +669,133 @@ class DataParallel:
         #: (name, parameter) of every parameter the gradients cover, in the
         #: fused payload's order
         self._trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        #: the error-feedback residual: one flat f32 buffer over the fused
-        #: payload, this replica's own
-        self._residual = (torch.zeros(sum(p.numel() for _, p in self._trainable),
-                                      dtype=torch.float32, device=self.device)
-                          if self._ef else None)
+        if self.zero:
+            self._init_shards(optimizer)
+        #: the error-feedback residual, this replica's own: one flat f32
+        #: buffer over the fused payload, or under a sharding layout one a
+        #: dtype over its padded flat vector ({dtype: buffer})
+        self._residual = None
+        if self._ef and self.zero:
+            self._residual = {dt: torch.zeros(n if self._flat.dtypes[dt].is_floating_point
+                                              else 0, dtype=torch.float32, device=self.device)
+                              for dt, n in self._flat.padded.items()}
+        elif self._ef:
+            self._residual = torch.zeros(sum(p.numel() for _, p in self._trainable),
+                                         dtype=torch.float32, device=self.device)
         # (n_steps, stacked, batch signature) -> captured K-step program
         self._train_steps_cache = scan_driver.ProgramCache(name="train")
         # compress mode -> its parked program cache (set_compress)
         self._mode_programs: dict[str, scan_driver.ProgramCache] = {}
         # SGD's first-step flags (dampening only), kept across programs
         self._first_flags: torch.Tensor | None = None
+
+    @property
+    def layout(self):
+        """The trainer's :class:`~tpu_syncbn_torch.parallel.layout.SpecLayout`:
+        the one given or resolved, else ``SpecLayout.data_parallel()`` over
+        the default group (built on first read), or ``None`` on the
+        ``process_group=`` surface."""
+        if self._layout is None and not self._legacy_group:
+            from tpu_syncbn_torch.parallel.layout import SpecLayout
+
+            self._layout = SpecLayout.data_parallel(device=self.device)
+        return self._layout
+
+    # -- the sharded weight update (ZeRO / FSDP) --------------------------
+
+    def _init_shards(self, optimizer) -> None:
+        """The flat layout, this rank's shard of each dtype's vector as the
+        canonical parameter state, and the user's optimizer rebound to the
+        shards (its state cleared: it is born sharded)."""
+        from tpu_syncbn_torch.parallel.zero import FlatLayout, check_elementwise
+
+        check_elementwise(optimizer)
+        group = optimizer.param_groups[0]
+        if {id(p) for p in group["params"]} != {id(p) for _, p in self._trainable}:
+            raise ValueError(
+                "zero=True: the optimizer must cover exactly the model's trainable "
+                "parameters (its one param group becomes their flat shards)")
+        lay = self._layout
+        self._shard_group = lay.group(lay.grad_scatter_axis)
+        #: the cross axes' group, summed over after the scatter when composed
+        self._cross_group = lay.group(lay.grad_cross_axes)
+        self._shard_world = lay.shard_world
+        self._shard_rank = collectives._rank(self._shard_group)
+        self._flat = FlatLayout(dict(self._trainable), self._shard_world)
+        with torch.no_grad():
+            full = self._flat.flatten(dict(self._trainable))
+            #: {dtype: this rank's contiguous 1/shard_world of its flat vector}
+            self._shards = {
+                dt: nn.Parameter(v.view(self._shard_world, -1)[self._shard_rank].clone())
+                for dt, v in full.items()}
+        group["params"] = list(self._shards.values())
+        optimizer.state.clear()
+
+    def _scatter_grads(self, grads) -> dict:
+        """``{dtype: this rank's shard of the replica-mean gradient}`` of the
+        local ``grads`` (trainable order), as the JAX trainer's ``scatter``:
+        the reduce-scatter over the shard group (exact, bf16, or compressed
+        with the residual), the cross axes' sum when composed, then the
+        division by the replicas (a product with its f32 reciprocal)."""
+        if self.accum_steps > 1:
+            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        cross = bool(self._layout.grad_cross_axes)
+        inv = 1.0 / self.world
+        out = {}
+        with torch.no_grad():
+            for dt, g in self._flat.flatten(grads).items():
+                if self.compress != "none" and g.is_floating_point():
+                    p = g.to(torch.float32)
+                    if self._ef:
+                        p = p + self._residual[dt]
+                    shard, res = collectives.compressed_reduce_scatter(
+                        p, self._shard_group, mode=self.compress, want_residual=self._ef)
+                    if self._ef:
+                        self._residual[dt].copy_(res)
+                    if cross:  # EF covers the scatter stage only
+                        shard = collectives.compressed_psum(
+                            shard, self._cross_group, mode=self.compress)
+                    out[dt] = (shard * inv).to(g.dtype)
+                    continue
+                if self.grad_compression == "bf16":
+                    g = collectives.reduce_scatter(
+                        g.to(torch.bfloat16), self._shard_group).to(g.dtype)
+                else:
+                    g = collectives.reduce_scatter(g, self._shard_group)
+                if cross:
+                    g = collectives.psum(g, self._cross_group)
+                out[dt] = g * inv
+        return out
+
+    def _gather_params(self) -> None:
+        """One all-gather a dtype over the shard group; the full vectors
+        written into the module's parameters (copies in logical order)."""
+        with torch.no_grad():
+            full = {dt: collectives.all_gather(s.detach(), self._shard_group, tiled=True)
+                    for dt, s in self._shards.items()}
+            views = self._flat.unflatten(full)
+            for name, p in self._trainable:
+                p.copy_(views[name])
+
+    def _sharded_update(self, grads, step: Callable[[], None]) -> None:
+        """The sharded weight update: scatter ``grads`` onto the shards,
+        ``step()`` the optimizer over them, gather the parameters back."""
+        for dt, g in self._scatter_grads(grads).items():
+            self._shards[dt].grad = g
+        step()
+        self._gather_params()
+
+    def _zero_grad(self) -> None:
+        """Clear the gradients a step accumulates into: the optimizer's
+        parameters', and under a sharding layout the module's too."""
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.zero:
+            self.model.zero_grad(set_to_none=True)
+
+    def _residuals(self) -> list[torch.Tensor]:
+        """The error-feedback buffer(s), if any."""
+        r = self._residual
+        return [] if r is None else list(r.values()) if isinstance(r, dict) else [r]
 
     def _split(self, out):
         loss, metrics = out if isinstance(out, tuple) else (out, {})
@@ -595,7 +817,8 @@ class DataParallel:
         return vals[0], {k: vals[i + 1] for i, k in enumerate(keys)}
 
     def _fill_grads(self) -> bool:
-        return self.world > 1 or self.compress != "none" or self.grad_compression is not None
+        return (self.world > 1 or self.zero or self.compress != "none"
+                or self.grad_compression is not None)
 
     def _reduce_grads_(self, grads) -> None:
         """Average ``grads`` over the replicas and the microbatches, in
@@ -678,7 +901,7 @@ class DataParallel:
         """One optimizer step on this replica's shard of the batch."""
         batch = _to_device(batch, self.device)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        self._zero_grad()
         buffers = [b for b in self.model.buffers() if b is not None]
         guarded = self.divergence_guard is not None
         before = _pack(buffers) if guarded else None
@@ -694,8 +917,11 @@ class DataParallel:
         ok = bool(agreed & torch.isfinite(loss)) if guarded else True
         if ok:
             # a skipped step never reduces, so it keeps the residual
-            self._reduce_grads_(grads)
-            self._optimizer_step()
+            if self.zero:
+                self._sharded_update(grads, self._optimizer_step)
+            else:
+                self._reduce_grads_(grads)
+                self._optimizer_step()
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
         else:
@@ -733,8 +959,9 @@ class DataParallel:
         buffers, the optimizer's state and the error-feedback residual."""
         ts = list(self.model.parameters())
         ts += [b for b in self.model.buffers() if b is not None]
-        if self._residual is not None:
-            ts.append(self._residual)
+        ts += self._residuals()
+        if self.zero:
+            ts += list(self._shards.values())
         return ts + chunk.opt.state_tensors()
 
     def _chunk_step(self, chunk, k: int, batch) -> dict:
@@ -742,7 +969,7 @@ class DataParallel:
         verdict, the learning rate and the guard state on the device."""
         guard = self.divergence_guard
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        self._zero_grad()
         if guard is not None:
             if k == 0:
                 chunk.taken.zero_()
@@ -756,12 +983,15 @@ class DataParallel:
         loss, metrics = self._replica_mean(loss, metrics, self.compress != "none")
         # the update (and the residual's) runs whatever the verdict; a
         # non-finite one is undone by the select below
-        self._reduce_grads_(grads)
         lr = (chunk.opt.lrs.index_select(0, chunk.taken.view(1))[0]
               if guard is not None else chunk.opt.lrs[k])
         if guard == "halve_lr":
             lr = lr * chunk.lr_scale
-        chunk.opt.step(lr)
+        if self.zero:
+            self._sharded_update(grads, lambda: chunk.opt.step(lr))
+        else:
+            self._reduce_grads_(grads)
+            chunk.opt.step(lr)
         out = {"loss": loss, **{("m", n): v for n, v in metrics.items()}}
         if guard is not None:
             ok = agreed & torch.isfinite(loss)
@@ -864,7 +1094,8 @@ class DataParallel:
         if self._residual is None:
             return False
         with torch.no_grad():
-            self._residual.zero_()
+            for r in self._residuals():
+                r.zero_()
         return True
 
     def set_compress(self, mode: str) -> bool:
@@ -914,10 +1145,33 @@ class DataParallel:
             opt_state["lr_scheduler"] = copy.deepcopy(self.lr_scheduler.state_dict())
         if self.divergence_guard is not None:
             opt_state["guard"] = dict(self.guard_state)
-        if self._residual is not None:
+        if self.zero:
+            self._gather_optimizer_state(opt_state["optimizer"])
+            opt_state["flat"] = {"padded": dict(self._flat.padded)}
+            if self._residual is not None:
+                opt_state["residual"] = {dt: v.detach().clone()
+                                         for dt, v in self._residual.items()}
+        elif self._residual is not None:
             opt_state["residual"] = {n: v.detach().clone()
                                      for n, v in self._residual_views().items()}
         return {**_named_state(self.model), "opt_state": opt_state}
+
+    def _state_slots(self, sd: dict):
+        """``(dtype, state dict)`` of each shard's entry in an optimizer
+        ``state_dict()`` (its params are the shards, in dtype order)."""
+        dts = list(self._shards)
+        for i, st in sd["state"].items():
+            yield dts[sd["param_groups"][0]["params"].index(i)], st
+
+    def _gather_optimizer_state(self, sd: dict) -> None:
+        """In place: each shard-sized vector of an optimizer ``state_dict()``
+        becomes the full padded flat vector, gathered over the shard group
+        (JAX's checkpoint format: the global array)."""
+        sizes = self._flat.shard_sizes
+        for dt, st in self._state_slots(sd):
+            for key, v in st.items():
+                if isinstance(v, torch.Tensor) and v.dim() == 1 and v.numel() == sizes[dt]:
+                    st[key] = collectives.all_gather(v, self._shard_group, tiled=True).clone()
 
     def load_state_dict(self, state: dict) -> None:
         """Restore a tree produced by :meth:`state_dict` (or loaded from a
@@ -926,7 +1180,26 @@ class DataParallel:
         ``ValueError`` when the checkpoint's structure is not this
         trainer's."""
         opt_state = state["opt_state"]
+        if ("flat" in opt_state) != self.zero:
+            raise ValueError(
+                "opt_state structure mismatch: this checkpoint was saved "
+                "by a trainer with a different optimizer or a different "
+                f"`zero` setting than this one (zero={self.zero}). Rebuild "
+                "the trainer with the same optimizer and zero flag to "
+                "resume the optimizer state."
+            )
         want = {"optimizer"}
+        if self.zero:
+            want.add("flat")
+            padded = {dt: int(n) for dt, n in opt_state["flat"]["padded"].items()}
+            if padded != self._flat.padded:
+                raise ValueError(
+                    "zero=True opt_state layout mismatch: this checkpoint "
+                    "was saved with a different world size (flat shard "
+                    "padding is world-dependent). Resume on the same "
+                    f"shard world ({self._shard_world}) or retrain the "
+                    "optimizer state."
+                )
         if self.lr_scheduler is not None:
             want.add("lr_scheduler")
         if self.divergence_guard is not None:
@@ -943,7 +1216,7 @@ class DataParallel:
                 "state."
             )
         if self._residual is not None:
-            views = self._residual_views()
+            views = self._residual if self.zero else self._residual_views()
             got = opt_state["residual"]
             if set(got) != set(views) or any(tuple(got[n].shape) != tuple(v.shape)
                                              for n, v in views.items()):
@@ -957,7 +1230,10 @@ class DataParallel:
         # a copy: torch's load keeps the given tensors where their dtype
         # and device already fit, and the next step would then update the
         # caller's state in place
-        self.optimizer.load_state_dict(copy.deepcopy(opt_state["optimizer"]))
+        sd = copy.deepcopy(opt_state["optimizer"])
+        if self.zero:
+            self._reshard_from_model(sd)
+        self.optimizer.load_state_dict(sd)
         # the load replaced the optimizer's state tensors: a captured
         # program (parked ones too) would go on writing the old ones
         for cache in self.program_caches:
@@ -970,6 +1246,28 @@ class DataParallel:
                 "lr_scale": float(opt_state["guard"]["lr_scale"]),
                 "nonfinite_count": int(opt_state["guard"]["nonfinite_count"]),
             }
+
+
+    def _cut_shards(self) -> None:
+        """This rank's shards cut anew from the module's parameters (after
+        a load wrote them)."""
+        w, r = self._shard_world, self._shard_rank
+        with torch.no_grad():
+            full = self._flat.flatten(dict(self._trainable))
+            for dt, shard in self._shards.items():
+                shard.copy_(full[dt].view(w, -1)[r])
+
+    def _reshard_from_model(self, sd: dict) -> None:
+        """After a load: the shards cut from the module's (loaded)
+        parameters, and each full padded vector of the optimizer
+        ``state_dict()`` ``sd`` cut to this rank's shard, in place."""
+        w, r = self._shard_world, self._shard_rank
+        self._cut_shards()
+        for dt, st in self._state_slots(sd):
+            for key, v in st.items():
+                if isinstance(v, torch.Tensor) and v.dim() == 1 \
+                        and v.numel() == self._flat.padded[dt]:
+                    st[key] = v.view(w, -1)[r].clone()
 
 
 def resume_latest(trainer, directory: str) -> int:

@@ -24,7 +24,7 @@ import logging
 import math
 import os
 import sys
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 import torch.distributed as tdist
@@ -322,14 +322,16 @@ def make_mesh(
     axis_sizes: Mapping[str, int] | None = None,
     *,
     device: str | torch.device | None = "cuda",
+    devices: Sequence[int] | None = None,
 ):
     """A named ``torch.distributed.device_mesh.DeviceMesh`` over every
-    process of the job (see :func:`mesh_shape` for ``axis_sizes``). Each
-    dim's process group is ``mesh.get_group(name)``; a one-dim mesh over
-    the world reuses the default group, the one the trainer and
+    process of the job (see :func:`mesh_shape` for ``axis_sizes``), its
+    ranks in ``devices`` order (default 0..world-1, row-major over the
+    dims). Each dim's process group is ``mesh.get_group(name)``; a one-dim
+    mesh over the world reuses the default group, the one the trainer and
     ``SyncBatchNorm`` default to. Needs the process group of
     :func:`initialize` (world > 1)."""
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     dev = resolve_device(device)
     if not is_initialized():
@@ -338,7 +340,12 @@ def make_mesh(
             "(world > 1) and call runtime.initialize() first"
         )
     names, sizes = mesh_shape(axis_sizes, process_count())
-    return init_device_mesh(dev.type, sizes, mesh_dim_names=names)
+    if devices is None or list(devices) == list(range(process_count())):
+        return init_device_mesh(dev.type, sizes, mesh_dim_names=names)
+    ranks = [int(r) for r in devices]
+    if sorted(ranks) != list(range(process_count())):
+        raise ValueError(f"devices {ranks} must list every rank once")
+    return DeviceMesh(dev.type, torch.tensor(ranks).view(*sizes), mesh_dim_names=names)
 
 
 def data_parallel_mesh(

@@ -18,8 +18,12 @@ On the CPU (plain versions of the kernels, gloo between processes):
 
 ``--data-root DIR`` trains on CIFAR-10 when ``DIR/cifar-10-batches-py``
 holds its python batches (nothing is downloaded), on synthetic data
-otherwise.
+otherwise. ``--zero`` shards the weight update over the processes
+(``DataParallel(zero=True)``); ``--fsdp N`` composes DP×FSDP
+(``SpecLayout.fsdp(fsdp=N)``: the update sharded over groups of N):
+
     python -m tpu_syncbn_torch.launch --simulate-chips 2 tpu_syncbn_torch/train.py -- --device cpu
+    python -m tpu_syncbn_torch.launch --simulate-chips 2 tpu_syncbn_torch/train.py -- --device cpu --fsdp 2
 
 Every numbered step of the recipe appears below, marked ``# [step N]``.
 """
@@ -52,6 +56,12 @@ def parse_args(argv=None):
     p.add_argument("--no-syncbn", action="store_true",
                    help="skip convert_sync_batchnorm (per-replica BN stats "
                    "— the behaviour SyncBN exists to fix)")
+    p.add_argument("--zero", action="store_true",
+                   help="shard parameters' update and optimizer state over the "
+                   "processes (ZeRO: DataParallel(zero=True))")
+    p.add_argument("--fsdp", type=int, default=0,
+                   help="compose DP x FSDP: the update sharded over groups of N "
+                   "processes (SpecLayout.fsdp(fsdp=N))")
     return p.parse_args(argv)
 
 
@@ -82,7 +92,10 @@ def main(argv=None):
         return loss, {"acc": (logits.argmax(-1) == y).float().mean()}
 
     opt = torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9)
-    dp = parallel.DataParallel(model, opt, loss_fn, device=device)
+    layout = parallel.SpecLayout.fsdp(fsdp=args.fsdp, device=device) if args.fsdp else None
+    dp = parallel.DataParallel(model, opt, loss_fn, device=device, zero=args.zero,
+                               layout=layout)
+    log.info("layout: %r", dp.layout)
 
     # [step 5] — sharded data + loader
     ds = None
