@@ -158,6 +158,24 @@ falls back to the CPU):
                the second chunk of a child process (``chip_smoke.py
                --resilience-child DIR``): exit 0, ``preempted``, the
                boundary checkpoint, and the resume here continues from it;
+13b. obs      — the observability slice (ROADMAP A.11a) on the ResNet-50
+               slice: ``monitors=True`` against ``False`` in turns, eager
+               and captured K = 4 (the monitors' cost a step, host clock and
+               CUDA events); the monitor key set (``bn_layers`` = 53), every
+               monitor a CUDA tensor, ``grad_norm`` within 1e-3 of a float64
+               host recompute from the step's own gradients; a captured
+               K = 4 chunk with monitors bitwise against its body (losses,
+               state and every monitor); ``clip_fraction`` and
+               ``overflow_headroom`` in range on an int8 step;
+               ``NumericsPublisher.publish`` over 8 steps of two captured
+               chunks with no ``torch.cuda.synchronize`` call, returning
+               while the chunk's work is still pending, and ``flush()``
+               publishing all 8; a registry JSONL export and a Chrome trace
+               of 8 ``ResilientLoop`` steps (every BN kernel 53 x 8 times)
+               that validate and hold the ``step`` and ``data_wait`` spans
+               and the ``train.step`` gauge; the monitor functions' own host
+               time a step, and the eager step with monitors toggled every
+               step on one trainer;
 14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -182,9 +200,9 @@ falls back to the CPU):
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13's launches, times, the
-bench line, the eager and captured steps, the compress and resilience
-summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
+ratios) and ``{"paths": {...}}`` (phases 9-13b's launches, times, the
+bench line, the eager and captured steps, the compress, resilience and
+obs summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
 attention and int8-wire kernels); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
@@ -2590,15 +2608,16 @@ def phase_retinanet(torch, card):
 BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
-              "device_kind", "host_load_1m", "collectives")
+              "device_kind", "host_load_1m", "collectives", "telemetry")
 
 
 def phase_bench():
     """``python -m tpu_syncbn_torch.bench --scan 8`` in a subprocess (its
     kernels are built and cached by now): exit 0, every key of its line,
     0 < mfu <= 1, the ``recovery`` block (a truncated newest checkpoint
-    resumes the older step, the async write certifies) and the ``scan``
-    block at K = 8. Returns (failures, the line)."""
+    resumes the older step, the async write certifies), the ``scan``
+    block at K = 8 and the ``telemetry`` block (the registry's schema, a
+    ``step.time_s`` sample a timed step). Returns (failures, the line)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench", "--scan",
                         str(SCAN_KS[-1])], cwd=HERE,
@@ -2629,6 +2648,17 @@ def phase_bench():
     if got != want or not all(isinstance(v.get("ms"), (int, float)) and v["ms"] >= 0
                               for v in modes.values()):
         failures.append(f"[bench] collectives block {coll}")
+    # the registry's snapshot: schema 1, one step.time_s sample a timed step
+    from tpu_syncbn_torch.obs import telemetry
+
+    try:
+        tel = telemetry.validate_snapshot(line.get("telemetry"))
+        timed = tel["histograms"].get("step.time_s", {}).get("count")
+        if timed != line.get("steps"):
+            failures.append(f"[bench] telemetry: {timed} step.time_s samples, "
+                            f"{line.get('steps')} steps")
+    except ValueError as e:
+        failures.append(f"[bench] telemetry block: {e}")
     return failures, line
 
 
@@ -3934,6 +3964,286 @@ BF16_TERMS, BF16_RTOL, BF16_FLOOR, DS_F32 = 2 ** -5, 2 ** -6, 2 ** -12, 2 ** -11
 F32_TOL = {"out": 2e-4, "grad": 5e-4, "lse": 2e-4}
 
 
+# -- [obs]: the observability slice ------------------------------------------
+
+OBS_K, OBS_TIMED, OBS_PUBLISHED = 4, 4, 8
+#: the keys every monitors=True ResNet-50 step must return
+OBS_KEYS = {"grad_norm", "grad_nonfinite", "state_nonfinite", "bn_layers",
+            "bn_mean_max_abs", "bn_var_max", "bn_var_min", "bn_mean_skew",
+            "bn_var_skew", "bn_skew_layers", "replica_grad_norm",
+            "replica_grad_norm_disp"}
+OBS_GRAD_NORM_TOL = 1e-3  # relative, against a float64 host recompute
+
+
+def _obs_step_checks(torch, dp, model, steps, failures) -> dict:
+    """One eager step: the key set, every monitor on the card, the layer
+    count, and ``grad_norm`` against the step's own gradients in float64."""
+    mon = dp.train_step(steps[0]).monitors
+    on_card = all(v.is_cuda for v in mon.values())
+    missing = sorted(OBS_KEYS - set(mon))
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    want = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+    got = float(mon["grad_norm"])
+    rel = abs(got - want) / want
+    layers = float(mon["bn_layers"])
+    ok = on_card and not missing and layers == BN_LAYERS and rel <= OBS_GRAD_NORM_TOL
+    log(f"[obs] monitor keys {sorted(mon)}; every one a CUDA tensor: {on_card}; "
+        f"missing {missing}; bn_layers {layers:.0f} (want {BN_LAYERS}); grad_norm "
+        f"{got:.6f} against {want:.6f} in float64 from the step's {len(grads)} "
+        f"gradients, rel {rel:.2e} (tol {OBS_GRAD_NORM_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[obs] monitors: keys missing {missing}, on card {on_card}, "
+                        f"bn_layers {layers}, grad_norm rel {rel:.2e}")
+    return {"keys": sorted(mon), "grad_norm_rel_err": rel}
+
+
+def _obs_chunk_vs_body(torch, dp, steps, failures) -> bool:
+    """A captured K-step chunk with monitors from the trainer's state,
+    against the same body run eagerly from that state (cuDNN
+    deterministic): losses, every state tensor and every monitor bitwise."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        start = dp.state_dict()
+        stacked = scan_driver.stack_batches(steps[:OBS_K])
+        out = dp.train_steps_batches(stacked)
+        st_c = _split_state(torch, dp.state_dict())
+        _restore_in_place(torch, dp, start)
+        looped = _program(dp, OBS_K).loop(stacked)
+        st_l = _split_state(torch, dp.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic = determ
+    mon_l = {k[1]: v for k, v in looped.items() if isinstance(k, tuple) and k[0] == "mon"}
+    same_mon = set(mon_l) == set(out.monitors) and all(
+        torch.equal(out.monitors[k], mon_l[k]) for k in mon_l)
+    same_state = all(torch.equal(st_c[part][k], st_l[part][k])
+                     for part in st_l for k in st_l[part])
+    same_loss = torch.equal(out.loss, looped["loss"])
+    ok = same_mon and same_state and same_loss
+    shapes = {tuple(v.shape) for v in out.monitors.values()}
+    log(f"[obs] captured K={OBS_K} chunk with monitors against its body run eagerly: "
+        f"losses bitwise {same_loss}, state bitwise {same_state}, {len(mon_l)} monitors "
+        f"(shapes {sorted(shapes)}) bitwise {same_mon} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[obs] the captured chunk with monitors is not bitwise its body")
+    return ok
+
+
+def _obs_int8(torch, steps, failures) -> dict:
+    """One ``compress="int8"`` step: the wire's health monitors in range."""
+    _, dp = _resnet_trainer(torch, compress="int8")
+    mon = dp.train_step(steps[0]).monitors
+    vals = {k: float(mon[k]) for k in ("clip_fraction", "overflow_headroom",
+                                       "ef_residual_ratio") if k in mon}
+    ok = (len(vals) == 3 and 0.0 <= vals["clip_fraction"] <= 1.0
+          and 0.0 <= vals["overflow_headroom"] <= 1.0
+          and math.isfinite(vals["ef_residual_ratio"]))
+    log(f"[obs] int8 step: {json.dumps(vals)} (clip fraction and headroom in [0, 1]) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[obs] int8 monitors {vals}")
+    return vals
+
+
+def _obs_publisher(torch, dp, steps, failures) -> dict:
+    """``NumericsPublisher`` over the 8 steps of two captured chunks, each
+    step's monitors published as they come: no ``torch.cuda.synchronize``
+    (counted through a wrapper), each chunk's publishes returning while its
+    work is still pending, and ``flush()`` publishing the rest."""
+    from tpu_syncbn_torch.obs import numerics, telemetry
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    stacked = scan_driver.stack_batches(steps[:OBS_K])
+    pub = numerics.NumericsPublisher()
+    syncs = [0]
+    real_sync = torch.cuda.synchronize
+
+    def counting_sync(*a, **kw):
+        syncs[0] += 1
+        return real_sync(*a, **kw)
+
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    pending_at_return, step, publish_ms = [], 0, 0.0
+    torch.cuda.synchronize = counting_sync
+    try:
+        for _ in range(OBS_PUBLISHED // OBS_K):
+            out = dp.train_steps_batches(stacked)
+            done = torch.cuda.Event()
+            done.record()
+            t0 = time.perf_counter()
+            for i in range(OBS_K):
+                step += 1
+                pub.publish(step, {k: v[i] for k, v in out.monitors.items()})
+            publish_ms = (time.perf_counter() - t0) * 1e3
+            pending_at_return.append(not done.query())
+    finally:
+        torch.cuda.synchronize = real_sync
+    before_flush = pub.published
+    flushed = pub.flush()
+    samples = telemetry.snapshot()["counters"].get("numerics.samples", 0)
+    telemetry.set_enabled(None)
+    ok = (syncs[0] == 0 and all(pending_at_return) and pub.published == OBS_PUBLISHED
+          and samples == OBS_PUBLISHED)
+    log(f"[obs] publisher: {OBS_PUBLISHED} steps published from 2 captured chunks, "
+        f"torch.cuda.synchronize calls {syncs[0]} (want 0), the chunk's work still "
+        f"pending when its publishes returned: {pending_at_return} (the last chunk's "
+        f"{OBS_K} publishes {publish_ms:.3f} ms), {before_flush} landed before flush(), "
+        f"flush() {flushed}, numerics.samples {samples} (want {OBS_PUBLISHED}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[obs] publisher: {syncs[0]} synchronizes, pending "
+                        f"{pending_at_return}, published {pub.published}, samples {samples}")
+    return {"synchronizes": syncs[0], "pending_at_return": pending_at_return,
+            "published_before_flush": before_flush, "flushed": flushed,
+            "publish_ms": publish_ms}
+
+
+def _obs_exports(torch, T, dp, steps, failures) -> dict:
+    """8 ``ResilientLoop`` steps with telemetry on and a tracer installed
+    (every BN kernel counted from 0): the registry's JSONL export and the
+    Chrome trace, validated, with the loop's spans and gauge."""
+    import shutil
+    import tempfile
+
+    from tpu_syncbn_torch.obs import telemetry, tracing
+    from tpu_syncbn_torch.runtime.resilience import ResilientLoop
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    tracer = tracing.install()
+    try:
+        T.reset_launch_counts()
+        loop = ResilientLoop(dp, os.path.join(d, "ckpt"), ckpt_every=OBS_PUBLISHED)
+        summary = loop.run([steps[i % len(steps)] for i in range(OBS_PUBLISHED)])
+        torch.cuda.synchronize()
+        launches = T.launch_counts()
+        jsonl = telemetry.REGISTRY.export_jsonl(os.path.join(d, "telemetry.jsonl"))
+        trace = tracer.save(os.path.join(d, "trace.json"))
+        merged = telemetry.validate_snapshot(telemetry.merge_exports([jsonl]))
+        events = tracing.validate_trace(tracing.load_trace(trace))
+        sizes = (os.path.getsize(jsonl), os.path.getsize(trace))
+    finally:
+        tracing.uninstall()
+        telemetry.set_enabled(None)
+        shutil.rmtree(d, ignore_errors=True)
+    names = {e["name"] for e in events}
+    spans = {n: sum(e["name"] == n for e in events) for n in ("step", "data_wait")}
+    gauge = merged["gauges"].get("train.step")
+    steps_timed = merged["histograms"].get("step.time_s", {}).get("count")
+    want = dict.fromkeys(MOVES, BN_LAYERS * OBS_PUBLISHED)
+    ok = (summary["steps"] == OBS_PUBLISHED and spans["step"] == OBS_PUBLISHED
+          and spans["data_wait"] >= OBS_PUBLISHED and gauge == OBS_PUBLISHED
+          and steps_timed == OBS_PUBLISHED and launches == want)
+    log(f"[obs] ResilientLoop {summary['steps']} steps: JSONL export {sizes[0]} B "
+        f"({len(merged['counters'])} counters, {len(merged['gauges'])} gauges, "
+        f"{len(merged['histograms'])} histograms) and Chrome trace {sizes[1]} B "
+        f"({len(events)} events) validate; spans {json.dumps(spans)}, checkpoint spans "
+        f"{sorted(n for n in names if n.startswith('checkpoint'))}, train.step gauge "
+        f"{gauge}, step.time_s samples {steps_timed}, BN launches {json.dumps(launches)} "
+        f"(want {BN_LAYERS} x {OBS_PUBLISHED} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[obs] exports: spans {spans}, gauge {gauge}, launches {launches}")
+    return {"launches": launches, "spans": spans, "events": len(events),
+            "counters": len(merged["counters"]), "histograms": len(merged["histograms"])}
+
+
+def _obs_host_ms(torch, dp, steps, card) -> float:
+    """The host time the monitors' own calls take in an eager step: every
+    monitor function wrapped with the host clock over 8 steps (a direct
+    reading, free of the step-to-step spread of the shared host)."""
+    from tpu_syncbn_torch.obs import numerics, stepstats
+
+    spent = [0.0]
+    wrapped = [(stepstats, "grad_monitors"), (stepstats, "state_health"),
+               (numerics, "grad_norm_scalar"), (numerics, "cross_replica_monitors"),
+               (numerics.Collector, "summary")]
+    saved = [getattr(m, n) for m, n in wrapped]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return call
+
+    for (m, n), fn in zip(wrapped, saved):
+        setattr(m, n, timed(fn))
+    try:
+        for i in range(8):
+            dp.train_step(steps[i % len(steps)])
+    finally:
+        for (m, n), fn in zip(wrapped, saved):
+            setattr(m, n, fn)
+    ms = spent[0] * 1e3 / 8
+    log(f"[obs] the monitor functions' own host time in an eager step: {ms:.3f} ms "
+        f"(host clock around each call, mean of 8 steps) [{card}]")
+    return ms
+
+
+def _obs_paired_eager(torch, dp, steps, card) -> dict:
+    """The eager step with monitors on and off on ONE trainer, toggled every
+    step (on, off, off, on, ... 16 steps each way): adjacent steps share the
+    host's state, so the median difference is far less spread than two
+    trainers timed in turns."""
+    times = {True: ([], []), False: ([], [])}
+    for i, mon in enumerate([True, False, False, True] * 8):
+        dp.monitors = mon
+        host, dev, _ = _timed_calls(torch, lambda: dp.train_step(steps[i % len(steps)]), 1)
+        times[mon][0].extend(host)
+        times[mon][1].extend(dev)
+    dp.monitors = True
+    med = {f"{'on' if mon else 'off'}_{kind}_ms": statistics.median(v)
+           for mon, (h, d) in times.items() for kind, v in (("host", h), ("dev", d))}
+    log(f"[obs] eager, monitors toggled every step on one trainer (16 steps each way, "
+        f"medians): on {med['on_host_ms']:.3f} / {med['on_dev_ms']:.3f} ms, off "
+        f"{med['off_host_ms']:.3f} / {med['off_dev_ms']:.3f} ms (host clock / CUDA events): "
+        f"{med['on_host_ms'] - med['off_host_ms']:+.3f} / "
+        f"{med['on_dev_ms'] - med['off_dev_ms']:+.3f} ms a step [{card}]")
+    return med
+
+
+def phase_obs(torch, card):
+    """Phase 13b (module docstring): the monitors' keys and values, the
+    captured chunk, the publisher, the exports, the int8 wire's monitors,
+    then the monitors' cost in turns."""
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    steps = [_trainer_batch(torch, 900 + i) for i in range(OBS_K)]
+    model, dp = _resnet_trainer(torch)
+    out = {"step": _obs_step_checks(torch, dp, model, steps, failures)}
+    out["bitwise_chunk"] = _obs_chunk_vs_body(torch, dp, steps, failures)
+    out["publisher"] = _obs_publisher(torch, dp, steps, failures)
+    out["exports"] = _obs_exports(torch, T, dp, steps, failures)
+    out["host_ms_in_monitors"] = _obs_host_ms(torch, dp, steps, card)
+    out["paired_eager"] = _obs_paired_eager(torch, dp, steps, card)
+    del dp, model
+    torch.cuda.empty_cache()
+    out["int8"] = _obs_int8(torch, steps, failures)
+    torch.cuda.empty_cache()
+    times = _trainers_in_turns(
+        torch, "obs", {f"monitors={m}": functools.partial(_resnet_trainer, torch, monitors=m)
+                       for m in (False, True)}, steps, OBS_K, OBS_TIMED, card)
+    off, on = times["monitors=False"], times["monitors=True"]
+    cost = {k: on[k] - off[k] for k in ("eager_host_ms", "eager_dev_ms",
+                                         "captured_host_ms", "captured_dev_ms")}
+    log(f"[obs] the monitors' cost a step: eager {cost['eager_host_ms']:+.3f} ms host clock, "
+        f"{cost['eager_dev_ms']:+.3f} ms CUDA events; captured K={OBS_K} "
+        f"{cost['captured_host_ms']:+.3f} ms host clock, {cost['captured_dev_ms']:+.3f} ms "
+        f"CUDA events [{card}]")
+    out.update(times=times, cost_ms=cost)
+    log(f"[obs] phase done in {time.perf_counter() - t_phase:.1f}s, "
+        f"{len(failures)} failures")
+    return failures, out
+
+
 def attn_terms(torch, A, kern: str, args, causal: bool, scale: float, lse):
     """The root sum of squares of the terms each element of ``kern``'s
     bf16 outputs sums (o; dk, dv; dq), float32 (B, L, H, D), from the
@@ -4497,6 +4807,9 @@ def main() -> int:
     res_failures, resilience = phase_resilience(torch, card)
     failures += res_failures
     torch.cuda.empty_cache()
+    obs_failures, obs = phase_obs(torch, card)
+    failures += obs_failures
+    torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -4575,7 +4888,7 @@ def main() -> int:
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
-        "resilience": resilience}}),
+        "resilience": resilience, "obs": obs}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

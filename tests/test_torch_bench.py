@@ -2,8 +2,10 @@
 bench runs its small CPU config (here cut further by the
 ``BENCH_*`` overrides it honours) and prints one JSON line with every key
 of its contract, ``mfu`` null (no peak on the CPU), FLOPs from
-``torch.utils.flop_counter``. Numbers from this run are CPU numbers and
-are checked for shape only."""
+``torch.utils.flop_counter``, and the ``telemetry`` block checked against
+the registry schema (``obs.telemetry.validate_snapshot``); ``--trace``
+writes a Chrome trace that validates. Numbers from this run are CPU
+numbers and are checked for shape only."""
 
 import json
 import os
@@ -14,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
-        "device_kind", "host_load_1m", "recovery", "scan", "collectives"}
+        "device_kind", "host_load_1m", "recovery", "scan", "collectives",
+        "telemetry"}
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
@@ -53,6 +56,23 @@ def test_bench_on_the_cpu_prints_its_line():
     assert set(line["scan"]) == SCAN_KEYS and line["scan"]["k"] == 1
     assert line["scan"]["chunks"] == 2
     check_collectives_block(line["collectives"], world=1)
+    check_telemetry_block(line["telemetry"], steps=2)
+
+
+def check_telemetry_block(block, steps):
+    """The registry snapshot: schema 1, the timed loop's step and data-wait
+    histograms (one sample a timed step), the recovery block's checkpoint
+    timings, the numerics monitors published once a timed step."""
+    from tpu_syncbn_torch.obs import telemetry
+
+    telemetry.validate_snapshot(block)
+    hists = block["histograms"]
+    assert hists["step.time_s"]["count"] == steps
+    assert hists["step.data_wait_s"]["count"] == steps
+    assert hists["checkpoint.save_s"]["count"] >= 1
+    assert hists["checkpoint.load_s"]["count"] >= 1
+    assert block["counters"]["numerics.samples"] == steps
+    assert hists["numerics.replica_grad_norm"]["count"] == steps
 
 
 def check_collectives_block(block, world):
@@ -76,17 +96,25 @@ def check_collectives_block(block, world):
     assert modes["shuffle_sharded"]["compression_ratio"] is None
 
 
-def test_bench_scan_block_on_the_cpu():
+def test_bench_scan_block_on_the_cpu(tmp_path):
     """``--scan 2``: the same batch through ``train_steps_batches`` on
     2-stacked copies, ceil(steps / 2) chunks: 3 steps time 2 chunks, at
-    least as many steps as the per-step loop."""
+    least as many steps as the per-step loop. With ``--trace`` the run's
+    Chrome trace holds the loop's spans and validates."""
+    from tpu_syncbn_torch.obs import tracing
+
     env = dict(os.environ, PYTHONPATH=ROOT, BENCH_PER_CHIP_BATCH="2",
                BENCH_STEPS="3", BENCH_IMAGE_SIDE="32")
     env.pop("XLA_FLAGS", None)
+    trace = str(tmp_path / "bench_trace.json")
     r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench",
-                        "--device", "cpu", "--scan", "2"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                        "--device", "cpu", "--scan", "2", "--trace", trace],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+    events = tracing.validate_trace(tracing.load_trace(trace))
+    names = {e["name"] for e in events}
+    assert {"data_wait", "step", "scan_chunk", "checkpoint_save",
+            "checkpoint_load"} <= names
     scan = json.loads(r.stdout.strip().splitlines()[-1])["scan"]
     assert set(scan) == SCAN_KEYS
     assert scan["k"] == 2 and scan["chunks"] == 2

@@ -19,6 +19,8 @@ plus one ulp (P and dS are rounded to bf16 for their products; see
 ``within_bf16_tol``).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -913,3 +915,109 @@ def test_zero_chunk_replays_the_body_bit_for_bit(cuda_triton, deterministic_cudn
     assert torch.equal(dp._shards["float32"], ref._shards["float32"])
     full = dp._flat.flatten(dict(dp._trainable))["float32"]
     assert torch.equal(full, dp._shards["float32"])
+
+
+# -- the on-device monitors and the numerics publisher (obs) ---------------------
+
+
+def test_captured_chunk_with_monitors_replays_the_body_bit_for_bit(
+        cuda_triton, deterministic_cudnn):
+    """``monitors="full"``: K = 3 steps as one graph replay against the same
+    body run eagerly from the same weights, every monitor (stacked to (3,))
+    bit for bit; every monitor a CUDA tensor; a second replay allocates
+    nothing."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    chunk = scan_driver.stack_batches([_card_batch(i) for i in range(3)])
+    _, dp = _card_trainer(monitors="full")
+    out = dp.train_steps_batches(chunk)
+    _, ref = _card_trainer(monitors="full")
+    want = _body_run_eagerly(ref, chunk)
+    mon = {k[1]: v for k, v in want.items() if isinstance(k, tuple) and k[0] == "mon"}
+    assert set(mon) == set(out.monitors) and "bn_var_min.stem_bn" in mon
+    for k, v in out.monitors.items():
+        assert v.is_cuda and v.shape == (3,)
+        assert torch.equal(v, mon[k]), k
+    assert float(out.monitors["bn_layers"][0]) == 20
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    prog = next(iter(dp.program_caches[0].values()))
+    prog.graph.replay()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+
+
+def test_numerics_publisher_waits_on_the_event_not_the_host(cuda_card):
+    """A monitor computed behind ~0.5 s of queued device work: ``publish``
+    returns at once with the entry still queued (its event pending, no
+    synchronize), the next ``publish`` after the work lands drains it, and
+    ``flush`` drains a pending one by synchronizing on its event."""
+    from tpu_syncbn_torch.obs import numerics, telemetry
+
+    telemetry.set_enabled(True)
+    telemetry.REGISTRY.reset()
+    try:
+        pub = numerics.NumericsPublisher()
+        torch.cuda._sleep(int(1e9))  # ~0.5 s of device time on the stream
+        value = torch.ones((), device="cuda") * 2.0
+        t0 = time.perf_counter()
+        assert pub.publish(1, {"bn_mean_skew": value, "grad_norm": value}) == 0
+        assert time.perf_counter() - t0 < 0.1
+        torch.cuda.synchronize()
+        assert pub.publish(2, None) == 1 and pub.last == {"bn_mean_skew": 2.0}
+        torch.cuda._sleep(int(1e9))
+        assert pub.publish(3, {"clip_fraction": value * 0.25}) == 0
+        assert pub.flush() == 1
+        snap = telemetry.snapshot()
+        assert snap["counters"]["numerics.samples"] == 2
+        assert snap["counters"]["numerics.clip_saturated"] == 1
+    finally:
+        telemetry.set_enabled(None)
+
+
+def test_sharded_grad_norm_matches_replicated_on_the_card(cuda_triton):
+    """``zero=True``: the norm of the gradient shards (one scalar all-reduce
+    over the shard group, identity at world 1) equals the replicated
+    trainer's over the full gradients."""
+    _, plain = _card_trainer()
+    _, zero = _card_trainer(zero=True)
+    batch = _card_batch(7)
+    a, b = plain.train_step(batch).monitors, zero.train_step(batch).monitors
+    assert set(a) == set(b)
+    torch.testing.assert_close(b["grad_norm"], a["grad_norm"], rtol=1e-4, atol=0)
+    assert float(b["grad_nonfinite"]) == 0
+
+
+def test_dispatch_wire_tally_counts_each_replay(cuda_card):
+    """A captured K = 3 program whose body tallies one collective call a
+    step (a stand-in for NCCL's, which one card cannot run): the capture
+    records the inventory, the first dispatch adds the warm-up's steps and
+    one replay's, and every later replay adds the inventory, K steps' worth."""
+    from tpu_syncbn_torch.obs import telemetry
+    from tpu_syncbn_torch.parallel import collectives as C
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    telemetry.set_enabled(True)
+    telemetry.REGISTRY.reset()
+    try:
+        t = torch.zeros(1024, device="cuda")
+
+        def body(k, batch):
+            C._tally("psum", [t])
+            t.add_(batch)
+            return {"s": t.sum()}
+
+        prog = scan_driver.build_scan_steps(body, n_steps=3, stacked=False,
+                                            device="cuda", state=lambda: [t])
+        wire = C.DispatchWireTally()
+        x = torch.ones(1024, device="cuda")
+        prog(x)
+        assert prog.wire_bytes == 3 * 4096
+        assert wire.after_dispatch(3) == (scan_driver.WARMUP_STEPS + 3) * 4096
+        for _ in range(2):
+            prog(x)
+            assert wire.after_dispatch(3) == 3 * 4096
+        torch.cuda.synchronize()
+        assert float(t[0]) == 9.0  # three replays of three steps
+    finally:
+        telemetry.set_enabled(None)

@@ -8,13 +8,14 @@ JSON line:
      "image_side", "steps", "compile_warmup_s", "mfu", "flops_per_step",
      "flops_source", "peak_flops", "peak_source", "device_kind",
      "host_load_1m", "recovery": {...}, "scan": {...},
-     "collectives": {...}}
+     "collectives": {...}, "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
 
     python -m tpu_syncbn_torch.bench
     python -m tpu_syncbn_torch.bench --scan 8     # also the fused 8-step path
+    python -m tpu_syncbn_torch.bench --trace out.json   # and a Chrome trace
     BENCH_PER_CHIP_BATCH=32 BENCH_STEPS=20 BENCH_IMAGE_SIDE=224 python -m tpu_syncbn_torch.bench
 
 ``--device cpu`` (tests) runs a small config (batch 8, 20 steps at 64²,
@@ -47,11 +48,22 @@ gives that loop's fraction and img/s beside the per-step loop's
 1 MiB-a-GPU f32 payload: per mode (``fp32``, ``bf16``, ``int8``,
 ``shuffle_sharded``) the bytes it puts on the wire, the time a call and
 the compression ratio against fp32.
+
+``telemetry`` is the process registry's snapshot (``obs.telemetry``, schema
+1, as ``bench.py``'s): the timed loop's ``step.time_s`` and
+``step.data_wait_s`` histograms (each timed step runs under the
+``obs.stepstats`` seams), the checkpoint timings of ``recovery``, the
+collective tallies, the numerics histograms of the trainer's monitors
+(published without a synchronize) and the probe's outcome. Telemetry is
+switched on for the run. ``--trace PATH`` also installs a tracer and
+writes the run's Chrome trace (``data_wait``, ``step``, ``scan_chunk`` and
+``checkpoint_*`` spans) to PATH before the line is printed.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -298,6 +310,7 @@ def run(device: torch.device, scan: int = 1) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from tpu_syncbn_torch import models, nn, parallel, runtime
+    from tpu_syncbn_torch.obs import numerics, stepstats, telemetry
     from tpu_syncbn_torch.ops import batch_norm as bn_ops
 
     on_card = device.type == "cuda"
@@ -322,8 +335,18 @@ def run(device: torch.device, scan: int = 1) -> dict:
         dp.train_step(batch)
     flops = float(counter.get_total_flops())
 
+    # the loop's seams: a data-wait span a fetch, a step span a step, the
+    # monitors published as their values land (no synchronize)
+    fetch = stepstats.instrumented_batches(itertools.repeat(batch))
+    publisher = numerics.NumericsPublisher()
+
+    def step():
+        with stepstats.timed_span("step", "step.time_s"):
+            out = dp.train_step(next(fetch))
+        publisher.publish(0, out.monitors)
+
     # closed after the last optimizer step: every update is in
-    dt, inside = _timed_loop(device, steps, lambda: dp.train_step(batch))
+    dt, inside = _timed_loop(device, steps, step)
     gap1, dispatch1 = _gap(dt, inside)
     scan_k = max(1, int(scan))
     scan_info = {"k": scan_k, "host_gap_frac_scan1": gap1,
@@ -334,12 +357,17 @@ def run(device: torch.device, scan: int = 1) -> dict:
         chunk = tuple(t.expand(scan_k, *t.shape).clone() for t in batch)
         dp.train_steps_batches(chunk)  # builds (captures) the program
         chunks = -(-steps // scan_k)  # at least the per-step loop's steps
-        dt_k, inside_k = _timed_loop(device, chunks,
-                                     lambda: dp.train_steps_batches(chunk))
+
+        def chunk_step():
+            with stepstats.timed_span("scan_chunk", "step.chunk_time_s"):
+                dp.train_steps_batches(chunk)
+
+        dt_k, inside_k = _timed_loop(device, chunks, chunk_step)
         gap_k, dispatch_k = _gap(dt_k, inside_k)
         scan_info.update({"chunks": chunks, "host_gap_frac": gap_k,
                           "dispatch_frac": dispatch_k,
                           "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
+    publisher.flush()
     recovery = measure_recovery(dp)
     collectives = measure_collectives(device)
 
@@ -368,6 +396,7 @@ def run(device: torch.device, scan: int = 1) -> dict:
         "recovery": recovery,
         "scan": scan_info,
         "collectives": collectives,
+        "telemetry": telemetry.snapshot(),
     }
 
 
@@ -378,11 +407,22 @@ def main(argv=None) -> dict:
     p.add_argument("--scan", type=int, default=1,
                    help="also time K steps a dispatch (train_steps_batches "
                         "over K-stacked copies of the batch)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the run's Chrome trace (Perfetto) to PATH")
     args = p.parse_args(argv)
     from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import telemetry, tracing
 
+    # the telemetry block is never empty: the registry records for the run
+    telemetry.set_enabled(True)
+    tracer = tracing.install() if args.trace else None
     device = runtime.initialize(args.device)
     line = run(device, scan=args.scan)
+    if tracer is not None:
+        # written before the line, so a reader of the line finds the trace
+        tracing.uninstall()
+        if runtime.is_master():
+            tracer.save(args.trace)
     runtime.master_print(json.dumps(line))
     runtime.shutdown()
     return line

@@ -10,6 +10,13 @@
 * :func:`device_prefetch`: a staging thread pins each batch and copies it
   to the card on a side stream while the current step runs, ``size``
   batches ahead; optionally K batches stacked along a new leading axis.
+
+Telemetry (when enabled, ``obs.telemetry``): per batch a worker loader
+observes ``loader.fetch_wait_s`` (the consumer's wait on the workers),
+sets ``loader.queue_depth`` (batches already built and waiting: 0 with a
+step-bound consumer means the loader is the bottleneck) and counts
+``loader.batches``; the K-stacking sets ``loader.stage_depth`` (the
+batches in the chunk).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 import traceback
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -27,6 +35,7 @@ import torch
 
 from tpu_syncbn_torch.data.dataset import Dataset
 from tpu_syncbn_torch.data.sampler import Sampler, SequentialSampler
+from tpu_syncbn_torch.obs import telemetry
 from tpu_syncbn_torch.runtime.distributed import resolve_device
 
 
@@ -105,6 +114,23 @@ def _bounded_put(q, item, stop: threading.Event) -> bool:
     return False
 
 
+def _queue_depth(out_queues) -> int:
+    """Batches buffered across the worker out queues; -1 where the
+    platform's queue cannot answer (``qsize`` on macOS)."""
+    try:
+        return sum(q.qsize() for q in out_queues)
+    except (NotImplementedError, OSError):
+        return -1
+
+
+def _record_batch(t_resume: float, depth: Callable[[], int]) -> None:
+    """The loader's per-batch telemetry (module docstring)."""
+    if telemetry.enabled():
+        telemetry.observe("loader.fetch_wait_s", time.perf_counter() - t_resume)
+        telemetry.set_gauge("loader.queue_depth", depth())
+        telemetry.count("loader.batches")
+
+
 def _consume_ordered(out_queues, dispatch_error, *, epoch, idle_check):
     """Yield batches in dispatch order from per-worker out queues (batch
     ``seq`` went to worker ``seq % n``, so reading the queues round-robin
@@ -113,6 +139,7 @@ def _consume_ordered(out_queues, dispatch_error, *, epoch, idle_check):
     n = len(out_queues)
     done = [False] * n
     seq = 0
+    t_resume = time.perf_counter()
     while not all(done):
         wid = seq % n
         if done[wid]:
@@ -140,7 +167,9 @@ def _consume_ordered(out_queues, dispatch_error, *, epoch, idle_check):
             raise RuntimeError(f"loader order violation: {got_seq} != {seq}")
         if tag == "err":
             raise WorkerError(f"error in worker {wid}:\n{payload}")
+        _record_batch(t_resume, lambda: _queue_depth(out_queues))
         yield payload
+        t_resume = time.perf_counter()
         seq += 1
 
 
@@ -278,8 +307,10 @@ class DataLoader:
             for _ in range(self.num_workers * self.prefetch_batches):
                 submit()
             while pending:
+                t_resume = time.perf_counter()
                 batch = pending.popleft().result()  # re-raises a worker error
                 submit()
+                _record_batch(t_resume, lambda: sum(f.done() for f in pending))
                 yield batch
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -540,6 +571,8 @@ def _stacked(iterator, k: int):
                 break
         if count == 0:
             return
+        if telemetry.enabled():
+            telemetry.set_gauge("loader.stage_depth", count)
         yield _rebuild(template, [s if count == k else s[:count] for s in slots])
 
 

@@ -237,9 +237,10 @@ class SyncBatchNorm(BatchNorm):
             return None
         check_group_compress(self.group_size, self.stats_compress)
         group = self.scope_group()
-        if group is None and self.stats_compress != "none":
-            return ALONE
-        return group
+        # alone, the layer still "syncs" over collectives.ALONE: no
+        # collective runs, but compressed statistics round and the drift
+        # monitors record, as on the JAX package's mesh of one
+        return ALONE if group is None else group
 
     @classmethod
     def convert_sync_batchnorm(cls, module, process_group=None,

@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from tpu_syncbn_torch.obs import numerics as obs_numerics
 from tpu_syncbn_torch.ops._triton_common import get_mode as get_kernel_mode
 from tpu_syncbn_torch.ops._triton_common import mode as kernel_mode
 from tpu_syncbn_torch.ops._triton_common import set_mode as set_kernel_mode
@@ -139,6 +140,9 @@ def sync_moments(
     if world_size(group) > 1:
         return _differentiable_reduce_moments(s, sq, count, group)
     mean, var = moments_from_stats(s, sq, count)
+    if group is not None:
+        # a synced layer alone records its zero skew, as the fused path does
+        obs_numerics.record_bn_skew_alone(x.device)
     return mean, var, count
 
 
@@ -194,6 +198,7 @@ def _compressed_moments(s, sq, count, group, mode):
     total = sums.apply(payload, group)
     tcount = psum(count.reshape(-1), group).reshape(count.shape)
     mean, var = moments_from_stats(total[:c], total[c:], tcount)
+    obs_numerics.record_bn_skew(s, sq, count, mean, var)
     return mean, var, tcount
 
 
@@ -210,6 +215,7 @@ def _differentiable_reduce_moments(s, sq, count, group):
     if count.dim() == 0:
         tcount = tcount.reshape(())
     mean, var = moments_from_stats(total[:c], total[c:2 * c], tcount)
+    obs_numerics.record_bn_skew(s, sq, count, mean, var)
     return mean, var, tcount
 
 

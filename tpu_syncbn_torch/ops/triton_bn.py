@@ -51,6 +51,7 @@ import types
 
 import torch
 
+from tpu_syncbn_torch.obs import numerics as obs_numerics
 from tpu_syncbn_torch.ops import _triton_common as _tc
 from tpu_syncbn_torch.ops import cuda_bn
 from tpu_syncbn_torch.ops.batch_norm import fold_scale_shift
@@ -475,6 +476,11 @@ class FusedBatchNorm(torch.autograd.Function):
             mean, var, count = reduce_moments(s, sq, count, group)
         else:
             mean, var = moments_from_stats(s, sq, count)
+            if group is not None:
+                # a synced layer alone: the JAX mesh of one still sums and
+                # records its skew (0 against itself), so the monitor key
+                # set is the same at every world
+                obs_numerics.record_bn_skew_alone(x.device)
         scale, shift = fold_scale_shift(mean, var, weight, bias, eps)
         _check_vec(scale, c, x2, "scale")
         y = _normalize_2d(x2, scale, shift).view(x.shape)

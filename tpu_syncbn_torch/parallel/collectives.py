@@ -13,8 +13,14 @@ explicit rank partition) are ``torch.distributed`` groups built once per
 ResNet-50's 53 layers share one set.
 
 Every collective issued is tallied per call (:func:`tallies`): op name,
-calls and the bytes of the per-replica payload. The JAX package tallies at
-trace time, once per compiled program; here each call counts.
+calls and the bytes of the per-replica payload, also counted into the
+telemetry registry as ``collectives.<op>.calls`` / ``.bytes`` while
+telemetry is enabled. The JAX package tallies at trace time, once per
+compiled program; here each call counts, so an eager step tallies its own
+traffic. A CUDA-graph replay issues no Python call at all:
+``parallel.scan_driver`` notes the bytes a captured program tallied at its
+capture and each replay's, and :class:`DispatchWireTally` turns both into
+the live ``collectives.dispatched_bytes`` counter.
 
 The compressed collectives (the second half of the module) put a lossy
 wire dtype on a reduction: ``"bf16"`` casts, ``"int8"`` quantizes the
@@ -30,6 +36,7 @@ skipped there, as the JAX package rounds on a mesh of one too.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import operator
 import threading
@@ -38,11 +45,18 @@ from typing import Mapping, Sequence
 import torch
 import torch.distributed as tdist
 
+from tpu_syncbn_torch.obs import numerics as obs_numerics, telemetry
+
 _lock = threading.Lock()
 _TALLIES: dict[str, list[int]] = {}  # op -> [calls, bytes]
 # compressed calls: [wire bytes, bytes saved against the logical payload,
 # logical / wire of the last call]
 _COMPRESSED: list = [0, 0, None]
+# bytes tallied since the process started, bytes of them tallied while a
+# CUDA graph was being captured (the capture moves nothing), and bytes the
+# replays of captured graphs moved: O(1) reads for DispatchWireTally
+_WIRE = {"tallied": 0, "captured": 0, "replayed": 0}
+_capture = threading.local()
 # (partition, id(parent)) -> (this rank's group or None, parent): the
 # parent is held so its id cannot be reused while the entry lives
 _GROUPS: dict[tuple, tuple] = {}
@@ -58,6 +72,14 @@ def _tally(op: str, tensors: Sequence[torch.Tensor]) -> None:
         entry = _TALLIES.setdefault(op, [0, 0])
         entry[0] += 1
         entry[1] += nbytes
+        _WIRE["tallied"] += nbytes
+        box = getattr(_capture, "box", None)
+        if box is not None:
+            box[0] += nbytes
+            _WIRE["captured"] += nbytes
+    if telemetry.enabled():
+        telemetry.count(f"collectives.{op}.calls")
+        telemetry.count(f"collectives.{op}.bytes", nbytes)
 
 
 def tallies() -> dict[str, dict[str, int]]:
@@ -75,9 +97,81 @@ def bytes_total() -> int:
 
 
 def reset_tallies() -> None:
+    """Forget the per-op and compression tallies (the process-lifetime
+    totals :class:`DispatchWireTally` reads stay)."""
     with _lock:
         _TALLIES.clear()
         _COMPRESSED[:] = [0, 0, None]
+
+
+def traced_bytes_total() -> int:
+    """Collective payload bytes tallied in this process since it started
+    (the JAX package's ``traced_bytes_total``; here every call counts).
+    O(1)."""
+    with _lock:
+        return _WIRE["tallied"]
+
+
+def wire_bytes_moved() -> int:
+    """Collective payload bytes this process has actually moved: every
+    tallied call, less those tallied while a CUDA graph was captured, plus
+    what the replays of captured graphs moved (:func:`note_replay`). O(1)."""
+    with _lock:
+        return _WIRE["tallied"] - _WIRE["captured"] + _WIRE["replayed"]
+
+
+@contextlib.contextmanager
+def capturing():
+    """Mark the calls of this thread as recorded into a CUDA graph, not
+    run: their bytes still tally, but :func:`wire_bytes_moved` does not
+    count them. Yields a one-element list that ends up holding the bytes
+    tallied inside — the captured program's inventory, which each of its
+    replays moves (:func:`note_replay`)."""
+    prev = getattr(_capture, "box", None)
+    box = [0]
+    _capture.box = box
+    try:
+        yield box
+    finally:
+        _capture.box = prev
+
+
+def note_replay(nbytes: int) -> None:
+    """One replay of a captured program whose capture tallied ``nbytes``
+    (``parallel.scan_driver`` calls it after ``graph.replay()``)."""
+    if nbytes:
+        with _lock:
+            _WIRE["replayed"] += int(nbytes)
+
+
+class DispatchWireTally:
+    """A live per-dispatch byte counter, ``collectives.dispatched_bytes``:
+    the bytes the collectives of each dispatched step or chunk moved.
+
+    The JAX counter derives them from its trace-time inventories: a
+    dispatch that grew the traced total compiled a program, whose
+    inventory every later dispatch replays (× ``steps`` for a K-step
+    program). Here an eager call tallies its own bytes when it runs, so an
+    eager step adds exactly its own tallies and nothing else; a captured
+    K-step program tallies its K steps' collectives once, at the capture
+    (which moves nothing and so counts nothing here), and each replay adds
+    that inventory — K steps' worth — through :func:`note_replay`. Both
+    come out of :func:`wire_bytes_moved`, so :meth:`after_dispatch` adds
+    the bytes moved since the previous dispatch; ``steps`` (the JAX
+    signature's multiplier) is not needed for that. Driven by
+    ``ResilientLoop``; no-op while telemetry is disabled."""
+
+    def __init__(self):
+        self._last = wire_bytes_moved()
+
+    def after_dispatch(self, steps: int = 1) -> int:
+        """Record one executed dispatch covering ``steps`` optimizer steps;
+        returns the bytes it added."""
+        moved = wire_bytes_moved()
+        delta, self._last = moved - self._last, moved
+        if delta > 0 and telemetry.enabled():
+            telemetry.count("collectives.dispatched_bytes", delta)
+        return max(delta, 0)
 
 
 class _Alone:
@@ -461,6 +555,9 @@ def reduce_moments(
     if local_count.dim() == 0:
         count = count.reshape(())
     mean, var = moments_from_stats(s, sq, count)
+    # drift monitor: this replica's batch moments against the synced ones,
+    # recorded only under a trainer's active monitor collector
+    obs_numerics.record_bn_skew(local_sum, local_sumsq, local_count, mean, var)
     return mean, var, count
 
 
@@ -489,13 +586,23 @@ def check_compress_mode(mode: str) -> str:
 
 def _tally_compressed(logical_bytes: int, wire_bytes: int) -> None:
     """Count one compressed call: its wire bytes, the bytes it saved
-    against the logical payload, and its ratio (:func:`compression_tallies`).
-    At every world size, as the JAX inventory counts on a mesh of one."""
+    against the logical payload, and its ratio (:func:`compression_tallies`;
+    in the registry ``collectives.compressed_bytes``,
+    ``collectives.compressed_saved_bytes`` and the gauge
+    ``collectives.compression_ratio``). At every world size, as the JAX
+    inventory counts on a mesh of one."""
     with _lock:
         _COMPRESSED[0] += int(wire_bytes)
         _COMPRESSED[1] += max(0, int(logical_bytes) - int(wire_bytes))
         if wire_bytes:
             _COMPRESSED[2] = logical_bytes / wire_bytes
+    if telemetry.enabled():
+        telemetry.count("collectives.compressed_bytes", int(wire_bytes))
+        telemetry.count("collectives.compressed_saved_bytes",
+                        max(0, int(logical_bytes) - int(wire_bytes)))
+        if wire_bytes:
+            telemetry.set_gauge("collectives.compression_ratio",
+                                logical_bytes / wire_bytes)
 
 
 def compression_tallies() -> dict:
@@ -613,7 +720,24 @@ def _int8_qparams(flat: torch.Tensor, group, world: int, chunk: int, *,
     q, scale, zp, res = quant_int8.encode(flat, residual, ranges, qmax, chunk=chunk,
                                           want_residual=want_residual,
                                           residual_out=residual_out)
+    if obs_numerics.active():
+        # compression health: the share of codes at the clip edge ±qmax
+        # (a chunk whose mass pins the shared range edge is saturating)
+        with torch.no_grad():
+            at_limit = (q.abs() >= qmax).sum().to(torch.float32)
+            obs_numerics.record("clip_fraction", at_limit / q.numel())
     return q, scale, zp, qmax, res
+
+
+def _record_int8_headroom(sumq: torch.Tensor) -> None:
+    """Compression health: the shared range's overflow headroom of a
+    world-summed int8 payload, 1 − max|Σq| / 127 (the ``127 // world``
+    budget keeps it ≥ 0). Local arithmetic on the reduced payload, only
+    under an active monitor collector."""
+    if obs_numerics.active():
+        with torch.no_grad():
+            peak = sumq.abs().amax().to(torch.float32)
+            obs_numerics.record("overflow_headroom", 1.0 - peak / 127.0)
 
 
 def _compressed_mean_flat(flat: torch.Tensor, group, *, mode: str, logical: int,
@@ -641,7 +765,9 @@ def _compressed_mean_flat(flat: torch.Tensor, group, *, mode: str, logical: int,
                                        want_residual=residual is not None,
                                        residual_out=residual_out)
     _tally_compressed(logical, q.numel() + 8 * scale.numel())
-    return quant_int8.decode(psum(q, group), scale, zp, world=world, n=flat.numel(),
+    sumq = psum(q, group)
+    _record_int8_headroom(sumq)
+    return quant_int8.decode(sumq, scale, zp, world=world, n=flat.numel(),
                              chunk=chunk, mean=True)
 
 
@@ -680,7 +806,9 @@ def compressed_psum(tree, group, *, mode: str, chunk_size: int = DEFAULT_CHUNK_E
         # the int8 payload plus the f32 (-min, max) pair a chunk that the
         # range all-reduce moves
         _tally_compressed(logical, q.numel() + 8 * scale.numel())
-        summed = quant_int8.decode(psum(q, group), scale, zp, world=world, n=flat.numel(),
+        sumq = psum(q, group)
+        _record_int8_headroom(sumq)
+        summed = quant_int8.decode(sumq, scale, zp, world=world, n=flat.numel(),
                                    chunk=chunk_size)
         fsummed = _unfuse(summed, fleaves)
     return _reassemble(rebuild, leaves, fidx, fsummed, exact)
@@ -779,7 +907,9 @@ def compressed_reduce_scatter(x: torch.Tensor, group, *, mode: str,
     q, scale, zp, _, res = _int8_qparams(xf, group, world, chunk, want_residual=want_residual)
     _tally_compressed(n * 4, q.numel() + 8 * world)
     me = _rank(group)
-    shard = quant_int8.decode(reduce_scatter(q, group), scale[me:me + 1].contiguous(),
+    sumq = reduce_scatter(q, group)
+    _record_int8_headroom(sumq)
+    shard = quant_int8.decode(sumq, scale[me:me + 1].contiguous(),
                               zp[me:me + 1].contiguous(), world=world, n=chunk, chunk=chunk)
     return shard, res
 

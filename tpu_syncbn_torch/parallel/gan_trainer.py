@@ -30,9 +30,17 @@ the end, as the JAX step does.
 the card). ``compress`` puts both networks' gradient mean on a compressed
 wire (``collectives.compressed_pmean``, at every world size), stateless:
 error feedback is a ``DataParallel`` feature, as in the JAX package.
-Losses, metrics and the buffer broadcast stay exact. Not ported:
-``monitors`` (ROADMAP A.11) raises ``NotImplementedError`` for anything
-but its default here.
+Losses, metrics and the buffer broadcast stay exact.
+
+``monitors`` (default ``True``, as in the JAX trainer) returns the
+iteration's health scalars as device tensors in ``GANStepOutput.monitors``:
+``d_grad_norm``/``d_grad_nonfinite`` and ``g_*`` over each network's
+averaged gradients, the BN running-statistic health over both networks'
+buffers (``obs.stepstats.state_health``; per-layer keys under ``"full"``,
+G's prefixed ``.0``, D's ``.1``, as the JAX tuple path names them), and
+the numerics family through one all-reduce: the BN skew of both sub-steps
+(the worse wins), ``d_``/``g_replica_grad_norm`` with their dispersions,
+and the int8 wire's ``clip_fraction``/``overflow_headroom``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from tpu_syncbn_torch.obs import numerics as obs_numerics, stepstats as obs_stepstats
 from tpu_syncbn_torch.parallel import collectives, scan_driver
 from tpu_syncbn_torch.parallel.trainer import (
     _check_capturable,
@@ -56,6 +65,7 @@ from tpu_syncbn_torch.parallel.trainer import (
     _rewire_syncbn_groups,
     _schedule_lrs,
     _to_device,
+    check_monitors,
     sync_module_states,
 )
 from tpu_syncbn_torch.runtime.distributed import resolve_device
@@ -74,9 +84,9 @@ def loss_pair(name: str) -> Callable:
 
 @dataclasses.dataclass
 class GANStepOutput:
-    """What an iteration returns: replica-averaged losses and metrics, as
-    device tensors (reading a value waits for the iteration). ``monitors``
-    stays empty until the on-device monitors are ported (A.11)."""
+    """What an iteration returns: replica-averaged losses and metrics, and
+    the monitors (``{}`` with monitors off), as device tensors (reading a
+    value waits for the iteration)."""
 
     d_loss: torch.Tensor
     g_loss: torch.Tensor
@@ -104,9 +114,11 @@ class GANTrainer:
     ``layout`` together. ``compress`` (``"none"``, ``"bf16"`` or ``"int8"``) is
     the wire of both networks' gradient mean: each network's gradients
     fused in ``named_parameters()`` order, no error feedback (prefer
-    ``"bf16"`` for GANs). Both models must already be on ``device`` (default
-    ``"cuda"``, which raises without a card); their parameters and buffers
-    are broadcast from rank 0 at construction."""
+    ``"bf16"`` for GANs). ``monitors`` (``True``, ``False`` or ``"full"``)
+    is the module docstring's; any other value raises ``ValueError``. Both
+    models must already be on ``device`` (default ``"cuda"``, which raises
+    without a card); their parameters and buffers are broadcast from rank
+    0 at construction."""
 
     def __init__(
         self,
@@ -118,16 +130,14 @@ class GANTrainer:
         loss: str = "bce",
         group=None,
         layout=None,
-        monitors: bool | str = False,
+        monitors: bool | str = True,
         compress: str = "none",
         device: str | torch.device | None = "cuda",
     ):
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
-        if monitors is not False:
-            raise NotImplementedError(
-                "GANTrainer(monitors=...): the on-device monitors are not "
-                "ported yet (ROADMAP A.11); use monitors=False")
+        check_monitors(monitors)
+        self.monitors = monitors
         self.compress = collectives.check_compress_mode(compress)
         self.device = resolve_device(device)
         for net, model in (("generator", generator), ("discriminator", discriminator)):
@@ -180,36 +190,52 @@ class GANTrainer:
                     grads, self.group, mode=self.compress)):
                 g.copy_(mean)
 
-    def _update(self, model: nn.Module, optimizer) -> None:
-        """Average ``model``'s gradients over the group, then step."""
-        self._average_grads_(model)
-        optimizer.step()
+    def _average_monitored(self, model: nn.Module, numx: dict | None,
+                           net: str) -> tuple[list, dict]:
+        """:meth:`_average_grads_`, and with monitors on (``numx`` given)
+        ``<net>_replica_grad_norm`` (the local gradients' norm before the
+        reduction) into ``numx``. Returns the averaged gradients and what
+        the wire recorded (the int8 clip fraction and headroom)."""
+        mon = numx is not None
+        if mon:
+            numx[f"{net}_replica_grad_norm"] = obs_numerics.grad_norm_scalar(
+                [p.grad for p in model.parameters() if p.grad is not None])
+        with obs_numerics.collect(enabled=mon) as col:
+            self._average_grads_(model)
+        return [p.grad for p in model.parameters() if p.grad is not None], col.summary()
 
-    def _iteration(self, real, z_d, z_g, update) -> torch.Tensor:
+    def _iteration(self, real, z_d, z_g, step) -> tuple[torch.Tensor, dict]:
         """One D update, then one G update (module docstring), each taken
-        by ``update(model, optimizer)`` once its gradients are in. Returns
-        the replica-averaged ``(d_loss, g_loss, d_real, d_fake)``."""
+        by ``step(optimizer)`` once its gradients are averaged. Returns the
+        replica-averaged ``(d_loss, g_loss, d_real, d_fake)`` and the
+        monitors."""
         G, D = self.generator, self.discriminator
         G.train()
         D.train()
+        mon = bool(self.monitors)
+        numx: dict | None = {} if mon else None
 
-        # ---- D step
+        # ---- D step (the SyncBN forwards record their skew)
         self.d_optimizer.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            fake = G(z_d)  # train mode: G's statistics move
-        real_logits = D(real)
-        fake_logits = D(fake)
+        with obs_numerics.collect(enabled=mon) as d_col:
+            with torch.no_grad():
+                fake = G(z_d)  # train mode: G's statistics move
+            real_logits = D(real)
+            fake_logits = D(fake)
         d_loss, _ = self.loss_pair(real_logits, fake_logits)
         d_loss.backward()
-        update(D, self.d_optimizer)
+        d_grads, d_wire = self._average_monitored(D, numx, "d")
+        step(self.d_optimizer)
 
         # ---- G step, through the just-updated D
         self.g_optimizer.zero_grad(set_to_none=True)
         g_params = [p for p in G.parameters() if p.requires_grad]
-        g_logits = D(G(z_g))
+        with obs_numerics.collect(enabled=mon) as g_col:
+            g_logits = D(G(z_g))
         _, g_loss = self.loss_pair(torch.zeros_like(g_logits), g_logits)
         g_loss.backward(inputs=g_params)
-        update(G, self.g_optimizer)
+        g_grads, g_wire = self._average_monitored(G, numx, "g")
+        step(self.g_optimizer)
 
         with torch.no_grad():
             vals = torch.stack([d_loss.detach(), g_loss.detach(),
@@ -221,15 +247,32 @@ class GANTrainer:
                 collectives.broadcast_(
                     [b for m in (G, D) for b in m.buffers() if b is not None],
                     self.group)
-        return vals
+        monitors: dict = {}
+        if mon:
+            for net, grads in (("d", d_grads), ("g", g_grads)):
+                monitors.update({f"{net}_{k}": v for k, v in
+                                 obs_stepstats.grad_monitors(grads).items()})
+            # both networks' buffers after the broadcast, G's under ".0",
+            # D's under ".1" (the JAX step's (gr, dr) tuple path)
+            buffers = [(f"{i}.{n}", b) for i, m in enumerate((G, D))
+                       for n, b in m.named_buffers()]
+            monitors.update(obs_stepstats.state_health(
+                buffers, per_layer=self.monitors == "full"))
+            numx.update(obs_numerics.merge_max(
+                d_col.summary(), g_col.summary(), d_wire, g_wire))
+            monitors.update(obs_numerics.cross_replica_monitors(
+                numx, self.group,
+                disp_keys=("d_replica_grad_norm", "g_replica_grad_norm")))
+        return vals, monitors
 
     def train_step(self, real, z_d, z_g) -> GANStepOutput:
         """One D update, then one G update (module docstring)."""
         real, z_d, z_g = _to_device((real, z_d, z_g), self.device)
-        vals = self._iteration(real, z_d, z_g, self._update)
+        vals, monitors = self._iteration(real, z_d, z_g, lambda opt: opt.step())
         self.step_count += 1
         return GANStepOutput(d_loss=vals[0], g_loss=vals[1],
-                             metrics={"d_real": vals[2], "d_fake": vals[3]})
+                             metrics={"d_real": vals[2], "d_fake": vals[3]},
+                             monitors=monitors)
 
     # -- K iterations as one program ----------------------------------------
 
@@ -237,15 +280,15 @@ class GANTrainer:
         opts = {id(opt): _ChunkOptimizer(opt, k, self.device, None)
                 for opt in (self.g_optimizer, self.d_optimizer)}
 
-        def update(step, model, optimizer):
-            self._average_grads_(model)
+        def update(step, optimizer):
             chunk = opts[id(optimizer)]
             chunk.step(chunk.lrs[step])
 
         def body(step, batch_):
-            vals = self._iteration(*batch_, functools.partial(update, step))
+            vals, monitors = self._iteration(*batch_, functools.partial(update, step))
             return {"d_loss": vals[0], "g_loss": vals[1],
-                    "d_real": vals[2], "d_fake": vals[3]}
+                    "d_real": vals[2], "d_fake": vals[3],
+                    **{("mon", k): v for k, v in monitors.items()}}
 
         def state():
             ts = [t for _, model, _ in self._nets() for t in
@@ -279,7 +322,9 @@ class GANTrainer:
         out = prog(batch)
         self.step_count += k
         return GANStepOutput(d_loss=out["d_loss"], g_loss=out["g_loss"],
-                             metrics={"d_real": out["d_real"], "d_fake": out["d_fake"]})
+                             metrics={"d_real": out["d_real"], "d_fake": out["d_fake"]},
+                             monitors={n[1]: v for n, v in out.items()
+                                       if isinstance(n, tuple)})
 
     @property
     def program_caches(self) -> tuple:

@@ -129,6 +129,9 @@ class ScanSteps:
         self._static_out = None
         self._ptrs = None
         self._sig = None
+        #: collective bytes the K captured steps tallied at the capture:
+        #: what each replay moves (``collectives.DispatchWireTally``)
+        self.wire_bytes = 0
 
     def _slice(self, batch, k: int):
         return _map(lambda t: t[k], batch) if self.stacked else batch
@@ -176,8 +179,12 @@ class ScanSteps:
         graph = torch.cuda.CUDAGraph()
         # thread-local: the staging thread of device_prefetch may allocate
         # and copy on its own stream while the graph is recorded
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        from tpu_syncbn_torch.parallel import collectives
+
+        with collectives.capturing() as inventory, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self.loop(static)
+        self.wire_bytes = inventory[0]
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph, self._static_in, self._static_out = graph, static, out
@@ -203,6 +210,10 @@ class ScanSteps:
         for dst, src in zip(_leaves(self._static_in), _leaves(batch)):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
+        if self.wire_bytes:
+            from tpu_syncbn_torch.parallel import collectives
+
+            collectives.note_replay(self.wire_bytes)
         # clones: the next replay overwrites the static outputs
         return {k: v.clone() for k, v in self._static_out.items()}
 
@@ -254,9 +265,11 @@ class ProgramCache(dict):
       covers them).
 
     Eviction order is LRU, not FIFO: a hit moves the program to the back
-    of the eviction order. The JAX cache also mirrors every event into
-    its telemetry registry; that waits for the port's telemetry (ROADMAP
-    A.11)."""
+    of the eviction order. When ``name`` is given and telemetry is
+    enabled, every event also lands in the registry as the labeled
+    ``scan.program_cache.{hits,misses,evictions}{family=<name>}`` counters,
+    with the deprecated flat ``<name>.program_cache.*`` mirrors, and every
+    build publishes the occupancy gauges (:meth:`_publish_gauges`)."""
 
     def __init__(self, name: str | None = None, *,
                  max_entries: int | None = None,
@@ -278,6 +291,42 @@ class ProgramCache(dict):
 
     def _record(self, event: str) -> None:
         setattr(self, event, getattr(self, event) + 1)
+        if self.name is not None:
+            from tpu_syncbn_torch.obs import telemetry
+
+            if not telemetry.enabled():
+                return
+            telemetry.count("scan.program_cache." + event,
+                            labels={"family": self.name})
+            telemetry.warn_deprecated_name(
+                f"{self.name}.program_cache.{event}",
+                telemetry.labeled_name("scan.program_cache." + event,
+                                       {"family": self.name}),
+            )
+            telemetry.count(f"{self.name}.program_cache.{event}")
+
+    def _publish_gauges(self) -> None:
+        """The labeled ``scan.program_cache.{bytes_live,live,fill_frac}
+        {family=<name>}`` occupancy gauges, with the flat
+        ``<name>.program_cache.*`` mirrors. Called on the mutation path (a
+        build, a budget change); no-op for anonymous caches and when
+        telemetry is off."""
+        if self.name is None:
+            return
+        from tpu_syncbn_torch.obs import telemetry
+
+        labels = {"family": self.name}
+        bytes_live = self.bytes_live
+        telemetry.set_gauge("scan.program_cache.bytes_live", bytes_live,
+                            labels=labels)
+        telemetry.set_gauge(f"{self.name}.program_cache.bytes_live", bytes_live)
+        telemetry.set_gauge("scan.program_cache.live", len(self), labels=labels)
+        telemetry.set_gauge(f"{self.name}.program_cache.live", len(self))
+        if self.max_bytes:
+            fill = round(bytes_live / self.max_bytes, 4)
+            telemetry.set_gauge("scan.program_cache.fill_frac", fill,
+                                labels=labels)
+            telemetry.set_gauge(f"{self.name}.program_cache.fill_frac", fill)
 
     @property
     def bytes_live(self) -> int:
@@ -314,6 +363,7 @@ class ProgramCache(dict):
             raise ValueError(f"max_bytes must be >= 1, got {max_bytes}")
         self.max_bytes = max_bytes
         self._evict_over_budget()
+        self._publish_gauges()
         return self.bytes_live
 
     def stats(self) -> dict:
@@ -364,7 +414,7 @@ def cached_program(cache: dict, key, build: Callable[[], Any],
             return dict.__getitem__(cache, key)
         cache._record("misses")
         # the JAX cache times each build as a compile event
-        # (obs.profiling.timed_compile); that waits for ROADMAP A.11
+        # (obs.profiling.timed_compile); that waits for ROADMAP A.11b
         fn = build()
         if key in cache:  # stale stored None: the rebuilt entry goes to
             dict.pop(cache, key)  # the back of the eviction order
@@ -378,6 +428,7 @@ def cached_program(cache: dict, key, build: Callable[[], Any],
             if size is not None and size > 0:
                 cache._sizes[key] = int(size)
         cache._evict_over_budget()
+        cache._publish_gauges()
         return fn
     fn = cache.get(key)
     if fn is None:

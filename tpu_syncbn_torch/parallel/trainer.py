@@ -31,6 +31,7 @@ import torch.distributed as tdist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpu_syncbn_torch.obs import numerics as obs_numerics, stepstats as obs_stepstats
 from tpu_syncbn_torch.parallel import collectives, scan_driver
 from tpu_syncbn_torch.parallel.scan_driver import _map as _map_batch
 from tpu_syncbn_torch.runtime import distributed as dist
@@ -39,13 +40,22 @@ from tpu_syncbn_torch.runtime.distributed import resolve_device
 GUARD_POLICIES = (None, "skip_step", "halve_lr", "restore_last_good")
 
 
+def check_monitors(monitors) -> None:
+    if monitors not in (True, False, "full"):
+        raise ValueError(
+            f"monitors must be True, False, or 'full', got {monitors!r}")
+
+
 @dataclasses.dataclass
 class StepOutput:
     """What a step returns: the replica-averaged loss and metrics, as
-    device tensors (reading a value waits for the step)."""
+    device tensors (reading a value waits for the step). ``monitors``
+    holds the on-device health scalars (``DataParallel(monitors=)``), also
+    device tensors, ``{}`` with monitors off."""
 
     loss: torch.Tensor
     metrics: dict[str, torch.Tensor]
+    monitors: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def _default_group():
@@ -571,6 +581,32 @@ class DataParallel:
       vectors (gathered to every rank), and :meth:`load_state_dict`
       rejects a zero-mode or shard-world mismatch with the JAX messages.
 
+    ``monitors`` (default ``True``, as in the JAX trainer) computes health
+    scalars on the step's own tensors and returns them as device tensors in
+    ``StepOutput.monitors`` (``obs.stepstats``, ``obs.numerics``; no
+    ``.item()``, no synchronize):
+
+    * ``grad_norm`` / ``grad_nonfinite`` over the averaged gradients (under
+      a sharding layout over the shards, with one scalar all-reduce over
+      the shard group);
+    * ``state_nonfinite``, ``bn_layers``, ``bn_mean_max_abs``,
+      ``bn_var_max``, ``bn_var_min`` over the buffers after the step
+      (reduced to the worst replica with ``broadcast_buffers=False``);
+    * the numerics family, each the replica mean through ONE all-reduce of
+      their stacked vector: ``bn_mean_skew`` / ``bn_var_skew`` (each SyncBN
+      layer's local moments against the synced ones, the worst layer and
+      microbatch) with ``bn_skew_layers``, ``replica_grad_norm`` (the local
+      gradients' norm before the reduction) and its dispersion
+      ``replica_grad_norm_disp``, and on the int8 wire ``clip_fraction`` and
+      ``overflow_headroom``, with error feedback ``ef_residual_ratio``.
+
+    ``"full"`` adds ``bn_var_min<path>`` / ``bn_mean_max_abs<path>`` per BN
+    layer; ``False`` gives ``{}``; any other value raises ``ValueError``.
+    The K-step entry points return each monitor stacked to ``(K,)``. On a
+    step the guard skips, :meth:`train_step`'s gradients were never
+    reduced, so its gradient monitors describe this replica's local
+    gradients (and carry no compression keys).
+
     The model's parameters and buffers must already be on ``device``
     (default ``"cuda"``, which raises without a card)."""
 
@@ -592,10 +628,12 @@ class DataParallel:
         zero: bool = False,
         layout=None,
         mesh=None,
+        monitors: bool | str = True,
         device: str | torch.device | None = "cuda",
     ):
         if accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
+        check_monitors(monitors)
         if grad_compression not in (None, "bf16"):
             raise ValueError(
                 f"grad_compression must be None or 'bf16', got {grad_compression!r}")
@@ -638,6 +676,7 @@ class DataParallel:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self.monitors = monitors
         self.accum_steps = accum_steps
         self.remat = remat
         self.divergence_guard = divergence_guard
@@ -777,14 +816,6 @@ class DataParallel:
             for name, p in self._trainable:
                 p.copy_(views[name])
 
-    def _sharded_update(self, grads, step: Callable[[], None]) -> None:
-        """The sharded weight update: scatter ``grads`` onto the shards,
-        ``step()`` the optimizer over them, gather the parameters back."""
-        for dt, g in self._scatter_grads(grads).items():
-            self._shards[dt].grad = g
-        step()
-        self._gather_params()
-
     def _zero_grad(self) -> None:
         """Clear the gradients a step accumulates into: the optimizer's
         parameters', and under a sharding layout the module's too."""
@@ -849,28 +880,98 @@ class DataParallel:
 
     def _forward_backward(self, batch):
         """Forward and backward of one (micro)batch; gradients accumulate
-        into ``.grad``. Returns the detached loss and metrics."""
-        if self.remat:
-            out = checkpoint(self.loss_fn, self.model, batch,
-                             use_reentrant=False, context_fn=_remat_contexts)
-        else:
-            out = self.loss_fn(self.model, batch)
+        into ``.grad``. Returns the detached loss and metrics, and the
+        numerics scalars the forward's SyncBN reductions recorded (``{}``
+        with monitors off; the collector covers the forward only, so a
+        remat recomputation records nothing)."""
+        with obs_numerics.collect(enabled=bool(self.monitors)) as col:
+            if self.remat:
+                out = checkpoint(self.loss_fn, self.model, batch,
+                                 use_reentrant=False, context_fn=_remat_contexts)
+            else:
+                out = self.loss_fn(self.model, batch)
         loss, metrics = self._split(out)
         loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, col.summary()
 
     def _accumulate(self, batch):
         """Forward and backward of the batch, in ``accum_steps``
         microbatches whose gradients accumulate; the loss and metrics are
-        their means."""
+        their means, the numerics scalars their maxima (skew in any
+        microbatch is drift)."""
         if self.accum_steps == 1:
             return self._forward_backward(batch)
         outs = [self._forward_backward(mb)
                 for mb in _microbatches(batch, self.accum_steps)]
-        loss = torch.stack([l_ for l_, _ in outs]).mean(dtype=torch.float32)
-        metrics = {k: torch.stack([m[k] for _, m in outs]).mean(dtype=torch.float32)
+        loss = torch.stack([o[0] for o in outs]).mean(dtype=torch.float32)
+        metrics = {k: torch.stack([o[1][k] for o in outs]).mean(dtype=torch.float32)
                    for k in outs[0][1]}
-        return loss, metrics
+        return loss, metrics, obs_numerics.merge_max(*[o[2] for o in outs])
+
+    def _reduce_and_update(self, grads, numx: dict, step: Callable[[], None],
+                           reduce: bool = True) -> dict:
+        """The gradient reduction, the gradient monitors, the update (with
+        ``reduce=False``, a step the guard skips: the monitors only).
+        ``grads`` are the local accumulated gradients in trainable order;
+        ``numx`` gains the numerics scalars of the reduction (the local
+        gradient norm before it, the int8 wire's health, the residual
+        ratio). Returns the gradient monitors (``{}`` with monitors off)."""
+        mon = bool(self.monitors)
+        # alone on the exact wire the reduction at most scales by
+        # 1/accum_steps, so the local norm is the reduced one
+        alone = (self.world == 1 and not self.zero and self.compress == "none"
+                 and self.grad_compression is None)
+        if mon and not (alone and reduce):
+            # per-replica norm BEFORE the reduction: the local half of the
+            # dispersion monitor (of the microbatch mean, as JAX's)
+            numx["replica_grad_norm"] = (obs_numerics.grad_norm_scalar(grads)
+                                         / self.accum_steps)
+        if not reduce:
+            return obs_stepstats.grad_monitors(grads) if mon else {}
+        # the compressed wire records its int8 clip fraction and overflow
+        # headroom into this collector
+        with obs_numerics.collect(enabled=mon) as ccol:
+            if self.zero:
+                shards = self._scatter_grads(grads)
+            else:
+                self._reduce_grads_(grads)
+        monitors: dict = {}
+        if mon:
+            numx.update(ccol.summary())
+            if self.zero:
+                # shards only: one scalar all-reduce over the shard group
+                # (the cross axes hold the reduced value replicated)
+                monitors = obs_stepstats.grad_monitors(
+                    list(shards.values()), self._shard_group, sharded=True)
+            else:
+                monitors = obs_stepstats.grad_monitors(grads)
+            if alone:
+                numx["replica_grad_norm"] = monitors["grad_norm"]
+            if self._ef:
+                numx["ef_residual_ratio"] = obs_numerics.residual_ratio(
+                    self._residuals(), numx["replica_grad_norm"])
+        if self.zero:
+            for dt, g in shards.items():
+                self._shards[dt].grad = g
+            step()
+            self._gather_params()
+        else:
+            step()
+        return monitors
+
+    def _finish_monitors(self, monitors: dict, numx: dict) -> dict:
+        """The numerics family through ONE all-reduce, then the buffers'
+        health (after the step's broadcast or restore)."""
+        if not self.monitors:
+            return {}
+        if numx:
+            monitors.update(obs_numerics.cross_replica_monitors(
+                numx, self.group, disp_keys=("replica_grad_norm",)))
+        per_replica = self.broadcast_buffers is False
+        monitors.update(obs_stepstats.state_health(
+            self.model, self.group, reduce=per_replica,
+            per_layer=self.monitors == "full"))
+        return monitors
 
     def _grads_agreed_finite(self, grads) -> torch.Tensor:
         """The world's consensus that every local gradient is finite: each
@@ -905,7 +1006,7 @@ class DataParallel:
         buffers = [b for b in self.model.buffers() if b is not None]
         guarded = self.divergence_guard is not None
         before = _pack(buffers) if guarded else None
-        loss, metrics = self._accumulate(batch)
+        loss, metrics, numx = self._accumulate(batch)
         # DDP gradient averaging: one flat all-reduce per dtype, or the
         # compressed wire
         grads = _grads_for_all_reduce(
@@ -915,13 +1016,9 @@ class DataParallel:
         loss, metrics = self._replica_mean(loss, metrics, self.compress != "none")
         # the guard's one host read a step
         ok = bool(agreed & torch.isfinite(loss)) if guarded else True
+        # a skipped step never reduces, so it keeps the residual
+        monitors = self._reduce_and_update(grads, numx, self._optimizer_step, reduce=ok)
         if ok:
-            # a skipped step never reduces, so it keeps the residual
-            if self.zero:
-                self._sharded_update(grads, self._optimizer_step)
-            else:
-                self._reduce_grads_(grads)
-                self._optimizer_step()
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
         else:
@@ -936,7 +1033,8 @@ class DataParallel:
                     self.guard_state["lr_scale"] = lr_scale * 0.5
             metrics["nonfinite"] = torch.tensor(0.0 if ok else 1.0, device=self.device)
             metrics["lr_scale"] = torch.tensor(lr_scale, device=self.device)
-        return StepOutput(loss=loss, metrics=metrics)
+        return StepOutput(loss=loss, metrics=metrics,
+                          monitors=self._finish_monitors(monitors, numx))
 
     def eval_step(self, batch) -> StepOutput:
         """Loss and metrics in eval mode (running statistics, no
@@ -975,7 +1073,7 @@ class DataParallel:
                 chunk.taken.zero_()
             live = self._state_tensors(chunk)
             old = [t.detach().clone() for t in live]
-        loss, metrics = self._accumulate(batch)
+        loss, metrics, numx = self._accumulate(batch)
         grads = _grads_for_all_reduce(
             [p for p in self.model.parameters() if p.requires_grad], self._fill_grads())
         if guard is not None:
@@ -987,11 +1085,7 @@ class DataParallel:
               if guard is not None else chunk.opt.lrs[k])
         if guard == "halve_lr":
             lr = lr * chunk.lr_scale
-        if self.zero:
-            self._sharded_update(grads, lambda: chunk.opt.step(lr))
-        else:
-            self._reduce_grads_(grads)
-            chunk.opt.step(lr)
+        monitors = self._reduce_and_update(grads, numx, lambda: chunk.opt.step(lr))
         out = {"loss": loss, **{("m", n): v for n, v in metrics.items()}}
         if guard is not None:
             ok = agreed & torch.isfinite(loss)
@@ -1007,6 +1101,8 @@ class DataParallel:
         if self._per_step_broadcast:
             collectives.broadcast_(
                 [b for b in self.model.buffers() if b is not None], self.group)
+        out.update({("mon", n): v
+                    for n, v in self._finish_monitors(monitors, numx).items()})
         return out
 
     def _build_program(self, n_steps: int, stacked: bool, batch):
@@ -1049,7 +1145,10 @@ class DataParallel:
             self.guard_state = {"lr_scale": scale, "nonfinite_count": int(count)}
         _advance_scheduler(self.lr_scheduler, taken)
         loss = out.pop("loss")
-        return StepOutput(loss=loss, metrics={name: v for (_, name), v in out.items()})
+        return StepOutput(loss=loss,
+                          metrics={name: v for (kind, name), v in out.items() if kind == "m"},
+                          monitors={name: v for (kind, name), v in out.items()
+                                    if kind == "mon"})
 
     def train_steps(self, batch, n_steps: int) -> StepOutput:
         """``n_steps`` optimizer steps on the SAME batch as one program

@@ -189,10 +189,16 @@ def _rendezvous_with_retry(
     if timeout_s is not None:
         kwargs = {**kwargs, "timeout": datetime.timedelta(seconds=timeout_s)}
 
+    from tpu_syncbn_torch.obs import telemetry
+
     def attempt():
+        # attempt/failure counters ride telemetry, so a flaky rendezvous is
+        # countable from the exports, not only from the retry log lines
+        telemetry.count("rendezvous.attempts")
         try:
             tdist.init_process_group(**kwargs)
         except Exception:
+            telemetry.count("rendezvous.failures")
             # a half-made default group would make the next attempt's
             # init_process_group refuse to run
             if tdist.is_initialized():

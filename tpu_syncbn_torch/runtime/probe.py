@@ -13,6 +13,11 @@ GPUs. The CPU runs only when the caller asks for it, with ``device="cpu"``
 or ``TPU_SYNCBN_FORCE_CPU=1`` (:func:`force_cpu`, which the launcher's
 ``--simulate-chips`` sets).
 
+Telemetry: ``probe.latency_s`` and ``probe.device_count`` (gauges),
+``probe.ok`` / ``probe.failed`` and ``probe.forced_cpu`` (counters). The
+JAX module's ``probe.cpu_fallback`` has no counterpart: the port raises
+where it would fall back.
+
 Env overrides:
   ``TPU_SYNCBN_FORCE_CPU=1``      the run stays on the CPU; a CUDA request
                                   raises (``runtime.resolve_device``)
@@ -24,6 +29,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
 from typing import NamedTuple, Optional
 
 from tpu_syncbn_torch.runtime.distributed import FORCE_CPU_ENV, cpu_forced
@@ -55,7 +61,17 @@ def probe_backend(timeout: Optional[float] = None) -> Optional[BackendInfo]:
     capability)``, or ``None`` when there is no usable card or the probe
     fails or outlives ``timeout`` seconds. Cached for the process."""
     if "result" not in _probe_cache:
-        _probe_cache["result"] = _probe_uncached(timeout)
+        t0 = time.perf_counter()
+        result = _probe_uncached(timeout)
+        # latency and outcome ride telemetry, so an unusable card is
+        # diagnosable from an export, not only from the raised error
+        from tpu_syncbn_torch.obs import telemetry
+
+        telemetry.set_gauge("probe.latency_s", time.perf_counter() - t0)
+        telemetry.count("probe.ok" if result is not None else "probe.failed")
+        if result is not None:
+            telemetry.set_gauge("probe.device_count", result.device_count)
+        _probe_cache["result"] = result
     return _probe_cache["result"]
 
 
@@ -115,6 +131,9 @@ def ensure_backend(min_devices: int = 1, *, device: str = "cuda") -> BackendInfo
     at :func:`enable_persistent_compilation_cache`."""
     enable_persistent_compilation_cache()
     if device == "cpu" or cpu_forced():
+        from tpu_syncbn_torch.obs import telemetry
+
+        telemetry.count("probe.forced_cpu")
         force_cpu()
         return BackendInfo("cpu", min_devices)
     if device != "cuda":

@@ -17,12 +17,19 @@ port never imports it):
   checkpoints (``utils.checkpoint``) and the trainer's divergence guard:
   a preemption-safe step loop with resume and ``restore_last_good``.
 
-Not ported yet: the JAX loop's live-monitoring hooks (``obs.server``
-with the loop's readiness, ``flightrec``, ``memwatch``, ``numerics``,
-``stepstats``: ROADMAP A.11),
-its wire tally (``DispatchWireTally``, A.11), the autopilot (A.14) and
-serving publications (A.12); the constructor arguments that need them
-raise ``NotImplementedError``.
+Observability (``obs``): the ``resilience`` counters mirror into the
+telemetry registry; a stall counts ``resilience.watchdog_stalls`` or
+``resilience.data_stalls`` and marks the trace with an instant carrying
+the newest open span's id; the loop instruments its data wait and steps
+(``obs.stepstats``), sets the ``train.step`` gauge, publishes the numerics
+monitors (``obs.numerics.NumericsPublisher``) and counts its collective
+bytes (``collectives.DispatchWireTally``).
+
+Not ported yet: the live-monitoring half of the JAX loop — the flight
+recorder's triggers, ``memwatch`` and ``profiling`` (ROADMAP A.11b), the
+metrics server with the loop's heartbeat and readiness (A.11c) — and the
+autopilot (A.14) and serving publications (A.12); the constructor
+arguments that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -214,9 +221,20 @@ class Watchdog:
             if idle > self.deadline_s and self._stalled_since is None:
                 self._stalled_since = self._last
                 self.stall_count += 1
+                # tag the dump with the most recently opened trace span
+                # (this thread has no span stack of its own), so a
+                # Perfetto trace and the log join on the span id
+                from tpu_syncbn_torch.obs import telemetry, tracing
+
+                span_id = tracing.latest_open_span_id()
+                telemetry.count("resilience.watchdog_stalls")
+                tracing.instant(
+                    "watchdog_stall", watchdog=self.name, idle_s=round(idle, 2),
+                    **({"span_id": span_id} if span_id is not None else {}))
+                tag = f", trace_span={span_id}" if span_id is not None else ""
                 diag = dump_stacks(
                     f"WATCHDOG: {self.name!r} stalled for {idle:.1f}s "
-                    f"(deadline {self.deadline_s}s)")
+                    f"(deadline {self.deadline_s}s{tag})")
                 dist.get_logger("tpu_syncbn_torch.resilience").error("%s", diag)
                 if self._on_stall is not None:
                     with contextlib.suppress(Exception):
@@ -280,7 +298,15 @@ def stall_guard(iterator: Iterable, deadline_s: float, *,
             try:
                 tag, payload = q.get(timeout=deadline_s)
             except _queue.Empty:
-                diag = dump_stacks(f"WATCHDOG: {name!r} fetch exceeded {deadline_s}s")
+                from tpu_syncbn_torch.obs import telemetry, tracing
+
+                span_id = tracing.latest_open_span_id()
+                telemetry.count("resilience.data_stalls")
+                tracing.instant(
+                    "data_stall", source=name,
+                    **({"span_id": span_id} if span_id is not None else {}))
+                tag = f" (trace_span={span_id})" if span_id is not None else ""
+                diag = dump_stacks(f"WATCHDOG: {name!r} fetch exceeded {deadline_s}s{tag}")
                 dist.get_logger("tpu_syncbn_torch.resilience").error("%s", diag)
                 raise StallError(
                     f"{name} fetch exceeded the {deadline_s}s watchdog "
@@ -532,9 +558,17 @@ class ResilientLoop:
         if callable(reset):
             reset()
         self.counters.bump("divergence_restores")
+        # tag the rollback with the current trace span, so the timeline
+        # and this log line correlate
+        from tpu_syncbn_torch.obs import tracing
+
+        span_id = tracing.latest_open_span_id()
+        tracing.instant("divergence_restore", step=self.step, restored_step=restored,
+                        **({"span_id": span_id} if span_id is not None else {}))
         self._log.warning(
             "non-finite loss/grads at step %d: restored last good "
-            "checkpoint (step %d)", self.step, restored)
+            "checkpoint (step %d)%s", self.step, restored,
+            f" (trace_span={span_id})" if span_id is not None else "")
         self.step = restored
 
     # -- the loop ---------------------------------------------------------
@@ -552,10 +586,17 @@ class ResilientLoop:
         the step counter crosses a multiple; ``max_steps`` is checked
         before each chunk, so a run may overshoot it by at most K-1 steps.
         Pending async writes are flushed on every exit path."""
+        from tpu_syncbn_torch.obs import numerics as obs_numerics, stepstats, telemetry
+        from tpu_syncbn_torch.parallel.collectives import DispatchWireTally
+
         policy = getattr(self.trainer, "divergence_guard", None)
         scanned = self.scan_steps > 1
         preempted = False
         steps_run = 0
+        wire_tally = DispatchWireTally()
+        # the numerics monitors reach the registry once their device
+        # values have landed on the host (never a forced synchronize)
+        numerics_pub = obs_numerics.NumericsPublisher()
         try:
             with contextlib.ExitStack() as stack:
                 guard = stack.enter_context(PreemptionGuard())
@@ -566,19 +607,33 @@ class ResilientLoop:
                     watchdog = stack.enter_context(
                         Watchdog(self.step_deadline_s * self.scan_steps,
                                  name="train-step", start_armed=False))
-                for batch in batches:
+                # each blocking fetch is a "data_wait" span and histogram
+                # sample, each step (or chunk) a span: the seams the bench
+                # instruments, so any loop's trace reads the same way
+                for batch in stepstats.instrumented_batches(batches):
                     if max_steps is not None and steps_run >= max_steps:
                         break
                     if scanned:
-                        out = self.trainer.train_steps_batches(batch)
+                        with stepstats.timed_span("scan_chunk", "step.chunk_time_s",
+                                                  step=self.step + 1):
+                            out = self.trainer.train_steps_batches(batch)
                         k = int(out.loss.shape[0])
                     else:
-                        out = self.trainer.train_step(batch)
+                        with stepstats.timed_span("step", "step.time_s",
+                                                  step=self.step + 1):
+                            out = self.trainer.train_step(batch)
                         k = 1
                     self.step += k
                     steps_run += k
                     if watchdog is not None:
                         watchdog.pat()
+                    telemetry.set_gauge("train.step", self.step)
+                    mon = getattr(out, "monitors", None)
+                    if scanned and mon:
+                        # (K,)-stacked: publish the chunk's last step
+                        mon = {name: v[-1] for name, v in mon.items()}
+                    numerics_pub.publish(self.step, mon)
+                    wire_tally.after_dispatch(k)
                     if policy is not None:
                         nonfinite = _nonfinite_steps(out.metrics)
                         if nonfinite:
@@ -627,9 +682,19 @@ class ResilientLoop:
                     "async checkpoint flush failed while a training failure "
                     "was already propagating")
             raise
+        finally:
+            try:
+                # non-blocking tail drain: a blocking flush here could hang
+                # on the exit that matters most (a stalled device)
+                numerics_pub.publish(self.step, None)
+            except Exception:
+                self._log.exception("numerics publisher drain failed on loop exit")
         # durable before control leaves the loop; a flush error DOES raise
         # here: {"preempted": True} over a failed boundary write would
         # claim a durability it lacks
         self.flush_checkpoints()
+        # clean exit: the loop's last step was dispatched, so the blocking
+        # drain is safe and the final steps' monitors reach the registry
+        numerics_pub.flush()
         return {"steps": steps_run, "step": self.step, "preempted": preempted,
                 **self.counters.summary()}

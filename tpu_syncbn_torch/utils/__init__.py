@@ -16,12 +16,13 @@ from tpu_syncbn_torch.utils.coco_map import evaluate_detections
 from tpu_syncbn_torch.utils.fid import frechet_distance, gaussian_stats
 from tpu_syncbn_torch.utils.metrics import (
     AverageMeter,
+    EventCounter,
     ScalarLogger,
     ThroughputMeter,
     step_timer,
 )
 
-__all__ = ["AsyncCheckpointer", "AverageMeter", "CheckpointCorruptError",
+__all__ = ["AsyncCheckpointer", "AverageMeter", "CheckpointCorruptError", "EventCounter",
            "ScalarLogger", "ThroughputMeter", "available_steps",
            "evaluate_detections", "frechet_distance", "gaussian_stats",
            "load_checkpoint", "read_manifest", "save_checkpoint",

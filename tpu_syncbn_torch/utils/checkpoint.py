@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from tpu_syncbn_torch.obs import telemetry, tracing
 from tpu_syncbn_torch.runtime import distributed as dist
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -177,7 +178,19 @@ def _payload_matches(manifest: dict, data: bytes) -> bool:
 def verify_checkpoint(directory: str, step: int) -> bool:
     """True iff ``step``'s payload exists AND its manifest certifies it
     (byte length and checksums match). A payload without a manifest, and
-    anything truncated, bit-flipped or mid-write, reports False."""
+    anything truncated, bit-flipped or mid-write, reports False.
+    Verification time and failures feed telemetry (``checkpoint.verify_s``
+    / ``checkpoint.verify_failures``) under a ``checkpoint_verify`` span."""
+    t0 = time.perf_counter()
+    with tracing.span("checkpoint_verify", step=int(step)):
+        ok = _verify_checkpoint_impl(directory, step)
+    telemetry.observe("checkpoint.verify_s", time.perf_counter() - t0)
+    if not ok:
+        telemetry.count("checkpoint.verify_failures")
+    return ok
+
+
+def _verify_checkpoint_impl(directory: str, step: int) -> bool:
     manifest = read_manifest(directory, step)
     if manifest is None:
         return False
@@ -274,10 +287,17 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
     """Write ``tree`` as ``ckpt_{step}.pt`` plus its integrity manifest —
     master process only (other ranks return None at once); both writes
     atomic via tmp + rename, payload before manifest; prunes to the newest
-    ``keep`` checkpoints."""
+    ``keep`` checkpoints. Save latency rides telemetry (the
+    ``checkpoint.save_s`` histogram, the ``checkpoint.saves`` counter) and
+    a ``checkpoint_save`` span."""
     if not dist.is_master():
         return None
-    return _write_host_tree(directory, step, snapshot_to_host(tree), keep=keep)
+    t0 = time.perf_counter()
+    with tracing.span("checkpoint_save", step=int(step)):
+        path = _write_host_tree(directory, step, snapshot_to_host(tree), keep=keep)
+    telemetry.observe("checkpoint.save_s", time.perf_counter() - t0)
+    telemetry.count("checkpoint.saves")
+    return path
 
 
 def _write_host_tree(directory: str, step: int, host_tree: Any, *,
@@ -333,6 +353,7 @@ def _load_verified_local(directory: str, target: Any, logger):
         if manifest is not None and not _payload_matches(manifest, data):
             tried.append(f"step {step}: payload fails manifest CRC/size "
                          "(truncated or corrupt)")
+            telemetry.count("checkpoint.verify_failures")
             logger.warning(
                 "checkpoint step %d in %s fails integrity verification; "
                 "falling back to an older checkpoint", step, directory,
@@ -374,7 +395,20 @@ def load_checkpoint(directory: str, target: Any, *, step: int | None = None):
     ranks. Followers then open the agreed path directly, with a short
     retry (a filesystem's attribute cache can lag a peer's rename), and
     check the payload against the manifest, so every rank restores the
-    same bytes."""
+    same bytes.
+
+    Load latency rides telemetry (``checkpoint.load_s``,
+    ``checkpoint.loads``) under a ``checkpoint_load`` span; a skipped
+    corrupt candidate counts into ``checkpoint.verify_failures``."""
+    t0 = time.perf_counter()
+    with tracing.span("checkpoint_load", step=-1 if step is None else int(step)):
+        result = _load_checkpoint_impl(directory, target, step=step)
+    telemetry.observe("checkpoint.load_s", time.perf_counter() - t0)
+    telemetry.count("checkpoint.loads")
+    return result
+
+
+def _load_checkpoint_impl(directory: str, target: Any, *, step: int | None):
     logger = dist.get_logger("tpu_syncbn_torch.checkpoint")
     multi = dist.process_count() > 1
     if multi:
@@ -523,8 +557,12 @@ class AsyncCheckpointer:
             if item is None:
                 return
             directory, step, host_tree, keep = item
+            t0 = time.perf_counter()
             try:
-                _write_host_tree(directory, step, host_tree, keep=keep)
+                with tracing.span("checkpoint_save", step=int(step), mode="async"):
+                    _write_host_tree(directory, step, host_tree, keep=keep)
+                telemetry.observe("checkpoint.save_s", time.perf_counter() - t0)
+                telemetry.count("checkpoint.saves")
             except BaseException as e:  # surfaces at the next save()/flush()
                 with self._cond:
                     self._errors.append(e)
@@ -557,7 +595,10 @@ class AsyncCheckpointer:
             raise RuntimeError("AsyncCheckpointer is closed")
         if not dist.is_master():
             return
+        t0 = time.perf_counter()
         host_tree = snapshot_to_host(tree)
+        telemetry.observe("checkpoint.async_snapshot_s", time.perf_counter() - t0)
+        telemetry.count("checkpoint.async_saves")
         with self._cond:
             self._pending += 1
         # enqueue OUTSIDE the condition: a put on the bounded queue may

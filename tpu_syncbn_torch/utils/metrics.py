@@ -1,7 +1,8 @@
 """Training meters, step timing and the JSONL scalar log — the counterpart
 of ``tpu_syncbn.utils.metrics`` (``AverageMeter``, ``ThroughputMeter``,
-``step_timer``, ``ScalarLogger``), with the same arithmetic and the same
-rank-0 file convention.
+``step_timer``, ``ScalarLogger``, and ``EventCounter``, the deprecated
+alias of ``obs.telemetry.CounterGroup("events")``), with the same
+arithmetic and the same rank-0 file convention.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 import os
 import time
 
+from tpu_syncbn_torch.obs.telemetry import CounterGroup
 from tpu_syncbn_torch.runtime import distributed as dist
 
 
@@ -61,6 +63,30 @@ class ThroughputMeter:
         dt = self._times[-1] - self._times[0]
         n = sum(self._counts[1:])  # the first tick only anchors the clock
         return n / dt if dt > 0 else 0.0
+
+
+class EventCounter(CounterGroup):
+    """Deprecated alias for :class:`tpu_syncbn_torch.obs.telemetry.CounterGroup`
+    — the old name of the monotonic fault and recovery event counters,
+    kept so existing call sites keep working. Constructing it emits a
+    ``DeprecationWarning``; new code constructs
+    ``obs.telemetry.CounterGroup(prefix)``. As a ``CounterGroup`` with
+    ``prefix="events"``, its bumps also mirror into the telemetry registry
+    (as ``events.<name>``) when telemetry is enabled."""
+
+    def __init__(self):
+        import warnings
+
+        warnings.warn(
+            "tpu_syncbn_torch.utils.EventCounter is deprecated; use "
+            "tpu_syncbn_torch.obs.telemetry.CounterGroup instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(prefix="events")
+
+    def __repr__(self):
+        return f"EventCounter({self.summary()!r})"
 
 
 @contextlib.contextmanager
