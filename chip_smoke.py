@@ -121,7 +121,8 @@ falls back to the CPU):
                the ``recovery`` block (a truncated newest checkpoint resumes
                the older step, the async write certifies), the ``scan``
                block at K = 8 and the ``collectives`` block (wire bytes and
-               ratios on 1 MiB); the line printed;
+               ratios on 1 MiB), the ``incident``, ``memory`` and
+               ``compile`` blocks; the line printed;
 12. scan      — K steps as one CUDA graph (``train_steps_batches``,
                ``GANTrainer.train_steps``) for the ResNet-50 slice (the
                example's SGD and a cosine schedule), DCGAN and RetinaNet:
@@ -176,6 +177,26 @@ falls back to the CPU):
                and the ``train.step`` gauge; the monitor functions' own host
                time a step, and the eager step with monitors toggled every
                step on one trainer;
+13c. incident — the flight recorder, memory watermarks, compile events and
+               the profiler capture (ROADMAP A.11b) on the same slice: a
+               NaN step under ``ResilientLoop(scan_steps=4)`` with the
+               recorder and the sampler installed gives exactly one valid
+               ``divergence_restore`` bundle whose step ring holds finite
+               loss and monitors before the fault; the sampler's thread at
+               1 ms beside a K = 4 graph capture (the capture replays
+               bitwise its body; a sample's gauges equal
+               ``memory_allocated`` / ``max_memory_allocated``); a manual
+               dump from the loop's fetch while a captured chunk still
+               runs (no ``torch.cuda.synchronize``; each ring value
+               ``"pending"`` or its own step's); a contract at half the
+               steady peak fires one ``mem_pressure`` bundle; one program
+               key rebuilt 3 times gives one ``recompile_storm`` bundle and
+               distinct keys none; a 1 s ``profiling.capture`` on the main
+               thread while a worker replays captured chunks holds the BN
+               kernels' names under the size cap, and the worker's own
+               capture meanwhile raises ``ProfilerBusy``; then
+               ``record_step``'s cost a step, one sample's cost, the dump's
+               seconds and bytes;
 14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -200,9 +221,9 @@ falls back to the CPU):
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13b's launches, times, the
-bench line, the eager and captured steps, the compress, resilience and
-obs summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
+ratios) and ``{"paths": {...}}`` (phases 9-13c's launches, times, the
+bench line, the eager and captured steps, the compress, resilience, obs
+and incident summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
 attention and int8-wire kernels); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
@@ -2608,7 +2629,8 @@ def phase_retinanet(torch, card):
 BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
-              "device_kind", "host_load_1m", "collectives", "telemetry")
+              "device_kind", "host_load_1m", "collectives", "incident", "memory",
+              "compile", "telemetry")
 
 
 def phase_bench():
@@ -2616,8 +2638,12 @@ def phase_bench():
     kernels are built and cached by now): exit 0, every key of its line,
     0 < mfu <= 1, the ``recovery`` block (a truncated newest checkpoint
     resumes the older step, the async write certifies), the ``scan``
-    block at K = 8 and the ``telemetry`` block (the registry's schema, a
-    ``step.time_s`` sample a timed step). Returns (failures, the line)."""
+    block at K = 8, the ``incident``, ``memory`` and ``compile`` blocks (a
+    forced bundle, the card's reading against the warm step's peak with
+    its ``mem_pressure`` drill and a capture holding CUDA activity, the
+    first step's compile event and no storm) and the ``telemetry`` block
+    (the registry's schema, a ``step.time_s`` sample a timed step).
+    Returns (failures, the line)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench", "--scan",
                         str(SCAN_KS[-1])], cwd=HERE,
@@ -2648,6 +2674,21 @@ def phase_bench():
     if got != want or not all(isinstance(v.get("ms"), (int, float)) and v["ms"] >= 0
                               for v in modes.values()):
         failures.append(f"[bench] collectives block {coll}")
+    # the obs blocks: a forced bundle; the card's reading against the warm
+    # step's peak, the planted mem_pressure drill, a capture with CUDA
+    # activity; the first step's compile event and no storm
+    inc, mem, comp = (line.get(k) or {} for k in ("incident", "memory", "compile"))
+    if inc.get("trigger") != "manual" or not inc.get("bundle_bytes") \
+            or inc.get("ring_steps") != line.get("steps"):
+        failures.append(f"[bench] incident block {inc}")
+    if (mem.get("source") != "device" or mem.get("contract_source") != "warm_step_peak"
+            or mem.get("used_frac") is None or not (mem.get("pressure") or {}).get("valid")
+            or (mem.get("profilez") or {}).get("status") != 200
+            or not (mem.get("profilez") or {}).get("device_events")):
+        failures.append(f"[bench] memory block {mem}")
+    if comp.get("storms") != 0 or not comp.get("events_total") \
+            or "train" not in (comp.get("families") or {}):
+        failures.append(f"[bench] compile block {comp}")
     # the registry's snapshot: schema 1, one step.time_s sample a timed step
     from tpu_syncbn_torch.obs import telemetry
 
@@ -4244,6 +4285,530 @@ def phase_obs(torch, card):
     return failures, out
 
 
+# -- [incident]: the flight recorder, memory watermarks, compile events and
+# the profiler capture (ROADMAP A.11b) on the ResNet-50 slice ----------------
+
+INC_K = 4  # the captured chunk's steps
+INC_STORM_THRESHOLD = 3  # rebuilds of one program key that make a storm
+INC_SLEEP_CYCLES = int(6e8)  # ~0.3 s of device sleep (~1.98 GHz) ahead of the chunk a dump races
+INC_CAPTURE_S = 1.0  # the profiler capture's duration
+INC_CHUNK_PAUSE_S = 0.1  # the capture's worker: the pause after each chunk
+
+
+def _bundles_by_kind(d: str) -> dict:
+    """``{trigger kind: [bundle, ...]}`` of the incident bundles in ``d``,
+    each loaded through ``incident.load_bundle`` (schema-validated)."""
+    from tpu_syncbn_torch.obs import incident
+
+    out: dict = {}
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+        if name.startswith("incident_") and name.endswith(".json"):
+            b = incident.load_bundle(os.path.join(d, name))
+            out.setdefault(b["trigger"]["kind"], []).append(b)
+    return out
+
+
+def _finite_entry(e: dict) -> bool:
+    vals = [e["metrics"].get("loss")] + list(e["monitors"].values())
+    return bool(e["monitors"]) and all(
+        isinstance(v, float) and math.isfinite(v) for v in vals)
+
+
+def _incident_nan_restore(torch, d, failures) -> dict:
+    """Gate 1: a NaN step under ``ResilientLoop(scan_steps=4)`` with the
+    recorder and the sampler installed gives exactly one
+    ``divergence_restore`` bundle, valid, whose step ring holds finite loss
+    and monitors for the steps before the fault."""
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import flightrec, memwatch
+
+    model, dp = _resnet_trainer(torch, divergence_guard="restore_last_good")
+    chunks = _resilience_chunks(torch, RES_CHUNKS, 400, poison=RES_K + 1)
+    fault = RES_K + 2  # the poisoned step
+    rec = flightrec.install(flightrec.FlightRecorder(
+        incident_dir=os.path.join(d, "nan"), cooldown_s=0.0))
+    sampler = memwatch.install(memwatch.MemorySampler(interval_s=0.01))
+    t0 = time.perf_counter()
+    try:
+        with runtime.ResilientLoop(dp, os.path.join(d, "ckpt"), ckpt_every=RES_K,
+                                   keep=5, scan_steps=INC_K) as loop:
+            summary = loop.run(iter(chunks))
+    finally:
+        memwatch.uninstall()
+        sampler.close()
+        flightrec.uninstall()
+        rec.close()
+    kinds = _bundles_by_kind(rec.incident_dir)
+    restores = kinds.get("divergence_restore", [])
+    before = [e for b in restores for e in b["rings"]["steps"] if e["step"] < fault]
+    mem_ring = sum(len(b["rings"]["mem"]) for b in restores)
+    ok = (len(restores) == 1 and summary["divergence_restores"] == 1 and before
+          and all(_finite_entry(e) for e in before))
+    log(f"[incident] NaN at step {fault} under ResilientLoop(scan_steps={INC_K}) with the "
+        f"recorder and the sampler ({sampler.samples} samples): bundles by trigger "
+        f"{ {k: len(v) for k, v in kinds.items()} } (want one divergence_restore), valid; "
+        f"its step ring {[e['step'] for b in restores for e in b['rings']['steps']]}, the "
+        f"entries before the fault finite (loss and {len(before[0]['monitors']) if before else 0} "
+        f"monitors): {bool(before) and all(_finite_entry(e) for e in before)}; mem ring "
+        f"{mem_ring} samples; {time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] NaN restore: bundles {list(kinds)}, ring before the "
+                        f"fault {before}")
+    del dp, model
+    torch.cuda.empty_cache()
+    return {"bundles": {k: len(v) for k, v in kinds.items()}, "ring_before_fault": len(before),
+            "mem_ring": mem_ring, "summary": summary}
+
+
+class _FlaggedGraph:
+    """Wraps ``torch.cuda.graph`` so a thread can tell that a capture is
+    open (the flag is set from its entry to its exit)."""
+
+    def __init__(self, torch, flag):
+        self._graph, self._flag = torch.cuda.graph, flag
+
+    def __call__(self, *a, **kw):
+        ctx, flag = self._graph(*a, **kw), self._flag
+
+        class Ctx:
+            def __enter__(self):
+                flag.set()
+                return ctx.__enter__()
+
+            def __exit__(self, *exc):
+                try:
+                    return ctx.__exit__(*exc)
+                finally:
+                    flag.clear()
+
+        return Ctx()
+
+
+def _incident_sampler_beside_capture(torch, dp, steps, failures) -> dict:
+    """Gate 3: the memory sampler's thread samples at a short interval
+    while ``scan_driver`` captures a K = 4 graph; the capture succeeds and
+    replays bitwise its body (cuDNN deterministic, as in ``[scan]``); then
+    one sample's gauges equal ``memory_allocated`` / ``max_memory_allocated``."""
+    import threading
+
+    from tpu_syncbn_torch.obs import memwatch, telemetry
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    capturing, during = threading.Event(), [0]
+
+    def reader():
+        if capturing.is_set():
+            during[0] += 1
+        return memwatch.device_readings()
+
+    sampler = memwatch.MemorySampler(interval_s=0.001, device_reader=reader,
+                                     pressure_threshold=None)
+    stacked = scan_driver.stack_batches(steps[:INC_K])
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_graph = torch.cuda.graph
+    torch.cuda.graph = _FlaggedGraph(torch, capturing)
+    try:
+        start = dp.state_dict()
+        sampler.start()
+        out = dp.train_steps_batches(stacked)  # the capture
+        sampler.close()
+        torch.cuda.graph = real_graph
+        st_c = _split_state(torch, dp.state_dict())
+        _restore_in_place(torch, dp, start)
+        looped = _program(dp, INC_K).loop(stacked)
+        st_l = _split_state(torch, dp.state_dict())
+    finally:
+        torch.cuda.graph = real_graph
+        sampler.close()
+        torch.backends.cudnn.deterministic = determ
+    mon_l = {k[1]: v for k, v in looped.items() if isinstance(k, tuple) and k[0] == "mon"}
+    bitwise = (torch.equal(out.loss, looped["loss"])
+               and all(torch.equal(st_c[p][k], st_l[p][k]) for p in st_l for k in st_l[p])
+               and set(mon_l) == set(out.monitors)
+               and all(torch.equal(out.monitors[k], mon_l[k]) for k in mon_l))
+    torch.cuda.synchronize()
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    r = sampler.sample()
+    alloc, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    gauges = telemetry.snapshot()["gauges"]
+    telemetry.set_enabled(None)
+    same = (r["bytes_in_use"] == alloc == gauges["mem.device.bytes_in_use"]
+            and r["peak_bytes"] == peak == gauges["mem.device.peak_bytes"])
+    ok = during[0] > 0 and bitwise and same
+    log(f"[incident] sampler at 1 ms beside the K={INC_K} capture: {sampler.samples} samples, "
+        f"{during[0]} of them while the graph was being captured; the capture replays "
+        f"bitwise its body (losses, state, {len(mon_l)} monitors): {bitwise}; one sample's "
+        f"mem.device.bytes_in_use {r['bytes_in_use']} / peak_bytes {r['peak_bytes']} against "
+        f"memory_allocated {alloc} / max_memory_allocated {peak}: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] sampler beside the capture: {during[0]} samples during "
+                        f"it, bitwise {bitwise}, gauges equal {same}")
+    return {"samples": sampler.samples, "during_capture": during[0], "bitwise": bitwise,
+            "bytes_in_use": r["bytes_in_use"], "peak_bytes": r["peak_bytes"]}
+
+
+def _incident_dump_mid_chunk(torch, dp, steps, d, failures) -> dict:
+    """Gate 2: a manual trigger fired from the loop's data fetch while the
+    captured chunk just dispatched is still running (a device sleep queued
+    ahead of it): the dump returns with no ``torch.cuda.synchronize`` call,
+    and each of that chunk's ring values reads ``"pending"`` or its own
+    step's value, never a later one."""
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import flightrec, incident, telemetry
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    stacked = [scan_driver.stack_batches(steps[:INC_K])] * 3
+    rec = flightrec.install(flightrec.FlightRecorder(
+        incident_dir=os.path.join(d, "mid"), cooldown_s=0.0))
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    want, probe = {}, {}
+    real_chunk = dp.train_steps_batches
+    real_sync = torch.cuda.synchronize
+    syncs = [0]
+
+    def counting_sync(*a, **kw):
+        syncs[0] += 1
+        return real_sync(*a, **kw)
+
+    def chunk(batch):
+        out = real_chunk(batch)
+        step = dp_step[0] = dp_step[0] + INC_K
+        # the chunk-final values, cloned on the stream for the check below
+        want[step] = {"loss": out.loss[-1].clone(),
+                      **{k: v[-1].clone() for k, v in out.monitors.items()}}
+        return out
+
+    dp_step = [0]
+
+    def batches():
+        for i, b in enumerate(stacked):
+            if i == 1:  # the chunk before this one was dispatched behind the sleep
+                done = torch.cuda.Event()
+                done.record()
+                torch.cuda.synchronize = counting_sync
+                try:
+                    t0 = time.perf_counter()
+                    probe["path"] = flightrec.trigger("manual", {"source": "chip_smoke"},
+                                                      force=True)
+                    probe["dump_s"] = time.perf_counter() - t0
+                finally:
+                    torch.cuda.synchronize = real_sync
+                probe["running"] = not done.query()
+            if i == 0:
+                torch.cuda._sleep(INC_SLEEP_CYCLES)
+            yield b
+
+    dp.train_steps_batches = chunk
+    try:
+        with runtime.ResilientLoop(dp, os.path.join(d, "mid_ckpt"), ckpt_every=1000,
+                                   scan_steps=INC_K) as loop:
+            loop.run(batches())
+        torch.cuda.synchronize()
+        late = rec.rings_snapshot()["steps"]
+    finally:
+        del dp.train_steps_batches
+        flightrec.uninstall()
+        rec.close()
+        telemetry.set_enabled(None)
+    bundle = incident.load_bundle(probe["path"]) if probe.get("path") else None
+    entries = bundle["rings"]["steps"] if bundle else []
+    pending = sum(v == flightrec.PENDING for e in entries
+                  for v in list(e["metrics"].values()) + list(e["monitors"].values()))
+
+    def own(e):  # every value pending or this step's own
+        w = want[e["step"]]
+        vals = {"loss": e["metrics"]["loss"], **e["monitors"]}
+        return set(vals) == set(w) and all(
+            v == flightrec.PENDING or v == float(w[k].double()) for k, v in vals.items())
+
+    landed = all(own(e) and _finite_entry(e) for e in late)
+    ok = (bundle is not None and syncs[0] == 0 and probe["running"]
+          and all(own(e) for e in entries) and landed and len(late) == len(stacked))
+    log(f"[incident] manual dump from the loop's fetch while the K={INC_K} chunk of step "
+        f"{INC_K} was still running ({INC_SLEEP_CYCLES:.0e} cycles of device sleep ahead of it; running at "
+        f"return: {probe.get('running')}): torch.cuda.synchronize calls {syncs[0]} (want 0), "
+        f"dump {probe.get('dump_s', 0) * 1e3:.3f} ms, {os.path.getsize(probe['path']) if bundle else 0} "
+        f"B; its ring {[e['step'] for e in entries]} holds {pending} pending values and "
+        f"otherwise each step's own: {all(own(e) for e in entries)}; after the run every "
+        f"entry landed with its own step's values: {landed} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] dump mid-chunk: {syncs[0]} synchronizes, running "
+                        f"{probe.get('running')}, entries {entries}")
+    return {"synchronizes": syncs[0], "running_at_return": probe.get("running"),
+            "dump_s": probe.get("dump_s"),
+            "bundle_bytes": os.path.getsize(probe["path"]) if bundle else None,
+            "pending_values": pending, "entries": len(entries)}
+
+
+def _incident_pressure(torch, dp, steps, d, failures) -> dict:
+    """Gate 4: a contract at half the eager step's measured steady peak;
+    the sampler's thread, at a short interval over three eager steps, trips
+    and fires exactly one ``mem_pressure`` bundle (the recorder's cooldown
+    takes the rest), carrying the mem ring."""
+    from tpu_syncbn_torch.obs import flightrec, memwatch, telemetry
+
+    dp.train_step(steps[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp.train_step(steps[1])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    contract = peak // 2
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    rec = flightrec.FlightRecorder(incident_dir=os.path.join(d, "pressure"))
+    sampler = memwatch.MemorySampler(interval_s=0.002, contract_bytes_per_device=contract,
+                                     contract_source="half_steady_peak", recorder=rec)
+    try:
+        sampler.start()
+        for i in range(3):
+            dp.train_step(steps[i % len(steps)])
+        torch.cuda.synchronize()
+        sampler.close()
+        trips = telemetry.snapshot()["counters"].get("mem.pressure_trips", 0)
+    finally:
+        sampler.close()
+        rec.close()
+        telemetry.set_enabled(None)
+    kinds = _bundles_by_kind(rec.incident_dir)
+    got = kinds.get("mem_pressure", [])
+    ring = got[0]["rings"]["mem"] if got else []
+    ok = (list(kinds) == ["mem_pressure"] and len(got) == 1 and trips >= 1 and ring
+          and ring[-1]["used_frac"] > memwatch.DEFAULT_PRESSURE_THRESHOLD
+          and ring[-1]["contract_source"] == "half_steady_peak")
+    log(f"[incident] contract {contract} B = half the eager step's steady peak {peak} B: "
+        f"{sampler.samples} samples at 2 ms over 3 eager steps, {trips} pressure trips, "
+        f"bundles {[(k, len(v)) for k, v in kinds.items()]} (want one mem_pressure), its mem "
+        f"ring {len(ring)} samples ending at used_frac "
+        f"{ring[-1]['used_frac'] if ring else None} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] mem_pressure: bundles {list(kinds)}, trips {trips}")
+    return {"contract_bytes": contract, "steady_peak_bytes": peak, "trips": trips,
+            "bundles": len(got), "mem_ring": len(ring), "samples": sampler.samples}
+
+
+def _incident_storm(torch, d, failures) -> dict:
+    """Gate 5: one ``ProgramCache`` key rebuilt ``threshold`` times (two keys
+    through one slot; each build captures a small CUDA graph) gives one
+    ``recompile_storm`` bundle and ``compile.storms == 1``; as many distinct
+    keys give none."""
+    from tpu_syncbn_torch.obs import flightrec, profiling, telemetry
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    def build():
+        x = torch.zeros(1024, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            x.add_(1)
+        return g
+
+    telemetry.REGISTRY.reset()
+    telemetry.set_enabled(True)
+    rec = flightrec.install(flightrec.FlightRecorder(
+        incident_dir=os.path.join(d, "storm"), cooldown_s=0.0))
+    prev = profiling.set_detector(profiling.RecompileDetector(
+        window_s=600.0, threshold=INC_STORM_THRESHOLD))
+    try:
+        churn = scan_driver.ProgramCache(name="incident", max_entries=1)
+        for key in ("a", "b") * (INC_STORM_THRESHOLD - 1) + ("a",):
+            scan_driver.cached_program(churn, key, build).replay()
+        warm = scan_driver.ProgramCache(name="incident_warm", max_entries=8)
+        for key in range(INC_STORM_THRESHOLD + 1):
+            scan_driver.cached_program(warm, key, build).replay()
+        counters = telemetry.snapshot()["counters"]
+    finally:
+        profiling.set_detector(prev)
+        flightrec.uninstall()
+        rec.close()
+        telemetry.set_enabled(None)
+    kinds = _bundles_by_kind(rec.incident_dir)
+    storms = kinds.get("recompile_storm", [])
+    ring = storms[0]["rings"]["compile"] if storms else []
+    ok = (list(kinds) == ["recompile_storm"] and len(storms) == 1
+          and counters.get("compile.storms") == 1
+          and storms[0]["trigger"]["detail"]["compiles"] == INC_STORM_THRESHOLD)
+    log(f"[incident] one ProgramCache key rebuilt {INC_STORM_THRESHOLD} times (a CUDA graph "
+        f"captured a build), then {INC_STORM_THRESHOLD + 1} distinct keys: compile events "
+        f"{counters.get('compile.events_total')}, compile.storms "
+        f"{counters.get('compile.storms')} (want 1), bundles "
+        f"{[(k, len(v)) for k, v in kinds.items()]}, its compile ring {len(ring)} events "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] recompile storm: bundles {list(kinds)}, counters "
+                        f"{ {k: v for k, v in counters.items() if k.startswith('compile.')} }")
+    return {"events": counters.get("compile.events_total"),
+            "storms": counters.get("compile.storms"), "bundles": len(storms)}
+
+
+def _incident_capture(torch, dp, steps, d, failures) -> dict:
+    """Gate 6: ``profiling.capture`` for about a second on this thread (the
+    one Kineto registered: its CUDA side starts nowhere else) while a
+    worker thread replays captured K = 4 chunks: a Chrome trace under the
+    size cap holding the BN kernels' names; the worker's own capture
+    meanwhile raises ``ProfilerBusy``. Every wait has a deadline."""
+    import threading
+
+    from tpu_syncbn_torch.obs import profiling
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    stacked = scan_driver.stack_batches(steps[:INC_K])
+    dp.train_steps_batches(stacked)  # cached: a replay
+    torch.cuda.synchronize()
+    root = os.path.join(d, "capture")
+    stop, info = threading.Event(), {"chunks": 0, "busy": None}
+
+    def replay():
+        deadline = time.monotonic() + 60
+        while not profiling._capture_lock.locked() and not stop.is_set() \
+                and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        try:
+            profiling.capture(0.1, log_dir=root)
+            info["busy"] = False
+        except profiling.ProfilerBusy:
+            info["busy"] = True
+        except Exception as e:  # reported below
+            info["busy"] = f"{type(e).__name__}: {e}"
+        while not stop.is_set() and time.monotonic() < deadline:
+            dp.train_steps_batches(stacked)
+            torch.cuda.synchronize()
+            info["chunks"] += 1
+            # a pause a chunk: a second of back-to-back chunks is ~100k
+            # kernel events, ~95 MB of trace against the 128 MiB cap
+            stop.wait(INC_CHUNK_PAUSE_S)
+
+    worker = threading.Thread(target=replay, name="incident-replay")
+    worker.start()
+    out, error = None, None
+    try:
+        out = profiling.capture(INC_CAPTURE_S, log_dir=root)
+    except Exception as e:  # reported below
+        error = f"{type(e).__name__}: {e}"
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+    names, kernels, bn_events = set(), 0, 0
+    if out is not None:
+        with open(os.path.join(out["path"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels += 1
+                if _is_bn_kernel(e.get("name", "")):
+                    bn_events += 1
+                    names.add(e["name"])
+    cap = profiling.DEFAULT_PROFILE_MAX_BYTES
+    busy = info["busy"] is True
+    ok = (out is not None and busy and bool(names) and out["bytes"] <= cap
+          and out["device_events"] > 0 and info["chunks"] > 0 and not worker.is_alive())
+    log(f"[incident] profiling.capture({INC_CAPTURE_S}) on the main thread while a worker "
+        f"replayed {info['chunks']} captured K={INC_K} chunks: {error or ''}"
+        f"{out['bytes'] if out else 0} B (cap {cap}), {out['device_events'] if out else 0} "
+        f"device events, {kernels} kernel events, {bn_events} of the BN kernels "
+        f"({sorted(names)[:6]}); the worker's capture meanwhile: "
+        f"{'ProfilerBusy' if busy else info['busy']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[incident] capture: {error}, busy {info['busy']}, BN names "
+                        f"{sorted(names)}, chunks {info['chunks']}")
+    return {"seconds": out["duration_s"] if out else None, "bytes": out["bytes"] if out else None,
+            "kernel_events": kernels, "bn_kernel_events": bn_events, "busy": busy,
+            "chunks": info["chunks"]}
+
+
+def _incident_costs(torch, dp, steps, card) -> dict:
+    """``record_step``'s host cost a call on a captured chunk's final slices
+    (micro-measured), against the captured step's device time; one
+    sample's cost."""
+    from tpu_syncbn_torch.obs import flightrec, memwatch
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    stacked = scan_driver.stack_batches(steps[:INC_K])
+    host, dev, _ = _timed_calls(torch, lambda: dp.train_steps_batches(stacked), 4)
+    step_ms = statistics.median(dev) / INC_K
+    out = dp.train_steps_batches(stacked)
+    metrics = {"loss": out.loss[-1], **{k: v[-1] for k, v in out.metrics.items()}}
+    monitors = {k: v[-1] for k, v in out.monitors.items()}
+    n = 200
+    cost = {}
+    # a ring that keeps every record (each one a new page-locked block),
+    # then one of 8 that evicts (blocks come back to the host allocator)
+    for tag, cap in (("fresh", n), ("steady", 8)):
+        rec = flightrec.FlightRecorder(incident_dir=os.devnull, step_capacity=cap)
+        for i in range(2 * cap if tag == "steady" else 0):
+            rec.record_step(i, metrics=metrics, monitors=monitors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            rec.record_step(i, metrics=metrics, monitors=monitors)
+        cost[tag] = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        del rec
+    record_ms = cost["steady"]
+    sampler = memwatch.MemorySampler(pressure_threshold=None)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sampler.sample()
+    sample_ms = (time.perf_counter() - t0) * 1e3 / n
+    log(f"[incident] record_step {record_ms * 1e3:.1f} us a call in steady state (ring of 8 "
+        f"evicting; {cost['fresh'] * 1e3:.1f} us while each call takes a new page-locked "
+        f"block), {len(metrics)} metrics and {len(monitors)} monitors, mean of {n}, against "
+        f"the captured step's {step_ms:.3f} ms (CUDA events, median of 4 chunks / {INC_K}): "
+        f"{record_ms / step_ms:.2e} of a step; one memory sample {sample_ms * 1e3:.1f} us "
+        f"[{card}]")
+    return {"record_step_ms": record_ms, "record_step_fresh_ms": cost["fresh"],
+            "captured_step_ms": step_ms, "record_frac": record_ms / step_ms,
+            "sample_ms": sample_ms}
+
+
+def phase_incident(torch, card):
+    """Phase 13c (module docstring): the six gates of the flight recorder,
+    the memory sampler, compile events and the profiler capture on the
+    bf16 ResNet-50 SyncBN slice (batch 64 at 224², world 1), then their
+    costs. Returns (failures, summary)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    out: dict = {}
+    gate_s: dict = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out[name] = fn(*a)
+        gate_s[name] = round(time.perf_counter() - t0, 2)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_incident_") as d:
+        timed("nan_restore", _incident_nan_restore, torch, d, failures)
+        steps = [_trainer_batch(torch, 950 + i) for i in range(INC_K)]
+        model, dp = _resnet_trainer(torch)
+        timed("sampler_capture", _incident_sampler_beside_capture, torch, dp, steps, failures)
+        timed("dump_mid_chunk", _incident_dump_mid_chunk, torch, dp, steps, d, failures)
+        timed("mem_pressure", _incident_pressure, torch, dp, steps, d, failures)
+        timed("recompile_storm", _incident_storm, torch, d, failures)
+        timed("capture", _incident_capture, torch, dp, steps, d, failures)
+        timed("costs", _incident_costs, torch, dp, steps, card)
+        del dp, model
+    out["gate_s"] = gate_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    c, m = out["costs"], out["dump_mid_chunk"]
+    log(f"[incident] record_step {c['record_step_ms'] * 1e3:.1f} us a step "
+        f"({c['record_frac']:.2e} of the captured step), dump_s {m['dump_s']}, "
+        f"bundle_bytes {m['bundle_bytes']}, one sample {c['sample_ms'] * 1e3:.1f} us, capture "
+        f"{out['capture']['seconds']} s and {out['capture']['bytes']} B; phase "
+        f"{out['phase_s']:.1f}s (budget 60 s; by gate {json.dumps(gate_s)}), "
+        f"{len(failures)} failures [{card}]")
+    return failures, out
+
+
 def attn_terms(torch, A, kern: str, args, causal: bool, scale: float, lse):
     """The root sum of squares of the terms each element of ``kern``'s
     bf16 outputs sums (o; dk, dv; dq), float32 (B, L, H, D), from the
@@ -4810,6 +5375,9 @@ def main() -> int:
     obs_failures, obs = phase_obs(torch, card)
     failures += obs_failures
     torch.cuda.empty_cache()
+    inc_failures, incident_out = phase_incident(torch, card)
+    failures += inc_failures
+    torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -4888,7 +5456,7 @@ def main() -> int:
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
-        "resilience": resilience, "obs": obs}}),
+        "resilience": resilience, "obs": obs, "incident": incident_out}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

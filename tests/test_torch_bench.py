@@ -2,10 +2,14 @@
 bench runs its small CPU config (here cut further by the
 ``BENCH_*`` overrides it honours) and prints one JSON line with every key
 of its contract, ``mfu`` null (no peak on the CPU), FLOPs from
-``torch.utils.flop_counter``, and the ``telemetry`` block checked against
-the registry schema (``obs.telemetry.validate_snapshot``); ``--trace``
-writes a Chrome trace that validates. Numbers from this run are CPU
-numbers and are checked for shape only."""
+``torch.utils.flop_counter``, the ``incident``, ``memory`` and
+``compile`` blocks (a forced bundle that validates, the host's reading with
+no device contract, one planted ``mem_pressure`` bundle, a profiler capture
+through ``serve_capture``, the first step's compile event), and the
+``telemetry`` block checked against the registry schema
+(``obs.telemetry.validate_snapshot``); ``--trace`` writes a Chrome trace
+that validates. Numbers from this run are CPU numbers and are checked for
+shape only."""
 
 import json
 import os
@@ -17,7 +21,7 @@ KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
         "device_kind", "host_load_1m", "recovery", "scan", "collectives",
-        "telemetry"}
+        "incident", "memory", "compile", "telemetry"}
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
@@ -26,6 +30,15 @@ SCAN_KEYS = {"k", "host_gap_frac_scan1", "dispatch_frac_scan1", "chunks",
              "host_gap_frac", "dispatch_frac", "img_per_sec_per_chip"}
 COLLECTIVES_KEYS = {"payload_mb_per_chip", "world", "modes", "golden_ratio", "measure_s"}
 MODE_KEYS = {"wire_bytes", "ms", "gbytes_per_s", "compression_ratio"}
+INCIDENT_KEYS = {"dump_s", "bundle_bytes", "incident_id", "trigger", "ring_steps",
+                 "ring_seconds", "trace_events", "record_step_cost_s",
+                 "record_overhead_frac", "attribution"}
+MEMORY_KEYS = {"source", "bytes_in_use", "peak_bytes", "warm_peak_bytes", "rss_bytes",
+               "cache_bytes_live", "contract_bytes_per_device", "contract_source",
+               "used_frac", "headroom_frac", "samples", "sample_cost_s",
+               "sample_overhead_frac", "pressure", "profilez"}
+COMPILE_KEYS = {"warmup_s", "events_total", "storms", "time_s_count", "time_s_sum",
+                "families"}
 
 
 def test_bench_on_the_cpu_prints_its_line():
@@ -56,7 +69,36 @@ def test_bench_on_the_cpu_prints_its_line():
     assert set(line["scan"]) == SCAN_KEYS and line["scan"]["k"] == 1
     assert line["scan"]["chunks"] == 2
     check_collectives_block(line["collectives"], world=1)
+    check_obs_blocks(line, steps=2)
     check_telemetry_block(line["telemetry"], steps=2)
+
+
+def check_obs_blocks(line, steps):
+    """The flight recorder rode the timed loop (its ring holds the steps)
+    and its forced bundle validated; on the CPU the memory block has the
+    host's reading and no device contract, its drill one ``mem_pressure``
+    bundle, its capture a 200; the first eager step is the one compile
+    event (family ``train``) and no storm."""
+    inc = line["incident"]
+    assert set(inc) == INCIDENT_KEYS
+    assert inc["trigger"] == "manual" and inc["bundle_bytes"] > 0
+    assert inc["ring_steps"] == steps and inc["dump_s"] > 0
+    assert 0 < inc["record_step_cost_s"] and 0 < inc["record_overhead_frac"] < 1
+    attr = inc["attribution"]
+    assert attr["steps"] == steps and abs(attr["share_sum"] - 1.0) < 1e-5
+    mem = line["memory"]
+    assert set(mem) == MEMORY_KEYS
+    assert mem["source"] == "host" and mem["bytes_in_use"] > 0
+    assert mem["warm_peak_bytes"] is None and mem["contract_bytes_per_device"] is None
+    assert mem["used_frac"] is None and mem["headroom_frac"] is None
+    assert mem["samples"] >= 2 + 1 + 25 and mem["sample_cost_s"] > 0
+    assert mem["pressure"] == {"bundles": 1, "trigger": "mem_pressure", "ring_mem": 3,
+                               "valid": True}
+    assert mem["profilez"]["status"] == 200 and mem["profilez"]["bytes"] > 0
+    comp = line["compile"]
+    assert set(comp) == COMPILE_KEYS
+    assert comp["families"] == {"train": 1} and comp["events_total"] == 1
+    assert comp["storms"] == 0 and comp["time_s_count"] == 1
 
 
 def check_telemetry_block(block, steps):

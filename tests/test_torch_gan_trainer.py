@@ -228,14 +228,26 @@ def _nbt(model) -> list[int]:
 
 
 @pytest.mark.parametrize("arch", ["dcgan", "sngan"])
-def test_statistics_move_two_and_three_times_an_iteration(arch):
+def test_statistics_move_two_and_three_times_an_iteration(arch, tmp_path):
     """G's BN layers: its no-grad train-mode forward in the D step and its
     forward in the G step; D's: real, fake, and the G step's forward. The
     SN buffers move at each of D's three forwards, so eval mode must
-    leave them be."""
+    leave them be. With a flight recorder installed each iteration lands
+    in its step ring (the losses as ``port_run`` read them)."""
+    from tpu_syncbn_torch.obs import flightrec
+
     tr = port_trainer(arch)
     data = host_data(2)
-    port_run(tr, data)
+    rec = flightrec.install(flightrec.FlightRecorder(incident_dir=str(tmp_path)))
+    try:
+        outs = port_run(tr, data)
+    finally:
+        flightrec.uninstall()
+        rec.close()
+    ring = rec.rings_snapshot()["steps"]
+    assert [e["step"] for e in ring] == [1, 2]
+    assert [[e["metrics"][k] for k in ("d_loss", "g_loss", "d_real", "d_fake")]
+            for e in ring] == outs.tolist()
     assert _nbt(tr.generator) == [4] * 4
     assert _nbt(tr.discriminator) == [6] * 2
     if arch == "sngan":

@@ -1021,3 +1021,114 @@ def test_dispatch_wire_tally_counts_each_replay(cuda_card):
         assert float(t[0]) == 9.0  # three replays of three steps
     finally:
         telemetry.set_enabled(None)
+
+
+# -- the flight recorder and the memory sampler on the card (ROADMAP A.11b) --
+
+
+def test_memwatch_reads_the_caching_allocator(cuda_card):
+    """The sampler's card reading: bytes in use and peak are
+    ``memory_allocated`` / ``max_memory_allocated``, the limit the card's
+    memory, the census the allocator's live blocks."""
+    from tpu_syncbn_torch.obs import memwatch
+
+    x = torch.empty(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    (d,) = memwatch.device_readings()[:1]
+    assert d["bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert d["peak_bytes"] == torch.cuda.max_memory_allocated(0)
+    assert d["limit_bytes"] == torch.cuda.get_device_properties(0).total_memory
+    host = memwatch.host_readings()
+    stats = torch.cuda.memory_stats(0)
+    assert host["arrays_bytes"] == stats["active_bytes.all.current"] >= x.numel() * 4
+    assert host["arrays_count"] == stats["active.all.current"] >= 1
+    r = memwatch.MemorySampler(pressure_threshold=None).sample()
+    assert r["source"] == "device" and r["bytes_in_use"] == torch.cuda.memory_allocated(0)
+
+
+def test_memwatch_thread_samples_beside_a_global_mode_capture(cuda_card):
+    """A graph captured in the default (global) capture mode while the
+    sampler's thread reads at 1 ms: an unsafe CUDA runtime call from that
+    thread would invalidate the capture; it succeeds and replays right."""
+    import threading
+
+    from tpu_syncbn_torch.obs import memwatch
+
+    capturing, during = threading.Event(), [0]
+
+    def reader():
+        if capturing.is_set():
+            during[0] += 1
+        return memwatch.device_readings()
+
+    x = torch.zeros(1 << 16, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            (x * 2).add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with memwatch.MemorySampler(interval_s=0.001, device_reader=reader,
+                                pressure_threshold=None).start():
+        time.sleep(0.01)
+        with torch.cuda.graph(g):
+            capturing.set()
+            y = x
+            for _ in range(200):
+                y = y * 1.0001 + 1
+            time.sleep(0.05)  # the sampler's thread runs inside the capture
+            capturing.clear()
+    g.replay()
+    torch.cuda.synchronize()
+    assert during[0] > 0
+    want = torch.zeros(1 << 16, device="cuda")
+    for _ in range(200):
+        want = want * 1.0001 + 1
+    torch.testing.assert_close(y, want)
+
+
+def test_a_dump_while_the_step_is_running_reads_pending(cuda_card, tmp_path):
+    """A step's scalars computed behind ~0.5 s of queued device work:
+    ``record_step`` and a trigger return at once, with no synchronize, the
+    entry reading ``"pending"``; once the work lands the ring holds the
+    step's own values."""
+    from tpu_syncbn_torch.obs import flightrec, incident
+
+    real_sync = torch.cuda.synchronize
+    # a first page-locked block of the size the record takes, returned to
+    # the host allocator (a process's first one may wait for the device)
+    warm = flightrec.FlightRecorder(incident_dir=str(tmp_path))
+    warm.record_step(0, metrics={"a": torch.ones((), device="cuda")} | {
+        f"k{i}": torch.ones((), device="cuda") for i in range(2)})
+    torch.cuda.synchronize()
+    del warm
+    rec = flightrec.FlightRecorder(incident_dir=str(tmp_path))
+    torch.cuda._sleep(int(1e9))
+    loss = torch.ones((), device="cuda") * 0.25
+    norm = torch.full((), float("inf"), device="cuda")
+    count = torch.full((), 3, dtype=torch.int32, device="cuda")  # another dtype
+    done = torch.cuda.Event()
+    done.record()
+
+    def forbidden(*a, **kw):
+        raise AssertionError("a synchronize in the recorder")
+
+    torch.cuda.synchronize = forbidden
+    try:
+        t0 = time.perf_counter()
+        rec.record_step(1, metrics={"loss": loss, "lr": 0.1, "n": count},
+                        monitors={"grad_norm": norm})
+        path = rec.trigger("manual", force=True)
+        elapsed = time.perf_counter() - t0
+    finally:
+        torch.cuda.synchronize = real_sync
+    assert not done.query() and elapsed < 0.25
+    entry = incident.load_bundle(path)["rings"]["steps"][0]
+    assert entry["metrics"] == {"lr": 0.1, "loss": "pending", "n": "pending"}
+    assert entry["monitors"] == {"grad_norm": "pending"}
+    loss.fill_(9.0)  # a later write to the same tensor, stream-ordered after the copy
+    torch.cuda.synchronize()
+    entry = rec.rings_snapshot()["steps"][0]
+    assert entry["metrics"] == {"lr": 0.1, "loss": 0.25, "n": 3.0}
+    assert entry["monitors"] == {"grad_norm": "inf"}

@@ -256,7 +256,10 @@ def test_cross_replica_monitors_alone():
     assert numerics.cross_replica_monitors({}, None) == {}
 
 
-def test_publisher_on_cpu_tensors_is_ready_at_once():
+def test_publisher_on_cpu_tensors_is_ready_at_once(tmp_path):
+    from tpu_syncbn_torch.obs import flightrec
+
+    rec = flightrec.install(flightrec.FlightRecorder(incident_dir=str(tmp_path)))
     pub = numerics.NumericsPublisher()
     mon = {"bn_mean_skew": torch.tensor(9.0), "clip_fraction": torch.tensor(0.5),
            "replica_grad_norm": torch.tensor(float("nan")), "grad_norm": torch.tensor(1.0)}
@@ -264,8 +267,13 @@ def test_publisher_on_cpu_tensors_is_ready_at_once():
     snap = telemetry.snapshot()
     assert snap["counters"]["numerics.samples"] == 1
     assert snap["counters"]["numerics.clip_saturated"] == 1
-    # the skew over its threshold and the non-finite norm: two trips
+    # the skew over its threshold and the non-finite norm: two trips, and
+    # one numerics_drift bundle (the recorder's cooldown takes the second)
     assert snap["counters"]["numerics.drift_trips"] == 2
+    flightrec.uninstall()
+    rec.close()
+    assert rec.counters.count("bundles") == 1 and rec.counters.count("suppressed") == 1
+    assert rec.last_incident["trigger"] == "numerics_drift"
     assert "numerics.grad_norm" not in snap["histograms"]  # not a published key
     assert pub.last == {"bn_mean_skew": 9.0, "clip_fraction": 0.5}
     assert pub.publish(2, {"grad_norm": torch.tensor(1.0)}) == 0  # nothing published
@@ -398,10 +406,13 @@ def test_scan_chunks_publish_their_last_step(tmp_path):
     assert [e["name"] for e in t.events].count("scan_chunk") == 2
 
 
-def test_stalls_count_and_carry_the_open_span():
+def test_stalls_count_and_carry_the_open_span(tmp_path):
+    from tpu_syncbn_torch.obs import flightrec
     from tpu_syncbn_torch.runtime import resilience
 
     t = tracing.install()
+    rec = flightrec.install(flightrec.FlightRecorder(incident_dir=str(tmp_path),
+                                                     cooldown_s=0.0))
     with t.span("step") as sid:
         with resilience.Watchdog(0.05, name="corr-test", poll_s=0.01) as wd:
             deadline = time.monotonic() + 5
@@ -424,6 +435,11 @@ def test_stalls_count_and_carry_the_open_span():
     assert telemetry.snapshot()["counters"]["resilience.data_stalls"] == 1
     mark = next(e for e in t.events if e["name"] == "data_stall")
     assert mark["args"] == {"source": "data", "span_id": fid}
+    flightrec.uninstall()
+    rec.close()
+    # each stall also dumped its watchdog_stall bundle (one per stall)
+    assert rec.counters.count("bundles") == wd.stall_count + 1
+    assert rec.last_incident["trigger"] == "watchdog_stall"
 
 
 def test_rendezvous_and_probe_counters(monkeypatch):

@@ -7,7 +7,10 @@ the watchdog's diagnostics, ``stall_guard``, the event counters, and
 SIGTERM in the middle of a chunk checkpointing at its boundary, the async
 writer stopped by ``close()``, a flush error that must not mask the
 loop's own failure, ``restore_last_good`` at a chunk boundary, and the
-constructor arguments whose hooks are not ported raising.
+constructor arguments whose hooks are not ported raising. Where a case
+counts a trigger (a stall, a divergence restore), it also checks that an
+installed flight recorder dumps exactly one bundle for it
+(``obs.flightrec``).
 
 The trainer is the JAX tests' ``Net`` (Linear(8, 8) then SyncBN) with
 SGD(0.1, momentum 0.9) on the CPU; a chunked run equals the step loop
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from tpu_syncbn_torch import nn, parallel
+from tpu_syncbn_torch.obs import telemetry
 from tpu_syncbn_torch.obs.telemetry import CounterGroup
 from tpu_syncbn_torch.parallel import scan_driver
 from tpu_syncbn_torch.runtime import resilience
@@ -144,11 +148,22 @@ class TestWatchdog:
                 w.pat()
         assert w.stall_count == 0 and not stalls
 
-    def test_one_dump_per_stall_not_per_poll(self):
+    def test_one_dump_per_stall_not_per_poll(self, tmp_path):
+        from tpu_syncbn_torch.obs import flightrec
+
+        rec = flightrec.install(flightrec.FlightRecorder(
+            incident_dir=str(tmp_path), cooldown_s=0.0))
         stalls = []
-        with resilience.Watchdog(0.1, on_stall=stalls.append, poll_s=0.02) as w:
-            time.sleep(0.5)
+        try:
+            with resilience.Watchdog(0.1, on_stall=stalls.append, poll_s=0.02) as w:
+                time.sleep(0.5)
+        finally:
+            flightrec.uninstall()
+            rec.close()
         assert w.stall_count == 1 == len(stalls)
+        # one watchdog_stall bundle for the one stall, even with no cooldown
+        assert rec.counters.count("bundles") == 1
+        assert rec.last_incident["trigger"] == "watchdog_stall"
 
     def test_start_unarmed_waits_for_first_pat(self):
         stalls = []
@@ -359,12 +374,39 @@ class TestResilientLoopScan:
                 loop.run(iter(make_batches(1, seed=14)))
 
     def test_restore_last_good_at_chunk_boundary(self, tmp_path):
+        from tpu_syncbn_torch.obs import flightrec, incident
+
         batches = make_batches(6, seed=8)
         batches[3] = torch.full_like(batches[3], float("nan"))  # inside chunk 1
         dp = build_dp(divergence_guard="restore_last_good")
         ckdir = str(tmp_path / "ck")
         loop = resilience.ResilientLoop(dp, ckdir, ckpt_every=2, keep=5, scan_steps=2)
-        summary = loop.run(chunks_of(batches, 2))
+        rec = flightrec.install(flightrec.FlightRecorder(
+            incident_dir=str(tmp_path / "incidents"), cooldown_s=0.0))
+        telemetry.set_enabled(True)  # the numerics publisher publishes
+        try:
+            summary = loop.run(chunks_of(batches, 2))
+        finally:
+            telemetry.set_enabled(None)
+            flightrec.uninstall()
+            rec.close()
+        bundles = [incident.load_bundle(os.path.join(rec.incident_dir, p))
+                   for p in sorted(os.listdir(rec.incident_dir))]
+        # one divergence_restore bundle; the NaN step is its chunk's last,
+        # so the publisher's drift check fires too (a bundle a non-finite
+        # monitor: no cooldown here)
+        kinds = [b["trigger"]["kind"] for b in bundles]
+        assert kinds.count("divergence_restore") == 1
+        assert set(kinds) == {"divergence_restore", "numerics_drift"}
+        # the divergence_restore bundle's step ring holds the finite chunk
+        # before the fault and the faulty chunk's final step (the NaN)
+        (bundle,) = [b for b in bundles if b["trigger"]["kind"] == "divergence_restore"]
+        assert bundle["trigger"]["detail"] == {"step": 4, "restored_step": 2}
+        ring = bundle["rings"]["steps"]
+        assert [e["step"] for e in ring] == [2, 4]
+        assert np.isfinite(ring[0]["metrics"]["loss"]) and ring[0]["metrics"]["nonfinite"] == 0.0
+        assert ring[1]["metrics"]["loss"] == "nan" and ring[1]["metrics"]["nonfinite"] == 1.0
+        assert not loop.recovering  # the next finite chunk completed the rollback
         # chunk 1 held the NaN step: the last verified checkpoint (step 2)
         # came back at the chunk boundary, then chunk 2 ran from it
         assert summary["nonfinite_steps"] == 1

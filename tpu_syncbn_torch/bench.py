@@ -8,7 +8,8 @@ JSON line:
      "image_side", "steps", "compile_warmup_s", "mfu", "flops_per_step",
      "flops_source", "peak_flops", "peak_source", "device_kind",
      "host_load_1m", "recovery": {...}, "scan": {...},
-     "collectives": {...}, "telemetry": {...}}
+     "collectives": {...}, "incident": {...}, "memory": {...},
+     "compile": {...}, "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
@@ -48,6 +49,18 @@ gives that loop's fraction and img/s beside the per-step loop's
 1 MiB-a-GPU f32 payload: per mode (``fp32``, ``bf16``, ``int8``,
 ``shuffle_sharded``) the bytes it puts on the wire, the time a call and
 the compression ratio against fp32.
+
+``incident`` (:func:`measure_incident`), ``memory`` (:func:`measure_memory`)
+and ``compile`` (:func:`compile_block`) are the flight recorder, the memory
+watermarks and the compile events measured on the run (``bench.py``'s
+blocks of those names): a flight recorder and a memory sampler ride the
+timed loop (one ``record_step`` a step, a sample before and after), then
+a forced manual bundle gives its dump time, size and attribution; the
+memory contract is the warm step's measured ``max_memory_allocated`` (the
+port has no audited peak) and a planted drill fires one ``mem_pressure``
+bundle on a scratch recorder; one bounded profiler capture runs through
+``obs.profiling.serve_capture``. The JAX bench's ``monitor`` block needs
+the monitoring server (ROADMAP A.11c) and is not here.
 
 ``telemetry`` is the process registry's snapshot (``obs.telemetry``, schema
 1, as ``bench.py``'s): the timed loop's ``step.time_s`` and
@@ -305,13 +318,202 @@ def measure_collectives(device: torch.device, *, payload_mb: float = 1.0,
     }
 
 
+def measure_incident(recorder, last_out, *, steps: int, wall_s: float,
+                     flops_per_step: float | None, tallies: dict) -> dict:
+    """The ``incident`` block (``bench.py``'s ``measure_incident``): the
+    recorder rode the timed loop (one ``record_step`` a step), so its rings
+    hold the loop's steps and its aggregator the loop's window. The block
+    feeds it the step's contract — ``flops_per_step`` from
+    ``torch.utils.flop_counter`` and the collective bytes and calls of one
+    step from ``collectives.tallies()`` — forces the manual trigger and
+    reports:
+
+    * ``dump_s`` / ``bundle_bytes`` — the dump's latency and size;
+    * ``ring_steps`` / ``ring_seconds`` — how far back the step ring reaches;
+    * ``record_step_cost_s`` / ``record_overhead_frac`` — one ``record_step``
+      call, micro-measured on the loop's last step output ``last_out`` (on
+      the card: a stacked device copy to page-locked memory), against the
+      timed loop's average step;
+    * ``attribution`` — the explained-step-time report over the bundle, at
+      the card's rates (``obs.incident``)."""
+    from tpu_syncbn_torch.obs import incident as incident_mod
+
+    bytes_per_step = sum(v["bytes"] for v in tallies.values()) or None
+    counts = {op: v["calls"] for op, v in sorted(tallies.items())} or None
+    recorder.set_contract(
+        name="resnet50_syncbn_dp.train_step", flops_per_step=flops_per_step,
+        collective_bytes_per_step=bytes_per_step, collective_counts=counts,
+        fingerprint=incident_mod.contract_fingerprint())
+    coverage = recorder.ring_coverage()
+    bundle_dir = tempfile.mkdtemp(prefix="bench_incident_")
+    prev_dir = recorder.incident_dir
+    recorder.incident_dir = bundle_dir
+    try:
+        t0 = time.perf_counter()
+        path = recorder.trigger("manual", {"source": "bench"}, force=True)
+        dump_s = time.perf_counter() - t0
+        if path is None:
+            raise RuntimeError("forced manual trigger produced no bundle")
+        bundle_bytes = os.path.getsize(path)
+        bundle = incident_mod.load_bundle(path)  # schema-validates
+        attr = incident_mod.attribution(bundle)
+    finally:
+        recorder.incident_dir = prev_dir
+        shutil.rmtree(bundle_dir, ignore_errors=True)
+    # the loop's own record, replayed on its last step output
+    metrics = {"loss": last_out.loss, **last_out.metrics}
+    n = 200
+    t0 = time.perf_counter()
+    for i in range(n):
+        recorder.record_step(i, metrics=metrics, monitors=last_out.monitors)
+    record_cost_s = (time.perf_counter() - t0) / n
+    avg_step_s = wall_s / steps if steps else None
+    return {
+        "dump_s": round(dump_s, 4),
+        "bundle_bytes": bundle_bytes,
+        "incident_id": bundle["incident_id"],
+        "trigger": bundle["trigger"]["kind"],
+        "ring_steps": coverage["steps"],
+        "ring_seconds": coverage["seconds"],
+        "trace_events": len(bundle["trace"]["traceEvents"]),
+        "record_step_cost_s": round(record_cost_s, 9),
+        "record_overhead_frac": (
+            round(record_cost_s / avg_step_s, 6) if avg_step_s else None),
+        "attribution": None if attr is None else {
+            "steps": attr["steps"],
+            "shares": attr["shares"],
+            "share_sum": attr["share_sum"],
+            "bytes_source": attr["inputs"]["bytes_source"],
+            "collective_counts": attr["inputs"]["collective_counts"],
+        },
+    }
+
+
+def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
+                   wall_s: float) -> dict:
+    """The ``memory`` block (``bench.py``'s ``measure_memory``): the sampler
+    watched the run (the caching allocator's counters on the card, the
+    host's evidence on the CPU). The contract is the warm step's measured
+    ``max_memory_allocated`` (``contract_source: "warm_step_peak"``) — the
+    JAX bench uses its auditor's pinned peak, which the port does not have
+    (ROADMAP A.14) — so ``used_frac`` says how far live memory after the
+    loop sits from one step's peak. On the CPU there is no device reading:
+    ``warm_peak_bytes``, the contract and both fractions are ``None``.
+
+    * ``sample_cost_s`` / ``sample_overhead_frac`` — one sample,
+      micro-measured, against the timed loop's average step;
+    * ``pressure`` — a planted drill: a sampler with a tiny contract on a
+      scratch registry and recorder dumps exactly one schema-valid
+      ``mem_pressure`` bundle whose mem ring holds the samples before it;
+    * ``profilez`` — one bounded capture through
+      ``obs.profiling.serve_capture`` (the plain function behind the
+      ``POST /profilez`` endpoint of ROADMAP A.11c) with the knob set to a
+      scratch directory: status, bytes, seconds."""
+    from tpu_syncbn_torch.obs import flightrec, incident as incident_mod, memwatch
+    from tpu_syncbn_torch.obs import profiling, telemetry
+
+    if warm_peak_bytes:
+        sampler.set_contract(int(warm_peak_bytes), source="warm_step_peak")
+    reading = sampler.sample()
+    repeats = 25
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        sampler.sample()
+    sample_cost_s = (time.perf_counter() - t0) / repeats
+    avg_step_s = wall_s / steps if steps else None
+
+    drill_dir = tempfile.mkdtemp(prefix="bench_memwatch_")
+    scratch = telemetry.Registry()
+    rec = flightrec.FlightRecorder(registry=scratch, incident_dir=drill_dir)
+    try:
+        drill = memwatch.MemorySampler(registry=scratch, recorder=rec,
+                                       contract_bytes_per_device=1 << 60)
+        drill.sample()
+        drill.sample()
+        drill.set_contract(1, source="bench_drill")
+        drill.sample()  # over contract: fires mem_pressure
+        names = [n for n in os.listdir(drill_dir) if n.endswith(".json")]
+        pressure = {"bundles": len(names), "trigger": None, "ring_mem": 0,
+                    "valid": False}
+        if len(names) == 1:
+            bundle = incident_mod.load_bundle(os.path.join(drill_dir, names[0]))
+            pressure = {"bundles": 1, "trigger": bundle["trigger"]["kind"],
+                        "ring_mem": len(bundle["rings"]["mem"]),
+                        "valid": (bundle["trigger"]["kind"] == "mem_pressure"
+                                  and len(bundle["rings"]["mem"]) >= 3)}
+    finally:
+        rec.close()
+        shutil.rmtree(drill_dir, ignore_errors=True)
+
+    prof_dir = tempfile.mkdtemp(prefix="bench_profilez_")
+    prev_knob = os.environ.get("TPU_SYNCBN_PROFILE_DIR")
+    os.environ["TPU_SYNCBN_PROFILE_DIR"] = prof_dir
+    try:
+        t0 = time.perf_counter()
+        status, payload = profiling.serve_capture(0.1)
+        profilez = {"status": status, "bytes": payload.get("bytes"),
+                    "device_events": payload.get("device_events"),
+                    "roundtrip_s": round(time.perf_counter() - t0, 4)}
+    finally:
+        if prev_knob is None:
+            os.environ.pop("TPU_SYNCBN_PROFILE_DIR", None)
+        else:
+            os.environ["TPU_SYNCBN_PROFILE_DIR"] = prev_knob
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    return {
+        "source": reading["source"],
+        "bytes_in_use": reading["bytes_in_use"],
+        "peak_bytes": reading["peak_bytes"],
+        "warm_peak_bytes": warm_peak_bytes,
+        "rss_bytes": reading.get("rss_bytes"),
+        "cache_bytes_live": reading.get("cache_bytes_live"),
+        "contract_bytes_per_device": reading.get("contract_bytes_per_device"),
+        "contract_source": reading.get("contract_source"),
+        "used_frac": reading.get("used_frac"),
+        "headroom_frac": reading.get("headroom_frac"),
+        "samples": sampler.samples,
+        "sample_cost_s": round(sample_cost_s, 9),
+        "sample_overhead_frac": (
+            round(sample_cost_s / avg_step_s, 6) if avg_step_s else None),
+        "pressure": pressure,
+        "profilez": profilez,
+    }
+
+
+def compile_block(warm_s: float) -> dict:
+    """The ``compile`` block (``bench.py``'s ``compile_block``): the run's
+    compile events from the ``compile.*`` registry family — ``warmup_s``
+    (the two warm-up steps: the first eager step's kernel builds and
+    cuDNN's autotuning), total and per-family event counts, the
+    ``compile.time_s`` histogram's totals, and the recompile-storm count
+    (0 on a healthy run)."""
+    from tpu_syncbn_torch.obs import telemetry
+
+    snap = telemetry.snapshot()
+    counters = snap["counters"]
+    hist = snap["histograms"].get("compile.time_s") or {}
+    families = {name[len("compile."):-len(".events")]: v
+                for name, v in counters.items()
+                if name.startswith("compile.") and name.endswith(".events")}
+    return {
+        "warmup_s": round(warm_s, 2),
+        "events_total": counters.get("compile.events_total", 0),
+        "storms": counters.get("compile.storms", 0),
+        "time_s_count": hist.get("count", 0),
+        "time_s_sum": round(hist.get("sum", 0.0), 4),
+        "families": families,
+    }
+
+
 def run(device: torch.device, scan: int = 1) -> dict:
     """Build, warm up, count FLOPs, time; returns the JSON line's dict."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from tpu_syncbn_torch import models, nn, parallel, runtime
-    from tpu_syncbn_torch.obs import numerics, stepstats, telemetry
+    from tpu_syncbn_torch.obs import flightrec, memwatch, numerics, stepstats, telemetry
+    from tpu_syncbn_torch.obs import timeseries
     from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.parallel import collectives as coll
 
     on_card = device.type == "cuda"
     cfg = bench_config(on_card)
@@ -331,22 +533,49 @@ def run(device: torch.device, scan: int = 1) -> dict:
     _sync(device)
     warm_s = time.perf_counter() - t0
 
+    # the warm step's peak (the memory block's contract) and its
+    # collectives (the incident block's)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    coll.reset_tallies()
     with FlopCounterMode(display=False) as counter:
         dp.train_step(batch)
     flops = float(counter.get_total_flops())
+    step_tallies = coll.tallies()
+    warm_peak = torch.cuda.max_memory_allocated(device) if on_card else None
+
+    # the flight recorder and the memory sampler ride the timed loop: the
+    # recorder shares an aggregator anchored just before the loop and
+    # ticked just after (its bundles land in a scratch directory); the
+    # sampler takes a reading on each side, with its trigger off (the
+    # memory block's drill fires one on its own recorder)
+    agg = timeseries.WindowedAggregator()
+    agg.tick()
+    incident_tmp = tempfile.mkdtemp(prefix="bench_incidents_")
+    recorder = flightrec.install(flightrec.FlightRecorder(
+        aggregator=agg, incident_dir=incident_tmp))
+    mem_sampler = memwatch.MemorySampler(pressure_threshold=None)
+    mem_sampler.sample()
 
     # the loop's seams: a data-wait span a fetch, a step span a step, the
     # monitors published as their values land (no synchronize)
     fetch = stepstats.instrumented_batches(itertools.repeat(batch))
     publisher = numerics.NumericsPublisher()
 
+    n_step = itertools.count(1)
+    last = [None]
+
     def step():
         with stepstats.timed_span("step", "step.time_s"):
-            out = dp.train_step(next(fetch))
+            out = last[0] = dp.train_step(next(fetch))
+        flightrec.record_step(next(n_step), metrics={"loss": out.loss, **out.metrics},
+                              monitors=out.monitors)
         publisher.publish(0, out.monitors)
 
     # closed after the last optimizer step: every update is in
     dt, inside = _timed_loop(device, steps, step)
+    agg.tick()
+    mem_sampler.sample()
     gap1, dispatch1 = _gap(dt, inside)
     scan_k = max(1, int(scan))
     scan_info = {"k": scan_k, "host_gap_frac_scan1": gap1,
@@ -368,6 +597,16 @@ def run(device: torch.device, scan: int = 1) -> dict:
                           "dispatch_frac": dispatch_k,
                           "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
     publisher.flush()
+    try:
+        incident_info = measure_incident(recorder, last[0], steps=steps, wall_s=dt,
+                                         flops_per_step=flops, tallies=step_tallies)
+        memory_info = measure_memory(mem_sampler, warm_peak_bytes=warm_peak,
+                                     steps=steps, wall_s=dt)
+    finally:
+        flightrec.uninstall()
+        recorder.close()
+        shutil.rmtree(incident_tmp, ignore_errors=True)
+    compile_info = compile_block(warm_s)
     recovery = measure_recovery(dp)
     collectives = measure_collectives(device)
 
@@ -396,6 +635,9 @@ def run(device: torch.device, scan: int = 1) -> dict:
         "recovery": recovery,
         "scan": scan_info,
         "collectives": collectives,
+        "incident": incident_info,
+        "memory": memory_info,
+        "compile": compile_info,
         "telemetry": telemetry.snapshot(),
     }
 

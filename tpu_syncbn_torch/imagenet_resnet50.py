@@ -34,6 +34,8 @@ card); ``--data-deadline S`` raises ``StallError`` when a batch takes more
 than S seconds to arrive instead of hanging. SIGTERM or SIGINT finishes
 the step (or chunk) in flight, checkpoints the epoch it interrupted (with
 ``--ckpt-dir``) and exits 0; ``--resume`` replays that epoch.
+``--profile-dir D`` writes a ``torch.profiler`` Chrome trace of the
+training epochs into D (master only; ``obs.profiling.profiler_trace``).
 
 Without ``--data-root`` a deterministic synthetic ImageNet-shaped dataset
 stands in; the pipeline, sharding and step are the same. The done line
@@ -55,6 +57,7 @@ import torch.nn.functional as F
 
 from tpu_syncbn_torch import data as tdata
 from tpu_syncbn_torch import models, nn, parallel, runtime, utils
+from tpu_syncbn_torch.obs import profiling
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -122,6 +125,10 @@ def parse_args(argv=None):
                         "(the loop pays only the state snapshot)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="eval every N epochs (0 = only at the end)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the training "
+                        "epochs (not the final eval) into this directory, "
+                        "master only")
     p.add_argument("--metrics-log", default=None,
                    help="append per-log-interval scalars (loss/top1/img-s) "
                         "to this JSONL file, master only")
@@ -289,7 +296,10 @@ def train(args, train_ds, val_ds, device: torch.device) -> dict:
         # SIGTERM/SIGINT (a preemption notice): finish the step or chunk in
         # flight, checkpoint at the epoch boundary, exit 0; the restarted
         # job resumes at this epoch with --resume
-        with runtime.PreemptionGuard() as guard:
+        # the profiler's scope is the training epochs; it closes before the
+        # final eval below (per-epoch --eval-every evals stay inside it)
+        with runtime.PreemptionGuard() as guard, profiling.profiler_trace(
+                args.profile_dir or "", enabled=bool(args.profile_dir)):
             for epoch in range(start_epoch, args.epochs):
                 sampler.set_epoch(epoch)
                 batches = train_batches()

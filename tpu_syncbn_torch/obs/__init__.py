@@ -1,5 +1,6 @@
-"""Observability, part one (ROADMAP A.11a) — the counterpart of the part of
-``tpu_syncbn.obs`` that the training step feeds and returns:
+"""Observability (ROADMAP A.11a and A.11b) — the counterpart of
+``tpu_syncbn.obs`` for what the training step feeds, returns and leaves
+behind:
 
 * :mod:`~tpu_syncbn_torch.obs.telemetry` — process-wide named counters,
   gauges and fixed-bucket histograms; env-gated (``TPU_SYNCBN_TELEMETRY``),
@@ -13,15 +14,42 @@
   non-finite counts, BN running-statistic health);
 * :mod:`~tpu_syncbn_torch.obs.numerics` — the cross-replica drift and
   compression-health monitors (one all-reduce) and the non-blocking
-  ``numerics.*`` publisher.
+  ``numerics.*`` publisher;
+* :mod:`~tpu_syncbn_torch.obs.timeseries` — windowed rates, quantiles and
+  snapshots over the registry;
+* :mod:`~tpu_syncbn_torch.obs.server` — the heartbeat table and the
+  readiness registry (the liveness half; the HTTP server is A.11c);
+* :mod:`~tpu_syncbn_torch.obs.flightrec` and
+  :mod:`~tpu_syncbn_torch.obs.incident` — the flight recorder's bounded
+  rings, its triggers (``TPU_SYNCBN_FLIGHTREC``, bundles under
+  ``TPU_SYNCBN_INCIDENT_DIR``) and the incident bundle with its
+  attribution report and CLI (``python -m tpu_syncbn_torch.obs.incident``);
+* :mod:`~tpu_syncbn_torch.obs.memwatch` — live memory watermarks from the
+  caching allocator against a contract (``TPU_SYNCBN_MEMWATCH``);
+* :mod:`~tpu_syncbn_torch.obs.profiling` — compile events, the
+  recompile-storm detector and the bounded ``torch.profiler`` capture
+  (``TPU_SYNCBN_PROFILE_DIR``).
 
-Still to port: ``timeseries``, ``flightrec``, ``incident``, ``memwatch``
-and ``profiling`` (ROADMAP A.11b), then ``server``, ``slo`` and the
-``*_rules`` SLO rule sets (A.11c).
+Still to port (ROADMAP A.11c): the monitoring server's HTTP half, ``slo``
+and the ``*_rules`` SLO rule sets.
 """
 
-from tpu_syncbn_torch.obs import numerics, stepstats, telemetry, tracing
+from tpu_syncbn_torch.obs import (
+    flightrec,
+    incident,
+    memwatch,
+    numerics,
+    profiling,
+    server,
+    stepstats,
+    telemetry,
+    timeseries,
+    tracing,
+)
+from tpu_syncbn_torch.obs.flightrec import FlightRecorder
+from tpu_syncbn_torch.obs.memwatch import MemorySampler
 from tpu_syncbn_torch.obs.numerics import NumericsPublisher
+from tpu_syncbn_torch.obs.profiling import RecompileDetector
 from tpu_syncbn_torch.obs.telemetry import (
     REGISTRY,
     Counter,
@@ -30,6 +58,7 @@ from tpu_syncbn_torch.obs.telemetry import (
     Histogram,
     Registry,
 )
+from tpu_syncbn_torch.obs.timeseries import WindowedAggregator
 from tpu_syncbn_torch.obs.tracing import RingTracer, Tracer
 
 __all__ = [
@@ -37,7 +66,17 @@ __all__ = [
     "tracing",
     "stepstats",
     "numerics",
+    "timeseries",
+    "server",
+    "flightrec",
+    "incident",
+    "memwatch",
+    "profiling",
+    "FlightRecorder",
+    "MemorySampler",
     "NumericsPublisher",
+    "RecompileDetector",
+    "WindowedAggregator",
     "REGISTRY",
     "Registry",
     "Counter",

@@ -33,11 +33,11 @@ device tensors in ``StepOutput.monitors``. The publisher copies the
 published ones into page-locked host memory without blocking and records
 a CUDA event; an entry lands as ``numerics.<key>`` histogram samples once
 its event has completed, so the registry fills at step cadence with no
-forced synchronize on the loop.
+forced synchronize on the loop. A threshold crossing counts
+``numerics.drift_trips`` and fires the flight recorder's
+``numerics_drift`` trigger (``obs.flightrec``).
 
-Waiting for ROADMAP A.11b and A.11c: the ``numerics_drift`` flight-recorder
-trigger (A.11b; a crossing only counts ``numerics.drift_trips`` here) and
-the ``numerics_rules`` SLO rule set (A.11c).
+Waiting for ROADMAP A.11c: the ``numerics_rules`` SLO rule set.
 """
 
 from __future__ import annotations
@@ -345,10 +345,10 @@ class NumericsPublisher:
     Each published value is checked against ``thresholds``
     (:data:`DEFAULT_DRIFT_THRESHOLDS`; ``{}`` disables): a crossing, or a
     non-finite monitor (drift by definition), bumps
-    ``numerics.drift_trips``. The JAX publisher also fires the
-    ``numerics_drift`` flight-recorder trigger there; that waits for the
-    port's flight recorder (ROADMAP A.11b). A queue past ``max_pending``
-    drops its oldest entry and counts ``numerics.dropped``."""
+    ``numerics.drift_trips`` and fires the ``numerics_drift``
+    flight-recorder trigger (one bundle when a recorder is installed and
+    its cooldown allows). A queue past ``max_pending`` drops its oldest
+    entry and counts ``numerics.dropped``."""
 
     def __init__(
         self,
@@ -422,6 +422,8 @@ class NumericsPublisher:
         return published
 
     def _emit(self, step: int, vals: dict) -> None:
+        from tpu_syncbn_torch.obs import flightrec
+
         telemetry.count("numerics.samples")
         for key, raw in vals.items():
             try:
@@ -439,3 +441,9 @@ class NumericsPublisher:
             if (threshold is not None and finite and value > threshold) \
                     or not finite:
                 telemetry.count("numerics.drift_trips")
+                flightrec.trigger("numerics_drift", {
+                    "monitor": key,
+                    "value": value if finite else str(value),
+                    "threshold": threshold,
+                    "step": step,
+                })

@@ -403,8 +403,8 @@ def export_snapshot_jsonl(
     snap: dict, path: str, *, host: int | None = None
 ) -> str:
     """Write any snapshot-shaped dict (:meth:`Registry.snapshot`, or a
-    windowed view once ``obs.timeseries`` is ported, ROADMAP A.11b) as a
-    per-host JSONL export that :func:`merge_exports` accepts — ONE
+    windowed view from :meth:`~tpu_syncbn_torch.obs.timeseries.WindowedAggregator.windowed_snapshot`)
+    as a per-host JSONL export that :func:`merge_exports` accepts — ONE
     serialization for cumulative and windowed views, so rank-0
     aggregation of rolling metrics reuses the existing merge/validation
     path instead of growing a second schema."""

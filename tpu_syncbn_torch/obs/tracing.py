@@ -216,8 +216,8 @@ class Tracer:
 class RingTracer(Tracer):
     """A :class:`Tracer` whose event store is a bounded ring: the newest
     ``capacity`` events survive, older ones fall off. This is the
-    always-on form the flight recorder installs
-    (``obs.flightrec``, ROADMAP A.11b) — span recording with memory
+    always-on form the flight recorder installs when no tracer is
+    (:mod:`tpu_syncbn_torch.obs.flightrec`) — span recording with memory
     bounded by construction, so it can run for days and still hold the
     seconds *before* an incident. :meth:`Tracer.save` and
     :meth:`Tracer.recent_events` work unchanged (they copy the ring)."""

@@ -48,11 +48,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import time
 from typing import Callable
 
 import torch
 from torch import nn
 
+from tpu_syncbn_torch.obs import flightrec
 from tpu_syncbn_torch.obs import numerics as obs_numerics, stepstats as obs_stepstats
 from tpu_syncbn_torch.parallel import collectives, scan_driver
 from tpu_syncbn_torch.parallel.trainer import (
@@ -175,6 +177,8 @@ class GANTrainer:
             sync_module_states(model, group=self.group)
         # (K, batch signature) -> captured K-iteration program
         self._train_steps_cache = scan_driver.ProgramCache(name="gan")
+        # the first eager iteration is a compile event (obs.profiling)
+        self._first_dispatch_noted = False
 
     def _average_grads_(self, model: nn.Module) -> None:
         """Average ``model``'s gradients over the group in place: one flat
@@ -267,12 +271,27 @@ class GANTrainer:
 
     def train_step(self, real, z_d, z_g) -> GANStepOutput:
         """One D update, then one G update (module docstring)."""
+        t0 = time.perf_counter() if not self._first_dispatch_noted else None
         real, z_d, z_g = _to_device((real, z_d, z_g), self.device)
         vals, monitors = self._iteration(real, z_d, z_g, lambda opt: opt.step())
+        if t0 is not None:
+            # lazy kernel builds and cuDNN's autotuning: one compile.gan event
+            self._first_dispatch_noted = True
+            from tpu_syncbn_torch.obs import profiling
+
+            profiling.note_compile("gan", time.perf_counter() - t0)
         self.step_count += 1
-        return GANStepOutput(d_loss=vals[0], g_loss=vals[1],
-                             metrics={"d_real": vals[2], "d_fake": vals[3]},
-                             monitors=monitors)
+        out = GANStepOutput(d_loss=vals[0], g_loss=vals[1],
+                            metrics={"d_real": vals[2], "d_fake": vals[3]},
+                            monitors=monitors)
+        if flightrec.get() is not None:
+            # step ring: device scalars copied to the host behind the
+            # iteration, no synchronize (obs.flightrec)
+            flightrec.record_step(
+                self.step_count,
+                metrics={"d_loss": out.d_loss, "g_loss": out.g_loss, **out.metrics},
+                monitors=monitors)
+        return out
 
     # -- K iterations as one program ----------------------------------------
 
@@ -321,10 +340,19 @@ class GANTrainer:
             prog.opts[id(opt)].fill(_schedule_lrs(opt, None, k))
         out = prog(batch)
         self.step_count += k
-        return GANStepOutput(d_loss=out["d_loss"], g_loss=out["g_loss"],
-                             metrics={"d_real": out["d_real"], "d_fake": out["d_fake"]},
-                             monitors={n[1]: v for n, v in out.items()
-                                       if isinstance(n, tuple)})
+        res = GANStepOutput(d_loss=out["d_loss"], g_loss=out["g_loss"],
+                            metrics={"d_real": out["d_real"], "d_fake": out["d_fake"]},
+                            monitors={n[1]: v for n, v in out.items()
+                                      if isinstance(n, tuple)})
+        if flightrec.get() is not None:
+            # the chunk-final slice (a view), copied to the host behind the
+            # chunk with no synchronize (obs.flightrec)
+            flightrec.record_step(
+                self.step_count,
+                metrics={"d_loss": res.d_loss[-1], "g_loss": res.g_loss[-1],
+                         **{n: v[-1] for n, v in res.metrics.items()}},
+                monitors={n: v[-1] for n, v in res.monitors.items()})
+        return res
 
     @property
     def program_caches(self) -> tuple:

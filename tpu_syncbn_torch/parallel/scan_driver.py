@@ -413,9 +413,17 @@ def cached_program(cache: dict, key, build: Callable[[], Any],
             cache._touch(key)
             return dict.__getitem__(cache, key)
         cache._record("misses")
-        # the JAX cache times each build as a compile event
-        # (obs.profiling.timed_compile); that waits for ROADMAP A.11b
-        fn = build()
+        # every miss is a compile-seam event (obs.profiling): counted,
+        # timed (on the card: warm-up and the graph's capture),
+        # ring-recorded and fed to the recompile-storm detector, which
+        # windows per (family, program) — REBUILDING one key is churn,
+        # building N distinct keys is a healthy startup. The import and
+        # the token stay on the miss path: a hit costs what it always did.
+        from tpu_syncbn_torch.obs import profiling
+
+        with profiling.timed_compile(cache.name or "program",
+                                     program=f"{hash(key) & 0xFFFFFFFF:08x}"):
+            fn = build()
         if key in cache:  # stale stored None: the rebuilt entry goes to
             dict.pop(cache, key)  # the back of the eviction order
             cache._sizes.pop(key, None)
@@ -434,5 +442,10 @@ def cached_program(cache: dict, key, build: Callable[[], Any],
     if fn is None:
         while len(cache) >= MAX_CACHED_PROGRAMS:
             cache.pop(next(iter(cache)))
-        fn = cache[key] = build()
+        from tpu_syncbn_torch.obs import profiling
+
+        with profiling.timed_compile(
+            "program", program=f"{hash(key) & 0xFFFFFFFF:08x}"
+        ):
+            fn = cache[key] = build()
     return fn

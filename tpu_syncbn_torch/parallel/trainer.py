@@ -21,6 +21,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import time
 import types
 import warnings
 from typing import Any, Callable
@@ -723,6 +724,8 @@ class DataParallel:
                                          dtype=torch.float32, device=self.device)
         # (n_steps, stacked, batch signature) -> captured K-step program
         self._train_steps_cache = scan_driver.ProgramCache(name="train")
+        # the first eager step is a compile event (obs.profiling)
+        self._first_dispatch_noted = False
         # compress mode -> its parked program cache (set_compress)
         self._mode_programs: dict[str, scan_driver.ProgramCache] = {}
         # SGD's first-step flags (dampening only), kept across programs
@@ -1000,6 +1003,7 @@ class DataParallel:
 
     def train_step(self, batch) -> StepOutput:
         """One optimizer step on this replica's shard of the batch."""
+        t0 = time.perf_counter() if not self._first_dispatch_noted else None
         batch = _to_device(batch, self.device)
         self.model.train()
         self._zero_grad()
@@ -1033,8 +1037,16 @@ class DataParallel:
                     self.guard_state["lr_scale"] = lr_scale * 0.5
             metrics["nonfinite"] = torch.tensor(0.0 if ok else 1.0, device=self.device)
             metrics["lr_scale"] = torch.tensor(lr_scale, device=self.device)
-        return StepOutput(loss=loss, metrics=metrics,
-                          monitors=self._finish_monitors(monitors, numx))
+        monitors = self._finish_monitors(monitors, numx)
+        if t0 is not None:
+            # the first eager step builds the lazy kernels and runs cuDNN's
+            # autotuning (the JAX trainer's first dispatch is its XLA
+            # compile): one compile.train event, host time tagged
+            self._first_dispatch_noted = True
+            from tpu_syncbn_torch.obs import profiling
+
+            profiling.note_compile("train", time.perf_counter() - t0)
+        return StepOutput(loss=loss, metrics=metrics, monitors=monitors)
 
     def eval_step(self, batch) -> StepOutput:
         """Loss and metrics in eval mode (running statistics, no

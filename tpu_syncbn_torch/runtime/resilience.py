@@ -19,17 +19,22 @@ port never imports it):
 
 Observability (``obs``): the ``resilience`` counters mirror into the
 telemetry registry; a stall counts ``resilience.watchdog_stalls`` or
-``resilience.data_stalls`` and marks the trace with an instant carrying
-the newest open span's id; the loop instruments its data wait and steps
+``resilience.data_stalls``, marks the trace with an instant carrying the
+newest open span's id and fires the flight recorder's ``watchdog_stall``
+trigger, and a divergence restore fires ``divergence_restore``
+(``obs.flightrec``: one incident bundle each when a recorder is
+installed). ``ResilientLoop.run`` installs the recorder and the memory
+sampler when ``TPU_SYNCBN_FLIGHTREC`` / ``TPU_SYNCBN_MEMWATCH`` ask for
+them, beats the ``"train"`` heartbeat and registers the ``"train"``
+readiness hook (``obs.server``), records every step or chunk in the
+recorder's step ring, instruments its data wait and steps
 (``obs.stepstats``), sets the ``train.step`` gauge, publishes the numerics
 monitors (``obs.numerics.NumericsPublisher``) and counts its collective
 bytes (``collectives.DispatchWireTally``).
 
-Not ported yet: the live-monitoring half of the JAX loop — the flight
-recorder's triggers, ``memwatch`` and ``profiling`` (ROADMAP A.11b), the
-metrics server with the loop's heartbeat and readiness (A.11c) — and the
+Not ported yet: the metrics server's HTTP half (ROADMAP A.11c), the
 autopilot (A.14) and serving publications (A.12); the constructor
-arguments that need them raise ``NotImplementedError``.
+arguments that need the last two raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -224,7 +229,7 @@ class Watchdog:
                 # tag the dump with the most recently opened trace span
                 # (this thread has no span stack of its own), so a
                 # Perfetto trace and the log join on the span id
-                from tpu_syncbn_torch.obs import telemetry, tracing
+                from tpu_syncbn_torch.obs import flightrec, telemetry, tracing
 
                 span_id = tracing.latest_open_span_id()
                 telemetry.count("resilience.watchdog_stalls")
@@ -236,6 +241,14 @@ class Watchdog:
                     f"WATCHDOG: {self.name!r} stalled for {idle:.1f}s "
                     f"(deadline {self.deadline_s}s{tag})")
                 dist.get_logger("tpu_syncbn_torch.resilience").error("%s", diag)
+                # the stack dump says where THIS host is stuck; the incident
+                # bundle says what the process was doing in the seconds
+                # before (its step ring never waits on the stalled work)
+                flightrec.trigger("watchdog_stall", {
+                    "watchdog": self.name, "idle_s": round(idle, 2),
+                    "deadline_s": self.deadline_s,
+                    **({"span_id": span_id} if span_id is not None else {}),
+                })
                 if self._on_stall is not None:
                     with contextlib.suppress(Exception):
                         self._on_stall(diag)
@@ -298,7 +311,7 @@ def stall_guard(iterator: Iterable, deadline_s: float, *,
             try:
                 tag, payload = q.get(timeout=deadline_s)
             except _queue.Empty:
-                from tpu_syncbn_torch.obs import telemetry, tracing
+                from tpu_syncbn_torch.obs import flightrec, telemetry, tracing
 
                 span_id = tracing.latest_open_span_id()
                 telemetry.count("resilience.data_stalls")
@@ -308,6 +321,10 @@ def stall_guard(iterator: Iterable, deadline_s: float, *,
                 tag = f" (trace_span={span_id})" if span_id is not None else ""
                 diag = dump_stacks(f"WATCHDOG: {name!r} fetch exceeded {deadline_s}s{tag}")
                 dist.get_logger("tpu_syncbn_torch.resilience").error("%s", diag)
+                flightrec.trigger("watchdog_stall", {
+                    "source": name, "deadline_s": deadline_s,
+                    "stall": "data_fetch",
+                })
                 raise StallError(
                     f"{name} fetch exceeded the {deadline_s}s watchdog "
                     "deadline") from None
@@ -484,6 +501,10 @@ class ResilientLoop:
         self.scan_steps = scan_steps
         self.counters = counters if counters is not None else _default_counters()
         self.step = 0
+        #: True from a divergence restore until a finite step lands on the
+        #: restored state (read by :meth:`readiness`)
+        self.recovering = False
+        self._guard: PreemptionGuard | None = None
         self._async = None
         if async_checkpoint:
             from tpu_syncbn_torch.utils.checkpoint import AsyncCheckpointer
@@ -513,6 +534,21 @@ class ResilientLoop:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def readiness(self) -> tuple[bool, dict]:
+        """The loop's readiness check (registered as the ``"train"`` hook
+        of ``obs.server`` while :meth:`run` is active): not ready once
+        preemption has been signaled (the process is about to checkpoint
+        and exit) or while a divergence rollback is in flight. The detail
+        carries the live step counter."""
+        guard = self._guard
+        preempted = bool(guard.preempted) if guard is not None else False
+        ok = not preempted and not self.recovering
+        return ok, {
+            "step": self.step,
+            "preempted": preempted,
+            "recovering": self.recovering,
+        }
 
     def resume(self) -> int:
         """Restore the newest verified checkpoint (if any); returns the
@@ -558,9 +594,12 @@ class ResilientLoop:
         if callable(reset):
             reset()
         self.counters.bump("divergence_restores")
+        # not ready until a finite step lands on the restored state
+        # (cleared in run(); read through readiness())
+        self.recovering = True
         # tag the rollback with the current trace span, so the timeline
         # and this log line correlate
-        from tpu_syncbn_torch.obs import tracing
+        from tpu_syncbn_torch.obs import flightrec, tracing
 
         span_id = tracing.latest_open_span_id()
         tracing.instant("divergence_restore", step=self.step, restored_step=restored,
@@ -569,6 +608,12 @@ class ResilientLoop:
             "non-finite loss/grads at step %d: restored last good "
             "checkpoint (step %d)%s", self.step, restored,
             f" (trace_span={span_id})" if span_id is not None else "")
+        # the bundle holds the step records from the steps BEFORE the
+        # blow-up — the evidence a post-mortem of the divergence needs
+        flightrec.trigger("divergence_restore", {
+            "step": self.step, "restored_step": restored,
+            **({"span_id": span_id} if span_id is not None else {}),
+        })
         self.step = restored
 
     # -- the loop ---------------------------------------------------------
@@ -586,13 +631,23 @@ class ResilientLoop:
         the step counter crosses a multiple; ``max_steps`` is checked
         before each chunk, so a run may overshoot it by at most K-1 steps.
         Pending async writes are flushed on every exit path."""
-        from tpu_syncbn_torch.obs import numerics as obs_numerics, stepstats, telemetry
+        from tpu_syncbn_torch.obs import (
+            flightrec, memwatch, numerics as obs_numerics, server as obs_server,
+            stepstats, telemetry,
+        )
         from tpu_syncbn_torch.parallel.collectives import DispatchWireTally
 
         policy = getattr(self.trainer, "divergence_guard", None)
         scanned = self.scan_steps > 1
         preempted = False
         steps_run = 0
+        # flight recorder and memory watermarks: with TPU_SYNCBN_FLIGHTREC
+        # set this run keeps bounded rings of recent spans and steps and
+        # dumps an incident bundle on a divergence restore or a stall; with
+        # TPU_SYNCBN_MEMWATCH set it samples memory in the background
+        flightrec.install_from_env()
+        memwatch.install_from_env()
+        obs_server.register_readiness("train", self.readiness)
         wire_tally = DispatchWireTally()
         # the numerics monitors reach the registry once their device
         # values have landed on the host (never a forced synchronize)
@@ -600,6 +655,7 @@ class ResilientLoop:
         try:
             with contextlib.ExitStack() as stack:
                 guard = stack.enter_context(PreemptionGuard())
+                self._guard = guard
                 watchdog = None
                 if self.step_deadline_s is not None:
                     # armed at the first pat: the first step builds kernels
@@ -627,15 +683,30 @@ class ResilientLoop:
                     steps_run += k
                     if watchdog is not None:
                         watchdog.pat()
+                    # the step heartbeat: its age says whether the loop moves
+                    obs_server.HEARTBEATS.beat("train")
                     telemetry.set_gauge("train.step", self.step)
                     mon = getattr(out, "monitors", None)
                     if scanned and mon:
                         # (K,)-stacked: publish the chunk's last step
                         mon = {name: v[-1] for name, v in mon.items()}
+                    if flightrec.get() is not None:
+                        # step ring: the loss and metrics (a chunk's final
+                        # slice) copied to the host behind the step, no
+                        # synchronize (obs.flightrec)
+                        metrics = {"loss": out.loss, **(out.metrics or {})}
+                        if scanned:
+                            metrics = {name: v[-1] if getattr(v, "ndim", 0) else v
+                                       for name, v in metrics.items()}
+                        flightrec.record_step(self.step, metrics=metrics, monitors=mon)
                     numerics_pub.publish(self.step, mon)
                     wire_tally.after_dispatch(k)
                     if policy is not None:
                         nonfinite = _nonfinite_steps(out.metrics)
+                        if not nonfinite:
+                            # a finite step on the (possibly restored)
+                            # state: the rollback, if any, is complete
+                            self.recovering = False
                         if nonfinite:
                             self.counters.bump("nonfinite_steps", nonfinite)
                             if policy == "restore_last_good":
@@ -683,6 +754,11 @@ class ResilientLoop:
                     "was already propagating")
             raise
         finally:
+            # neither the hook nor the beat outlives the run: a finished
+            # loop is no readiness claim and no stale liveness source
+            obs_server.unregister_readiness("train")
+            obs_server.HEARTBEATS.clear("train")
+            self._guard = None
             try:
                 # non-blocking tail drain: a blocking flush here could hang
                 # on the exit that matters most (a stalled device)

@@ -19,12 +19,13 @@ from tpu_syncbn_torch.utils.metrics import (
     EventCounter,
     ScalarLogger,
     ThroughputMeter,
+    profiler_trace,
     step_timer,
 )
 
 __all__ = ["AsyncCheckpointer", "AverageMeter", "CheckpointCorruptError", "EventCounter",
            "ScalarLogger", "ThroughputMeter", "available_steps",
            "evaluate_detections", "frechet_distance", "gaussian_stats",
-           "load_checkpoint", "read_manifest", "save_checkpoint",
+           "load_checkpoint", "profiler_trace", "read_manifest", "save_checkpoint",
            "snapshot_to_host", "step_timer", "verified_steps",
            "verify_checkpoint"]

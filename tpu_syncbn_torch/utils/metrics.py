@@ -1,7 +1,8 @@
 """Training meters, step timing and the JSONL scalar log — the counterpart
 of ``tpu_syncbn.utils.metrics`` (``AverageMeter``, ``ThroughputMeter``,
-``step_timer``, ``ScalarLogger``, and ``EventCounter``, the deprecated
-alias of ``obs.telemetry.CounterGroup("events")``), with the same
+``step_timer``, ``ScalarLogger``, ``EventCounter``, the deprecated alias
+of ``obs.telemetry.CounterGroup("events")``, and ``profiler_trace``, the
+deprecated alias of ``obs.profiling.profiler_trace``), with the same
 arithmetic and the same rank-0 file convention.
 """
 
@@ -87,6 +88,26 @@ class EventCounter(CounterGroup):
 
     def __repr__(self):
         return f"EventCounter({self.summary()!r})"
+
+
+def profiler_trace(log_dir: str, *, enabled: bool = True):
+    """Deprecated alias for
+    :func:`tpu_syncbn_torch.obs.profiling.profiler_trace` — the profiler
+    helper lives in the obs layer, next to the bounded on-demand capture
+    and the compile-seam counters. Same contract: master host only, no-op
+    when disabled."""
+    import warnings
+
+    warnings.warn(
+        "tpu_syncbn_torch.utils.profiler_trace is deprecated; use "
+        "tpu_syncbn_torch.obs.profiling.profiler_trace (or "
+        "obs.profiling.capture for a bounded on-demand capture) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from tpu_syncbn_torch.obs import profiling
+
+    return profiling.profiler_trace(log_dir, enabled=enabled)
 
 
 @contextlib.contextmanager
