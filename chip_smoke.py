@@ -121,8 +121,9 @@ falls back to the CPU):
                the ``recovery`` block (a truncated newest checkpoint resumes
                the older step, the async write certifies), the ``scan``
                block at K = 8 and the ``collectives`` block (wire bytes and
-               ratios on 1 MiB), the ``incident``, ``memory`` and
-               ``compile`` blocks; the line printed;
+               ratios on 1 MiB), the ``monitor``, ``numerics``,
+               ``incident``, ``memory`` and ``compile`` blocks; the line
+               printed;
 12. scan      — K steps as one CUDA graph (``train_steps_batches``,
                ``GANTrainer.train_steps``) for the ResNet-50 slice (the
                example's SGD and a cosine schedule), DCGAN and RetinaNet:
@@ -150,7 +151,9 @@ falls back to the CPU):
                a step, finite losses, wire ratio 3.879, one step's
                reduction bitwise against the plain versions on the same
                gradients, parameters within one rounding, every residual
-               within scale/2, a captured K = 4 chunk bitwise against its
+               within the bound derived from the encode's f32 arithmetic
+               (written out beside the gate), a captured K = 4 chunk
+               bitwise against its
                body) and its step time against ``"none"`` in turns, eager
                and captured; one DCGAN iteration at ``compress="bf16"``;
 13. resilience — ``ResilientLoop(scan_steps=4, async_checkpoint=True)`` on
@@ -171,7 +174,11 @@ falls back to the CPU):
                ``NumericsPublisher.publish`` over 8 steps of two captured
                chunks with no ``torch.cuda.synchronize`` call, returning
                while the chunk's work is still pending, and ``flush()``
-               publishing all 8; a registry JSONL export and a Chrome trace
+               publishing all 8; ``tests/test_torch_gpu.py``'s test of a
+               publisher's and a recorder's first calls behind queued work
+               alone in a fresh process (gated), and the older publisher
+               test alone (printed: its own first kernel launches wait); a
+               registry JSONL export and a Chrome trace
                of 8 ``ResilientLoop`` steps (every BN kernel 53 x 8 times)
                that validate and hold the ``step`` and ``data_wait`` spans
                and the ``train.step`` gauge; the monitor functions' own host
@@ -197,6 +204,25 @@ falls back to the CPU):
                capture meanwhile raises ``ProfilerBusy``; then
                ``record_step``'s cost a step, one sample's cost, the dump's
                seconds and bytes;
+13d. monitor  — the monitoring server, the SLO tracker and ``/profilez``
+               (ROADMAP A.11c) on the guarded trainer of 13c (its K = 4
+               program warm): ``ResilientLoop(scan_steps=4)`` with
+               ``TPU_SYNCBN_METRICS_PORT=0`` starts the server itself;
+               20 or more ``/metrics`` scrapes at ~10 Hz while captured
+               chunks run, each 200 in valid Prometheus text, with no
+               synchronize from any thread but the main one; ``/healthz``
+               and ``/readyz`` 200 before a planted divergence and after
+               it, the loop's readiness check recording not-ready during
+               the restore; a chunk scraped bitwise the same chunk with no
+               server; eager loop steps (every BN kernel 53 x steps) under
+               a tracker whose planted ``step.time_s p99 < 0.001`` fires
+               (one valid ``slo_alert`` bundle naming it in
+               ``state.alerts``, ``/statusz`` listing the alert and the
+               last incident) while ``step.time_s p99 < 60`` does not;
+               ``POST /incidentz`` a valid bundle; ``POST /profilez``
+               answered 200 with device events by the loop's main thread
+               within its bound, and 503 within its bound with no loop;
+               the captured step without the server and scraped, in turns;
 14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -221,9 +247,9 @@ falls back to the CPU):
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13c's launches, times, the
-bench line, the eager and captured steps, the compress, resilience, obs
-and incident summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
+ratios) and ``{"paths": {...}}`` (phases 9-13d's launches, times, the
+bench line, the eager and captured steps, the compress, resilience, obs,
+incident and monitor summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
 attention and int8-wire kernels); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
@@ -2629,8 +2655,8 @@ def phase_retinanet(torch, card):
 BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
-              "device_kind", "host_load_1m", "collectives", "incident", "memory",
-              "compile", "telemetry")
+              "device_kind", "host_load_1m", "collectives", "monitor", "numerics",
+              "incident", "memory", "compile", "telemetry")
 
 
 def phase_bench():
@@ -2638,7 +2664,10 @@ def phase_bench():
     kernels are built and cached by now): exit 0, every key of its line,
     0 < mfu <= 1, the ``recovery`` block (a truncated newest checkpoint
     resumes the older step, the async write certifies), the ``scan``
-    block at K = 8, the ``incident``, ``memory`` and ``compile`` blocks (a
+    block at K = 8, the ``monitor`` and ``numerics`` blocks (a port-0
+    server's scrape and probes, one SLO evaluation; the publisher's samples
+    and one forced ``numerics_drift`` bundle), the ``incident``, ``memory``
+    and ``compile`` blocks (a
     forced bundle, the card's reading against the warm step's peak with
     its ``mem_pressure`` drill and a capture holding CUDA activity, the
     first step's compile event and no storm) and the ``telemetry`` block
@@ -2677,6 +2706,19 @@ def phase_bench():
     # the obs blocks: a forced bundle; the card's reading against the warm
     # step's peak, the planted mem_pressure drill, a capture with CUDA
     # activity; the first step's compile event and no storm
+    # the monitor block: a port-0 server's scrape and probes over the loop's
+    # window, one SLO evaluation that does not fire; the numerics block: the
+    # loop's publishes and one forced, valid numerics_drift bundle
+    mon, num = line.get("monitor") or {}, line.get("numerics") or {}
+    if not (mon.get("healthz_ok") and mon.get("readyz_ok") and mon.get("series")
+            and mon.get("window_agreement") == 1.0 and mon.get("slo_firing") is False
+            and isinstance(mon.get("metrics_fetch_s"), (int, float))):
+        failures.append(f"[bench] monitor block {mon}")
+    if not (num.get("published") == line.get("steps")
+            and (num.get("drift") or {}).get("valid")
+            and num.get("rules") == ["numerics_residual", "numerics_skew", "numerics_clip"]
+            and isinstance(num.get("record_overhead_frac"), (int, float))):
+        failures.append(f"[bench] numerics block {num}")
     inc, mem, comp = (line.get(k) or {} for k in ("incident", "memory", "compile"))
     if inc.get("trigger") != "manual" or not inc.get("bundle_bytes") \
             or inc.get("ring_steps") != line.get("steps"):
@@ -3592,19 +3634,47 @@ def _compress_slice(torch, Q, card, failures) -> tuple[dict, dict]:
     if not (same and units <= 1.0):
         failures.append(f"[compress] the step's reduction differs from the plain versions "
                         f"(bitwise {same}, parameters {units:.2f} roundings)")
-    # every residual element within half its chunk's step plus one rounding
+    # Every residual element within the bound of the encode's own f32
+    # arithmetic (Q.encode_residual_bound). Derivation, u = 2^-24, fl() one
+    # round-to-nearest, for one element of payload p = fl(g + e) (the
+    # residual is p's error, so p's own rounding does not enter), with the
+    # chunk's range gmin <= p <= gmax (exact: min and max do not round):
+    #   zp    = fl(fl(gmax + gmin) * 0.5)
+    #   half  = fl(fl(gmax - gmin) * 0.5)
+    #   scale = fl(half * fl(1 / qmax))    (the product with the f32 reciprocal)
+    #   d = fl(p - zp)        |d - (p - zp)| <= u |p - zp|
+    #   t = fl(d / scale)     |t - d/scale| <= u |d| / scale   (__fdiv_rn)
+    #   q = clamp(rint(t), +-qmax)
+    #     unclamped: |q - t| <= 1/2, so
+    #       |scale q - (p - zp)| <= scale/2 + u |d| + u |p - zp|
+    #                            <= scale/2 + u (2 + u) |p - zp|
+    #     clamped (|t| > qmax): q = +-qmax and the exact error is
+    #       |p - zp| - qmax scale <= (gmax - gmin)/2 + u |zp| (1 + u) - qmax scale
+    #       <= 3u (1 + 4u) qmax scale + u (1 + u) |zp|   (half and scale each
+    #       round once or twice below (gmax - gmin)/2), inside the same sum
+    #       since scale/2 >= u qmax scale
+    #   s = fl(scale q)       |s - scale q| <= u scale |q|
+    #   o = fl(s + zp)        |o - (s + zp)| <= u (scale |q| (1 + u) + |zp|)
+    #   r = fl(p - o)         |r| <= (1 + u) |p - o|
+    # Summed: |r| <= (1 + u) (scale/2 + u (2 + u)(|p - zp| + scale |q|)
+    #                         + u |zp|)
+    #             <= scale/2 + u (1 + 2u) (scale/2 + 2 |p - zp| + 2 scale |q| + |zp|),
+    # plus 2^-149 for a product that underflows (a subnormal sum or
+    # difference is exact). The kernel rounds after every operation with the
+    # same intrinsics (csrc/quant_int8.cu), so the bound holds for it too;
+    # tests/test_torch_compression.py pins it on adversarial chunks and
+    # shows it catches an off-by-one code and a scale k ulps off.
     flat = C._fuse_f32(rec["grads"])
     ranges = Q.minmax_plain(flat, rec["e0"], 256)
-    _, scale, zp, _ = Q.encode_plain(flat, rec["e0"], ranges, 127, 256, False)
-    sc = scale.repeat_interleave(256)[:n].double()
-    p_ = (flat + rec["e0"]).double()
-    slack = 2 ** -24 * (p_.abs() + 127 * sc + zp.repeat_interleave(256)[:n].double().abs())
-    excess = float((rec["e1"].double().abs() - sc / 2 - slack).max())
+    q, scale, zp, _ = Q.encode_plain(flat, rec["e0"], ranges, 127, 256, False)
+    bound = Q.encode_residual_bound(flat + rec["e0"], scale, zp, q, 256)
+    excess = float((rec["e1"].double().abs() - bound).max())
     log(f"[compress] residual: max |e| {float(rec['e1'].abs().max()):.3e}, largest "
-        f"|e| - scale/2 - one rounding {excess:.3e} (gate <= 0) "
+        f"|e| - (the encode's derived bound) {excess:.3e} (gate <= 0) "
         f"{'ok' if excess <= 0 else 'FAIL'}")
     if excess > 0:
-        failures.append(f"[compress] a residual exceeds its chunk's scale/2 by {excess:.3e}")
+        failures.append(f"[compress] a residual exceeds the encode's derived bound by "
+                        f"{excess:.3e}")
     red = {"host_ms": rec["host_ms"], "device_ms": rec["device_ms"]}
     del rec
 
@@ -4142,6 +4212,44 @@ def _obs_publisher(torch, dp, steps, failures) -> dict:
             "publish_ms": publish_ms}
 
 
+#: card tests run alone, each in a fresh process (its kernels' first
+#: launches and its first page-locked allocation the process's own):
+#: (name, gated)
+OBS_ALONE = (
+    ("test_first_publish_and_record_behind_queued_work_return_at_once", True),
+    # its own torch.ones and "* 2.0" are the process's first launches of
+    # their kernels, queued behind its device sleep: CUDA's lazy module
+    # loading makes them wait for it (tools/first_launch_wait.py), so its first
+    # publish finds the work done whatever the publisher does; printed
+    ("test_numerics_publisher_waits_on_the_event_not_the_host", False),
+)
+
+
+def _obs_publisher_alone(failures) -> dict:
+    """The publisher's and recorder's card tests alone in fresh processes
+    (``-k``), where their page-locked blocks and kernel launches are the
+    process's first: the first publish and record behind queued work must
+    still return at once (both take their blocks and launch their kernels
+    when built)."""
+    out = {}
+    for name, gated in OBS_ALONE:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_gpu.py",
+                            "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider",
+                            "-k", name], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                           capture_output=True, text=True, timeout=300)
+        lines = r.stdout.strip().splitlines()
+        tail = lines[-1] if lines else ""
+        ok = r.returncode == 0 and tail.startswith("1 passed")
+        log(f"[obs] {name} alone in a fresh process (-k): exit {r.returncode}, {tail!r} in "
+            f"{time.perf_counter() - t0:.1f}s "
+            f"{('ok' if ok else 'FAIL') if gated else '(printed, not gated)'}")
+        if gated and not ok:
+            failures.append(f"[obs] {name} alone: {r.stdout[-1500:]} {r.stderr[-500:]}")
+        out[name] = {"exit": r.returncode, "summary": tail, "gated": gated}
+    return out
+
+
 def _obs_exports(torch, T, dp, steps, failures) -> dict:
     """8 ``ResilientLoop`` steps with telemetry on and a tracer installed
     (every BN kernel counted from 0): the registry's JSONL export and the
@@ -4262,6 +4370,7 @@ def phase_obs(torch, card):
     out = {"step": _obs_step_checks(torch, dp, model, steps, failures)}
     out["bitwise_chunk"] = _obs_chunk_vs_body(torch, dp, steps, failures)
     out["publisher"] = _obs_publisher(torch, dp, steps, failures)
+    out["publisher_alone"] = _obs_publisher_alone(failures)
     out["exports"] = _obs_exports(torch, T, dp, steps, failures)
     out["host_ms_in_monitors"] = _obs_host_ms(torch, dp, steps, card)
     out["paired_eager"] = _obs_paired_eager(torch, dp, steps, card)
@@ -4314,11 +4423,13 @@ def _finite_entry(e: dict) -> bool:
         isinstance(v, float) and math.isfinite(v) for v in vals)
 
 
-def _incident_nan_restore(torch, d, failures) -> dict:
+def _incident_nan_restore(torch, d, failures, keep=None) -> dict:
     """Gate 1: a NaN step under ``ResilientLoop(scan_steps=4)`` with the
     recorder and the sampler installed gives exactly one
     ``divergence_restore`` bundle, valid, whose step ring holds finite loss
-    and monitors for the steps before the fault."""
+    and monitors for the steps before the fault. With ``keep`` (a dict) the
+    guarded trainer and its warm K = 4 program are handed on to
+    ``[monitor]`` instead of dropped."""
     from tpu_syncbn_torch import runtime
     from tpu_syncbn_torch.obs import flightrec, memwatch
 
@@ -4354,6 +4465,8 @@ def _incident_nan_restore(torch, d, failures) -> dict:
     if not ok:
         failures.append(f"[incident] NaN restore: bundles {list(kinds)}, ring before the "
                         f"fault {before}")
+    if keep is not None:
+        keep.update(model=model, dp=dp)
     del dp, model
     torch.cuda.empty_cache()
     return {"bundles": {k: len(v) for k, v in kinds.items()}, "ring_before_fault": len(before),
@@ -4739,8 +4852,9 @@ def _incident_costs(torch, dp, steps, card) -> dict:
     monitors = {k: v[-1] for k, v in out.monitors.items()}
     n = 200
     cost = {}
-    # a ring that keeps every record (each one a new page-locked block),
-    # then one of 8 that evicts (blocks come back to the host allocator)
+    # the page-locked rows are taken when a recorder is built: a ring that
+    # keeps every record (each row used once), then one of 8 that has
+    # wrapped (rows reused)
     for tag, cap in (("fresh", n), ("steady", 8)):
         rec = flightrec.FlightRecorder(incident_dir=os.devnull, step_capacity=cap)
         for i in range(2 * cap if tag == "steady" else 0):
@@ -4759,8 +4873,9 @@ def _incident_costs(torch, dp, steps, card) -> dict:
         sampler.sample()
     sample_ms = (time.perf_counter() - t0) * 1e3 / n
     log(f"[incident] record_step {record_ms * 1e3:.1f} us a call in steady state (ring of 8 "
-        f"evicting; {cost['fresh'] * 1e3:.1f} us while each call takes a new page-locked "
-        f"block), {len(metrics)} metrics and {len(monitors)} monitors, mean of {n}, against "
+        f"wrapped; {cost['fresh'] * 1e3:.1f} us into rows never used before; both rings' "
+        f"page-locked rows taken when the recorder was built), {len(metrics)} metrics and "
+        f"{len(monitors)} monitors, mean of {n}, against "
         f"the captured step's {step_ms:.3f} ms (CUDA events, median of 4 chunks / {INC_K}): "
         f"{record_ms / step_ms:.2e} of a step; one memory sample {sample_ms * 1e3:.1f} us "
         f"[{card}]")
@@ -4769,11 +4884,12 @@ def _incident_costs(torch, dp, steps, card) -> dict:
             "sample_ms": sample_ms}
 
 
-def phase_incident(torch, card):
+def phase_incident(torch, card, keep=None):
     """Phase 13c (module docstring): the six gates of the flight recorder,
     the memory sampler, compile events and the profiler capture on the
     bf16 ResNet-50 SyncBN slice (batch 64 at 224², world 1), then their
-    costs. Returns (failures, summary)."""
+    costs. Returns (failures, summary); with ``keep`` (a dict) the first
+    gate's guarded trainer is kept there for ``[monitor]``."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4787,7 +4903,7 @@ def phase_incident(torch, card):
         gate_s[name] = round(time.perf_counter() - t0, 2)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_incident_") as d:
-        timed("nan_restore", _incident_nan_restore, torch, d, failures)
+        timed("nan_restore", _incident_nan_restore, torch, d, failures, keep)
         steps = [_trainer_batch(torch, 950 + i) for i in range(INC_K)]
         model, dp = _resnet_trainer(torch)
         timed("sampler_capture", _incident_sampler_beside_capture, torch, dp, steps, failures)
@@ -4806,6 +4922,454 @@ def phase_incident(torch, card):
         f"{out['capture']['seconds']} s and {out['capture']['bytes']} B; phase "
         f"{out['phase_s']:.1f}s (budget 60 s; by gate {json.dumps(gate_s)}), "
         f"{len(failures)} failures [{card}]")
+    return failures, out
+
+
+# -- [monitor]: the monitoring server, the SLO tracker and /profilez
+# (ROADMAP A.11c) on the ResNet-50 slice under ResilientLoop ---------------
+
+MON_K = 4  # the captured chunk's steps
+MON_MIN_SCRAPES = 20  # /metrics scrapes while captured chunks run, at least
+MON_SCRAPE_HZ = 10.0  # the scraper's rate
+MON_EAGER = 2  # eager ResilientLoop steps (the BN launch count, the SLO leg)
+MON_POISON_AT = 4  # the poisoned chunk (after the step-8 checkpoint)
+MON_PROFILE_S = 0.5  # POST /profilez?duration_s=
+MON_GRACE_S = 2.0  # the hand-off's grace for the request no loop services
+MON_TURNS = 4  # rounds of server-off / server-on-and-scraped step timing
+MON_HTTP_TIMEOUT_S = 30.0  # every HTTP request's own timeout
+MON_PLANTED = "step.time_s p99 < 0.001"  # must fire (eager steps take ~90 ms)
+MON_LIVENESS = "step.time_s p99 < 60"  # must not
+
+
+def _http(url: str, method: str = "GET", timeout: float = MON_HTTP_TIMEOUT_S):
+    """(status, body bytes, seconds) of one request, 4xx/5xx included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=b"" if method == "POST" else None,
+                                 method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def _prometheus_series(text: str) -> int | None:
+    """The number of ``# TYPE`` families of a Prometheus 0.0.4 exposition,
+    or None when a line is neither a TYPE line nor ``name[{labels}] value``
+    with a number (NaN and ±Inf included)."""
+    import re
+
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? (\S+)$')
+    families = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            if len(parts) != 4 or parts[3] not in ("counter", "gauge", "histogram"):
+                return None
+            families += 1
+            continue
+        m = sample.match(line)
+        if not m:
+            return None
+        try:
+            float(m.group(2))
+        except ValueError:
+            return None
+    return families if text.endswith("\n") else None
+
+
+class _Scraper:
+    """A thread that GETs ``/metrics`` of the active env server at
+    ``MON_SCRAPE_HZ`` until stopped: (status, seconds, bytes, series) a
+    scrape."""
+
+    def __init__(self, port_fn):
+        import threading
+
+        self._port_fn, self.scrapes = port_fn, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="monitor-scraper",
+                                        daemon=True)
+
+    def _run(self):
+        deadline = time.monotonic() + 600
+        while not self._stop.is_set() and time.monotonic() < deadline:
+            port = self._port_fn()
+            if port is not None:
+                status, body, s = _http(f"http://127.0.0.1:{port}/metrics")
+                text = body.decode(errors="replace")
+                self.scrapes.append((status, s, len(body), _prometheus_series(text)))
+            self._stop.wait(1.0 / MON_SCRAPE_HZ)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=MON_HTTP_TIMEOUT_S + 5)
+
+
+def _monitor_chunks(torch):
+    """Three clean K = 4 chunks and one whose second step holds a NaN image."""
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    clean = [scan_driver.stack_batches([_trainer_batch(torch, 1300 + 4 * c + j)
+                                        for j in range(MON_K)]) for c in range(3)]
+    poison = scan_driver.stack_batches([_trainer_batch(torch, 1400 + j,
+                                                       nan_image=0 if j == 1 else None)
+                                        for j in range(MON_K)])
+    return clean, poison
+
+
+def _monitor_captured_leg(torch, dp, clean, poison, d, syncs, failures) -> dict:
+    """Gates 1-3: ``ResilientLoop(scan_steps=4)`` starts the env server
+    itself; /metrics scraped at ~10 Hz while captured chunks run (each 200 in
+    valid exposition; no synchronize from any thread but the main one);
+    /healthz and /readyz 200 before the planted divergence and after it; the
+    loop's readiness check records not-ready during the restore."""
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import server as obs_server
+
+    probes, state = {}, {"i": 0}
+
+    def port():
+        srv = obs_server.active_server()
+        return srv.port if srv is not None else None
+
+    def probe(tag):
+        base = f"http://127.0.0.1:{port()}"
+        probes[tag] = {r: _http(f"{base}/{r}")[0] for r in ("healthz", "readyz")}
+
+    with runtime.ResilientLoop(dp, os.path.join(d, "ckpt"), ckpt_every=2 * MON_K,
+                               scan_steps=MON_K) as loop, _Scraper(port) as scraper:
+        def batches():
+            for i in range(150):
+                state["i"] = i
+                if i == 2:
+                    probe("before")
+                if i == MON_POISON_AT + 3:
+                    probe("after")
+                if i > MON_POISON_AT + 3 and len(scraper.scrapes) >= MON_MIN_SCRAPES + 4:
+                    return
+                yield poison if i == MON_POISON_AT else clean[i % len(clean)]
+
+        t0 = time.perf_counter()
+        summary = loop.run(batches())
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        scrapes = list(scraper.scrapes)
+    during = [r for r in loop.readiness_log if r["recovering"]]
+    ok_scrapes = [s for s in scrapes if s[0] == 200 and s[3]]
+    secs = [s[1] for s in scrapes] or [float("nan")]
+    scrapes = scrapes or [(None, float("nan"), 0, None)]
+    gates = {
+        "scrapes": len(ok_scrapes) >= MON_MIN_SCRAPES and len(ok_scrapes) == len(scrapes),
+        "no_sync": syncs["other"] == 0,
+        "probes": probes.get("before") == probes.get("after") == {"healthz": 200,
+                                                                  "readyz": 200},
+        "restore": summary["divergence_restores"] == 1 and bool(during)
+        and not any(r["ok"] for r in during),
+    }
+    log(f"[monitor] ResilientLoop(scan_steps={MON_K}) with TPU_SYNCBN_METRICS_PORT=0 "
+        f"started the server itself (port {port()}); {state['i']} chunks in {loop_s:.2f}s "
+        f"while /metrics was scraped at {MON_SCRAPE_HZ:g} Hz: {len(ok_scrapes)}/"
+        f"{len(scrapes)} scrapes 200 in valid Prometheus text (want >= {MON_MIN_SCRAPES}), "
+        f"median {statistics.median(secs) * 1e3:.2f} ms, max {max(secs) * 1e3:.2f} ms a "
+        f"scrape, {scrapes[-1][2]} B and {scrapes[-1][3]} series; synchronizes from the "
+        f"server's threads {syncs['other']} (want 0; the loop's own {syncs['main']}); "
+        f"/healthz and /readyz before the planted divergence {probes.get('before')}, after "
+        f"it {probes.get('after')}; restores {summary['divergence_restores']}, the loop's "
+        f"readiness check recorded {len(during)} verdicts while recovering, ok: "
+        f"{[r['ok'] for r in during]} {'ok' if all(gates.values()) else 'FAIL'}")
+    for k, v in gates.items():
+        if not v:
+            failures.append(f"[monitor] captured leg: gate {k} failed")
+    return {"chunks": state["i"], "loop_s": loop_s, "scrapes": len(scrapes),
+            "scrapes_ok": len(ok_scrapes), "scrape_median_s": statistics.median(secs),
+            "scrape_max_s": max(secs), "exposition_bytes": scrapes[-1][2],
+            "series": scrapes[-1][3], "server_thread_syncs": syncs["other"],
+            "probes": probes, "recovering_verdicts": len(during),
+            "restores": summary["divergence_restores"]}
+
+
+def _monitor_bitwise(torch, dp, chunk, failures) -> bool:
+    """Gate 4: the same captured chunk from the same state, once with the
+    server up and scraped, once with no server: losses, state and monitors
+    bitwise equal."""
+    from tpu_syncbn_torch.obs import server as obs_server
+
+    start = dp.state_dict()
+    runs = []
+    for served in (True, False):
+        _restore_in_place(torch, dp, start)
+        srv = obs_server.MonitoringServer(port=0, host="127.0.0.1") if served else None
+        try:
+            with contextlib.ExitStack() as stack:
+                if srv is not None:
+                    stack.enter_context(_Scraper(lambda: srv.port))
+                    time.sleep(0.15)  # a scrape or two in flight first
+                out = dp.train_steps_batches(chunk)
+                torch.cuda.synchronize()
+        finally:
+            if srv is not None:
+                srv.close()
+        runs.append((out.loss.clone(), {k: v.clone() for k, v in out.monitors.items()},
+                     dp.state_dict()))
+    (l1, m1, s1), (l2, m2, s2) = runs
+    leaves1, leaves2 = _state_leaves(s1), _state_leaves(s2)
+    same = (torch.equal(l1, l2) and set(m1) == set(m2)
+            and all(torch.equal(m1[k], m2[k]) for k in m1)
+            and [p for p, _ in leaves1] == [p for p, _ in leaves2]
+            and all(_same_leaf(torch, a, b) for (_, a), (_, b) in zip(leaves1, leaves2)))
+    log(f"[monitor] one captured K={MON_K} chunk from the same state with the server up "
+        f"and scraped, and with no server: losses {l1.tolist()}, state and "
+        f"{len(m1)} monitors bitwise equal: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("[monitor] a chunk run while scraped differs from it run without "
+                        "the server")
+    return same
+
+
+def _monitor_slo(torch, T, dp, clean, d, rec, failures) -> dict:
+    """Gates 5-7: eager ``ResilientLoop`` steps (every BN kernel 53 x steps)
+    under an attached tracker with the planted objective, which fires (one
+    valid ``slo_alert`` bundle naming the rule in ``state.alerts``;
+    ``/statusz`` lists the alert and the last incident) while the
+    liveness-grade one does not; ``POST /incidentz`` gives a valid bundle."""
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import incident, server as obs_server, slo, telemetry
+
+    srv = obs_server.active_server()
+    agg = srv.aggregator
+    tracker = slo.SLOTracker(agg, [
+        slo.AlertRule("planted_p99", MON_PLANTED, windows_s=(120.0,), clear_for=3),
+        slo.AlertRule("liveness_p99", MON_LIVENESS, windows_s=(120.0,), clear_for=3),
+    ]).attach()
+    try:
+        agg.tick()
+        T.reset_launch_counts()
+        steps = [tuple(t[j] for t in clean[0]) for j in range(MON_EAGER)]
+        with runtime.ResilientLoop(dp, os.path.join(d, "eager_ckpt"), ckpt_every=1000) as loop:
+            loop.run(iter(steps))
+        torch.cuda.synchronize()
+        launches = T.launch_counts()
+        agg.tick()
+        before = len(_bundles_by_kind(rec.incident_dir).get("slo_alert", []))
+        out = tracker.evaluate()
+        fired = telemetry.snapshot()["counters"].get("obs.alert.fired", 0)
+        bundles = _bundles_by_kind(rec.incident_dir).get("slo_alert", [])
+        alerts = bundles[-1]["state"]["alerts"] if bundles else {}
+        base = f"http://127.0.0.1:{srv.port}"
+        _, page, _ = _http(base + "/statusz")
+        page = page.decode()
+        readyz = _http(base + "/readyz")[0]
+        status, body, inc_s = _http(base + "/incidentz", method="POST")
+        inc_doc = json.loads(body)
+        inc_ok = status == 200 and incident.load_bundle(inc_doc["path"])["trigger"][
+            "kind"] == "manual"
+    finally:
+        tracker.detach()
+    last = rec.last_incident or {}
+    want = dict.fromkeys(MOVES, BN_LAYERS * MON_EAGER)
+    gates = {
+        "launches": launches == want,
+        "fired": out["planted_p99"]["firing"] and fired >= 1,
+        "quiet": not out["liveness_p99"]["firing"],
+        "bundle": len(bundles) == before + 1 and
+        alerts.get("slo", {}).get("planted_p99", {}).get("firing") is True
+        and bundles[-1]["trigger"]["detail"]["rule"] == "planted_p99",
+        "statusz": "slo/planted_p99" in page and "FIRING" in page
+        and bundles[-1]["incident_id"] in page if bundles else False,
+        "incidentz": inc_ok,
+    }
+    log(f"[monitor] {MON_EAGER} eager ResilientLoop steps: BN launches "
+        f"{json.dumps(launches)} (want {BN_LAYERS} x {MON_EAGER} each); SLO tracker "
+        f"'{MON_PLANTED}' firing {out['planted_p99']['firing']} (burns "
+        f"{out['planted_p99']['burns']}), '{MON_LIVENESS}' firing "
+        f"{out['liveness_p99']['firing']}; obs.alert.fired {fired}; slo_alert bundles "
+        f"{len(bundles) - before} (state.alerts {json.dumps(alerts)}); /statusz lists the "
+        f"alert and the last incident: {gates['statusz']}; /readyz while firing {readyz}; "
+        f"POST /incidentz {status} in {inc_s * 1e3:.1f} ms, bundle valid {inc_ok} "
+        f"(last incident {last.get('trigger')}) {'ok' if all(gates.values()) else 'FAIL'}")
+    for k, v in gates.items():
+        if not v:
+            failures.append(f"[monitor] SLO leg: gate {k} failed")
+    return {"launches": launches, "planted_firing": out["planted_p99"]["firing"],
+            "liveness_firing": out["liveness_p99"]["firing"], "alert_fired": fired,
+            "slo_alert_bundles": len(bundles) - before, "readyz_while_firing": readyz,
+            "incidentz_status": status, "incidentz_s": inc_s}
+
+
+def _monitor_profilez(torch, dp, clean, d, failures) -> dict:
+    """Gate 8: ``POST /profilez?duration_s=0.5`` sent while the loop runs
+    answers 200 with device events within its bound (the loop on this, the
+    main thread, starts and stops the capture at chunk boundaries); the same
+    request with no loop to service it answers 503 within its bound."""
+    import threading
+
+    from tpu_syncbn_torch import runtime
+    from tpu_syncbn_torch.obs import profiling, server as obs_server
+
+    base = f"http://127.0.0.1:{obs_server.active_server().port}"
+    url = f"{base}/profilez?duration_s={MON_PROFILE_S:g}"
+    bound = MON_PROFILE_S + profiling.HANDOFF_GRACE_S
+    res = {}
+
+    def post():
+        res["served"] = _http(url, method="POST", timeout=bound + 10)
+
+    worker = threading.Thread(target=post, name="profilez-client", daemon=True)
+
+    def batches():
+        for i in range(400):
+            if i == 1:
+                worker.start()
+            if i > 1 and not worker.is_alive():
+                return
+            if i > 1:
+                time.sleep(0.2)  # a data wait: fewer chunks (and trace events) a second
+            yield clean[i % len(clean)]
+
+    with runtime.ResilientLoop(dp, os.path.join(d, "prof_ckpt"), ckpt_every=10 ** 6,
+                               scan_steps=MON_K) as loop:
+        loop.run(batches())
+    worker.join(timeout=bound + 15)
+    code, body, served_s = res.get("served", (None, b"{}", None))
+    doc = json.loads(body or b"{}")
+    grace, profiling.HANDOFF_GRACE_S = profiling.HANDOFF_GRACE_S, MON_GRACE_S
+    try:
+        code2, body2, idle_s = _http(url, method="POST", timeout=MON_PROFILE_S + MON_GRACE_S
+                                     + 10)
+    finally:
+        profiling.HANDOFF_GRACE_S = grace
+    doc2 = json.loads(body2)
+    gates = {
+        "served": code == 200 and doc.get("device_events", 0) > 0 and served_s < bound,
+        "idle": code2 == 503 and "main thread" in doc2.get("error", "")
+        and idle_s < MON_PROFILE_S + MON_GRACE_S + 2.0,
+    }
+    log(f"[monitor] POST /profilez?duration_s={MON_PROFILE_S:g} while the loop ran: {code} in "
+        f"{served_s if served_s is None else round(served_s, 3)} s (bound {bound:g} s), "
+        f"{doc.get('events')} events, {doc.get('device_events')} on the device, "
+        f"{doc.get('bytes')} B; with no loop to take it: {code2} in {idle_s:.3f} s (bound "
+        f"{MON_PROFILE_S + MON_GRACE_S:g} s): {doc2.get('error', '')[:90]}... "
+        f"{'ok' if all(gates.values()) else 'FAIL'}")
+    for k, v in gates.items():
+        if not v:
+            failures.append(f"[monitor] /profilez {k}: {code}/{code2} {doc} {doc2}")
+    return {"served_status": code, "served_s": served_s, "device_events":
+            doc.get("device_events"), "trace_bytes": doc.get("bytes"),
+            "idle_status": code2, "idle_s": idle_s}
+
+
+def _monitor_in_turns(torch, dp, chunk, card) -> dict:
+    """The captured step with no server against the server up and scraped
+    at ~10 Hz, in turns (CUDA events; shown, not gated)."""
+    from tpu_syncbn_torch.obs import server as obs_server
+
+    times = {"off": [], "on": []}
+    for r in range(MON_TURNS):
+        for mode in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            srv = obs_server.MonitoringServer(port=0, host="127.0.0.1") \
+                if mode == "on" else None
+            try:
+                with contextlib.ExitStack() as stack:
+                    if srv is not None:
+                        stack.enter_context(_Scraper(lambda: srv.port))
+                    _, dev, _ = _timed_calls(torch, lambda: dp.train_steps_batches(chunk), 2)
+            finally:
+                if srv is not None:
+                    srv.close()
+            times[mode].extend(v / MON_K for v in dev)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[monitor] the captured step (CUDA events, {MON_TURNS} turns x 2 chunks of "
+        f"{MON_K}): no server {med['off']:.3f} ms (range {min(times['off']):.3f}-"
+        f"{max(times['off']):.3f}), server up and scraped at {MON_SCRAPE_HZ:g} Hz "
+        f"{med['on']:.3f} ms (range {min(times['on']):.3f}-{max(times['on']):.3f}): "
+        f"{med['on'] - med['off']:+.3f} ms a step [{card}]")
+    return {"step_ms_off": med["off"], "step_ms_on": med["on"], "off": times["off"],
+            "on": times["on"]}
+
+
+def phase_monitor(torch, card, keep):
+    """Phase 13d (module docstring): the monitoring server, the SLO tracker
+    and ``/profilez`` on the guarded ResNet-50 trainer ``[incident]`` built
+    (``keep``: its K = 4 program warm). Returns (failures, summary)."""
+    import tempfile
+    import threading
+
+    from tpu_syncbn_torch.obs import flightrec, server as obs_server, telemetry
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    out: dict = {}
+    dp = keep["dp"]
+    clean, poison = _monitor_chunks(torch)
+    env_keys = ("TPU_SYNCBN_METRICS_PORT", "TPU_SYNCBN_PROFILE_DIR")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    determ = torch.backends.cudnn.deterministic
+    real_sync = torch.cuda.synchronize
+    syncs = {"main": 0, "other": 0}
+
+    def counting_sync(*a, **kw):
+        main = threading.current_thread() is threading.main_thread()
+        syncs["main" if main else "other"] += 1
+        return real_sync(*a, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_monitor_") as d:
+        os.environ["TPU_SYNCBN_METRICS_PORT"] = "0"
+        os.environ["TPU_SYNCBN_PROFILE_DIR"] = os.path.join(d, "prof")
+        telemetry.REGISTRY.reset()
+        telemetry.set_enabled(True)
+        rec = flightrec.install(flightrec.FlightRecorder(
+            incident_dir=os.path.join(d, "inc"), cooldown_s=0.0))
+        # the rebuilt graph after the restore picks deterministic algorithms,
+        # so two replays from one state are bitwise (gate 4)
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.synchronize = counting_sync
+        try:
+            out["captured"] = _monitor_captured_leg(torch, dp, clean, poison, d, syncs,
+                                                    failures)
+            out["bitwise_chunk"] = _monitor_bitwise(torch, dp, clean[0], failures)
+            out["slo"] = _monitor_slo(torch, T, dp, clean, d, rec, failures)
+            out["profilez"] = _monitor_profilez(torch, dp, clean, d, failures)
+            out["server_thread_syncs"] = syncs["other"]
+            if syncs["other"]:
+                failures.append(f"[monitor] {syncs['other']} synchronizes off the main thread")
+            torch.cuda.synchronize = real_sync
+            # the timed graph is captured as every other phase's is
+            # (cuDNN free to pick nondeterministic algorithms)
+            torch.backends.cudnn.deterministic = determ
+            for cache in dp.program_caches:
+                cache.clear()
+            dp.train_steps_batches(clean[0])
+            out["in_turns"] = _monitor_in_turns(torch, dp, clean[0], card)
+        finally:
+            torch.cuda.synchronize = real_sync
+            torch.backends.cudnn.deterministic = determ
+            obs_server.stop_env_server()
+            flightrec.uninstall()
+            rec.close()
+            telemetry.set_enabled(None)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    keep.clear()
+    del dp, clean, poison
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    c, t = out["captured"], out["in_turns"]
+    log(f"[monitor] scrape median {c['scrape_median_s'] * 1e3:.2f} ms / max "
+        f"{c['scrape_max_s'] * 1e3:.2f} ms for {c['series']} series ({c['exposition_bytes']} B); "
+        f"captured step {t['step_ms_off']:.3f} ms without the server, {t['step_ms_on']:.3f} ms "
+        f"scraped; phase {out['phase_s']:.1f}s (budget 60 s), {len(failures)} failures [{card}]")
     return failures, out
 
 
@@ -5375,8 +5939,12 @@ def main() -> int:
     obs_failures, obs = phase_obs(torch, card)
     failures += obs_failures
     torch.cuda.empty_cache()
-    inc_failures, incident_out = phase_incident(torch, card)
+    shared: dict = {}
+    inc_failures, incident_out = phase_incident(torch, card, shared)
     failures += inc_failures
+    torch.cuda.empty_cache()
+    mon_failures, monitor_out = phase_monitor(torch, card, shared)
+    failures += mon_failures
     torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
@@ -5456,7 +6024,8 @@ def main() -> int:
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
-        "resilience": resilience, "obs": obs, "incident": incident_out}}),
+        "resilience": resilience, "obs": obs, "incident": incident_out,
+        "monitor": monitor_out}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

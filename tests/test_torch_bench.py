@@ -2,10 +2,13 @@
 bench runs its small CPU config (here cut further by the
 ``BENCH_*`` overrides it honours) and prints one JSON line with every key
 of its contract, ``mfu`` null (no peak on the CPU), FLOPs from
-``torch.utils.flop_counter``, the ``incident``, ``memory`` and
-``compile`` blocks (a forced bundle that validates, the host's reading with
-no device contract, one planted ``mem_pressure`` bundle, a profiler capture
-through ``serve_capture``, the first step's compile event), and the
+``torch.utils.flop_counter``, the ``monitor``, ``numerics``, ``incident``,
+``memory`` and ``compile`` blocks (a port-0 server's scrape and probes on
+the loop's window, the publisher's samples and one forced
+``numerics_drift`` bundle, a forced bundle that validates, the host's
+reading with no device contract, one planted ``mem_pressure`` bundle, a
+profiler capture through ``serve_capture``, the first step's compile
+event), and the
 ``telemetry`` block checked against the registry schema
 (``obs.telemetry.validate_snapshot``); ``--trace`` writes a Chrome trace
 that validates. Numbers from this run are CPU numbers and are checked for
@@ -21,7 +24,7 @@ KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
         "device_kind", "host_load_1m", "recovery", "scan", "collectives",
-        "incident", "memory", "compile", "telemetry"}
+        "monitor", "numerics", "incident", "memory", "compile", "telemetry"}
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
@@ -37,6 +40,12 @@ MEMORY_KEYS = {"source", "bytes_in_use", "peak_bytes", "warm_peak_bytes", "rss_b
                "cache_bytes_live", "contract_bytes_per_device", "contract_source",
                "used_frac", "headroom_frac", "samples", "sample_cost_s",
                "sample_overhead_frac", "pressure", "profilez"}
+MONITOR_KEYS = {"port", "metrics_fetch_s", "exposition_bytes", "series", "healthz_ok",
+                "readyz_ok", "windowed_steps", "cumulative_steps", "window_agreement",
+                "steps_per_s_windowed", "step_p99_s_windowed", "slo_burn_rate",
+                "slo_firing"}
+NUMERICS_KEYS = {"monitors", "samples", "published", "record_step_cost_s",
+                 "record_overhead_frac", "drift", "rules"}
 COMPILE_KEYS = {"warmup_s", "events_total", "storms", "time_s_count", "time_s_sum",
                 "families"}
 
@@ -78,7 +87,25 @@ def check_obs_blocks(line, steps):
     and its forced bundle validated; on the CPU the memory block has the
     host's reading and no device contract, its drill one ``mem_pressure``
     bundle, its capture a 200; the first eager step is the one compile
-    event (family ``train``) and no storm."""
+    event (family ``train``) and no storm. The monitor block scraped a
+    port-0 server over the loop's window (every timed step in it), and the
+    numerics block's forced drift gave one valid bundle."""
+    mon = line["monitor"]
+    assert set(mon) == MONITOR_KEYS
+    assert mon["port"] > 0 and mon["exposition_bytes"] > 0 and mon["series"] > 0
+    assert mon["metrics_fetch_s"] > 0 and mon["healthz_ok"] and mon["readyz_ok"]
+    assert mon["windowed_steps"] == mon["cumulative_steps"] == steps
+    assert mon["window_agreement"] == 1.0 and mon["steps_per_s_windowed"] > 0
+    assert mon["slo_burn_rate"] == 0.0 and mon["slo_firing"] is False
+    num = line["numerics"]
+    assert set(num) == NUMERICS_KEYS
+    assert num["published"] == steps and num["samples"] == steps + 1
+    assert set(num["monitors"]) == {"bn_mean_skew", "bn_var_skew", "replica_grad_norm",
+                                    "replica_grad_norm_disp"}
+    assert num["record_step_cost_s"] > 0 and 0 < num["record_overhead_frac"] < 1
+    assert num["drift"] == {"bundles": 1, "trigger": "numerics_drift",
+                            "ring_steps": steps, "valid": True}
+    assert num["rules"] == ["numerics_residual", "numerics_skew", "numerics_clip"]
     inc = line["incident"]
     assert set(inc) == INCIDENT_KEYS
     assert inc["trigger"] == "manual" and inc["bundle_bytes"] > 0
@@ -104,7 +131,8 @@ def check_obs_blocks(line, steps):
 def check_telemetry_block(block, steps):
     """The registry snapshot: schema 1, the timed loop's step and data-wait
     histograms (one sample a timed step), the recovery block's checkpoint
-    timings, the numerics monitors published once a timed step."""
+    timings, the numerics monitors published once a timed step (and the
+    numerics block's one forced drift sample)."""
     from tpu_syncbn_torch.obs import telemetry
 
     telemetry.validate_snapshot(block)
@@ -113,7 +141,7 @@ def check_telemetry_block(block, steps):
     assert hists["step.data_wait_s"]["count"] == steps
     assert hists["checkpoint.save_s"]["count"] >= 1
     assert hists["checkpoint.load_s"]["count"] >= 1
-    assert block["counters"]["numerics.samples"] == steps
+    assert block["counters"]["numerics.samples"] == steps + 1
     assert hists["numerics.replica_grad_norm"]["count"] == steps
 
 

@@ -628,3 +628,94 @@ def test_trees_keep_their_kind():
     assert isinstance(out, torch.Tensor) and torch.equal(out, a)
     with pytest.raises(TypeError, match="tensor"):
         C.compressed_psum(3.0, None, mode="int8")
+
+
+# -- the encode's residual bound (ops.quant_int8.encode_residual_bound) ------
+
+
+def _adversarial_chunks(qmax: int) -> list:
+    """Payload chunks of 256 f32 that stress the encode's roundings: codes
+    on the rounding boundaries (and one ulp either side), a large |zp|
+    beside a narrow range, a constant chunk, f32's extremes that gradients
+    still reach, and plain noise."""
+    rs = np.random.RandomState(7 + qmax)
+    f32 = np.float32
+    out = []
+    for amp in (1.0, 3.0e-3, 7.7e5):
+        # (j + 1/2) steps from a zero midpoint: each code sits on a tie
+        scale = f32(f32(amp) * f32(1.0 / qmax))
+        j = np.arange(-qmax, qmax, dtype=np.float64)
+        ties = ((j + 0.5) * float(scale)).astype(f32)
+        ring = np.concatenate([ties, np.nextafter(ties, f32(np.inf)),
+                               np.nextafter(ties, f32(-np.inf)), [f32(-amp), f32(amp)]])
+        out.append(np.resize(ring, 256).astype(f32))
+    for base, width in ((1.0e4, 1.0e-2), (-3.0e6, 1.0), (6.5e7, 40.0), (2.5e-3, 1e-9)):
+        out.append((f32(base) + (rs.rand(256) * width).astype(f32)).astype(f32))
+    out.append(np.full(256, 3.7, f32))
+    for amp in (1.0e37, 1.0e-30, 3.0e-39):  # near f32's max, tiny, subnormal
+        out.append((rs.randn(256) * amp).astype(f32))
+    out.append(rs.randn(256).astype(f32))
+    return out
+
+
+def _encoded(qmax: int):
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+
+    chunks = _adversarial_chunks(qmax)
+    g = torch.from_numpy(np.concatenate(chunks))
+    # a residual carried in from the last step, ~a step of each chunk wide
+    e = torch.from_numpy(np.concatenate([
+        (np.random.RandomState(len(c)).randn(256) * 1e-3 * (np.abs(c).max() or 1.0) / qmax)
+        .astype(np.float32) for c in chunks]))
+    ranges = Q.minmax_plain(g, e, 256)
+    q, scale, zp, res = Q.encode_plain(g, e, ranges, qmax, 256, True)
+    p = g + e
+    assert torch.isfinite(p).all() and torch.isfinite(scale).all()
+    return Q, p, q, scale, zp, res
+
+
+@pytest.mark.parametrize("qmax", (127, 63, 1))
+def test_encode_residual_within_its_derived_bound(qmax):
+    """Every residual of the plain encode lies inside the bound derived from
+    its f32 arithmetic, on chunks built to push each rounding; the bound is
+    scale/2 plus a few roundings, not a wider slack."""
+    Q, p, q, scale, zp, res = _encoded(qmax)
+    bound = Q.encode_residual_bound(p, scale, zp, q, 256)
+    over = res.double().abs() - bound
+    assert float(over.max()) <= 0, int(over.argmax())
+    half = scale.double().repeat_interleave(256) / 2
+    slack = (bound - half) / (half + 1e-300)
+    # where |zp| is at most 1000 half-steps the slack stays under
+    # u (1 + 8 qmax + 2000) of scale/2, a few thousand roundings
+    narrow = zp.double().abs().repeat_interleave(256) <= 1e3 * half
+    assert float(slack[narrow].max()) < 2.0 ** -12
+
+
+@pytest.mark.parametrize("qmax", (127, 63, 1))
+def test_encode_residual_bound_catches_planted_faults(qmax):
+    """The same bound catches an off-by-one code, and a residual formed with
+    a scale k ulps off, k taken from the derivation: at a code ±qmax the
+    residual moves by k ulp(scale) qmax, which must exceed twice the
+    chunk's bound."""
+    Q, p, q, scale, zp, _ = _encoded(qmax)
+    n_chunks = scale.numel()
+    blocks = p.view(n_chunks, 256)
+    qf = q.view(n_chunks, 256).to(torch.float32)
+
+    def residual(sc, codes):
+        return (blocks - (sc[:, None] * codes + zp[:, None])).reshape(-1)
+
+    bound = Q.encode_residual_bound(p, scale, zp, q, 256)
+    # an off-by-one code on every element
+    bad = residual(scale, qf + 1.0).double().abs() > bound
+    assert bad.view(n_chunks, 256).any(dim=1).all()
+    # a scale k ulps off, chunk by chunk with each chunk's own k
+    at_edge = qf.abs() == qmax
+    ulp = torch.from_numpy(np.spacing(scale.numpy())).double()
+    b_edge = torch.where(at_edge, bound.view(n_chunks, 256), 0.0).amax(dim=1)
+    k = torch.floor(2 * b_edge / (ulp * qmax)) + 1
+    wrong = (scale.double() + k * ulp).to(torch.float32)
+    live = at_edge.any(dim=1) & (wrong != scale)
+    bad = (residual(wrong, qf).double().abs() > bound).view(n_chunks, 256)
+    assert int(live.sum()) >= n_chunks - 1  # all but the constant chunk
+    assert bad.any(dim=1)[live].all()

@@ -626,3 +626,26 @@ def test_the_cli_inspects_diffs_and_merges(tmp_path, capsys):
     assert incident.main(["merge", str(tmp_path / "m.json"), a, b]) == 0
     assert os.path.exists(tmp_path / "m.json")
     assert incident.main(["inspect", str(tmp_path / "missing.json")]) == 1
+
+
+def test_host_ring_rows_recycle_and_growth_is_counted(monkeypatch):
+    """The page-locked rows of the step ring's host copies (plain host
+    memory here): one row a ring entry plus one, handed out in turn, a row
+    coming round only after the ring has moved past its entry; a wider
+    record widens the block, and the recorder counts each widening
+    (``incident.host_block_grows``)."""
+    monkeypatch.setattr(flightrec._HostRing, "_alloc", lambda self: torch.zeros(
+        (self.rows, self.width + 1), dtype=torch.float64))
+    ring = flightrec._HostRing(rows=4, width=3)
+    views = [ring.take(2) for _ in range(5)]
+    assert all(v.shape == (3,) for v in views)
+    assert len({v.data_ptr() for v in views[:4]}) == 4
+    assert views[4].data_ptr() == views[0].data_ptr()
+    assert not ring.reserve(3) and ring.reserve(5) and ring.width == 6
+    rec = flightrec.FlightRecorder(step_capacity=3)
+    assert rec._host_ring is None  # no CUDA here: nothing taken
+    rec._host_ring = flightrec._HostRing(4, flightrec.STEP_RING_WIDTH)
+    assert rec._ring_for(13) is rec._host_ring and rec.counters.count("host_block_grows") == 0
+    wide = flightrec.STEP_RING_WIDTH + 1
+    assert rec._ring_for(wide).width >= wide and rec.counters.count("host_block_grows") == 1
+    assert rec._ring_for(5).width >= wide and rec.counters.count("host_block_grows") == 1

@@ -1132,3 +1132,157 @@ def test_a_dump_while_the_step_is_running_reads_pending(cuda_card, tmp_path):
     entry = rec.rings_snapshot()["steps"][0]
     assert entry["metrics"] == {"lr": 0.1, "loss": 0.25, "n": 3.0}
     assert entry["monitors"] == {"grad_norm": "inf"}
+
+
+def test_publisher_and_recorder_take_no_page_locked_block_on_a_step(cuda_card, tmp_path,
+                                                                   monkeypatch):
+    """Both take their page-locked rows when built; ``publish`` and
+    ``record_step`` then allocate none (a process's first page-locked
+    allocation waits for the device), for more steps than either ring
+    holds."""
+    from tpu_syncbn_torch.obs import flightrec, numerics, telemetry
+
+    telemetry.set_enabled(True)
+    try:
+        pub = numerics.NumericsPublisher(max_pending=4)
+        rec = flightrec.FlightRecorder(incident_dir=str(tmp_path), step_capacity=3)
+        real_empty = torch.empty
+
+        def no_pinned(*a, **kw):
+            assert not kw.get("pin_memory"), "a page-locked allocation on a step"
+            return real_empty(*a, **kw)
+
+        monkeypatch.setattr(torch, "empty", no_pinned)
+        for step in range(12):
+            v = torch.full((), float(step), device="cuda")
+            pub.publish(step, {"bn_mean_skew": v, "bn_var_skew": v * 2})
+            rec.record_step(step, metrics={"loss": v}, monitors={"grad_norm": v + 1})
+        monkeypatch.setattr(torch, "empty", real_empty)
+        pub.flush()
+        assert pub.published == 12 and pub.last == {"bn_mean_skew": 11.0, "bn_var_skew": 22.0}
+        torch.cuda.synchronize()
+        steps = rec.rings_snapshot()["steps"]
+        assert [e["step"] for e in steps] == [9, 10, 11]
+        assert [e["metrics"]["loss"] for e in steps] == [9.0, 10.0, 11.0]
+        assert [e["monitors"]["grad_norm"] for e in steps] == [10.0, 11.0, 12.0]
+    finally:
+        telemetry.set_enabled(None)
+
+
+def test_metrics_scrape_while_a_captured_chunk_runs_does_not_wait(cuda_triton):
+    """A ``/metrics`` scrape (and ``/readyz``, ``/statusz``) while a
+    captured chunk queued behind ~0.5 s of device sleep is still running:
+    each answers 200 at once, with no synchronize, the chunk still
+    pending."""
+    import json as _json
+    import urllib.request
+
+    from tpu_syncbn_torch.obs import server as obs_server, telemetry
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    _, dp = _card_trainer()
+    chunk = scan_driver.stack_batches([_card_batch(i) for i in range(3)])
+    dp.train_steps_batches(chunk)  # captures the program
+    torch.cuda.synchronize()
+    telemetry.set_enabled(True)
+    real_sync = torch.cuda.synchronize
+
+    def forbidden(*a, **kw):
+        raise AssertionError("a synchronize in the monitoring server")
+
+    srv = obs_server.MonitoringServer(port=0, host="127.0.0.1")
+    try:
+        torch.cuda._sleep(int(1e9))
+        dp.train_steps_batches(chunk)  # a replay, queued behind the sleep
+        done = torch.cuda.Event()
+        done.record()
+        torch.cuda.synchronize = forbidden
+        t0 = time.perf_counter()
+        for route in ("metrics", "readyz", "statusz"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/{route}",
+                                        timeout=10) as resp:
+                assert resp.status == 200, route
+                body = resp.read()
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize = real_sync
+        assert not done.query() and elapsed < 0.25, elapsed
+        assert body.startswith(b"tpu_syncbn statusz")
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/healthz",
+                                    timeout=10) as resp:
+            assert _json.loads(resp.read())["ok"] is True
+    finally:
+        torch.cuda.synchronize = real_sync
+        srv.close()
+        telemetry.set_enabled(None)
+        torch.cuda.synchronize()
+
+
+def test_cuda_profilez_without_a_servicing_loop_answers_503_in_bound(cuda_card, tmp_path,
+                                                                    monkeypatch):
+    """CUDA is initialized, so the handler thread hands the capture to the
+    main thread; nothing services the slot, so the request answers 503
+    naming the main-thread rule once its duration plus the grace has
+    passed, and the slot is clear again."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    from tpu_syncbn_torch.obs import profiling, server as obs_server
+
+    torch.zeros(1, device="cuda").add_(1)
+    monkeypatch.setenv("TPU_SYNCBN_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setattr(profiling, "HANDOFF_GRACE_S", 0.5)
+    with obs_server.MonitoringServer(port=0, host="127.0.0.1") as srv:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/profilez?duration_s=0.2", data=b"",
+            method="POST")
+        t0 = time.perf_counter()
+        try:
+            urllib.request.urlopen(req, timeout=10)
+            status, doc = 200, None
+        except urllib.error.HTTPError as e:
+            status, doc = e.code, _json.loads(e.read())
+        elapsed = time.perf_counter() - t0
+    assert status == 503 and "main thread" in doc["error"]
+    assert 0.7 <= elapsed < 3.0, elapsed
+    assert profiling._slot is None and not profiling._capture_lock.locked()
+
+
+def test_first_publish_and_record_behind_queued_work_return_at_once(cuda_card, tmp_path):
+    """Run alone in a fresh process too (``chip_smoke.py`` does): a
+    publisher and a recorder built before ~0.5 s of device work is queued,
+    handed a step's scalars computed before it (as a step's own kernels
+    compute its monitors), return at once with their entries pending —
+    neither takes a page-locked block nor launches a kernel for the first
+    time on a call (CUDA loads a kernel at its first launch, and the load
+    waits for all queued work) — and read the step's own values once the
+    work lands."""
+    from tpu_syncbn_torch.obs import flightrec, numerics, telemetry
+
+    telemetry.set_enabled(True)
+    telemetry.REGISTRY.reset()
+    try:
+        value = torch.full((), 2.0, device="cuda")
+        loss = torch.full((), 1.0, device="cuda")
+        count = torch.full((), 3, dtype=torch.int32, device="cuda")
+        pub = numerics.NumericsPublisher()
+        rec = flightrec.FlightRecorder(incident_dir=str(tmp_path))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(1e9))  # ~0.5 s of device time on the stream
+        done = torch.cuda.Event()
+        done.record()
+        t0 = time.perf_counter()
+        first = pub.publish(1, {"bn_mean_skew": value, "clip_fraction": value})
+        rec.record_step(1, metrics={"loss": loss, "n": count}, monitors={"grad_norm": value})
+        pending = rec.rings_snapshot()["steps"][0]
+        elapsed = time.perf_counter() - t0
+        assert first == 0 and not done.query() and elapsed < 0.1, elapsed
+        assert pending["metrics"] == {"loss": flightrec.PENDING, "n": flightrec.PENDING}
+        torch.cuda.synchronize()
+        assert pub.publish(2, None) == 1
+        assert pub.last == {"bn_mean_skew": 2.0, "clip_fraction": 2.0}
+        entry = rec.rings_snapshot()["steps"][0]
+        assert entry["metrics"] == {"loss": 1.0, "n": 3.0}
+        assert entry["monitors"] == {"grad_norm": 2.0}
+    finally:
+        telemetry.set_enabled(None)

@@ -8,8 +8,9 @@ JSON line:
      "image_side", "steps", "compile_warmup_s", "mfu", "flops_per_step",
      "flops_source", "peak_flops", "peak_source", "device_kind",
      "host_load_1m", "recovery": {...}, "scan": {...},
-     "collectives": {...}, "incident": {...}, "memory": {...},
-     "compile": {...}, "telemetry": {...}}
+     "collectives": {...}, "monitor": {...}, "numerics": {...},
+     "incident": {...}, "memory": {...}, "compile": {...},
+     "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
@@ -59,8 +60,17 @@ a forced manual bundle gives its dump time, size and attribution; the
 memory contract is the warm step's measured ``max_memory_allocated`` (the
 port has no audited peak) and a planted drill fires one ``mem_pressure``
 bundle on a scratch recorder; one bounded profiler capture runs through
-``obs.profiling.serve_capture``. The JAX bench's ``monitor`` block needs
-the monitoring server (ROADMAP A.11c) and is not here.
+``obs.profiling.serve_capture``.
+
+``monitor`` (:func:`measure_monitor`) is the live-monitoring layer on the
+run's own metrics: an ephemeral ``obs.server.MonitoringServer`` on port 0
+sharing the loop's windowed aggregator, one ``/metrics`` scrape, the
+probes, the windowed step rate and p99, and one SLO evaluation.
+``numerics`` (:func:`measure_numerics`) is the numerics publisher that
+rode the loop: the final monitors, its samples, its cost a publish and one
+forced ``numerics_drift`` bundle. Both are ``bench.py``'s blocks of those
+names, key for key, and ``numerics`` runs before the ``incident`` block's
+forced dump, as there.
 
 ``telemetry`` is the process registry's snapshot (``obs.telemetry``, schema
 1, as ``bench.py``'s): the timed loop's ``step.time_s`` and
@@ -389,6 +399,167 @@ def measure_incident(recorder, last_out, *, steps: int, wall_s: float,
     }
 
 
+def measure_monitor(agg) -> dict:
+    """The ``monitor`` block (``bench.py``'s ``measure_monitor``): the
+    live-monitoring layer benchmarked on the run's own metrics.
+
+    Spins an ephemeral :class:`~tpu_syncbn_torch.obs.server.MonitoringServer`
+    on port 0 sharing the run's windowed aggregator (``agg`` was ticked
+    around the timed loop) and reports:
+
+    * ``metrics_fetch_s`` / ``exposition_bytes`` / ``series`` — one
+      ``/metrics`` scrape end to end (render + HTTP), the latency a
+      Prometheus scraper would pay against this process;
+    * ``healthz_ok`` / ``readyz_ok`` — the probe endpoints answer;
+    * ``window_agreement`` — windowed ``step.time_s`` count over the
+      cumulative count: the delta layer saw exactly the steps the
+      registry did (1.0 = no samples lost between ticks);
+    * rolling ``steps_per_s_windowed`` / ``step_p99_s_windowed`` and one
+      SLO evaluation (``step.time_s p99 < 60`` — a liveness-grade
+      objective any healthy run meets) with its burn rate, proving the
+      alert path computes on real data."""
+    import urllib.error
+    from urllib.request import urlopen
+
+    from tpu_syncbn_torch.obs import server as obs_server, slo as obs_slo, telemetry
+
+    def probe(url):
+        """(status, body) without raising on 5xx — a 503 readiness answer
+        is a measurement (``readyz_ok: false``), not a failure."""
+        try:
+            with urlopen(url, timeout=30) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    srv = obs_server.MonitoringServer(port=0, host="127.0.0.1", aggregator=agg)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        t0 = time.perf_counter()
+        status, body = probe(base + "/metrics")
+        fetch_s = time.perf_counter() - t0
+        if status != 200:
+            raise RuntimeError(f"/metrics answered {status}")
+        healthz_ok = probe(base + "/healthz")[0] == 200
+        readyz_ok = probe(base + "/readyz")[0] == 200
+    finally:
+        srv.close()
+
+    windowed = agg.windowed_snapshot()
+    telemetry.validate_snapshot(windowed)
+    w_steps = windowed["histograms"].get("step.time_s", {}).get("count", 0)
+    c_steps = telemetry.snapshot()["histograms"].get("step.time_s", {}).get("count", 0)
+    tracker = obs_slo.SLOTracker(agg, [obs_slo.AlertRule(
+        "bench_step", "step.time_s p99 < 60", windows_s=(3600.0,),
+    )])
+    tracker.evaluate()
+    state = tracker.state()["bench_step"]
+    burns = [b for b in state["burns"].values() if b is not None]
+    p99 = agg.quantile("step.time_s", 0.99)
+    rate = agg.rate("step.time_s")
+    return {
+        "port": srv.port,
+        "metrics_fetch_s": round(fetch_s, 6),
+        "exposition_bytes": len(body),
+        "series": body.count(b"# TYPE "),
+        "healthz_ok": bool(healthz_ok),
+        "readyz_ok": bool(readyz_ok),
+        "windowed_steps": w_steps,
+        "cumulative_steps": c_steps,
+        "window_agreement": round(w_steps / c_steps, 4) if c_steps else None,
+        "steps_per_s_windowed": round(rate, 4) if rate is not None else None,
+        "step_p99_s_windowed": round(p99, 6) if p99 is not None else None,
+        "slo_burn_rate": round(max(burns), 4) if burns else None,
+        "slo_firing": bool(state["firing"]),
+    }
+
+
+def measure_numerics(publisher, monitors, *, steps: int, wall_s: float) -> dict:
+    """The ``numerics`` block (``bench.py``'s ``measure_numerics``): the
+    numerics publisher rode the timed loop (one non-blocking ``publish`` a
+    step beside ``flightrec.record_step``), so the ``numerics.*``
+    histograms hold the loop's series. Reports:
+
+    * ``monitors`` — the final step's numerics monitor values;
+    * ``samples`` / ``published`` — the registry's sample count and how
+      many step records the loop's publisher emitted;
+    * ``record_step_cost_s`` / ``record_overhead_frac`` — one publish of
+      plain-float monitors (the queue and emit path itself), micro-measured
+      into a scratch registry, over the timed loop's average step;
+    * ``drift`` — a forced threshold crossing must produce exactly ONE
+      valid ``numerics_drift`` bundle carrying the step ring;
+    * ``rules`` — the ``numerics_rules()`` SLO rule names."""
+    from tpu_syncbn_torch.obs import (
+        flightrec, incident as incident_mod, numerics as obs_numerics, telemetry,
+    )
+
+    publisher.flush()
+    final: dict = {}
+    for key in sorted(obs_numerics.PUBLISHED_MONITORS):
+        if isinstance(monitors, dict) and key in monitors:
+            try:
+                v = float(monitors[key])
+            except (TypeError, ValueError):
+                final[key] = None
+                continue
+            # non-finite values become strings (strict JSON), as the
+            # flight recorder's ring entries do
+            finite = v == v and abs(v) != float("inf")
+            final[key] = round(v, 6) if finite else str(v)
+    # steady-state publish cost on plain floats (ready by construction),
+    # into a scratch registry: 1000 synthetic records would otherwise
+    # dilute the run's numerics series
+    probe = obs_numerics.NumericsPublisher(thresholds={})
+    sample = {k: 0.0 for k in ("bn_mean_skew", "bn_var_skew", "replica_grad_norm",
+                               "replica_grad_norm_disp")}
+    live_registry = telemetry.REGISTRY
+    telemetry.REGISTRY = telemetry.Registry()
+    try:
+        t0 = time.perf_counter()
+        for i in range(1000):
+            probe.publish(i, sample)
+        record_cost_s = (time.perf_counter() - t0) / 1000
+    finally:
+        telemetry.REGISTRY = live_registry
+    avg_step_s = wall_s / steps if steps else None
+    # forced drift: a publisher with a zero threshold dumps exactly one
+    # numerics_drift bundle whose step ring holds the loop's monitors
+    drift = None
+    rec = flightrec.get()
+    if rec is not None:
+        drift_dir = tempfile.mkdtemp(prefix="bench_numerics_")
+        prev_dir = rec.incident_dir
+        rec.incident_dir = drift_dir
+        try:
+            dpub = obs_numerics.NumericsPublisher(thresholds={"bn_mean_skew": 0.0})
+            dpub.publish(steps, {"bn_mean_skew": 1.0})
+            names = [n for n in os.listdir(drift_dir) if n.endswith(".json")]
+            drift = {"bundles": len(names), "trigger": None, "ring_steps": 0,
+                     "valid": False}
+            if len(names) == 1:
+                bundle = incident_mod.load_bundle(os.path.join(drift_dir, names[0]))
+                drift = {
+                    "bundles": 1,
+                    "trigger": bundle["trigger"]["kind"],
+                    "ring_steps": len(bundle["rings"]["steps"]),
+                    "valid": bundle["trigger"]["kind"] == "numerics_drift",
+                }
+        finally:
+            rec.incident_dir = prev_dir
+            shutil.rmtree(drift_dir, ignore_errors=True)
+    snap = telemetry.snapshot()
+    return {
+        "monitors": final,
+        "samples": snap["counters"].get("numerics.samples", 0),
+        "published": publisher.published,
+        "record_step_cost_s": round(record_cost_s, 9),
+        "record_overhead_frac": (
+            round(record_cost_s / avg_step_s, 6) if avg_step_s else None),
+        "drift": drift,
+        "rules": [r.name for r in obs_numerics.numerics_rules()],
+    }
+
+
 def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
                    wall_s: float) -> dict:
     """The ``memory`` block (``bench.py``'s ``measure_memory``): the sampler
@@ -598,6 +769,12 @@ def run(device: torch.device, scan: int = 1) -> dict:
                           "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
     publisher.flush()
     try:
+        monitor_info = measure_monitor(agg)
+        # before the incident block: its forced drift trigger is not forced
+        # at the recorder, so it must land before a forced dump spends the
+        # cooldown
+        numerics_info = measure_numerics(publisher, last[0].monitors, steps=steps,
+                                         wall_s=dt)
         incident_info = measure_incident(recorder, last[0], steps=steps, wall_s=dt,
                                          flops_per_step=flops, tallies=step_tallies)
         memory_info = measure_memory(mem_sampler, warm_peak_bytes=warm_peak,
@@ -635,6 +812,8 @@ def run(device: torch.device, scan: int = 1) -> dict:
         "recovery": recovery,
         "scan": scan_info,
         "collectives": collectives,
+        "monitor": monitor_info,
+        "numerics": numerics_info,
         "incident": incident_info,
         "memory": memory_info,
         "compile": compile_info,

@@ -1,4 +1,4 @@
-"""Observability (ROADMAP A.11a and A.11b) — the counterpart of
+"""Observability (ROADMAP A.11a–A.11c) — the counterpart of
 ``tpu_syncbn.obs`` for what the training step feeds, returns and leaves
 behind:
 
@@ -17,8 +17,14 @@ behind:
   ``numerics.*`` publisher;
 * :mod:`~tpu_syncbn_torch.obs.timeseries` — windowed rates, quantiles and
   snapshots over the registry;
-* :mod:`~tpu_syncbn_torch.obs.server` — the heartbeat table and the
-  readiness registry (the liveness half; the HTTP server is A.11c);
+* :mod:`~tpu_syncbn_torch.obs.server` — the heartbeat table, the
+  readiness registry and the env-gated (``TPU_SYNCBN_METRICS_PORT``)
+  stdlib HTTP server: ``/metrics`` Prometheus exposition, ``/healthz``,
+  ``/readyz``, ``/statusz``, ``POST /incidentz`` and ``POST /profilez``;
+* :mod:`~tpu_syncbn_torch.obs.slo` — declarative SLO objectives with
+  multi-window error-budget burn-rate alert rules (hysteresis), feeding
+  ``/readyz``, the ``obs.alert.*`` counters and the ``slo_alert``
+  incident trigger, and the rule sets (``standard_rules``);
 * :mod:`~tpu_syncbn_torch.obs.flightrec` and
   :mod:`~tpu_syncbn_torch.obs.incident` — the flight recorder's bounded
   rings, its triggers (``TPU_SYNCBN_FLIGHTREC``, bundles under
@@ -29,9 +35,6 @@ behind:
 * :mod:`~tpu_syncbn_torch.obs.profiling` — compile events, the
   recompile-storm detector and the bounded ``torch.profiler`` capture
   (``TPU_SYNCBN_PROFILE_DIR``).
-
-Still to port (ROADMAP A.11c): the monitoring server's HTTP half, ``slo``
-and the ``*_rules`` SLO rule sets.
 """
 
 from tpu_syncbn_torch.obs import (
@@ -41,6 +44,7 @@ from tpu_syncbn_torch.obs import (
     numerics,
     profiling,
     server,
+    slo,
     stepstats,
     telemetry,
     timeseries,
@@ -50,6 +54,8 @@ from tpu_syncbn_torch.obs.flightrec import FlightRecorder
 from tpu_syncbn_torch.obs.memwatch import MemorySampler
 from tpu_syncbn_torch.obs.numerics import NumericsPublisher
 from tpu_syncbn_torch.obs.profiling import RecompileDetector
+from tpu_syncbn_torch.obs.server import MONITOR_METRICS, MonitoringServer
+from tpu_syncbn_torch.obs.slo import AlertRule, Availability, SLOTracker
 from tpu_syncbn_torch.obs.telemetry import (
     REGISTRY,
     Counter,
@@ -68,6 +74,7 @@ __all__ = [
     "numerics",
     "timeseries",
     "server",
+    "slo",
     "flightrec",
     "incident",
     "memwatch",
@@ -85,4 +92,9 @@ __all__ = [
     "Histogram",
     "RingTracer",
     "Tracer",
+    "MonitoringServer",
+    "MONITOR_METRICS",
+    "SLOTracker",
+    "AlertRule",
+    "Availability",
 ]

@@ -42,8 +42,10 @@ such probe, reading one (``float``, ``.item()``) synchronizes — a
 ``watchdog_stall`` dump would wait behind the very work it reports — and
 a captured chunk's outputs live in its graph's buffers, which the next
 replay rewrites. So :meth:`FlightRecorder.record_step` stacks a step's
-CUDA scalars on the device and copies them ``non_blocking`` into
-page-locked host memory, then copies a marker behind them on the same
+CUDA scalars on the device and copies them ``non_blocking`` into a row of
+a page-locked host block the recorder took when it was built (a
+process's first page-locked allocation waits for the device, so none
+happens on a step), then copies a marker behind them on the same
 stream. At dump time the entry reads ``"pending"`` until the marker has
 landed — a plain read of host memory: the dump makes no CUDA runtime call
 at all (not even ``cudaEventQuery``, which is illegal from any thread
@@ -85,6 +87,10 @@ DEFAULT_INCIDENT_DIR = "incidents"
 #: What an entry of a step record reads while its host copy is in flight.
 PENDING = "pending"
 
+#: CUDA scalars a step record may hold before its page-locked rows must
+#: widen (the ResNet-50 loop records 13: the loss and 12 monitors).
+STEP_RING_WIDTH = 128
+
 #: The value the marker copy writes into the last host slot.
 _LANDED = 1.0
 
@@ -121,17 +127,52 @@ def _scalarize_dict(d) -> dict:
     return out
 
 
+class _HostRing:
+    """The page-locked rows a recorder's step copies land in, taken once:
+    ``rows`` rows of ``width`` float64 values and a marker slot each. Rows
+    are handed out in turn; with one row more than the step ring holds, a
+    row comes round again only after the entry that used it has left the
+    ring. A record wider than ``width`` needs a wider block
+    (:meth:`reserve`, counted by the recorder)."""
+
+    def __init__(self, rows: int, width: int):
+        self.rows, self.width = int(rows), int(width)
+        self.block = self._alloc()
+        self._next = 0
+
+    def _alloc(self) -> torch.Tensor:
+        return torch.empty((self.rows, self.width + 1), dtype=torch.float64,
+                           pin_memory=True)
+
+    def reserve(self, width: int) -> bool:
+        """Make every row hold ``width`` values; True when the block grew
+        (copies already made keep their rows of the old block)."""
+        if width <= self.width:
+            return False
+        self.width = max(int(width), 2 * self.width)
+        self.block = self._alloc()
+        return True
+
+    def take(self, n: int) -> torch.Tensor:
+        """The next row's first ``n + 1`` slots: ``n`` values, then the
+        marker."""
+        row = self.block[self._next]
+        self._next = (self._next + 1) % self.rows
+        return row[:n + 1]
+
+
 class _HostCopy:
-    """One step's CUDA scalars, stacked on the device and copied into
-    page-locked host memory without a synchronize; a one-element marker
-    copy follows on the same stream, so the values have landed once the
-    last host slot reads :data:`_LANDED` (a host read, no CUDA call)."""
+    """One step's CUDA scalars, stacked on the device and copied into a
+    page-locked row of the recorder's :class:`_HostRing` without a
+    synchronize; a one-element marker copy follows on the same stream, so
+    the values have landed once the row's marker slot reads
+    :data:`_LANDED` (a host read, no CUDA call)."""
 
     __slots__ = ("keys", "host")
 
     _markers: dict = {}
 
-    def __init__(self, keys: list, values: list):
+    def __init__(self, keys: list, values: list, ring: _HostRing):
         self.keys = keys
         by_dtype: dict = {}
         for i, v in enumerate(values):
@@ -145,7 +186,7 @@ class _HostCopy:
             order = [i for idx in by_dtype.values() for i in idx]
             self.keys = [keys[i] for i in order]
         n = len(values)
-        host = torch.empty(n + 1, dtype=torch.float64, pin_memory=True)
+        host = ring.take(n)
         host[n] = 0.0
         host[:n].copy_(dev, non_blocking=True)
         host[n:].copy_(self._marker(dev.device), non_blocking=True)
@@ -168,9 +209,10 @@ class _HostCopy:
         return [_scalarize(v) for v in host[:-1].tolist()]
 
 
-def _split_on_card(metrics, monitors) -> tuple[dict, dict, _HostCopy | None]:
+def _split_on_card(metrics, monitors, ring_for) -> tuple[dict, dict, _HostCopy | None]:
     """``(metrics, monitors, copy)``: the two dicts without their
-    single-element CUDA tensors, and those tensors' host copy."""
+    single-element CUDA tensors, and those tensors' host copy into a row of
+    ``ring_for(number of values)``."""
     keys, values, plain = [], [], []
     for slot, d in enumerate((metrics, monitors)):
         kept = {}
@@ -183,7 +225,8 @@ def _split_on_card(metrics, monitors) -> tuple[dict, dict, _HostCopy | None]:
                 else:
                     kept[k] = v.detach() if isinstance(v, torch.Tensor) else v
         plain.append(kept)
-    return plain[0], plain[1], (_HostCopy(keys, values) if values else None)
+    return plain[0], plain[1], (_HostCopy(keys, values, ring_for(len(values)))
+                                if values else None)
 
 
 class FlightRecorder:
@@ -197,6 +240,14 @@ class FlightRecorder:
     (``force=True`` — the manual trigger — bypasses it). ``incident_dir``
     defaults to ``TPU_SYNCBN_INCIDENT_DIR`` or ``./incidents``; at most
     ``max_bundles`` bundles are retained (oldest pruned).
+
+    Where CUDA is available the recorder takes here the page-locked rows
+    the step ring's CUDA scalars are copied into (one row a ring entry,
+    plus one, :data:`STEP_RING_WIDTH` values wide) and launches each
+    kernel of the copy path once (a kernel's first launch waits for queued
+    device work): a step record of at most that many CUDA scalars then
+    allocates nothing. A wider record widens the rows on its step, counted
+    as ``incident.host_block_grows``.
     """
 
     def __init__(
@@ -267,6 +318,21 @@ class FlightRecorder:
         #: enabled.
         self.counters = telemetry.CounterGroup(prefix="incident")
         self._log = None
+        self._host_ring: _HostRing | None = None
+        if torch.cuda.is_available():
+            self._host_ring = _HostRing(int(step_capacity) + 1, STEP_RING_WIDTH)
+            self._warm_copy_path()
+
+    @staticmethod
+    def _warm_copy_path() -> None:
+        """One launch of each kernel a step record's host copy runs (the
+        stacks and float64 casts, the concatenation, the marker), here and
+        not on a step: a kernel's first launch waits for all queued device
+        work (``obs.numerics.warm_scalar_stack``)."""
+        from tpu_syncbn_torch.obs.numerics import warm_scalar_stack
+
+        warm_scalar_stack(torch.float64, 16)
+        _HostCopy._marker(torch.device("cuda", torch.cuda.current_device()))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -309,12 +375,20 @@ class FlightRecorder:
 
     # -- recording ---------------------------------------------------------
 
+    def _ring_for(self, n: int) -> _HostRing:
+        """The page-locked rows, wide enough for ``n`` CUDA scalars (CUDA
+        scalars exist only where CUDA is available, so the rows do)."""
+        if self._host_ring.reserve(n):
+            self.counters.bump("host_block_grows")
+        return self._host_ring
+
     def record_step(self, step: int, metrics=None, monitors=None) -> None:
         """Append one step's health record to the step ring. CUDA scalars
-        are copied to the host behind the step on its stream (no
-        synchronize; module docstring); everything else is kept as it is
+        are copied to the host behind the step on its stream, into the
+        page-locked rows taken at construction (no synchronize, no
+        allocation; module docstring); everything else is kept as it is
         and converted to JSON scalars at dump time."""
-        metrics, monitors, copy = _split_on_card(metrics, monitors)
+        metrics, monitors, copy = _split_on_card(metrics, monitors, self._ring_for)
         entry = {"step": int(step), "t": self._now(),
                  "metrics": metrics, "monitors": monitors, "copy": copy}
         with self._lock:

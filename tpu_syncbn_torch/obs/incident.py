@@ -32,10 +32,11 @@ cleanly — ``python -m tpu_syncbn_torch.obs.incident diff a.json b.json``
 names the component that moved.
 
 Where the port differs from the JAX module: :func:`contract_fingerprint`
-has no goldens to hash (``None``; ROADMAP A.14), ``state.alerts`` is
-``{}`` until the SLO layer (A.11c), ``config.env`` records
+has no goldens to hash (``None``; ROADMAP A.14), ``config.env`` records
 ``CUDA_VISIBLE_DEVICES`` where JAX records ``JAX_PLATFORMS``, and the
 attribution rates are the H100's, not the JAX module's TPU-class ones.
+``state.alerts`` is :func:`tpu_syncbn_torch.obs.slo.tracker_states`, the
+alert state of every attached SLO tracker, as in JAX.
 
 CLI::
 
@@ -72,11 +73,14 @@ BUNDLE_KIND = "tpu_syncbn.incident"
 MERGED_KIND = "tpu_syncbn.incident_merged"
 
 #: The standard trigger matrix. Custom kinds are allowed (schema token
-#: form). The port fires ``divergence_restore``, ``watchdog_stall``,
+#: form). The port fires ``slo_alert`` (an SLO rule's transition to
+#: firing; detail ``{"rule", "burn", "objective"}``, whose objective
+#: string may bind a label selector, ``serve.latency_s{tenant="a"} p99 <
+#: 0.25``), ``divergence_restore``, ``watchdog_stall``,
 #: ``numerics_drift``, ``mem_pressure``, ``recompile_storm`` and
-#: ``manual``; ``slo_alert`` waits for the SLO layer (ROADMAP A.11c),
-#: ``circuit_open`` and ``weight_swap`` for serving (A.12), ``autopilot``
-#: and ``plan_change`` for the autopilot (A.14).
+#: ``manual``; ``circuit_open`` and ``weight_swap`` wait for serving
+#: (ROADMAP A.12), ``autopilot`` and ``plan_change`` for the autopilot
+#: (A.14).
 TRIGGER_KINDS = ("slo_alert", "divergence_restore", "watchdog_stall",
                  "circuit_open", "numerics_drift", "mem_pressure",
                  "recompile_storm", "weight_swap", "autopilot",
@@ -145,11 +149,12 @@ def build_bundle(
     for the shape). Called under the recorder's trigger lock — the
     readiness probe below may re-enter
     :func:`~tpu_syncbn_torch.obs.flightrec.trigger`, which the
-    non-blocking lock drops rather than recurses. ``state.alerts`` is
-    ``{}`` until the SLO layer is ported (ROADMAP A.11c); ``config.env``
+    non-blocking lock drops rather than recurses. ``state.alerts`` holds
+    every attached SLO tracker's alert state
+    (:func:`~tpu_syncbn_torch.obs.slo.tracker_states`); ``config.env``
     holds the ``TPU_SYNCBN_*`` variables and ``CUDA_VISIBLE_DEVICES`` (the
     JAX bundle's ``JAX_PLATFORMS`` slot)."""
-    from tpu_syncbn_torch.obs import server as obs_server
+    from tpu_syncbn_torch.obs import server as obs_server, slo as obs_slo
 
     host = telemetry._host_index()
     stamp = time.strftime("%Y%m%dT%H%M%S")
@@ -184,7 +189,7 @@ def build_bundle(
                 for n, a in sorted(obs_server.HEARTBEATS.ages().items())
             },
             "readiness": {"ok": ready_ok, "checks": ready_checks},
-            "alerts": {},
+            "alerts": obs_slo.tracker_states(),
         },
     }
 

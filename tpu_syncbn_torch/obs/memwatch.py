@@ -41,8 +41,7 @@ Cost contract: sampling is **off by default** — nothing runs unless
 sampler is built explicitly. The readers consult CUDA only when
 ``torch.cuda.is_initialized()``: a sampler never initializes the card.
 
-Still to port (ROADMAP A.11c): ``mem_rules``, the SLO form of the
-pressure check, which needs the SLO layer.
+:func:`mem_rules` is the SLO form of the pressure check (``obs.slo``).
 """
 
 from __future__ import annotations
@@ -462,6 +461,30 @@ class MemorySampler:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# SLO rules
+
+
+def mem_rules(
+    *,
+    pressure_slo: str = "mem.used_frac p99 < 0.9",
+    windows_s=(60.0, 300.0),
+    burn_threshold: float = 2.0,
+) -> list:
+    """The memory-pressure SLO rule, ready for
+    ``SLOTracker(agg, mem_rules()).attach()`` (``obs.slo``): the windowed
+    p99 of live bytes over the contract must stay under the pressure
+    threshold — sustained samples above it mean the contract no longer
+    describes the running program (layout drift, a leak, a tenant over
+    budget) and the process is walking toward an out-of-memory error."""
+    from tpu_syncbn_torch.obs import slo
+
+    return [
+        slo.AlertRule("mem_pressure", pressure_slo,
+                      windows_s=windows_s, burn_threshold=burn_threshold),
+    ]
 
 
 # ---------------------------------------------------------------------------

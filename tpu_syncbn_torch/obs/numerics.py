@@ -30,14 +30,16 @@ outputs, rewritten by every replay, which gives the same values a step.
 
 **Host side** (:class:`NumericsPublisher`): the monitors come back as
 device tensors in ``StepOutput.monitors``. The publisher copies the
-published ones into page-locked host memory without blocking and records
-a CUDA event; an entry lands as ``numerics.<key>`` histogram samples once
-its event has completed, so the registry fills at step cadence with no
-forced synchronize on the loop. A threshold crossing counts
+published ones without blocking into rows of a page-locked host block it
+took when it was built (a process's first page-locked allocation waits
+for the device, so none happens on a step) and records a CUDA event; an
+entry lands as ``numerics.<key>`` histogram samples once its event has
+completed, so the registry fills at step cadence with no forced
+synchronize on the loop (the publisher launches its own kernels once when
+it is built, too: a kernel's first launch waits for queued device work). A threshold crossing counts
 ``numerics.drift_trips`` and fires the flight recorder's
-``numerics_drift`` trigger (``obs.flightrec``).
-
-Waiting for ROADMAP A.11c: the ``numerics_rules`` SLO rule set.
+``numerics_drift`` trigger (``obs.flightrec``). :func:`numerics_rules` is
+the SLO rule set over those series (``obs.slo``).
 """
 
 from __future__ import annotations
@@ -329,14 +331,43 @@ def cross_replica_monitors(
 # host side: publisher
 
 
+#: Dtypes a step's scalar outputs come in (losses, monitors, counts).
+SCALAR_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+                 torch.int32, torch.int64)
+
+
+def warm_scalar_stack(to_dtype: torch.dtype, max_n: int) -> None:
+    """Launch once, on the current CUDA device, each kernel a host copy of
+    step scalars runs — the stack of 1 to ``max_n`` 0-d tensors of each of
+    :data:`SCALAR_DTYPES`, their cast to ``to_dtype`` and the concatenation
+    of two casts. CUDA loads a kernel at its first launch, and the load
+    waits for every piece of work already queued on the device (lazy
+    module loading), so a publisher's or recorder's first call behind a
+    running step would wait for it; taken here, when the publisher or
+    recorder is built, outside a step. Nothing is read back."""
+    with torch.no_grad():
+        for dtype in SCALAR_DTYPES:
+            vals = torch.zeros(max_n, dtype=dtype, device="cuda").unbind(0)
+            for n in range(1, max_n + 1):
+                torch.stack(vals[:n]).to(to_dtype)
+        part = torch.zeros(2, dtype=to_dtype, device="cuda")
+        torch.cat([part, part])
+
+
 class NumericsPublisher:
     """Publish each step's numerics monitors into the telemetry registry
     without forcing a synchronize on the step loop.
 
     ``publish(step, monitors)`` takes the step's :data:`PUBLISHED_MONITORS`
-    subset, stacks it on the device and copies it ``non_blocking`` into
-    page-locked host memory, recording a CUDA event behind the copy (a CPU
-    tensor is ready at once). Then it drains the queued entries whose
+    subset, stacks it on the device and copies it ``non_blocking`` into a
+    free row of the page-locked block taken at construction (one row a
+    queued entry, ``max_pending`` rows; a row comes back when its entry is
+    drained or dropped, and copies run on the current stream, so a reused
+    row's earlier copy lands first), recording a CUDA event behind the
+    copy (a CPU tensor is ready at once). The constructor also launches
+    each kernel of that path once (:func:`warm_scalar_stack`): a kernel's
+    first launch waits for all queued device work. Where CUDA is not
+    available no block is taken (no monitor can be on the card). Then it drains the queued entries whose
     events have completed (``event.query()``, which never waits): they land
     as ``numerics.<key>`` histogram samples plus the ``numerics.samples`` /
     ``numerics.clip_saturated`` counters. ``flush()`` synchronizes on the
@@ -360,11 +391,27 @@ class NumericsPublisher:
         self.thresholds = (dict(DEFAULT_DRIFT_THRESHOLDS)
                            if thresholds is None else dict(thresholds))
         self.clip_saturated_frac = float(clip_saturated_frac)
+        if max_pending < 1:
+            raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self._pending: deque = deque()
         self._max_pending = int(max_pending)
         #: newest published values, for tests and inspection
         self.last: dict[str, float] = {}
         self.published = 0
+        self._host: torch.Tensor | None = None
+        self._free: list[int] = []
+        self._row_of: dict[int, int] = {}  # id(event) -> its entry's row
+        if torch.cuda.is_available():
+            self._take_host_block()
+
+    def _take_host_block(self) -> None:
+        """One page-locked row of every published key for each entry the
+        queue may hold, and one launch of each kernel the device path runs
+        (:func:`warm_scalar_stack`)."""
+        self._host = torch.empty((self._max_pending, len(PUBLISHED_MONITORS)),
+                                 dtype=torch.float32, pin_memory=True)
+        self._free = list(range(self._max_pending - 1, -1, -1))
+        warm_scalar_stack(torch.float32, len(PUBLISHED_MONITORS))
 
     def publish(self, step: int, monitors) -> int:
         """Queue one step's monitors; drain every queued entry that is
@@ -376,30 +423,37 @@ class NumericsPublisher:
         if isinstance(monitors, dict):
             keys = sorted(k for k in monitors if k in PUBLISHED_MONITORS)
             if keys:
+                while len(self._pending) >= self._max_pending:
+                    # a wedged device must bound the queue, not grow it
+                    self._release(self._pending.popleft())
+                    telemetry.count("numerics.dropped")
                 self._pending.append((int(step), keys, *self._to_host(
                     [monitors[k] for k in keys])))
-                while len(self._pending) > self._max_pending:
-                    # a wedged device must bound the queue, not grow it
-                    self._pending.popleft()
-                    telemetry.count("numerics.dropped")
         return self._drain(block=False)
 
-    @staticmethod
-    def _to_host(values: list):
+    def _to_host(self, values: list):
         """``(host values, event or None)``: device tensors stacked and
-        copied into pinned memory behind a recorded event; anything else
-        as it is."""
+        copied into a page-locked row behind a recorded event; anything
+        else as it is."""
         on_card = [isinstance(v, torch.Tensor) and v.is_cuda for v in values]
         if not all(on_card):
             return [v.detach() if isinstance(v, torch.Tensor) else v
                     for v in values], None
         with torch.no_grad():
             dev = torch.stack([v.detach().to(torch.float32).reshape(()) for v in values])
-        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        row = self._free.pop()
+        host = self._host[row, :len(values)]
         host.copy_(dev, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
+        self._row_of[id(event)] = row
         return list(host.unbind(0)), event
+
+    def _release(self, entry) -> None:
+        """Give a drained or dropped entry's row back."""
+        row = self._row_of.pop(id(entry[-1]), None)
+        if row is not None:
+            self._free.append(row)
 
     def flush(self) -> int:
         """Drain everything still queued, synchronizing on each entry's
@@ -415,8 +469,11 @@ class NumericsPublisher:
                     event.synchronize()
                 elif not event.query():
                     break
-            self._pending.popleft()
-            self._emit(step, dict(zip(keys, values)))
+            entry = self._pending.popleft()
+            try:
+                self._emit(step, dict(zip(keys, values)))
+            finally:
+                self._release(entry)
             published += 1
         self.published += published
         return published
@@ -447,3 +504,42 @@ class NumericsPublisher:
                     "threshold": threshold,
                     "step": step,
                 })
+
+
+# ---------------------------------------------------------------------------
+# SLO rules
+
+
+def numerics_rules(
+    *,
+    residual_slo: str = "numerics.ef_residual_ratio p99 < 0.5",
+    skew_slo: str = "numerics.bn_mean_skew p99 < 4.0",
+    clip_target: float = 0.99,
+    windows_s=(60.0, 300.0),
+    burn_threshold: float = 2.0,
+) -> list:
+    """The numerics-health rule set, ready for
+    ``SLOTracker(agg, numerics_rules()).attach()`` (``obs.slo``):
+
+    * ``numerics_residual`` — the EF residual ratio quantile objective
+      (error feedback re-sending more than half the gradient norm at
+      p99 means quantization is drowning the signal);
+    * ``numerics_skew`` — the BN batch-mean skew quantile objective
+      (sustained multi-σ local-vs-synced deviation is replica drift,
+      the exact failure SyncBN exists to prevent);
+    * ``numerics_clip`` — clip-saturation budget: at most
+      ``1 - clip_target`` of published steps may be clip-saturated
+      (``SubsetRate`` — saturated steps are a subset of samples)."""
+    from tpu_syncbn_torch.obs import slo
+
+    return [
+        slo.AlertRule("numerics_residual", residual_slo,
+                      windows_s=windows_s, burn_threshold=burn_threshold),
+        slo.AlertRule("numerics_skew", skew_slo,
+                      windows_s=windows_s, burn_threshold=burn_threshold),
+        slo.AlertRule("numerics_clip",
+                      slo.SubsetRate(total="numerics.samples",
+                                     bad="numerics.clip_saturated",
+                                     target=clip_target),
+                      windows_s=windows_s, burn_threshold=burn_threshold),
+    ]

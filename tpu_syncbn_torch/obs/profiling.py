@@ -29,15 +29,16 @@ atomically renamed directory — duration-capped
 (``TPU_SYNCBN_PROFILE_MAX_S``), size-capped
 (``TPU_SYNCBN_PROFILE_MAX_BYTES``: an over-budget capture is deleted, not
 kept) and single-flight (Kineto is a process singleton; a second caller
-gets :class:`ProfilerBusy`). :func:`serve_capture` is the plain function
-the ``POST /profilez`` endpoint will call. :func:`profiler_trace` is the
-library context manager (master-gated) that
-``utils.metrics.profiler_trace`` deprecates into, and the ImageNet
-example's ``--profile-dir``.
-
-Still to port (ROADMAP A.11c): ``compile_rules``, the SLO form of the
-storm check, which needs the SLO layer. torch is imported lazily (capture
-paths only).
+gets :class:`ProfilerBusy`). :func:`serve_capture` is what the
+``POST /profilez`` endpoint (``obs.server``) calls. Kineto starts its CUDA
+side only on the main thread, so a request from the HTTP thread of a
+process that uses the card is handed to the main thread through a
+one-request slot that ``ResilientLoop.run`` services at its step
+boundaries (:func:`service_profile_request`), with a bounded wait.
+:func:`profiler_trace` is the library context manager (master-gated)
+that ``utils.metrics.profiler_trace`` deprecates into, and the ImageNet
+example's ``--profile-dir``. :func:`compile_rules` is the SLO form of the
+storm check (``obs.slo``). torch is imported lazily (capture paths only).
 """
 
 from __future__ import annotations
@@ -245,6 +246,31 @@ def timed_compile(family: str, program: str | None = None):
         note_compile(family, time.perf_counter() - t0, program=program)
 
 
+def compile_rules(
+    *,
+    total: str = "step.time_s",
+    target: float = 0.99,
+    windows_s=(60.0, 300.0),
+    burn_threshold: float = 2.0,
+) -> list:
+    """The recompile-storm SLO rule, ready for
+    ``SLOTracker(agg, compile_rules()).attach()`` (``obs.slo``): compiles
+    (``compile.events_total``) as a budgeted fraction of ``total`` (steps
+    by default; pass ``"serve.requests"`` for a serving process) — a
+    steady-state run compiles ~never, so more than ``1 - target`` of
+    recent steps triggering a compile is churn, burning the budget."""
+    from tpu_syncbn_torch.obs import slo
+
+    return [
+        slo.AlertRule(
+            "recompile_storm",
+            slo.SubsetRate(total=total, bad="compile.events_total",
+                           target=target),
+            windows_s=windows_s, burn_threshold=burn_threshold,
+        ),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # on-demand profiler capture
 
@@ -271,7 +297,7 @@ _capture_seq = 0
 
 def configured_dir() -> str | None:
     """The env-configured capture root, or ``None`` (the ``/profilez``
-    gate, ROADMAP A.11c: no knob, no remote profiling)."""
+    gate: no knob, no remote profiling)."""
     d = os.environ.get(_ENV_PROFILE_DIR, "").strip()
     return d or None
 
@@ -290,6 +316,127 @@ def _dir_bytes(path: str) -> int:
             with contextlib.suppress(OSError):
                 total += os.path.getsize(os.path.join(root, fn))
     return total
+
+
+class _Capture:
+    """One bounded ``torch.profiler`` run in two halves — :meth:`start` and
+    :meth:`finish` — so the ``/profilez`` hand-off can open the window at
+    one step boundary of the main thread's loop and close it at a later
+    one. :func:`capture` runs both around a sleep."""
+
+    def __init__(self, duration_s: float, log_dir: str | None = None):
+        self.root = log_dir or configured_dir()
+        if not self.root:
+            raise ProfilerUnavailable(
+                f"no profiler capture directory — set {_ENV_PROFILE_DIR}"
+            )
+        max_s = _env_float(_ENV_PROFILE_MAX_S, DEFAULT_PROFILE_MAX_S)
+        self.max_bytes = int(
+            _env_float(_ENV_PROFILE_MAX_BYTES, DEFAULT_PROFILE_MAX_BYTES)
+        )
+        self.duration_s = min(max(0.0, float(duration_s)), max_s)
+        self._prof = None
+        self._tmp = None
+        self._cuda = False
+        self._t0 = 0.0
+
+    def start(self) -> "_Capture":
+        """Take the single-flight lock and start the profiler (a probe
+        kernel inside the window when CUDA is initialized). Raises
+        :class:`ProfilerBusy` when a capture is already running, and
+        :class:`ProfilerUnavailable` for a CUDA capture off the main
+        thread; the lock is released on any failure."""
+        if not _capture_lock.acquire(blocking=False):
+            raise ProfilerBusy("a profiler capture is already in flight")
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile, record_function
+
+            self._cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+            _check_thread(self._cuda)
+            activities = [ProfilerActivity.CPU]
+            if self._cuda:
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(self.root, exist_ok=True)
+            self._tmp = tempfile.mkdtemp(dir=self.root, prefix=".capture_")
+            self._t0 = time.perf_counter()
+            prof = profile(activities=activities)
+            try:
+                prof.start()
+            except Exception as e:
+                raise ProfilerBusy(
+                    f"torch profiler would not start: {type(e).__name__}: {e}"
+                )
+            self._prof = prof
+            if self._cuda:
+                # one kernel of our own in the window: an idle card still
+                # shows whether the device side recorded
+                with record_function("profiling.capture.probe"):
+                    torch.zeros(1, device="cuda").add_(1)
+        except BaseException:
+            self.abort()
+            raise
+        return self
+
+    def abort(self) -> None:
+        """Stop a started profiler without keeping its trace; releases the
+        lock."""
+        if self._prof is not None:
+            with contextlib.suppress(Exception):
+                self._prof.stop()
+        self._cleanup()
+
+    def _cleanup(self) -> None:
+        if self._tmp is not None:
+            shutil.rmtree(self._tmp, ignore_errors=True)
+            self._tmp = None
+        _capture_lock.release()
+
+    def finish(self) -> dict:
+        """Stop the profiler, export its Chrome trace and rename it into
+        place; returns :func:`capture`'s payload. Releases the lock."""
+        global _capture_seq
+        from torch.autograd import DeviceType
+
+        try:
+            self._prof.stop()
+            events = self._prof.events()
+            device_events = sum(
+                1 for e in events if e.device_type == DeviceType.CUDA)
+            if self._cuda and device_events == 0:
+                raise ProfilerUnavailable(
+                    "the capture recorded no CUDA activity (is CUPTI "
+                    "available?) — refusing a host-only trace"
+                )
+            self._prof.export_chrome_trace(os.path.join(self._tmp, "trace.json"))
+            nbytes = _dir_bytes(self._tmp)
+            if nbytes > self.max_bytes:
+                raise ValueError(
+                    f"capture is {nbytes} bytes, over the "
+                    f"{self.max_bytes}-byte cap ({_ENV_PROFILE_MAX_BYTES}) — "
+                    "deleted"
+                )
+            _capture_seq += 1  # under _capture_lock
+            final = os.path.join(
+                self.root, "capture_" + time.strftime("%Y%m%dT%H%M%S")
+                + f"_{os.getpid()}_{_capture_seq:03d}"
+            )
+            os.replace(self._tmp, final)
+            self._tmp = None
+        finally:
+            self._cleanup()
+        elapsed = time.perf_counter() - self._t0
+        telemetry.count("obs.profilez.captures")
+        telemetry.observe("obs.profilez.capture_s", elapsed)
+        telemetry.set_gauge("obs.profilez.bytes", nbytes)
+        return {
+            "ok": True,
+            "path": final,
+            "bytes": nbytes,
+            "duration_s": round(self.duration_s, 3),
+            "events": len(events),
+            "device_events": device_events,
+        }
 
 
 def capture(
@@ -318,94 +465,19 @@ def capture(
     :class:`ProfilerUnavailable` with no directory configured,
     :class:`ProfilerBusy` when a capture or another profiler run is
     already running."""
-    root = log_dir or configured_dir()
-    if not root:
-        raise ProfilerUnavailable(
-            f"no profiler capture directory — set {_ENV_PROFILE_DIR}"
-        )
-    max_s = _env_float(_ENV_PROFILE_MAX_S, DEFAULT_PROFILE_MAX_S)
-    max_bytes = int(
-        _env_float(_ENV_PROFILE_MAX_BYTES, DEFAULT_PROFILE_MAX_BYTES)
-    )
-    duration_s = min(max(0.0, float(duration_s)), max_s)
-    if not _capture_lock.acquire(blocking=False):
-        raise ProfilerBusy("a profiler capture is already in flight")
+    cap = _Capture(duration_s, log_dir).start()
     try:
-        import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile, record_function
-
-        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
-        _check_thread(cuda)
-        activities = [ProfilerActivity.CPU]
-        if cuda:
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(root, exist_ok=True)
-        tmp = tempfile.mkdtemp(dir=root, prefix=".capture_")
-        t0 = time.perf_counter()
-        try:
-            prof = profile(activities=activities)
-            try:
-                prof.start()
-            except Exception as e:
-                raise ProfilerBusy(
-                    f"torch profiler would not start: {type(e).__name__}: {e}"
-                )
-            try:
-                if cuda:
-                    # one kernel of our own in the window: an idle card
-                    # still shows whether the device side recorded
-                    with record_function("profiling.capture.probe"):
-                        torch.zeros(1, device="cuda").add_(1)
-                time.sleep(duration_s)
-            finally:
-                prof.stop()
-            events = prof.events()
-            device_events = sum(
-                1 for e in events if e.device_type == DeviceType.CUDA)
-            if cuda and device_events == 0:
-                raise ProfilerUnavailable(
-                    "the capture recorded no CUDA activity (is CUPTI "
-                    "available?) — refusing a host-only trace"
-                )
-            prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
-            nbytes = _dir_bytes(tmp)
-            if nbytes > max_bytes:
-                raise ValueError(
-                    f"capture is {nbytes} bytes, over the "
-                    f"{max_bytes}-byte cap ({_ENV_PROFILE_MAX_BYTES}) — "
-                    "deleted"
-                )
-            global _capture_seq
-            _capture_seq += 1  # under _capture_lock
-            final = os.path.join(
-                root, "capture_" + time.strftime("%Y%m%dT%H%M%S")
-                + f"_{os.getpid()}_{_capture_seq:03d}"
-            )
-            os.replace(tmp, final)
-        except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise
-        elapsed = time.perf_counter() - t0
-        telemetry.count("obs.profilez.captures")
-        telemetry.observe("obs.profilez.capture_s", elapsed)
-        telemetry.set_gauge("obs.profilez.bytes", nbytes)
-        return {
-            "ok": True,
-            "path": final,
-            "bytes": nbytes,
-            "duration_s": round(duration_s, 3),
-            "events": len(events),
-            "device_events": device_events,
-        }
-    finally:
-        _capture_lock.release()
+        time.sleep(cap.duration_s)
+    except BaseException:
+        cap.abort()
+        raise
+    return cap.finish()
 
 
 def _check_thread(cuda: bool) -> None:
-    """Refuse a CUDA profiler run off the main thread: Kineto's CUDA
-    init must run on the thread that registered its client, and from any
-    other it errors and blocks."""
+    """Refuse a CUDA profiler run off the main thread: Kineto's CUDA init
+    must run on the thread that registered its client, and from any other
+    it errors and blocks."""
     if cuda and threading.current_thread() is not threading.main_thread():
         raise ProfilerUnavailable(
             "torch.profiler's CUDA side starts only on the thread that "
@@ -413,18 +485,168 @@ def _check_thread(cuda: bool) -> None:
         )
 
 
+def _needs_main_thread() -> bool:
+    """A capture from this thread would have to record CUDA off the main
+    thread. Reads ``sys.modules`` instead of importing torch: a process
+    that never imported it has no CUDA to record."""
+    import sys
+
+    if threading.current_thread() is threading.main_thread():
+        return False
+    torch = sys.modules.get("torch")
+    return bool(torch is not None and torch.cuda.is_available()
+                and torch.cuda.is_initialized())
+
+
+# ---------------------------------------------------------------------------
+# the /profilez hand-off to the main thread
+
+
+#: How long past its duration a ``/profilez`` request handed to the main
+#: thread may wait for a loop there to take it and finish it: the next
+#: step boundary (a captured chunk is ~0.1 s; a first chunk that builds
+#: its graph, seconds) plus the trace's export (seconds for tens of MB).
+HANDOFF_GRACE_S = 10.0
+
+
+class _Request:
+    """One ``/profilez`` request waiting in the hand-off slot."""
+
+    __slots__ = ("duration_s", "done", "state", "capture", "t_start", "code",
+                 "payload")
+
+    def __init__(self, duration_s: float):
+        self.duration_s = duration_s
+        self.done = threading.Event()
+        self.state = "posted"  # -> "running" -> answered; or "abandoned"
+        self.capture: _Capture | None = None
+        self.t_start = 0.0
+        self.code, self.payload = 503, {}
+
+
+_slot_lock = threading.Lock()
+_slot: _Request | None = None
+
+
+def _answer(req: _Request, code: int, payload: dict) -> None:
+    global _slot
+    req.code, req.payload = code, payload
+    with _slot_lock:
+        if _slot is req:
+            _slot = None
+    req.done.set()
+
+
+def _handoff(duration_s: float) -> tuple[int, dict]:
+    """Post a capture of ``duration_s`` to the slot and wait at most
+    ``duration_s`` + the grace for the main thread's loop to run it."""
+    global _slot
+    duration_s = min(max(0.0, float(duration_s)),
+                     _env_float(_ENV_PROFILE_MAX_S, DEFAULT_PROFILE_MAX_S))
+    bound = duration_s + HANDOFF_GRACE_S
+    req = _Request(duration_s)
+    with _slot_lock:
+        if _slot is not None:
+            return 503, {"ok": False,
+                         "error": "a profiler capture is already waiting for "
+                                  "the main thread"}
+        _slot = req
+    telemetry.count("obs.profilez.handoffs")
+    if req.done.wait(bound):
+        return req.code, req.payload
+    with _slot_lock:
+        if req.done.is_set():  # answered between the wait and the lock
+            return req.code, req.payload
+        taken = req.state != "posted"
+        req.state = "abandoned"
+        if not taken and _slot is req:
+            _slot = None
+    telemetry.count("obs.profilez.handoff_timeouts")
+    if taken:
+        error = (f"the capture the main thread started is still running "
+                 f"{bound:g}s after the request; its trace will land under "
+                 f"{configured_dir()} without an answer here")
+    else:
+        error = (f"no loop on the main thread took the capture within "
+                 f"{bound:g}s (duration {duration_s:g}s + grace "
+                 f"{bound - duration_s:g}s): torch.profiler's CUDA side "
+                 "starts only on the thread that registered it (the main "
+                 "thread), and this process's CUDA is initialized, so the "
+                 "capture must run there — a ResilientLoop on the main "
+                 "thread takes it at its step boundaries")
+    return 503, {"ok": False, "error": error}
+
+
+def service_profile_request() -> None:
+    """Run the hand-off slot's capture on this thread — the loop calls
+    this at every step or chunk boundary, on the main thread (elsewhere it
+    returns at once): a posted request starts the profiler here, and the
+    first boundary ``duration_s`` after the start stops it, exports the
+    trace and answers the waiting request with :func:`capture`'s payload.
+    A failure answers 503 (busy) or 500; nothing raises into the loop."""
+    req = _slot
+    if req is None or threading.current_thread() is not threading.main_thread():
+        return
+    if req.capture is None:
+        with _slot_lock:
+            if req.state != "posted":
+                return
+            req.state = "running"
+        try:
+            req.capture = _Capture(req.duration_s).start()
+        except ProfilerBusy as e:
+            _answer(req, 503, {"ok": False, "error": str(e)})
+            return
+        except Exception as e:
+            _answer(req, 500, {"ok": False, "error": f"{type(e).__name__}: {e}"})
+            return
+        req.t_start = time.monotonic()
+        return
+    if time.monotonic() - req.t_start >= req.duration_s:
+        finish_profile_request()
+
+
+def finish_profile_request() -> None:
+    """Close the hand-off's running capture now, whatever its duration
+    (the loop calls this as it exits: the profiler does not outlive the
+    loop that started it), and answer its request."""
+    req = _slot
+    if req is None or req.capture is None or req.done.is_set() \
+            or threading.current_thread() is not threading.main_thread():
+        return
+    try:
+        result = req.capture.finish()
+    except ProfilerBusy as e:
+        _answer(req, 503, {"ok": False, "error": str(e)})
+    except Exception as e:
+        _answer(req, 500, {"ok": False, "error": f"{type(e).__name__}: {e}"})
+    else:
+        _answer(req, 200, result)
+
+
 def serve_capture(duration_s: float | None = None) -> tuple[int, dict]:
-    """The ``POST /profilez`` body (the endpoint itself is ROADMAP A.11c):
-    ``(http_status, json_payload)``. 503 without the env knob or while
-    busy; 500 on a failed capture — the endpoint must answer, never raise
-    into the server loop."""
+    """The ``POST /profilez`` body: ``(http_status, json_payload)``. 503
+    without the env knob or while busy; 500 on a failed capture — the
+    endpoint must answer, never raise into the server loop.
+
+    Off the main thread of a process whose CUDA is initialized (the HTTP
+    handler's thread in a training process) the capture cannot run here
+    (Kineto's thread rule), so it is handed to the main thread: the
+    request waits in a one-request slot that ``ResilientLoop.run``
+    services at its step boundaries (:func:`service_profile_request`), and
+    this call returns the capture's answer, or 503 naming the rule once
+    ``duration_s`` plus :data:`HANDOFF_GRACE_S` has passed with no loop to
+    take it. Elsewhere the capture runs on the calling thread."""
     if configured_dir() is None:
         return 503, {
             "ok": False,
             "error": f"profiling disabled — set {_ENV_PROFILE_DIR}",
         }
+    duration_s = 1.0 if duration_s is None else duration_s
+    if _needs_main_thread():
+        return _handoff(duration_s)
     try:
-        result = capture(1.0 if duration_s is None else duration_s)
+        result = capture(duration_s)
     except ProfilerBusy as e:
         return 503, {"ok": False, "error": str(e)}
     except Exception as e:

@@ -25,8 +25,8 @@ the delta layer between the two:
   seconds from the merged windowed bucket counts (linear interpolation
   inside the straddling bucket), and
   :meth:`~WindowedAggregator.fraction_above` the share of observations
-  past a threshold — the inputs of the SLO layer (``slo``, ROADMAP
-  A.11c).
+  past a threshold — the inputs of the SLO layer
+  (:mod:`~tpu_syncbn_torch.obs.slo`).
 * :meth:`~WindowedAggregator.windowed_snapshot` renders the window as a
   **snapshot-shaped dict** (``telemetry.SCHEMA_VERSION``), so it passes
   :func:`~tpu_syncbn_torch.obs.telemetry.validate_snapshot` and exports
@@ -112,7 +112,7 @@ class WindowedAggregator:
     (defaults: 120 x 1s = 2 minutes).
 
     Thread-safe: the sampler thread ticks while HTTP handlers
-    (the monitoring server, ROADMAP A.11c) and the SLO evaluator read.
+    (the monitoring server) and the SLO evaluator read.
     """
 
     def __init__(
@@ -312,7 +312,7 @@ class WindowedAggregator:
         """Fraction of windowed observations of histogram ``name`` above
         ``threshold`` (linear interpolation inside the straddling
         bucket) — the latency-SLO error-rate estimator
-        (``slo``, ROADMAP A.11c). ``None`` when the window is empty.
+        (``obs.slo``). ``None`` when the window is empty.
 
         Overflow attribution: observations beyond the last bucket edge
         count as above only when ``threshold <= last edge`` — with a

@@ -118,6 +118,37 @@ def encode_plain(g, e, ranges, qmax: int, chunk: int, want_residual: bool):
     return q.reshape(-1), scale, zp, res
 
 
+#: f32's unit roundoff (round to nearest): one rounding moves a result by at
+#: most this fraction of its magnitude.
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def encode_residual_bound(p, scale, zp, q, chunk: int) -> torch.Tensor:
+    """The largest ``|residual|`` the encode's f32 arithmetic allows for
+    each element of the payload ``p`` (``n`` f32 values, ``g + e`` as the
+    encode rounded it) on the grid ``scale``, ``zp`` (f32 ``(n_chunks,)``)
+    with codes ``q`` (int8 over every chunk element), in float64:
+
+        scale/2 + u (1 + 2u) (scale/2 + 2 |p - zp| + 2 scale |q| + |zp|) + 2^-149
+
+    with ``u`` = 2^-24. The encode rounds five times after the payload:
+    d = p - zp, t = d / scale (a correctly rounded division), q = rint(t)
+    clamped (|q - t| <= 1/2, the clamp included), s = scale * q,
+    o = s + zp and r = p - o; adding the five relative errors to the
+    exact |p - zp - scale q| <= scale/2 + u|p - zp| + u|d| gives the
+    bound, and 2^-149 covers an underflowing product. ``chip_smoke.py``'s
+    ``[compress]`` residual gate writes the derivation out step by
+    step."""
+    n = p.numel()
+    sc = scale.double().repeat_interleave(chunk)[:n]
+    z = zp.double().repeat_interleave(chunk)[:n]
+    pd = p.double()
+    qd = q[:n].double().abs()
+    u = F32_UNIT_ROUNDOFF
+    terms = sc / 2 + 2 * (pd - z).abs() + 2 * sc * qd + z.abs()
+    return sc / 2 + u * (1 + 2 * u) * terms + 2.0 ** -149
+
+
 def encode(g: torch.Tensor, e: torch.Tensor | None, ranges: torch.Tensor, qmax: int, *,
            chunk: int, want_residual: bool = False,
            residual_out: torch.Tensor | None = None):

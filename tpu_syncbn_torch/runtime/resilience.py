@@ -23,18 +23,20 @@ telemetry registry; a stall counts ``resilience.watchdog_stalls`` or
 newest open span's id and fires the flight recorder's ``watchdog_stall``
 trigger, and a divergence restore fires ``divergence_restore``
 (``obs.flightrec``: one incident bundle each when a recorder is
-installed). ``ResilientLoop.run`` installs the recorder and the memory
-sampler when ``TPU_SYNCBN_FLIGHTREC`` / ``TPU_SYNCBN_MEMWATCH`` ask for
-them, beats the ``"train"`` heartbeat and registers the ``"train"``
-readiness hook (``obs.server``), records every step or chunk in the
-recorder's step ring, instruments its data wait and steps
-(``obs.stepstats``), sets the ``train.step`` gauge, publishes the numerics
-monitors (``obs.numerics.NumericsPublisher``) and counts its collective
-bytes (``collectives.DispatchWireTally``).
+installed). ``ResilientLoop.run`` starts the monitoring server when
+``TPU_SYNCBN_METRICS_PORT`` asks for it, installs the recorder and the
+memory sampler when ``TPU_SYNCBN_FLIGHTREC`` / ``TPU_SYNCBN_MEMWATCH`` ask
+for them, beats the ``"train"`` heartbeat and registers the ``"train"``
+readiness hook (``obs.server``), services ``POST /profilez`` captures at
+its step boundaries on the main thread (``obs.profiling``), records every
+step or chunk in the recorder's step ring, instruments its data wait and
+steps (``obs.stepstats``), sets the ``train.step`` gauge, publishes the
+numerics monitors (``obs.numerics.NumericsPublisher``) and counts its
+collective bytes (``collectives.DispatchWireTally``).
 
-Not ported yet: the metrics server's HTTP half (ROADMAP A.11c), the
-autopilot (A.14) and serving publications (A.12); the constructor
-arguments that need the last two raise ``NotImplementedError``.
+Not ported yet: the autopilot (ROADMAP A.14) and serving publications
+(A.12); the constructor arguments that need them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import threading
 import time
 import traceback
 import zlib
+from collections import deque
 from typing import Any, Callable, Iterable, Iterator
 
 from tpu_syncbn_torch.runtime import distributed as dist
@@ -504,6 +507,9 @@ class ResilientLoop:
         #: True from a divergence restore until a finite step lands on the
         #: restored state (read by :meth:`readiness`)
         self.recovering = False
+        #: the newest verdicts of :meth:`readiness` (whoever asked: a
+        #: ``/readyz`` probe, an incident bundle), oldest first
+        self.readiness_log: deque = deque(maxlen=256)
         self._guard: PreemptionGuard | None = None
         self._async = None
         if async_checkpoint:
@@ -540,15 +546,16 @@ class ResilientLoop:
         of ``obs.server`` while :meth:`run` is active): not ready once
         preemption has been signaled (the process is about to checkpoint
         and exit) or while a divergence rollback is in flight. The detail
-        carries the live step counter."""
+        carries the live step counter. Each verdict is kept in
+        :attr:`readiness_log`."""
         guard = self._guard
         preempted = bool(guard.preempted) if guard is not None else False
-        ok = not preempted and not self.recovering
-        return ok, {
-            "step": self.step,
-            "preempted": preempted,
-            "recovering": self.recovering,
-        }
+        recovering = self.recovering
+        ok = not preempted and not recovering
+        detail = {"step": self.step, "preempted": preempted,
+                  "recovering": recovering}
+        self.readiness_log.append({"ok": ok, **detail})
+        return ok, detail
 
     def resume(self) -> int:
         """Restore the newest verified checkpoint (if any); returns the
@@ -632,8 +639,8 @@ class ResilientLoop:
         before each chunk, so a run may overshoot it by at most K-1 steps.
         Pending async writes are flushed on every exit path."""
         from tpu_syncbn_torch.obs import (
-            flightrec, memwatch, numerics as obs_numerics, server as obs_server,
-            stepstats, telemetry,
+            flightrec, memwatch, numerics as obs_numerics, profiling,
+            server as obs_server, stepstats, telemetry,
         )
         from tpu_syncbn_torch.parallel.collectives import DispatchWireTally
 
@@ -641,6 +648,10 @@ class ResilientLoop:
         scanned = self.scan_steps > 1
         preempted = False
         steps_run = 0
+        # live monitoring: with TPU_SYNCBN_METRICS_PORT set this run answers
+        # /metrics, /healthz (the step heartbeat below), /readyz (the
+        # "train" hook), /statusz, /incidentz and /profilez
+        obs_server.start_from_env()
         # flight recorder and memory watermarks: with TPU_SYNCBN_FLIGHTREC
         # set this run keeps bounded rings of recent spans and steps and
         # dumps an incident bundle on a divergence restore or a stall; with
@@ -685,6 +696,9 @@ class ResilientLoop:
                         watchdog.pat()
                     # the step heartbeat: its age says whether the loop moves
                     obs_server.HEARTBEATS.beat("train")
+                    # a /profilez capture handed to this (main) thread opens
+                    # and closes at step boundaries
+                    profiling.service_profile_request()
                     telemetry.set_gauge("train.step", self.step)
                     mon = getattr(out, "monitors", None)
                     if scanned and mon:
@@ -759,6 +773,11 @@ class ResilientLoop:
             obs_server.unregister_readiness("train")
             obs_server.HEARTBEATS.clear("train")
             self._guard = None
+            try:
+                # the profiler does not outlive the loop that started it
+                profiling.finish_profile_request()
+            except Exception:
+                self._log.exception("closing a /profilez capture failed on loop exit")
             try:
                 # non-blocking tail drain: a blocking flush here could hang
                 # on the exit that matters most (a stalled device)
