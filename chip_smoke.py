@@ -101,7 +101,8 @@ falls back to the CPU):
                global batch 64) through ``gan_train.main`` in process on
                synthetic data for 20 iterations each: every BN kernel
                launches 14 x iterations (forward pair) and 10 x iterations
-               (backward pair); num_batches_tracked +2 (G) and +3 (D) an
+               (backward pair), the 16 samples' eval forward counted apart
+               (``bn_normalize`` once a generator BN layer, nothing else); num_batches_tracked +2 (G) and +3 (D) an
                iteration; the 16 samples finite in [-1, 1]; the iteration
                time (CUDA events, median of 10) and a 2-iteration profiler
                window; one iteration from the same state on the same
@@ -116,14 +117,16 @@ falls back to the CPU):
                events), peak memory and a profiler window; the A/B step
                as above; decode + ``batched_nms`` + ``evaluate_detections``
                over 8 images give an mAP in [0, 1];
-11. bench     — ``python -m tpu_syncbn_torch.bench --scan 8`` in a
+11. bench     — ``python -m tpu_syncbn_torch.bench --scan 8 --serve`` in a
                subprocess: exit 0, every key of its JSON line, 0 < mfu <= 1,
                the ``recovery`` block (a truncated newest checkpoint resumes
                the older step, the async write certifies), the ``scan``
                block at K = 8 and the ``collectives`` block (wire bytes and
                ratios on 1 MiB), the ``monitor``, ``numerics``,
-               ``incident``, ``memory`` and ``compile`` blocks; the line
-               printed;
+               ``incident``, ``memory`` and ``compile`` blocks, the
+               ``serve`` block with JAX's keys (its closed- and open-loop
+               levels printed, ``p99_bounded`` and
+               ``degradation_graceful`` among them); the line printed;
 12. scan      — K steps as one CUDA graph (``train_steps_batches``,
                ``GANTrainer.train_steps``) for the ResNet-50 slice (the
                example's SGD and a cosine schedule), DCGAN and RetinaNet:
@@ -174,10 +177,9 @@ falls back to the CPU):
                ``NumericsPublisher.publish`` over 8 steps of two captured
                chunks with no ``torch.cuda.synchronize`` call, returning
                while the chunk's work is still pending, and ``flush()``
-               publishing all 8; ``tests/test_torch_gpu.py``'s test of a
-               publisher's and a recorder's first calls behind queued work
-               alone in a fresh process (gated), and the older publisher
-               test alone (printed: its own first kernel launches wait); a
+               publishing all 8; ``tests/test_torch_gpu.py``'s two tests
+               of a publisher's and a recorder's first calls behind queued
+               work, each alone in a fresh process (gated); a
                registry JSONL export and a Chrome trace
                of 8 ``ResilientLoop`` steps (every BN kernel 53 x 8 times)
                that validate and hold the ``step`` and ``data_wait`` spans
@@ -223,6 +225,32 @@ falls back to the CPU):
                answered 200 with device events by the loop's main thread
                within its bound, and 503 within its bound with no loop;
                the captured step without the server and scraped, in turns;
+13e. serve    — the serving path (ROADMAP A.12a): bf16 ResNet-50 at full
+               width (``channels_last``), its SyncBN trainer taken 3 steps,
+               ``InferenceEngine.from_trainer(dp, buckets=(8, 32, 128))``
+               on 224² f32 requests, cuDNN deterministic: each bucket's
+               capture launches ``bn_normalize`` 53 times (and its eager
+               warm-up 53), no other BN kernel; request sizes 1, 5, 8, 20,
+               32, 100, 128 and 200 (chunked) each bitwise the engine
+               copy's eager forward at the padded size (their own rows);
+               3 programs after ``warm()`` and the traffic; the bucket-128
+               graph profiled against one captured under kernel mode "off"
+               (53 ``bn_normalize`` against none, 3 x 53 kernels fewer),
+               their logits within the slice's 1e-2 and their replays
+               timed in turns; replay, ``predict``, eager (kernels and
+               plain) ms and img/s per bucket, capture seconds and pool
+               bytes, the bucket-128 copies; eval ``bn_normalize`` at the
+               53 bucket-128 shapes against the plain chain and ATen's
+               ``F.batch_norm(training=False)`` beside the bound;
+               ``swap_params`` with a request in flight (old rows; then
+               the new weights' eager forward; no new capture),
+               ``rollback`` bitwise, a skewed tree refused; a
+               ``DynamicBatcher`` at ``max_batch`` 32 under 64 closed-loop
+               clients (fill >= 0.9); ``faults.crash_engine_at_batch`` on
+               the engine: the circuit opens, ``/readyz`` answers 503
+               (``TPU_SYNCBN_METRICS_PORT=0``), the half-open probe
+               recovers, one valid ``circuit_open`` bundle; the trainer's
+               module stays in training mode;
 14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -247,10 +275,12 @@ falls back to the CPU):
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13d's launches, times, the
+ratios) and ``{"paths": {...}}`` (phases 9-13e's launches, times, the
 bench line, the eager and captured steps, the compress, resilience, obs,
-incident and monitor summaries); the second-to-last line is ``{"kernels": [...]}`` (the BN,
-attention and int8-wire kernels); the last line is
+incident, monitor and serve summaries); the second-to-last line is
+``{"kernels": [...]}`` (the BN, attention and int8-wire kernels;
+``bn_normalize``'s row carries the serving path's launches and times
+under ``serve``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -2508,7 +2538,11 @@ def _gan_arch(torch, T, bn_ops, arch, card, failures):
     wall = time.perf_counter() - t0
     launches = T.launch_counts()
     tr, samples = out["trainer"], out["samples"]
+    # the run closes with one sampling call, an eval forward of the
+    # generator: one bn_normalize a generator BN layer
+    g_bn = sum(isinstance(m, nn.BatchNorm) for m in tr.generator.modules())
     want = {k: (GAN_FWD if k in FORWARD else GAN_BWD) * GAN_ITERS for k in MOVES}
+    want["bn_normalize"] += g_bn
     _launch_gate(tag, launches, want, failures)
     nbt = {net: sorted({int(m.num_batches_tracked) for m in model.modules()
                         if isinstance(m, nn.BatchNorm)})
@@ -2656,12 +2690,22 @@ BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
               "device_kind", "host_load_1m", "collectives", "monitor", "numerics",
-              "incident", "memory", "compile", "telemetry")
+              "incident", "memory", "compile", "serve", "telemetry")
+# the serve block's keys (bench.py's measure_serve and its sections)
+BENCH_SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "levels",
+                    "clients", "requests", "rejected", "throughput_rps", "latency_p50_ms",
+                    "latency_p99_ms", "fill_ratio", "buckets_compiled", "drained",
+                    "open_loop", "publish", "tenancy"}
+BENCH_OPEN_LOOP_KEYS = {"slo_ms", "deadline_ms", "levels", "offered_rps", "goodput_rps",
+                        "latency_p99_ms", "deadline_miss_rate", "shed_rate", "shed",
+                        "rejected", "p99_bounded", "sheds_rise", "degradation_graceful"}
+BENCH_TENANCY_KEYS = {"deadline_ms", "miss_target", "burn_threshold", "tenants",
+                      "aggressive_burn", "steady_burn", "isolation_ok", "alert_bundle"}
 
 
 def phase_bench():
-    """``python -m tpu_syncbn_torch.bench --scan 8`` in a subprocess (its
-    kernels are built and cached by now): exit 0, every key of its line,
+    """``python -m tpu_syncbn_torch.bench --scan 8 --serve`` in a subprocess
+    (its kernels are built and cached by now): exit 0, every key of its line,
     0 < mfu <= 1, the ``recovery`` block (a truncated newest checkpoint
     resumes the older step, the async write certifies), the ``scan``
     block at K = 8, the ``monitor`` and ``numerics`` blocks (a port-0
@@ -2670,12 +2714,13 @@ def phase_bench():
     and ``compile`` blocks (a
     forced bundle, the card's reading against the warm step's peak with
     its ``mem_pressure`` drill and a capture holding CUDA activity, the
-    first step's compile event and no storm) and the ``telemetry`` block
-    (the registry's schema, a ``step.time_s`` sample a timed step).
-    Returns (failures, the line)."""
+    first step's compile event and no storm), the ``serve`` block (JAX's
+    keys, ``publish`` null, one program a bucket; its levels printed) and
+    the ``telemetry`` block (the registry's schema, a ``step.time_s``
+    sample a timed step). Returns (failures, the line)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "tpu_syncbn_torch.bench", "--scan",
-                        str(SCAN_KS[-1])], cwd=HERE,
+                        str(SCAN_KS[-1]), "--serve"], cwd=HERE,
                        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
                        text=True, timeout=600)
     lines = r.stdout.strip().splitlines()
@@ -2731,6 +2776,21 @@ def phase_bench():
     if comp.get("storms") != 0 or not comp.get("events_total") \
             or "train" not in (comp.get("families") or {}):
         failures.append(f"[bench] compile block {comp}")
+    # the serve block: JAX's keys; publish null (ROADMAP A.12b); printed:
+    # the closed-loop levels, the open-loop levels with their flags
+    srv = line.get("serve") or {}
+    ol, ten = srv.get("open_loop") or {}, srv.get("tenancy") or {}
+    if set(srv) != BENCH_SERVE_KEYS or set(ol) != BENCH_OPEN_LOOP_KEYS \
+            or set(ten) != BENCH_TENANCY_KEYS or srv.get("publish") is not None \
+            or srv.get("buckets_compiled") != len(srv.get("buckets") or ()):
+        failures.append(f"[bench] serve block {srv}")
+    for lv in srv.get("levels") or []:
+        log(f"[bench] serve closed loop {json.dumps(lv)}")
+    for lv in ol.get("levels") or []:
+        log(f"[bench] serve open loop {json.dumps(lv)}")
+    log(f"[bench] serve open loop p99_bounded {ol.get('p99_bounded')}, sheds_rise "
+        f"{ol.get('sheds_rise')}, degradation_graceful {ol.get('degradation_graceful')}; "
+        f"tenancy isolation_ok {ten.get('isolation_ok')}")
     # the registry's snapshot: schema 1, one step.time_s sample a timed step
     from tpu_syncbn_torch.obs import telemetry
 
@@ -4216,12 +4276,8 @@ def _obs_publisher(torch, dp, steps, failures) -> dict:
 #: launches and its first page-locked allocation the process's own):
 #: (name, gated)
 OBS_ALONE = (
-    ("test_first_publish_and_record_behind_queued_work_return_at_once", True),
-    # its own torch.ones and "* 2.0" are the process's first launches of
-    # their kernels, queued behind its device sleep: CUDA's lazy module
-    # loading makes them wait for it (tools/first_launch_wait.py), so its first
-    # publish finds the work done whatever the publisher does; printed
-    ("test_numerics_publisher_waits_on_the_event_not_the_host", False),
+    "test_first_publish_and_record_behind_queued_work_return_at_once",
+    "test_numerics_publisher_waits_on_the_event_not_the_host",
 )
 
 
@@ -4230,9 +4286,9 @@ def _obs_publisher_alone(failures) -> dict:
     (``-k``), where their page-locked blocks and kernel launches are the
     process's first: the first publish and record behind queued work must
     still return at once (both take their blocks and launch their kernels
-    when built)."""
+    when built, and each test launches its own kernels before its sleep)."""
     out = {}
-    for name, gated in OBS_ALONE:
+    for name in OBS_ALONE:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_gpu.py",
                             "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider",
@@ -4242,11 +4298,10 @@ def _obs_publisher_alone(failures) -> dict:
         tail = lines[-1] if lines else ""
         ok = r.returncode == 0 and tail.startswith("1 passed")
         log(f"[obs] {name} alone in a fresh process (-k): exit {r.returncode}, {tail!r} in "
-            f"{time.perf_counter() - t0:.1f}s "
-            f"{('ok' if ok else 'FAIL') if gated else '(printed, not gated)'}")
-        if gated and not ok:
+            f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}")
+        if not ok:
             failures.append(f"[obs] {name} alone: {r.stdout[-1500:]} {r.stderr[-500:]}")
-        out[name] = {"exit": r.returncode, "summary": tail, "gated": gated}
+        out[name] = {"exit": r.returncode, "summary": tail}
     return out
 
 
@@ -5373,6 +5428,498 @@ def phase_monitor(torch, card, keep):
     return failures, out
 
 
+# -- phase 13e: serve — the serving path (ROADMAP A.12a) ----------------------
+
+SERVE_BUCKETS = (8, 32, 128)  # the JAX engine's default buckets
+SERVE_SIZES = (1, 5, 8, 20, 32, 100, 128, 200)  # 200 is chunked through 128
+SERVE_TRAIN_STEPS = 3  # the slice's steps before serving: real running stats
+SERVE_BATCHER_MAX, SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 64, 8
+SERVE_FILL_MIN = 0.9  # the JAX bench's acceptance bound on the fill ratio
+# kernels against their plain versions on the whole model, bf16: the
+# slice's loss tolerance (PERF.md §2), held on the logits' largest value
+SERVE_AB_TOL = 1e-2
+SERVE_TIMED = 10
+SERVE_SLEEP_CYCLES = int(1e9)  # ~0.5 s of device sleep ahead of the in-flight request
+SERVE_PROFILED = 3  # replays in the profiler window; the last one is read
+SERVE_WAIT_S = 60
+
+
+def _serve_eager(torch, engine, x, n: int):
+    """The engine copy's eager eval forward on the rows ``x[:n]``, chunked
+    and zero-padded to buckets as ``predict`` does; host float32."""
+    import numpy as np
+
+    outs = []
+    for off in range(0, n, engine.max_bucket):
+        take = min(engine.max_bucket, n - off)
+        padded = np.zeros((engine.bucket_for(take),) + x.shape[1:], x.dtype)
+        padded[:take] = x[off:off + take]
+        with torch.no_grad():
+            y = engine.model(torch.from_numpy(padded).cuda())
+        outs.append(y.float().cpu().numpy()[:take])
+    return np.concatenate(outs)
+
+
+def _stream_ms(torch, stream, fn, iters: int) -> float:
+    """Time a call of ``fn`` issued on ``stream``: one warm-up call, then
+    ``iters`` calls between two CUDA events recorded on that stream."""
+    with torch.cuda.stream(stream):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+    e.synchronize()
+    return a.elapsed_time(e) / iters
+
+
+def _serve_build(torch, T, engine, x, failures) -> tuple[dict, int]:
+    """Each bucket's program built alone: the ``bn_normalize`` launches of
+    its eager warm-up and of its capture (counted while the stream
+    captures), no other BN kernel; capture seconds and pool bytes. Returns
+    the programs and the captures' ``bn_normalize`` launches summed over
+    the buckets."""
+    captured = [0]
+    total = 0
+    orig = T._normalize_kernel
+
+    def counting(x2, scale, shift):
+        if torch.cuda.is_current_stream_capturing():
+            captured[0] += 1
+        return orig(x2, scale, shift)
+
+    progs = {}
+    T._normalize_kernel = counting
+    try:
+        for b in SERVE_BUCKETS:
+            T.reset_launch_counts()
+            captured[0] = 0
+            progs[b] = engine._program(b, x[:1])
+            launches = T.launch_counts()
+            p = progs[b]
+            log(f"[serve] bucket {b}: capture {p.capture_s:.2f}s (eager warm-up "
+                f"included), graph pool {p.pool_bytes / 2**20:.1f} MiB; BN launches "
+                f"{json.dumps(launches)}, bn_normalize while capturing {captured[0]}")
+            if captured[0] != BN_LAYERS or launches != {
+                    **dict.fromkeys(T.LAUNCHES, 0), "bn_normalize": 2 * BN_LAYERS}:
+                failures.append(f"[serve] bucket {b}: {captured[0]} bn_normalize in "
+                                f"the capture, launches {launches}")
+            total += captured[0]
+    finally:
+        T._normalize_kernel = orig
+    return progs, total
+
+
+def _serve_replays(torch, engine, progs, x, card) -> dict:
+    """Per bucket: the replay alone by CUDA events on the engine's stream,
+    ``predict`` by the host clock (staging, copies, replay, copy-out), the
+    eager eval forward with the kernels and with their plain versions;
+    the bucket-128 batch's host-to-device and device-to-host copies."""
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+
+    st = engine._stream
+    out = {}
+    for b, p in progs.items():
+        replay = _stream_ms(torch, st, p.graph.replay, SERVE_TIMED)
+        host = []
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            engine.predict(x[:b])
+            host.append((time.perf_counter() - t0) * 1e3)
+        dev = torch.from_numpy(x[:b]).cuda()
+        with torch.no_grad():
+            eager = _event_ms(torch, lambda: engine.model(dev), 3, reps=3)
+            with bn_ops.kernel_mode("off"):
+                eager_off = _event_ms(torch, lambda: engine.model(dev), 3, reps=3)
+        out[b] = {"replay_ms": round(replay, 4), "predict_ms": round(statistics.median(host), 4),
+                  "eager_ms": round(eager, 4), "eager_plain_ms": round(eager_off, 4),
+                  "capture_s": round(p.capture_s, 3), "pool_bytes": p.pool_bytes,
+                  "img_per_s_replay": round(b / replay * 1e3, 1),
+                  "img_per_s_predict": round(b / statistics.median(host) * 1e3, 1)}
+        log(f"[serve] bucket {b}: replay {replay:.3f} ms (CUDA events) = "
+            f"{b / replay * 1e3:.1f} img/s; predict {statistics.median(host):.3f} ms "
+            f"(host clock, staging and copies included) = "
+            f"{out[b]['img_per_s_predict']:.1f} img/s; eager eval {eager:.3f} ms with "
+            f"the kernels, {eager_off:.3f} ms plain [{card}]")
+        del dev
+    p = progs[SERVE_BUCKETS[-1]]
+    h2d = _stream_ms(torch, st, lambda: [d.copy_(h, non_blocking=True)
+                                         for d, h in zip(p.static_in, p.staging)],
+                     SERVE_TIMED)
+    d2h = _stream_ms(torch, st, lambda: p.out_host.copy_(p.static_out, non_blocking=True),
+                     SERVE_TIMED)
+    mb = sum(t.numel() * t.element_size() for t in p.staging) / 1e6
+    log(f"[serve] bucket {SERVE_BUCKETS[-1]} copies: host-to-device {h2d:.3f} ms for "
+        f"{mb:.1f} MB of f32 ({mb / h2d:.1f} GB/s), device-to-host {d2h:.4f} ms for "
+        f"the logits [{card}]")
+    out["h2d_ms"], out["d2h_ms"] = round(h2d, 4), round(d2h, 4)
+    return out
+
+
+def _replay_kernels(torch, prog, stream) -> list:
+    """The device kernels of one replay of ``prog``'s graph, by name: the
+    last of SERVE_PROFILED replays in one profiler window, each after a
+    marker, one ``bn_stats`` kernel (which no eval graph holds). A
+    window's first activities can go missing in a process that ran other
+    profiler windows before, so the earlier replays are not read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    mark = torch.zeros(64, 64, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.stream(stream):
+            for _ in range(SERVE_PROFILED):
+                T.bn_stats(mark)
+                prog.graph.replay()
+            T.bn_stats(mark)
+        torch.cuda.synchronize()
+    names = [n for n, _, _ in sorted(device_intervals(prof), key=lambda e: e[1])
+             if "Memcpy" not in n and "Memset" not in n]
+    marks = [i for i, n in enumerate(names) if "bn_stats_k::" in n]
+    if len(marks) < 2:
+        return []
+    return names[marks[-2] + 1:marks[-1]]
+
+
+def _serve_plain_graph(torch, bn_ops, dp, engine, x, card, failures) -> dict:
+    """A second engine captured under kernel mode "off" (its BN the plain
+    chain): one replay of each bucket-128 graph profiled (53
+    ``bn_normalize`` kernels in the kernel graph and none in the plain
+    one, which runs three kernels more a layer: the chain's cast,
+    multiply, add and cast for the normalize kernel), their outputs held
+    within the slice's tolerance, their replays timed in turns."""
+    import numpy as np
+
+    from tpu_syncbn_torch import serve
+
+    b = SERVE_BUCKETS[-1]
+    with bn_ops.kernel_mode("off"):
+        plain = serve.InferenceEngine.from_trainer(dp, buckets=(b,))
+        plain.warm(x[:1])
+    k_names = _replay_kernels(torch, engine._program(b, x[:1]), engine._stream)
+    p_prog = plain._program(b, x[:1])
+    p_names = _replay_kernels(torch, p_prog, plain._stream)
+    k_norm = sum("bn_normalize_k::" in n for n in k_names)
+    p_norm = sum("bn_normalize_k::" in n for n in p_names)
+    log(f"[serve] profiled bucket-{b} replay: {len(k_names)} kernels with the "
+        f"hand-written normalize ({k_norm} bn_normalize), {len(p_names)} with the "
+        f"plain chain ({p_norm} bn_normalize); difference {len(p_names) - len(k_names)} "
+        f"(want 3 x {BN_LAYERS})")
+    if k_norm != BN_LAYERS or p_norm != 0 or len(p_names) - len(k_names) != 3 * BN_LAYERS:
+        failures.append(f"[serve] replay kernels: {k_norm} bn_normalize with the kernels, "
+                        f"{p_norm} plain, {len(k_names)} against {len(p_names)}")
+    got, want = engine.predict(x[:b]), plain.predict(x[:b])
+    rel = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
+    log(f"[serve] bucket-{b} logits, kernels against plain versions: max |diff| / "
+        f"max |plain| = {rel:.2e} (tol {SERVE_AB_TOL})")
+    if not rel <= SERVE_AB_TOL:
+        failures.append(f"[serve] kernels against plain versions: {rel:.2e}")
+    times = {"kernel": [], "plain": []}
+    for tag in ("plain", "kernel", "kernel", "plain"):
+        eng = engine if tag == "kernel" else plain
+        times[tag].append(_stream_ms(torch, eng._stream, eng._program(b, x[:1]).graph.replay,
+                                     SERVE_TIMED))
+    log(f"[serve] bucket-{b} replay in turns (plain, kernel, kernel, plain): "
+        f"kernel {times['kernel']} ms, plain chain {times['plain']} ms [{card}]")
+    del plain, p_prog
+    torch.cuda.empty_cache()
+    return {"rel_err": rel, "replay_kernel_ms": times["kernel"],
+            "replay_plain_ms": times["plain"], "kernels_a_replay": len(k_names),
+            "bn_normalize_a_replay": k_norm,
+            "plain_kernels_a_replay": len(p_names)}
+
+
+def _serve_normalize_times(torch, T, bn_ops, engine, card, failures) -> dict:
+    """Eval ``bn_normalize`` at the 53 BN shapes of a bucket-128 forward:
+    the wrapper (fold and kernel, as the path runs it) against the plain
+    chain (``batch_norm_elemt``) and ATen's ``F.batch_norm(training=False)``
+    on the same inputs, device time summed over the layers, beside the
+    bound; each call held against the plain chain within one bf16 ulp."""
+    import torch.nn.functional as F
+
+    shapes = bn_shapes(torch, engine.model, SERVE_BUCKETS[-1], IMAGE_SIZE)
+    counts: dict = {}
+    for s in shapes:
+        counts[s] = counts.get(s, 0) + 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0}
+    library_ok = True
+    for (m, c), n in sorted(counts.items()):
+        x, _, w, b = _inputs(torch, m, c, torch.bfloat16, seed=23)
+        g = torch.Generator(device="cuda").manual_seed(m + c)
+        rm = torch.randn(c, device="cuda", generator=g)
+        rv = torch.rand(c, device="cuda", generator=g) + 0.5
+        kern = lambda: T.bn_normalize(x, rm, rv, w, b, 1e-5)  # noqa: E731
+        plain = lambda: bn_ops.batch_norm_elemt(x, rm, rv, w, b, 1e-5)  # noqa: E731
+        got, want = kern(), plain()
+        err = (got.float() - want.float()).abs()
+        tot["max_abs_err"] = max(tot["max_abs_err"], float(err.max()))
+        if not bool((err <= 2 ** -7 * want.float().abs() + 1e-5).all()):
+            failures.append(f"[serve] bn_normalize at M={m} C={c} off its plain version "
+                            f"by {float(err.max()):.3e}")
+        t_k = _device_ms(torch, kern, 20)
+        t_p = _device_ms(torch, plain, 20)
+        try:
+            t_l = _device_ms(torch, lambda: F.batch_norm(x, rm, rv, w, b, False, 0.0, 1e-5), 20)
+        except RuntimeError as e:  # no ATen call for this mix of dtypes
+            log(f"[serve] F.batch_norm(training=False) at M={m} C={c}: {e}")
+            library_ok, t_l = False, 0.0
+        bytes_ms, ops_ms = bound_ms("bn_normalize", m, c, 2)
+        for k, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            tot[k] += n * v
+        del x
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    if not library_ok:
+        tot["library_ms"] = None
+    log(f"[serve] eval bn_normalize at bucket {SERVE_BUCKETS[-1]} ({len(shapes)} layers, "
+        f"bf16) device a forward: kernel {tot['ms']:.3f} ms (fold included), plain chain "
+        f"{tot['plain_ms']:.3f} ms, ATen F.batch_norm(training=False) "
+        f"{tot['library_ms'] if tot['library_ms'] is None else round(tot['library_ms'], 3)}"
+        f" ms, bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}); max |kernel - plain| "
+        f"{tot['max_abs_err']:.3e} [{card}]")
+    return tot
+
+
+def _serve_swap(torch, serve, engine, x, failures) -> dict:
+    """``swap_params`` with perturbed weights while a bucket-128 request is
+    in flight (queued behind a device sleep on the engine's stream): the
+    request returns the old version's rows, the next one the new weights'
+    eager forward, no new capture; ``rollback`` returns the old rows bit
+    for bit; a skewed tree raises ``VersionSkewError`` and changes
+    nothing."""
+    import threading
+
+    import numpy as np
+
+    n = SERVE_BUCKETS[-1]
+    old = engine.predict(x[:n])
+    compiled = engine.stats()["programs_compiled"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    new = {k: p + 0.05 * p.abs().mean() * torch.randn(p.shape, device="cuda", generator=g)
+           for k, p in engine.param_template().items()}
+    result: dict = {}
+    with torch.cuda.stream(engine._stream):
+        torch.cuda._sleep(SERVE_SLEEP_CYCLES)
+    th = threading.Thread(target=lambda: result.setdefault("y", engine.predict(x[:n])))
+    th.start()
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while not engine._run_lock.locked() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    in_flight = engine._run_lock.locked()
+    t0 = time.perf_counter()
+    prev = engine.swap_params(new, version=1)
+    swap_s = time.perf_counter() - t0
+    th.join(SERVE_WAIT_S)
+    inflight_old = not th.is_alive() and np.array_equal(result.get("y"), old)
+    got_new = engine.predict(x[:n])
+    new_ok = np.array_equal(got_new, _serve_eager(torch, engine, x, n)) \
+        and not np.array_equal(got_new, old)
+    t0 = time.perf_counter()
+    back = engine.rollback()
+    rollback_s = time.perf_counter() - t0
+    rolled = np.array_equal(engine.predict(x[:n]), old)
+    bad = dict(new)
+    k0 = next(iter(bad))
+    bad[k0] = bad[k0].reshape(-1, 1)
+    try:
+        engine.swap_params(bad, version=2)
+        skew = False
+    except serve.VersionSkewError:
+        skew = engine.version == 0 and np.array_equal(engine.predict(x[:n]), old)
+    recompiled = engine.stats()["programs_compiled"] - compiled
+    out = {"in_flight": in_flight, "in_flight_old_rows": inflight_old,
+           "new_bitwise_eager": new_ok, "rollback_bitwise": rolled, "skew_rejected": skew,
+           "new_captures": recompiled, "swap_s": round(swap_s, 4),
+           "rollback_s": round(rollback_s, 4), "swapped_from": prev, "rolled_back_to": back,
+           "params_nbytes": engine.params_nbytes()}
+    log(f"[serve] swap: {json.dumps(out)} (swap_s waits for the in-flight request)")
+    if not (in_flight and inflight_old and new_ok and rolled and skew and recompiled == 0
+            and prev == 0 and back == 0):
+        failures.append(f"[serve] swap/rollback {out}")
+    return out
+
+
+def _serve_batcher(torch, serve, engine, x, card, failures) -> dict:
+    """A ``DynamicBatcher`` at ``max_batch`` 32 under 64 closed-loop
+    clients (single-image requests): fill ratio, p50 and p99."""
+    import threading
+
+    import numpy as np
+
+    bat = serve.DynamicBatcher(engine, max_batch=SERVE_BATCHER_MAX, max_wait_ms=50.0,
+                               max_queue=4 * SERVE_BATCHER_MAX, health_name="serve_chip")
+    lat: list = []
+    lock = threading.Lock()
+
+    def client(cid):
+        rng = np.random.RandomState(cid)
+        for _ in range(SERVE_PER_CLIENT):
+            i = int(rng.randint(0, len(x)))
+            t0 = time.perf_counter()
+            bat.submit(x[i:i + 1]).result(timeout=SERVE_WAIT_S)
+            with lock:
+                lat.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_WAIT_S)
+    wall = time.perf_counter() - t0
+    bat.close(drain=True, timeout=SERVE_WAIT_S)
+    fill = bat.fill_ratio
+    out = {"requests": len(lat), "fill_ratio": fill, "throughput_rps": round(len(lat) / wall, 1),
+           "latency_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3) if lat else None,
+           "latency_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3) if lat else None,
+           "batches": bat.counters.count("batches")}
+    log(f"[serve] batcher max_batch {SERVE_BATCHER_MAX}, {SERVE_CLIENTS} closed-loop "
+        f"clients: {json.dumps(out)} (fill >= {SERVE_FILL_MIN}) [{card}]")
+    if len(lat) != SERVE_CLIENTS * SERVE_PER_CLIENT or fill is None or fill < SERVE_FILL_MIN:
+        failures.append(f"[serve] batcher {out}")
+    return out
+
+
+def _serve_circuit(torch, serve, engine, x, failures) -> dict:
+    """``faults.crash_engine_at_batch`` on the real engine behind a batcher
+    whose server ``TPU_SYNCBN_METRICS_PORT=0`` started: two failed batches
+    open the circuit, ``/readyz`` answers 503 naming it, the half-open
+    probe after the backoff answers the engine's own rows and closes it,
+    ``/readyz`` answers 200; exactly one valid ``circuit_open`` bundle."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_syncbn_torch.obs import flightrec
+    from tpu_syncbn_torch.obs import server as obs_server
+    from tpu_syncbn_torch.testing import faults
+
+    d = tempfile.mkdtemp(prefix="serve_incidents_")
+    rec = flightrec.install(flightrec.FlightRecorder(incident_dir=d))
+    prev_port = os.environ.get("TPU_SYNCBN_METRICS_PORT")
+    os.environ["TPU_SYNCBN_METRICS_PORT"] = "0"
+    out = {}
+    try:
+        proxy = faults.crash_engine_at_batch(engine, 0, n_batches=2)
+        breaker = serve.CircuitBreaker(failure_threshold=2, backoff_base_s=0.2,
+                                       backoff_max_s=1.0, key="chip")
+        bat = serve.DynamicBatcher(proxy, max_batch=8, max_wait_ms=1, max_queue=16,
+                                   breaker=breaker, health_name="serve_circuit")
+        try:
+            base = f"http://127.0.0.1:{obs_server.active_server().port}"
+            crashed = 0
+            for i in range(2):  # one at a time: two batches, two failures
+                try:
+                    bat.submit(x[i:i + 1]).result(timeout=SERVE_WAIT_S)
+                except RuntimeError:
+                    crashed += 1
+            status, body, _ = _http(base + "/readyz")
+            check = json.loads(body)["checks"].get("serve_circuit", {})
+            out["open"] = breaker.state == serve.CircuitBreaker.OPEN
+            out["readyz_open"] = status
+            out["readyz_circuit"] = (check.get("circuit") or {}).get("state")
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while breaker.state == serve.CircuitBreaker.OPEN and time.monotonic() < deadline:
+                time.sleep(0.01)
+            probe = bat.submit(x[:1]).result(timeout=SERVE_WAIT_S)
+            out["probe_rows"] = bool(np.array_equal(probe, engine.predict(x[:1])))
+            out["closed"] = breaker.state == serve.CircuitBreaker.CLOSED
+            out["readyz_after"] = _http(base + "/readyz")[0]
+            out["crashed"] = crashed
+        finally:
+            bat.close(timeout=SERVE_WAIT_S)
+    finally:
+        obs_server.stop_env_server()
+        if prev_port is None:
+            os.environ.pop("TPU_SYNCBN_METRICS_PORT", None)
+        else:
+            os.environ["TPU_SYNCBN_METRICS_PORT"] = prev_port
+        flightrec.uninstall()
+        rec.close()
+    bundles = _bundles_by_kind(d)
+    out["bundles"] = {k: len(v) for k, v in bundles.items()}
+    ring = [e["kind"] for e in bundles.get("circuit_open", [{}])[0].get("rings", {}).get(
+        "serve", [])]
+    out["ring_circuit_states"] = ring.count("circuit_state")
+    log(f"[serve] circuit drill: {json.dumps(out)}")
+    if not (out["crashed"] == 2 and out["open"] and out["readyz_open"] == 503
+            and out["readyz_circuit"] == "open" and out["probe_rows"] and out["closed"]
+            and out["readyz_after"] == 200 and out["bundles"] == {"circuit_open": 1}
+            and out["ring_circuit_states"] >= 1):
+        failures.append(f"[serve] circuit drill {out}")
+    return out
+
+
+def phase_serve(torch, card):
+    """The serving path (ROADMAP A.12a) on full-width bf16 ResNet-50
+    (``channels_last``), its SyncBN trainer taken SERVE_TRAIN_STEPS steps
+    first: ``InferenceEngine.from_trainer(dp, buckets=(8, 32, 128))`` on
+    224² f32 requests, cuDNN deterministic. Returns (failures, summary,
+    the eval normalize's row for the kernel line)."""
+    import numpy as np
+
+    from tpu_syncbn_torch import serve
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t0 = time.perf_counter()
+    failures: list = []
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, dp = _resnet_trainer(torch)
+        for i in range(SERVE_TRAIN_STEPS):
+            dp.train_step(_trainer_batch(torch, 300 + i))
+        engine = serve.InferenceEngine.from_trainer(dp, buckets=SERVE_BUCKETS)
+        if not model.training or engine.model.training:
+            failures.append("[serve] the trainer's module left training mode, or the "
+                            "engine's copy is not in eval mode")
+        x = np.random.RandomState(5).randn(max(SERVE_SIZES), IMAGE_SIZE, IMAGE_SIZE, 3) \
+            .astype(np.float32)
+        progs, captured = _serve_build(torch, T, engine, x, failures)
+        engine.warm(x[:1])
+        # every bucket bitwise its eager forward; every size its own rows
+        sizes_ok = {}
+        for n in SERVE_SIZES:
+            got = engine.predict(x[:n])
+            sizes_ok[n] = bool(got.shape == (n, 1000) and np.isfinite(got).all()
+                               and np.array_equal(got, _serve_eager(torch, engine, x, n)))
+        log(f"[serve] request sizes, replay bitwise the eager forward at the padded "
+            f"size (rows their own): {json.dumps(sizes_ok)}")
+        if not all(sizes_ok.values()):
+            failures.append(f"[serve] sizes {sizes_ok}")
+        if engine.stats()["programs_compiled"] != len(SERVE_BUCKETS):
+            failures.append(f"[serve] stats after warm() and traffic: {engine.stats()}")
+        replays = _serve_replays(torch, engine, progs, x, card)
+        ab = _serve_plain_graph(torch, bn_ops, dp, engine, x, card, failures)
+        norm = _serve_normalize_times(torch, T, bn_ops, engine, card, failures)
+        swap = _serve_swap(torch, serve, engine, x, failures)
+        batcher = _serve_batcher(torch, serve, engine, x, card, failures)
+        circuit = _serve_circuit(torch, serve, engine, x, failures)
+        if engine.stats()["programs_compiled"] != len(SERVE_BUCKETS):
+            failures.append(f"[serve] programs rebuilt: {engine.stats()}")
+        log(f"[serve] stats {json.dumps(engine.stats())}; trainer still training: "
+            f"{model.training}")
+        del engine, dp, model, progs
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    torch.cuda.empty_cache()
+    log(f"[serve] phase done in {time.perf_counter() - t0:.1f}s, {len(failures)} failures")
+    row = {"launches": captured, "launches_a_replay": ab["bn_normalize_a_replay"],
+           "bucket": SERVE_BUCKETS[-1], "ms": norm["ms"], "plain_ms": norm["plain_ms"],
+           "library_ms": norm["library_ms"], "bound_ms": norm["bound_ms"],
+           "bound_by": norm["bound_by"], "max_abs_err": norm["max_abs_err"]}
+    summary = {"replays": replays, "ab": ab, "swap": swap, "batcher": batcher,
+               "circuit": circuit, "sizes": sizes_ok}
+    return failures, summary, row
+
+
 def attn_terms(torch, A, kern: str, args, causal: bool, scale: float, lse):
     """The root sum of squares of the terms each element of ``kern``'s
     bf16 outputs sums (o; dk, dv; dq), float32 (B, L, H, D), from the
@@ -5946,6 +6493,9 @@ def main() -> int:
     mon_failures, monitor_out = phase_monitor(torch, card, shared)
     failures += mon_failures
     torch.cuda.empty_cache()
+    serve_failures, serve_out, serve_row = phase_serve(torch, card)
+    failures += serve_failures
+    torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
 
@@ -5980,6 +6530,9 @@ def main() -> int:
         })
         if k == "bn_normalize":  # "ms" is the wrapper, fold included
             kernels[-1]["kernel_alone_ms"] = t["alone_ms"]
+            # the serving path: eval BN, 53 launches in each bucket's graph;
+            # times a bucket-128 forward
+            kernels[-1]["serve"] = serve_row
     n_layers = LM_CFG["n_layers"]
     for k in ATTN_KERNELS:  # per LM training step: n_layers causal calls
         t = attn_times[(k, True)]
@@ -6025,7 +6578,7 @@ def main() -> int:
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
         "resilience": resilience, "obs": obs, "incident": incident_out,
-        "monitor": monitor_out}}),
+        "monitor": monitor_out, "serve": serve_out}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ reading with no device contract, one planted ``mem_pressure`` bundle, a
 profiler capture through ``serve_capture``, the first step's compile
 event), and the
 ``telemetry`` block checked against the registry schema
-(``obs.telemetry.validate_snapshot``); ``--trace`` writes a Chrome trace
-that validates. Numbers from this run are CPU numbers and are checked for
+(``obs.telemetry.validate_snapshot``), and ``serve`` null without
+``--serve``; ``--trace`` writes a Chrome trace that validates. The serve
+block's schema is held in process (``measure_serve`` on a narrow net). Numbers from this run are CPU numbers and are checked for
 shape only."""
 
 import json
@@ -24,7 +25,7 @@ KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
         "device_kind", "host_load_1m", "recovery", "scan", "collectives",
-        "monitor", "numerics", "incident", "memory", "compile", "telemetry"}
+        "monitor", "numerics", "incident", "memory", "compile", "serve", "telemetry"}
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
@@ -48,6 +49,21 @@ NUMERICS_KEYS = {"monitors", "samples", "published", "record_step_cost_s",
                  "record_overhead_frac", "drift", "rules"}
 COMPILE_KEYS = {"warmup_s", "events_total", "storms", "time_s_count", "time_s_sum",
                 "families"}
+SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "levels", "clients",
+              "requests", "rejected", "throughput_rps", "latency_p50_ms", "latency_p99_ms",
+              "fill_ratio", "buckets_compiled", "drained", "open_loop", "publish", "tenancy"}
+SERVE_LEVEL_KEYS = {"clients", "requests", "throughput_rps", "latency_p50_ms",
+                    "latency_p99_ms", "fill_ratio"}
+OPEN_LOOP_KEYS = {"slo_ms", "deadline_ms", "levels", "offered_rps", "goodput_rps",
+                  "latency_p99_ms", "deadline_miss_rate", "shed_rate", "shed", "rejected",
+                  "p99_bounded", "sheds_rise", "degradation_graceful"}
+OPEN_LEVEL_KEYS = {"offered", "offered_rps", "duration_s", "answered", "goodput_rps",
+                   "latency_p50_ms", "latency_p99_ms", "deadline_miss_rate", "shed_rate",
+                   "reject_rate", "late", "shed", "rejected", "errored", "lost", "p99_bounded"}
+TENANCY_KEYS = {"deadline_ms", "miss_target", "burn_threshold", "tenants", "aggressive_burn",
+                "steady_burn", "isolation_ok", "alert_bundle"}
+TENANT_KEYS = {"requests", "deadline_misses", "miss_fraction", "latency_p50_ms",
+               "latency_p99_ms", "burn_rate", "firing"}
 
 
 def test_bench_on_the_cpu_prints_its_line():
@@ -80,6 +96,7 @@ def test_bench_on_the_cpu_prints_its_line():
     check_collectives_block(line["collectives"], world=1)
     check_obs_blocks(line, steps=2)
     check_telemetry_block(line["telemetry"], steps=2)
+    assert line["serve"] is None  # without --serve
 
 
 def check_obs_blocks(line, steps):
@@ -192,6 +209,64 @@ def test_bench_scan_block_on_the_cpu(tmp_path):
               "dispatch_frac_scan1"):
         assert 0.0 <= scan[k] <= 1.0, k
     assert scan["img_per_sec_per_chip"] > 0
+
+
+def test_measure_serve_block_schema_on_the_cpu():
+    """``measure_serve`` in process on a narrow ResNet-18 (8² images,
+    global batch 16): ``bench.py``'s serve block key for key — buckets
+    (8, 16), closed-loop levels at 1 and 32 clients with the saturating
+    fill >= 0.9 (JAX's acceptance bound), two programs built, the
+    open-loop sweep's levels every request accounted for and offered load
+    rising past the first level, the tenancy drill's aggressive tenant
+    firing while the steady one stays quiet, and ``publish`` null (ROADMAP
+    A.12b). Times are CPU times: shapes only."""
+    import numpy as np
+    import torch
+
+    from tpu_syncbn_torch import bench, models, nn, parallel
+    from tpu_syncbn_torch.obs import telemetry
+
+    telemetry.set_enabled(True)
+    try:
+        model = nn.convert_sync_batchnorm(models.resnet18(
+            num_classes=10, small_input=True, width=8, device="cpu"))
+        dp = parallel.DataParallel(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                                   bench._loss_fn, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        batch = (torch.randn(16, 8, 8, 3, generator=g), torch.randint(0, 10, (16,), generator=g))
+        dp.train_step(batch)
+        block = bench.measure_serve(dp, batch)
+    finally:
+        telemetry.set_enabled(None)
+        telemetry.REGISTRY.reset()
+    assert set(block) == SERVE_KEYS
+    assert block["buckets"] == [8, 16] and block["max_batch"] == 16
+    assert block["max_wait_ms"] == 50.0 and block["buckets_compiled"] == 2
+    assert [lv["clients"] for lv in block["levels"]] == [1, 32]
+    for lv in block["levels"]:
+        assert set(lv) == SERVE_LEVEL_KEYS and lv["requests"] >= 1
+        assert lv["throughput_rps"] > 0 and 0 < lv["latency_p50_ms"] <= lv["latency_p99_ms"]
+    assert block["requests"] == 256 and block["fill_ratio"] >= 0.9
+    assert block["drained"] is True and block["publish"] is None
+    ol = block["open_loop"]
+    assert set(ol) == OPEN_LOOP_KEYS and ol["slo_ms"] >= 200.0
+    assert 2 <= len(ol["levels"]) <= 7
+    for lv in ol["levels"]:
+        assert set(lv) == OPEN_LEVEL_KEYS and lv["lost"] == 0
+        assert (lv["answered"] + lv["late"] + lv["shed"] + lv["rejected"] + lv["errored"]
+                == lv["offered"])
+    assert ol["levels"][-1]["offered_rps"] > 2 * ol["levels"][0]["offered_rps"]
+    assert all(isinstance(ol[k], bool) for k in ("p99_bounded", "sheds_rise",
+                                                  "degradation_graceful"))
+    ten = block["tenancy"]
+    assert set(ten) == TENANCY_KEYS and set(ten["tenants"]) == {"aggressive", "steady"}
+    for t in ten["tenants"].values():
+        assert set(t) == TENANT_KEYS and t["requests"] >= 1
+    assert ten["aggressive_burn"] > ten["burn_threshold"] >= ten["steady_burn"]
+    assert ten["isolation_ok"] is True
+    assert ten["alert_bundle"]["trigger"] == "slo_alert"
+    assert ten["alert_bundle"]["labeled_series"] >= 1
+    assert np.isfinite(block["throughput_rps"])
 
 
 def test_bench_config_defaults_and_overrides(monkeypatch):

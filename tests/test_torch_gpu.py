@@ -148,6 +148,45 @@ def test_batch_norm_train_raises_on_a_layout_the_kernels_cannot_read(
     assert T.launch_counts() == dict.fromkeys(T.LAUNCHES, 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_bn_launches_the_normalize_kernel(cuda_triton, dtype):
+    """Eval-mode BN of a channels_last CUDA activation launches the
+    hand-written ``bn_normalize`` once and nothing else, and matches the
+    plain chain (``batch_norm_elemt``) within one bf16 ulp of f32 work;
+    with a gradient asked for, its dx, dγ, dβ match the plain chain's; an
+    NCHW-contiguous activation raises instead of running the plain ops."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 64, 14, 14, device="cuda", generator=g).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    bn = nn.BatchNorm2d(64, channel_axis=1, device="cuda")
+    with torch.no_grad():
+        bn.running_mean.normal_(generator=g)
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+        bn.weight.normal_(generator=g)
+        bn.bias.normal_(generator=g)
+    bn.eval()
+    args = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+    T.reset_launch_counts()
+    with torch.no_grad():
+        y = bn(x)
+    assert T.launch_counts() == {**dict.fromkeys(T.LAUNCHES, 0), "bn_normalize": 1}
+    with torch.no_grad():
+        want = bn_ops.batch_norm_elemt(x, *args[:4], args[4], channel_axis=1)
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    close_elem(y, want, dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(dtype)
+    grads = []
+    for fn in (bn, lambda t: bn_ops.batch_norm_elemt(t, *args[:4], args[4], channel_axis=1)):
+        xg = x.detach().clone().requires_grad_(True)
+        bn.zero_grad(set_to_none=True)
+        (fn(xg).float() * dy.float()).sum().backward()
+        grads.append((xg.grad, bn.weight.grad, bn.bias.grad))
+    for got, ref in zip(*grads):
+        close_elem(got, ref, dtype if got.dtype == dtype else torch.float32)
+    with torch.no_grad(), pytest.raises(ValueError, match="dense channel-last"):
+        bn(x.contiguous())
+
+
 def flat_stats(out):
     return torch.cat([t.reshape(-1) for t in out])
 
@@ -951,15 +990,21 @@ def test_numerics_publisher_waits_on_the_event_not_the_host(cuda_card):
     """A monitor computed behind ~0.5 s of queued device work: ``publish``
     returns at once with the entry still queued (its event pending, no
     synchronize), the next ``publish`` after the work lands drains it, and
-    ``flush`` drains a pending one by synchronizing on its event."""
+    ``flush`` drains a pending one by synchronizing on its event. The
+    value, and the multiply the test runs later, are computed before the
+    queued work: a kernel's first launch in a process waits for all
+    queued work (CUDA loads kernels lazily), so the test's own first
+    launches must not sit behind its sleep when it runs alone."""
     from tpu_syncbn_torch.obs import numerics, telemetry
 
     telemetry.set_enabled(True)
     telemetry.REGISTRY.reset()
     try:
         pub = numerics.NumericsPublisher()
-        torch.cuda._sleep(int(1e9))  # ~0.5 s of device time on the stream
         value = torch.ones((), device="cuda") * 2.0
+        value * 0.25
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(1e9))  # ~0.5 s of device time on the stream
         t0 = time.perf_counter()
         assert pub.publish(1, {"bn_mean_skew": value, "grad_norm": value}) == 0
         assert time.perf_counter() - t0 < 0.1
@@ -1286,3 +1331,59 @@ def test_first_publish_and_record_behind_queued_work_return_at_once(cuda_card, t
         assert entry["monitors"] == {"grad_norm": 2.0}
     finally:
         telemetry.set_enabled(None)
+
+
+# -- serving on the card (ROADMAP A.12a) --------------------------------------
+
+
+def test_engine_replay_is_its_eager_forward_bit_for_bit(cuda_triton, deterministic_cudnn):
+    """Each bucket's captured graph returns what the engine's own module
+    computes eagerly at the same padded size, bit for bit; the captures
+    launched ``bn_normalize`` once a BN layer (20) beside the eager
+    warm-up, no other BN kernel, and the replays none through the
+    wrappers; the trainer's module stays in training mode."""
+    from tpu_syncbn_torch import serve
+
+    model, dp = _card_trainer()
+    dp.train_step(_card_batch(0))
+    eng = serve.InferenceEngine.from_trainer(dp, buckets=(4, 16))
+    assert model.training and not eng.model.training
+    x = _card_batch(1)[0].cpu().numpy()
+    T.reset_launch_counts()
+    eng.warm(x[:1])
+    torch.cuda.synchronize()
+    # each bucket: one eager warm-up forward and one captured forward
+    assert T.launch_counts() == {**dict.fromkeys(T.LAUNCHES, 0), "bn_normalize": 2 * 2 * 20}
+    for n in (3, 4, 11, 16):
+        got = eng.predict(x[:n])
+        b = eng.bucket_for(n)
+        padded = np.concatenate([x[:n], np.zeros((b - n,) + x.shape[1:], x.dtype)])
+        with torch.no_grad():
+            want = eng.model(torch.from_numpy(padded).cuda()).float().cpu().numpy()[:n]
+        assert got.shape == (n, 10) and np.array_equal(got, want), n
+    assert T.launch_counts()["bn_normalize"] == 2 * 2 * 20 + 4 * 20  # the 4 eager refs
+    assert eng.stats()["programs_compiled"] == 2
+
+
+def test_engine_dict_batches_in_any_key_order_feed_each_key(cuda_triton):
+    """A dict batch whose keys arrive in another insertion order replays
+    the same graph, and each key's rows land in that key's static buffer
+    (both leaves have one shape and dtype, so a swap would go unseen by
+    the copy)."""
+    from tpu_syncbn_torch import serve
+
+    model, dp = _card_trainer()
+    eng = serve.InferenceEngine.from_trainer(
+        dp, buckets=(4,), apply_fn=lambda m, t: m(t["a"]).float() - 2 * t["b"][:, 0, 0, :1])
+    a = _card_batch(1)[0][:3].cpu().numpy()
+    b = _card_batch(2)[0][:3].cpu().numpy()
+    first = eng.predict({"a": a, "b": b})
+    again = eng.predict({"b": b, "a": a})
+    assert np.array_equal(first, again)
+    swapped = eng.predict({"a": b, "b": a})
+    assert not np.array_equal(first, swapped)
+    with torch.no_grad():
+        want = (eng.model(torch.from_numpy(a).cuda()).float()
+                - 2 * torch.from_numpy(b).cuda()[:, 0, 0, :1]).cpu().numpy()
+    np.testing.assert_allclose(first, want, rtol=2e-2, atol=2e-2)
+    assert eng.stats()["programs_compiled"] == 1

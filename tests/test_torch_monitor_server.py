@@ -7,7 +7,9 @@ packages), ``statusz_report`` equal on the same live state, the six
 ``MONITOR_METRICS`` names equal and each produced; then the endpoints over
 a live port-0 server — the JAX suite's ``TestPrometheusExposition``,
 ``TestHealthz``, ``TestReadyz``, ``TestTrainReadinessFlips`` and the
-training half of ``TestEnvGatedRuns`` on the port's ``ResilientLoop`` —
+training half of ``TestEnvGatedRuns`` on the port's ``ResilientLoop``,
+``TestServeReadinessFlips`` and the serving half on the port's
+``DynamicBatcher`` —
 ``/statusz``, ``POST /incidentz`` and ``POST /profilez`` on the CPU,
 including the hand-off of a capture to the main thread's loop and its
 bounded 503 when no loop takes it.
@@ -757,3 +759,142 @@ def test_resilient_loop_services_profilez_on_the_main_thread(monkeypatch, tmp_pa
     code, payload = out["r"]
     assert code == 200 and payload["events"] > 0, payload
     assert profiling._slot is None and not profiling._capture_lock.locked()
+
+
+# -- the serving half of readiness (JAX's TestServeReadinessFlips and
+# -- TestEnvGatedRuns.test_serving_run_answers_endpoints) -------------------
+
+
+class _StubEngine:
+    """Duck-typed engine with a blockable predict, so overload is
+    deterministic."""
+
+    def __init__(self, bucket=4, release=None):
+        self.max_bucket = bucket
+        self._release = release
+
+    def bucket_for(self, n):
+        return self.max_bucket
+
+    def predict(self, b):
+        if self._release is not None:
+            assert self._release.wait(timeout=30)
+        return np.asarray(b) * 2.0
+
+
+def _item(v, n=1):
+    return np.full((n, 1), v, np.float32)
+
+
+def test_serve_queue_overload_flips_not_ready_then_recovers():
+    """Queue depth >= ``ready_depth`` flips the serve hook before
+    queue-full rejection starts shedding, and drains back to ready."""
+    from tpu_syncbn_torch import serve
+
+    release = threading.Event()
+    bat = serve.DynamicBatcher(_StubEngine(bucket=2, release=release), max_batch=2,
+                               max_wait_ms=1, max_queue=8, ready_depth=3)
+    try:
+        ok, detail = bat.readiness()
+        assert ok and detail["queue_depth"] < 3
+        futs = [bat.submit(_item(i)) for i in range(6)]
+        deadline = time.monotonic() + 5
+        while bat._q.qsize() < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        ok, detail = bat.readiness()
+        assert not ok and detail["queue_depth"] >= 3
+        release.set()
+        for f in futs:
+            f.result(timeout=HTTP_TIMEOUT_S)
+        ok, _ = bat.readiness()
+        assert ok
+    finally:
+        release.set()
+        bat.close()
+
+
+def test_serve_preemption_drain_flips_readyz_on_the_wire():
+    """A serving process answers ``/readyz`` 200, then SIGUSR1-shaped
+    preemption flips it 503 while admitted requests still drain; close()
+    removes the hook."""
+    from tpu_syncbn_torch import serve
+
+    with _server() as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        with resilience.PreemptionGuard(signals=(signal.SIGUSR1,)) as g:
+            bat = serve.DynamicBatcher(_StubEngine(bucket=4), max_batch=4, max_wait_ms=5,
+                                       max_queue=16, guard=g)
+            status, doc = _get(base + "/readyz")
+            assert status == 200 and doc["checks"]["serve"]["ok"]
+            futs = [bat.submit(_item(i)) for i in range(4)]
+            os.kill(os.getpid(), signal.SIGUSR1)
+            assert g.preempted
+            status, doc = _get(base + "/readyz")
+            assert status == 503
+            assert doc["checks"]["serve"]["draining"] is True
+            for i, f in enumerate(futs):
+                assert float(f.result(timeout=HTTP_TIMEOUT_S)[0, 0]) == 2.0 * i
+            bat.close()
+        _, doc = _get(base + "/readyz")
+        assert "serve" not in doc["checks"]
+
+
+def test_serve_collector_heartbeat_feeds_healthz():
+    from tpu_syncbn_torch import serve
+
+    bat = serve.DynamicBatcher(_StubEngine(bucket=4), max_batch=4, max_wait_ms=5,
+                               max_queue=16)
+    try:
+        deadline = time.monotonic() + 5
+        while "serve" not in obs_server.HEARTBEATS.ages() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert "serve" in obs_server.HEARTBEATS.ages()
+    finally:
+        bat.close()
+    assert "serve" not in obs_server.HEARTBEATS.ages()
+
+
+def test_serve_engine_health_rides_readiness_detail():
+    from tpu_syncbn_torch import serve
+
+    class Healthy(_StubEngine):
+        def health(self):
+            return {"buckets": [4], "programs_live": 1, "programs_compiled": 1}
+
+    with serve.DynamicBatcher(Healthy(bucket=4), max_batch=4, max_wait_ms=5,
+                              max_queue=16) as bat:
+        _, detail = bat.readiness()
+    assert detail["engine"]["programs_live"] == 1
+
+
+def test_serving_run_answers_endpoints(monkeypatch):
+    """``TPU_SYNCBN_METRICS_PORT=0``: the batcher starts the server; its
+    ``/metrics`` counts the requests, ``/readyz`` carries the serve hook
+    and ``/healthz`` the collector's heartbeat — the same exposition line
+    as JAX's."""
+    from tpu_syncbn_torch import serve
+
+    monkeypatch.setenv("TPU_SYNCBN_METRICS_PORT", "0")
+    telemetry.set_enabled(True)
+    bat = serve.DynamicBatcher(_StubEngine(bucket=4), max_batch=4, max_wait_ms=5,
+                               max_queue=16)
+    try:
+        srv = obs_server.active_server()
+        assert srv is not None, "env gate did not start a server"
+        base = f"http://127.0.0.1:{srv.port}"
+        for f in [bat.submit(_item(i)) for i in range(4)]:
+            f.result(timeout=HTTP_TIMEOUT_S)
+        status, text = _get(base + "/metrics")
+        assert status == 200
+        assert "tpu_syncbn_serve_requests_total 4" in text
+        status, doc = _get(base + "/readyz")
+        assert status == 200 and doc["checks"]["serve"]["ok"]
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline:
+            status, doc = _get(base + "/healthz")
+            if doc["ok"] and "serve" in doc["heartbeat_age_s"]:
+                break
+            time.sleep(0.01)
+        assert status == 200 and "serve" in doc["heartbeat_age_s"]
+    finally:
+        bat.close()

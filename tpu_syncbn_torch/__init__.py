@@ -13,14 +13,15 @@ repository as the reference the port is tested against.
 
 :mod:`tpu_syncbn_torch.obs` holds the telemetry registry, the trace spans
 and the trainers' on-device step monitors (the JAX package's names and
-formats).
+formats). :mod:`tpu_syncbn_torch.serve` serves a trained model: one CUDA
+graph per batch bucket behind a dynamic batcher with admission control.
 
 Entry points default to ``device="cuda"`` and raise without a card; pass
 ``device="cpu"`` to run on the CPU (the kernels' plain versions run there).
 """
 
-from tpu_syncbn_torch import data, models, nn, obs, ops, parallel, runtime, utils
+from tpu_syncbn_torch import data, models, nn, obs, ops, parallel, runtime, serve, utils
 from tpu_syncbn_torch.mesh_axes import DATA_AXIS
 
 __all__ = ["DATA_AXIS", "data", "models", "nn", "obs", "ops", "parallel", "runtime",
-           "utils"]
+           "serve", "utils"]

@@ -10,7 +10,7 @@ JSON line:
      "host_load_1m", "recovery": {...}, "scan": {...},
      "collectives": {...}, "monitor": {...}, "numerics": {...},
      "incident": {...}, "memory": {...}, "compile": {...},
-     "telemetry": {...}}
+     "serve": {...} or null, "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
@@ -18,6 +18,7 @@ every rank times its own steps, the master prints):
     python -m tpu_syncbn_torch.bench
     python -m tpu_syncbn_torch.bench --scan 8     # also the fused 8-step path
     python -m tpu_syncbn_torch.bench --trace out.json   # and a Chrome trace
+    python -m tpu_syncbn_torch.bench --serve      # and the serving sweep
     BENCH_PER_CHIP_BATCH=32 BENCH_STEPS=20 BENCH_IMAGE_SIDE=224 python -m tpu_syncbn_torch.bench
 
 ``--device cpu`` (tests) runs a small config (batch 8, 20 steps at 64²,
@@ -72,6 +73,13 @@ forced ``numerics_drift`` bundle. Both are ``bench.py``'s blocks of those
 names, key for key, and ``numerics`` runs before the ``incident`` block's
 forced dump, as there.
 
+``serve`` (:func:`measure_serve`, with ``--serve``; null without it) is
+``bench.py``'s serve block on the bench's trained state: an
+``InferenceEngine`` (one CUDA graph a bucket) behind ``DynamicBatcher``s,
+closed-loop levels at 1 and 2 x ``max_batch`` clients, the open-loop
+sweep past saturation and the two-tenant isolation drill; its
+``publish`` section is null (weight publication is ROADMAP A.12b).
+
 ``telemetry`` is the process registry's snapshot (``obs.telemetry``, schema
 1, as ``bench.py``'s): the timed loop's ``step.time_s`` and
 ``step.data_wait_s`` histograms (each timed step runs under the
@@ -90,6 +98,7 @@ import itertools
 import json
 import os
 import shutil
+import sys
 import tempfile
 import time
 import zlib
@@ -676,7 +685,362 @@ def compile_block(warm_s: float) -> dict:
     }
 
 
-def run(device: torch.device, scan: int = 1) -> dict:
+def log(*a) -> None:
+    print(*a, file=sys.stderr, flush=True)
+
+
+def measure_serve(dp, batch) -> dict:
+    """The ``serve`` block (``bench.py``'s ``measure_serve``, key for key):
+    a closed-loop offered-load sweep against the dynamic-batching
+    inference engine (``tpu_syncbn_torch.serve``) built from the bench's
+    trained state, then the open-loop sweep and the two-tenant drill.
+
+    Each closed-loop level runs ``clients`` client threads (each submits a
+    single-image request, blocks on its future, repeats), so offered load
+    is set by the client count. ``clients=1`` is the latency floor (every
+    batch one item, p50 = engine time + admission wait);
+    ``clients = 2 * max_batch`` saturates (the queue stays deeper than a
+    full batch, so the batch-fill ratio must approach 1.0). The engine is
+    warmed (one graph a bucket) before the sweep: ``warm_compile_s`` is
+    reported apart, never inside a latency percentile. Headline fields are
+    the saturating level's.
+
+    ``open_loop`` (:func:`measure_serve_open_loop`) sweeps an open-loop
+    Poisson generator from half the closed-loop capacity up, 3x a level,
+    for at most 7 levels, against a deadline-enabled
+    batcher: ``p99_bounded`` and ``degradation_graceful`` say whether the
+    tail stayed bounded while the excess was shed. ``tenancy``
+    (:func:`measure_serve_tenancy`) is the per-tenant isolation drill.
+    ``publish`` (weight publication, ROADMAP A.12b) is not ported and
+    reads null."""
+    import threading
+
+    import numpy as np
+
+    from tpu_syncbn_torch import serve as serve_lib
+
+    x = batch[0] if isinstance(batch, (tuple, list)) else batch
+    x = x.detach().float().cpu().numpy()
+    gb = x.shape[0]
+    # serve-side batch: capped at 16 so the client thread count (2x) and
+    # request totals stay sane on any device
+    max_batch = min(gb, 16)
+    buckets = tuple(sorted({max(1, max_batch // 2), max_batch}))
+    engine = serve_lib.InferenceEngine.from_trainer(dp, buckets=buckets)
+    max_batch = engine.max_bucket
+    max_wait_ms = 50.0
+
+    t0 = time.perf_counter()
+    engine.warm(x[:1])
+    warm_s = time.perf_counter() - t0
+
+    levels_out = []
+    rejected_total = 0
+    bat = None
+    for clients in (1, 2 * max_batch):
+        # fresh batcher per level: its CounterGroup is the level's
+        # fill-ratio measurement
+        bat = serve_lib.DynamicBatcher(
+            engine, max_batch=max_batch, max_wait_ms=max_wait_ms,
+            max_queue=4 * max_batch,
+        )
+        # the saturating level gets enough traffic that start/tail partial
+        # batches cannot drag the aggregate fill below the bound
+        per_client = 8 if clients > 1 else 2 * max_batch
+        latencies: list[float] = []
+        lat_lock = threading.Lock()
+
+        def client(cid, batcher=bat, per_client=per_client):
+            rng = np.random.RandomState(cid)
+            local = []
+            for _ in range(per_client):
+                i = int(rng.randint(0, gb))
+                t_req = time.perf_counter()
+                try:
+                    batcher.submit(x[i:i + 1]).result(timeout=600)
+                except serve_lib.RejectedError:
+                    continue  # shed — counted by the batcher
+                local.append(time.perf_counter() - t_req)
+            with lat_lock:
+                latencies.extend(local)
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        bat.close(drain=True)
+        fill = bat.fill_ratio
+        rejected_total += bat.counters.count("rejected")
+        levels_out.append({
+            "clients": clients,
+            "requests": len(latencies),
+            "throughput_rps": round(len(latencies) / wall, 2) if wall else None,
+            "latency_p50_ms": round(float(np.percentile(latencies, 50)) * 1e3, 3),
+            "latency_p99_ms": round(float(np.percentile(latencies, 99)) * 1e3, 3),
+            "fill_ratio": round(fill, 4) if fill is not None else None,
+        })
+        log(f"serve clients={clients}: "
+            f"{levels_out[-1]['throughput_rps']} req/s, "
+            f"p50 {levels_out[-1]['latency_p50_ms']} ms, "
+            f"p99 {levels_out[-1]['latency_p99_ms']} ms, "
+            f"fill {levels_out[-1]['fill_ratio']}")
+    sat = levels_out[-1]
+    try:
+        open_loop = measure_serve_open_loop(
+            engine, x, gb=gb, max_batch=max_batch, max_wait_ms=max_wait_ms,
+            capacity_rps=sat["throughput_rps"],
+            closed_loop_p50_ms=sat["latency_p50_ms"],
+        )
+    except Exception as e:  # null only this section, keep closed-loop
+        log(f"serve open-loop measurement failed: {type(e).__name__}: {e}")
+        open_loop = None
+    log("serve publish: not measured (weight publication is ROADMAP A.12b)")
+    try:
+        tenancy = measure_serve_tenancy(
+            engine, x, gb=gb, max_batch=max_batch, max_wait_ms=max_wait_ms,
+        )
+    except Exception as e:  # null only this section, keep the rest
+        log(f"serve tenancy measurement failed: {type(e).__name__}: {e}")
+        tenancy = None
+    stats = engine.stats()
+    return {
+        "buckets": stats["buckets"],
+        "max_batch": max_batch,
+        "max_wait_ms": max_wait_ms,
+        "warm_compile_s": round(warm_s, 2),
+        "levels": levels_out,
+        # headline = the saturating level
+        "clients": sat["clients"],
+        "requests": sat["requests"],
+        "rejected": rejected_total,
+        "throughput_rps": sat["throughput_rps"],
+        "latency_p50_ms": sat["latency_p50_ms"],
+        "latency_p99_ms": sat["latency_p99_ms"],
+        "fill_ratio": sat["fill_ratio"],
+        "buckets_compiled": stats["programs_compiled"],
+        "drained": bat.drained,
+        "open_loop": open_loop,
+        "publish": None,
+        "tenancy": tenancy,
+    }
+
+
+def measure_serve_tenancy(engine, x, *, gb: int, max_batch: int,
+                          max_wait_ms: float) -> dict:
+    """The ``tenancy`` section of the serve block (``bench.py``'s
+    ``measure_serve_tenancy``): two tenants share the warmed engine
+    through separate batchers publishing ``tenant``-labeled series.
+    ``aggressive`` carries an unmeetable per-request deadline (every
+    admitted request becomes a ``serve.deadline_miss_total{tenant=
+    "aggressive"}`` event), ``steady`` a generous one. Both get the same
+    :class:`~tpu_syncbn_torch.obs.slo.SubsetRate` rule over their own
+    labeled ``deadline_miss_total / requests`` pair, so the aggressive
+    tenant's rule must fire while the steady tenant's stays quiet
+    (``isolation_ok``), and the fired alert's bundle must carry the
+    labeled series (``alert_bundle.labeled_series``)."""
+    import threading
+
+    import numpy as np
+
+    from tpu_syncbn_torch import serve as serve_lib
+    from tpu_syncbn_torch.obs import (
+        flightrec, incident as incident_mod, slo as obs_slo, telemetry,
+        timeseries,
+    )
+
+    deadline_ms = {"aggressive": 0.05, "steady": 60000.0}
+    miss_target = 0.9  # budget 0.1: a 100% miss rate burns at 10x
+    burn_threshold = 2.0
+    clients, per_client = 2, 6
+
+    agg = timeseries.WindowedAggregator(interval_s=0.25)
+    agg.tick()  # baseline frame: deltas start at this run's counts
+    tracker = obs_slo.SLOTracker(agg, [
+        obs_slo.AlertRule(
+            f"tenant_{t}",
+            obs_slo.SubsetRate(
+                total=telemetry.labeled_name("serve.requests", {"tenant": t}),
+                bad=telemetry.labeled_name("serve.deadline_miss_total",
+                                           {"tenant": t}),
+                target=miss_target,
+            ),
+            windows_s=(60.0,), burn_threshold=burn_threshold,
+        )
+        for t in ("aggressive", "steady")
+    ])
+
+    # a fresh recorder sharing this aggregator catches the fired alert:
+    # the bundle is the proof the labeled series travel with incidents
+    bundle_dir = tempfile.mkdtemp(prefix="bench_tenancy_")
+    prev_rec = flightrec.get()
+    rec = flightrec.FlightRecorder(aggregator=agg, incident_dir=bundle_dir,
+                                   cooldown_s=0.0)
+    flightrec.install(rec)
+    try:
+        tenants_out = {}
+        for tenant in ("aggressive", "steady"):
+            bat = serve_lib.DynamicBatcher(
+                engine, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                max_queue=4 * max_batch, deadline_ms=deadline_ms[tenant],
+                tenant=tenant,
+            )
+
+            def client(cid, batcher=bat):
+                rng = np.random.RandomState(cid)
+                for _ in range(per_client):
+                    i = int(rng.randint(0, gb))
+                    try:
+                        batcher.submit(x[i:i + 1]).result(timeout=600)
+                    except serve_lib.RejectedError:
+                        continue  # shed/deadline-missed — counted
+
+            threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                       for c in range(clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            bat.close(drain=True)
+            agg.tick()  # land this tenant's deltas in a windowed frame
+            requests = bat.counters.count("requests")
+            misses = bat.counters.count("deadline_miss_total")
+            lat = telemetry.labeled_name("serve.latency_s", {"tenant": tenant})
+            p50, p99 = agg.quantile(lat, 0.5), agg.quantile(lat, 0.99)
+            tenants_out[tenant] = {
+                "requests": requests,
+                "deadline_misses": misses,
+                "miss_fraction": round(misses / requests, 4) if requests else None,
+                "latency_p50_ms": round(p50 * 1e3, 3) if p50 is not None else None,
+                "latency_p99_ms": round(p99 * 1e3, 3) if p99 is not None else None,
+            }
+
+        state = tracker.evaluate()
+        for tenant in ("aggressive", "steady"):
+            st = state[f"tenant_{tenant}"]
+            burns = [b for b in st["burns"].values() if b is not None]
+            tenants_out[tenant]["burn_rate"] = round(max(burns), 4) if burns else None
+            tenants_out[tenant]["firing"] = bool(st["firing"])
+            log(f"serve tenancy {tenant}: "
+                f"{tenants_out[tenant]['deadline_misses']}/"
+                f"{tenants_out[tenant]['requests']} deadline misses, "
+                f"burn {tenants_out[tenant]['burn_rate']}, "
+                f"firing={tenants_out[tenant]['firing']}")
+
+        alert_bundle = None
+        if rec.last_incident is not None:
+            bundle = incident_mod.load_bundle(rec.last_incident["path"])
+            labeled = [name for kind in ("counters", "gauges", "histograms")
+                       for name in bundle["registry"].get(kind, {})
+                       if "{" in name and 'tenant="' in name]
+            alert_bundle = {
+                "incident_id": bundle["incident_id"],
+                "trigger": bundle["trigger"]["kind"],
+                "labeled_series": len(labeled),
+            }
+    finally:
+        if prev_rec is not None:
+            flightrec.install(prev_rec)
+        else:
+            flightrec.uninstall()
+        rec.close()
+        agg.close()
+        shutil.rmtree(bundle_dir, ignore_errors=True)
+
+    return {
+        "deadline_ms": deadline_ms,
+        "miss_target": miss_target,
+        "burn_threshold": burn_threshold,
+        "tenants": tenants_out,
+        "aggressive_burn": tenants_out["aggressive"]["burn_rate"],
+        "steady_burn": tenants_out["steady"]["burn_rate"],
+        "isolation_ok": bool(tenants_out["aggressive"]["firing"]
+                             and not tenants_out["steady"]["firing"]),
+        "alert_bundle": alert_bundle,
+    }
+
+
+def measure_serve_open_loop(engine, x, *, gb: int, max_batch: int,
+                            max_wait_ms: float, capacity_rps: float,
+                            closed_loop_p50_ms: float) -> dict:
+    """The ``open_loop`` section of the serve block (``bench.py``'s
+    ``measure_serve_open_loop``): an offered-load sweep past saturation.
+    The per-request SLO is max(200 ms, 6 x the closed-loop p50). Offered
+    load starts at half the closed-loop capacity and rises 3x a level
+    until more than 5 % of a level is dropped (sheds + rejections) or 7
+    levels ran; each level is a seeded Poisson schedule.
+    The shed estimator reads the windowed ``serve.infer_s`` quantile (the
+    batcher's own EWMA covers the first level's cold start)."""
+    from tpu_syncbn_torch import serve as serve_lib
+    from tpu_syncbn_torch.obs import timeseries
+
+    slo_ms = max(200.0, 6.0 * closed_loop_p50_ms)
+    rate = 0.5 * max(capacity_rps, 1.0)
+    max_levels = 7
+    drop_frac_target = 0.05
+    agg = timeseries.WindowedAggregator(interval_s=0.25).start()
+    bat = serve_lib.DynamicBatcher(
+        engine, max_batch=max_batch, max_wait_ms=max_wait_ms,
+        max_queue=4 * max_batch, deadline_ms=slo_ms,
+        estimator=serve_lib.LatencyEstimator(aggregator=agg),
+        health_name="serve_open_loop",
+    )
+    try:
+        gen = serve_lib.OpenLoopLoadGen(
+            bat.submit, make_request=lambda i: x[i % gb:i % gb + 1],
+            deadline_ms=slo_ms,
+        )
+        levels = []
+        for li in range(max_levels):
+            # bound the per-level request count so extreme escalation
+            # stays a smoke, not a soak
+            duration_s = max(0.25, min(1.5, 3000.0 / rate))
+            report = gen.run(serve_lib.poisson_arrivals(rate, duration_s, seed=li),
+                             collect_timeout_s=120.0)
+            lvl = report.summary()
+            lvl["p99_bounded"] = (lvl["latency_p99_ms"] is not None
+                                  and lvl["latency_p99_ms"] <= slo_ms)
+            levels.append(lvl)
+            log(f"serve open-loop {lvl['offered_rps']} rps offered: "
+                f"goodput {lvl['goodput_rps']} rps, "
+                f"p99 {lvl['latency_p99_ms']} ms, "
+                f"shed {lvl['shed']}, rejected {lvl['rejected']}")
+            dropped_frac = (lvl["shed"] + lvl["rejected"]) / max(1, lvl["offered"])
+            if li >= 1 and dropped_frac > drop_frac_target:
+                break  # overload observed: sweep done
+            rate *= 3.0
+    finally:
+        bat.close(drain=True)
+        agg.close()
+    top, first = levels[-1], levels[0]
+    dropped = [lv["shed"] + lv["rejected"] for lv in levels]
+    return {
+        "slo_ms": round(slo_ms, 3),
+        "deadline_ms": round(slo_ms, 3),
+        "levels": levels,
+        # headline = the most-overloaded level
+        "offered_rps": top["offered_rps"],
+        "goodput_rps": top["goodput_rps"],
+        "latency_p99_ms": top["latency_p99_ms"],
+        "deadline_miss_rate": top["deadline_miss_rate"],
+        "shed_rate": top["shed_rate"],
+        "shed": top["shed"],
+        "rejected": top["rejected"],
+        # the acceptance shape: tail bounded at every level, and overload
+        # turned into sheds/rejections (the top level drops more than the
+        # first)
+        "p99_bounded": all(lv["p99_bounded"] for lv in levels),
+        "sheds_rise": dropped[-1] > dropped[0],
+        "degradation_graceful": (all(lv["p99_bounded"] for lv in levels)
+                                 and dropped[-1] > dropped[0]
+                                 and first["goodput_rps"] > 0),
+    }
+
+
+def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
     """Build, warm up, count FLOPs, time; returns the JSON line's dict."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -786,6 +1150,13 @@ def run(device: torch.device, scan: int = 1) -> dict:
     compile_info = compile_block(warm_s)
     recovery = measure_recovery(dp)
     collectives = measure_collectives(device)
+    serve_info = None
+    if serve:  # opt-in: it builds its own engine on the trained state
+        try:
+            with stepstats.timed_span("serve_bench", "bench.serve_s"):
+                serve_info = measure_serve(dp, batch)
+        except Exception as e:  # null the block, keep the line
+            log(f"serve measurement failed: {type(e).__name__}: {e}")
 
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     peak, peak_source = PEAK_FLOPS.get(kind, (None, None)) if on_card else (None, None)
@@ -817,6 +1188,7 @@ def run(device: torch.device, scan: int = 1) -> dict:
         "incident": incident_info,
         "memory": memory_info,
         "compile": compile_info,
+        "serve": serve_info,
         "telemetry": telemetry.snapshot(),
     }
 
@@ -830,6 +1202,9 @@ def main(argv=None) -> dict:
                         "over K-stacked copies of the batch)")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="write the run's Chrome trace (Perfetto) to PATH")
+    p.add_argument("--serve", action="store_true",
+                   help="also run the serving sweep on the trained state "
+                        "(the serve block; null without it)")
     args = p.parse_args(argv)
     from tpu_syncbn_torch import runtime
     from tpu_syncbn_torch.obs import telemetry, tracing
@@ -838,7 +1213,7 @@ def main(argv=None) -> dict:
     telemetry.set_enabled(True)
     tracer = tracing.install() if args.trace else None
     device = runtime.initialize(args.device)
-    line = run(device, scan=args.scan)
+    line = run(device, scan=args.scan, serve=args.serve)
     if tracer is not None:
         # written before the line, so a reader of the line finds the trace
         tracing.uninstall()

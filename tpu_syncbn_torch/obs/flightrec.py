@@ -23,8 +23,9 @@ contract, the seconds *before* the event are gone. The
 * rings of recent **memory watermarks**
   (:class:`~tpu_syncbn_torch.obs.memwatch.MemorySampler`), **compile
   events** (:func:`tpu_syncbn_torch.obs.profiling.note_compile`), and the
-  **serve** and **autopilot** rings, which stay empty until serving
-  (ROADMAP A.12) and the autopilot (A.14) are ported.
+  **serve** ring (the batcher's sheds, rejections, deadline misses and
+  circuit-breaker transitions) and the **autopilot** ring, which stays
+  empty until the autopilot (ROADMAP A.14) is ported.
 
 On a trigger (:meth:`FlightRecorder.trigger` — fired by the divergence
 restore, the watchdog and the data stall, the numerics publisher, the

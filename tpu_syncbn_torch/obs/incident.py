@@ -77,9 +77,10 @@ MERGED_KIND = "tpu_syncbn.incident_merged"
 #: firing; detail ``{"rule", "burn", "objective"}``, whose objective
 #: string may bind a label selector, ``serve.latency_s{tenant="a"} p99 <
 #: 0.25``), ``divergence_restore``, ``watchdog_stall``,
-#: ``numerics_drift``, ``mem_pressure``, ``recompile_storm`` and
-#: ``manual``; ``circuit_open`` and ``weight_swap`` wait for serving
-#: (ROADMAP A.12), ``autopilot`` and ``plan_change`` for the autopilot
+#: ``numerics_drift``, ``mem_pressure``, ``recompile_storm``,
+#: ``manual`` and, from the serving batcher's circuit breaker,
+#: ``circuit_open``; ``weight_swap`` waits for weight publication
+#: (ROADMAP A.12b), ``autopilot`` and ``plan_change`` for the autopilot
 #: (A.14).
 TRIGGER_KINDS = ("slo_alert", "divergence_restore", "watchdog_stall",
                  "circuit_open", "numerics_drift", "mem_pressure",

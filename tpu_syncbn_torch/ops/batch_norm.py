@@ -350,7 +350,20 @@ def batch_norm_inference(
     eps: float = 1e-5,
     channel_axis: int = -1,
 ) -> torch.Tensor:
-    """Eval-mode BN: normalize by the running stats, no collective."""
+    """Eval-mode BN: normalize by the running stats, no collective.
+
+    A tensor the kernels run on (a CUDA tensor, unless the kernel mode is
+    ``"off"``) goes through the hand-written normalize kernel
+    (``triton_bn.bn_normalize``), as training does, so one the kernel
+    cannot read raises in the wrapper rather than run the plain ops. Every
+    other tensor takes the plain ``batch_norm_elemt``."""
+    xv = x.movedim(channel_axis, -1)
+    if use_kernel(xv):
+        from tpu_syncbn_torch.ops import triton_bn
+
+        yv = triton_bn.bn_normalize(xv, running_mean, running_var, weight,
+                                    bias, eps)
+        return yv.movedim(-1, channel_axis)
     return batch_norm_elemt(
         x, running_mean, running_var, weight, bias, eps,
         channel_axis=channel_axis,

@@ -408,14 +408,38 @@ def bn_stats(x: torch.Tensor):
     return _stats_2d(_as_2d(x))
 
 
+class _Normalize(torch.autograd.Function):
+    """``y = x·scale + shift`` through :func:`_normalize_2d`, with its
+    backward (dx = dy·scale, dscale = Σ dy·x, dshift = Σ dy over rows) for
+    an eval-mode normalize a gradient flows through."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, shift):
+        ctx.save_for_backward(x2, scale)
+        return _normalize_2d(x2, scale, shift)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale = ctx.saved_tensors
+        dyf = dy.to(torch.float32)
+        dx = (dyf * scale).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dscale = (dyf * x2.to(torch.float32)).sum(0) if ctx.needs_input_grad[1] else None
+        dshift = dyf.sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dscale, dshift
+
+
 def bn_normalize(x, mean, var, weight, bias, eps: float) -> torch.Tensor:
     """``batch_norm_elemt`` as one fused pass: (mean, var, γ, β, eps) folded
     to per-channel (scale, shift), then ``y = x·scale + shift`` in
-    ``x.dtype``."""
+    ``x.dtype``. Differentiable in x, γ and β where a gradient is asked
+    for (eval-mode BN inside a graph that trains)."""
     x2 = _as_2d(x)
     c = x2.shape[1]
     scale, shift = fold_scale_shift(mean, var, weight, bias, eps)
     _check_vec(scale, c, x2, "scale")
+    if torch.is_grad_enabled() and (x2.requires_grad or scale.requires_grad
+                                    or shift.requires_grad):
+        return _Normalize.apply(x2, scale, shift).view(x.shape)
     return _normalize_2d(x2, scale, shift).view(x.shape)
 
 

@@ -12,7 +12,7 @@ layout-change problem of "Memory-efficient array redistribution through
 portable collective communication", arXiv 2112.01075, at whole-model
 granularity): one tiled ``all_gather`` per dtype over the shard group,
 then the unflatten as views of the gathered vectors, with no host copy.
-Serving (ROADMAP A.12) is its consumer.
+Weight publication to a serving engine (ROADMAP A.12b) is its consumer.
 """
 
 from __future__ import annotations

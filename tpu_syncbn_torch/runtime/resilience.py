@@ -35,7 +35,7 @@ numerics monitors (``obs.numerics.NumericsPublisher``) and counts its
 collective bytes (``collectives.DispatchWireTally``).
 
 Not ported yet: the autopilot (ROADMAP A.14) and serving publications
-(A.12); the constructor arguments that need them raise
+(A.12b); the constructor arguments that need them raise
 ``NotImplementedError``.
 """
 
@@ -481,12 +481,12 @@ class ResilientLoop:
         snapshot) and flushes pending writes on every exit path, so the
         preemption checkpoint is durable before the process yields.
 
-        ``publish_dir`` (serving publications, ROADMAP A.12) and
+        ``publish_dir`` (serving publications, ROADMAP A.12b) and
         ``autopilot`` (A.14) are not ported and raise."""
         if publish_dir is not None or publish_every is not None or publish_keep != 3:
             raise NotImplementedError(
                 "ResilientLoop(publish_dir=...): serving publications are "
-                "not ported yet (ROADMAP A.12)")
+                "not ported yet (ROADMAP A.12b)")
         if autopilot is not None:
             raise NotImplementedError(
                 "ResilientLoop(autopilot=...): the autopilot is not ported "

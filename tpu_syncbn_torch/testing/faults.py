@@ -1,4 +1,4 @@
-"""Deterministic fault injection — the training half of
+"""Deterministic fault injection — the training and serving halves of
 ``tpu_syncbn.testing.faults``, kept as a copy.
 
 Every recovery path of the resilience layer (``runtime.resilience``,
@@ -18,9 +18,13 @@ repeatable way to trigger its failure:
 No wall-clock randomness: anything pseudo-random (the bit to flip, the
 truncation point of :class:`FaultInjector`) comes from an explicit seed,
 by default the ``TPU_SYNCBN_FAULT_SEED`` environment variable
-(:func:`fault_seed`), so a failing fault test replays bit for bit. The
-serving faults of the JAX module come with the serving port (ROADMAP
-A.12).
+(:func:`fault_seed`), so a failing fault test replays bit for bit.
+
+The serving faults wrap an engine (deterministic by engine-call index):
+:func:`slow_engine`, :func:`crash_engine_at_batch`,
+:func:`poison_request` with :func:`poison_sensitive_engine`, and
+:func:`crash_engine_on_version`. The weight-publication faults of the JAX
+module come with the publication port (ROADMAP A.12b).
 """
 
 from __future__ import annotations
@@ -168,6 +172,173 @@ def signal_at(batches: Iterable, at_step: int,
         if i == at_step:
             os.kill(os.getpid(), sig)
         yield batch
+
+
+# ---------------------------------------------------------------------------
+# serving faults (deterministic by engine-call index)
+
+
+class PoisonedRequestError(RuntimeError):
+    """Raised by :func:`poison_sensitive_engine` when a batch contains a
+    poisoned payload — the stand-in for a malformed request crashing the
+    program call it was coalesced into."""
+
+
+class _EngineProxy:
+    """Duck-typed engine wrapper: forwards the batcher-facing surface
+    (``bucket_for`` / ``max_bucket`` / ``predict`` / ``warm`` /
+    ``stats`` / ``health``) and lets a subclass intervene around
+    ``predict``. ``self.calls`` counts predict invocations — the
+    deterministic index every serving fault keys off (no wall clock)."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.calls = 0
+
+    @property
+    def max_bucket(self):
+        return self._engine.max_bucket
+
+    def bucket_for(self, n):
+        return self._engine.bucket_for(n)
+
+    def warm(self, batch):
+        return self._engine.warm(batch)
+
+    def stats(self):
+        return self._engine.stats()
+
+    def health(self):
+        inner = getattr(self._engine, "health", None)
+        return inner() if callable(inner) else {}
+
+    def _before_predict(self, call_index: int, batch) -> None:
+        """Hook: raise or sleep to inject the fault."""
+
+    def predict(self, batch):
+        i = self.calls
+        self.calls += 1
+        self._before_predict(i, batch)
+        return self._engine.predict(batch)
+
+    # versioned-swap surface (a swap controller duck-types the engine,
+    # so a faulted proxy must stay swappable)
+
+    @property
+    def version(self):
+        return getattr(self._engine, "version", 0)
+
+    @property
+    def previous_version(self):
+        return getattr(self._engine, "previous_version", None)
+
+    def swap_params(self, params, rest=None, *, version):
+        return self._engine.swap_params(params, rest, version=version)
+
+    def rollback(self):
+        return self._engine.rollback()
+
+    def params_nbytes(self):
+        fn = getattr(self._engine, "params_nbytes", None)
+        return int(fn()) if callable(fn) else 0
+
+
+def slow_engine(engine, delay_s: float, *,
+                at_calls: Iterable[int] | None = None):
+    """Wrap ``engine`` so ``predict`` sleeps ``delay_s`` before running —
+    on every call, or only on the 0-based call indices in ``at_calls``.
+    A delay sized past a request deadline deterministically drives the
+    admission layer's predicted-completion shedding (the estimator
+    observes the slow calls, then sheds what cannot finish in time)."""
+    if delay_s < 0:
+        raise ValueError(f"delay_s must be >= 0, got {delay_s}")
+    at = None if at_calls is None else frozenset(int(i) for i in at_calls)
+
+    class _Slow(_EngineProxy):
+        def _before_predict(self, i, batch):
+            if at is None or i in at:
+                time.sleep(delay_s)
+
+    return _Slow(engine)
+
+
+def crash_engine_at_batch(engine, at_batch: int, *,
+                          n_batches: int | None = 1,
+                          exc_factory=None):
+    """Wrap ``engine`` so ``predict`` raises for call indices in
+    ``[at_batch, at_batch + n_batches)`` (``n_batches=None`` = forever) —
+    the deterministic engine-crash window that opens the circuit
+    breaker; a finite window lets the half-open probe find a recovered
+    engine. ``exc_factory()`` builds the exception (default
+    ``RuntimeError``)."""
+    if at_batch < 0:
+        raise ValueError(f"at_batch must be >= 0, got {at_batch}")
+    if n_batches is not None and n_batches < 1:
+        raise ValueError(f"n_batches must be >= 1 or None, got {n_batches}")
+    make_exc = exc_factory if exc_factory is not None else (
+        lambda: RuntimeError("injected engine crash")
+    )
+
+    class _Crash(_EngineProxy):
+        def _before_predict(self, i, batch):
+            if i >= at_batch and (n_batches is None
+                                  or i < at_batch + n_batches):
+                raise make_exc()
+
+    return _Crash(engine)
+
+
+def poison_request(item):
+    """A poisoned copy of request payload ``item``: every float leaf
+    replaced with NaN (:func:`_nanify_tree` — the exact transform
+    :func:`poison_nan` applies to training batches) — shape- and
+    dtype-compatible with its batchmates, so it coalesces cleanly and
+    the failure happens where it does in production: inside the engine
+    call."""
+    return _nanify_tree(item)
+
+
+def poison_sensitive_engine(engine):
+    """Wrap ``engine`` so ``predict`` raises
+    :class:`PoisonedRequestError` when the batch contains any non-finite
+    float value — the sensitivity that turns a :func:`poison_request`
+    payload into a crashed batch. The isolation contract under test:
+    ONLY the batch the poison was coalesced into fails; the batcher
+    keeps serving and the circuit stays closed."""
+    import numpy as np
+
+    from tpu_syncbn_torch.serve.engine import tree_leaves
+
+    class _PoisonSensitive(_EngineProxy):
+        def _before_predict(self, i, batch):
+            for leaf in tree_leaves(batch):
+                arr = np.asarray(leaf)
+                if np.issubdtype(arr.dtype, np.floating) \
+                        and not np.all(np.isfinite(arr)):
+                    raise PoisonedRequestError(
+                        f"poisoned payload in engine call {i}"
+                    )
+
+    return _PoisonSensitive(engine)
+
+
+def crash_engine_on_version(engine, version: int, *, exc_factory=None):
+    """Wrap ``engine`` so ``predict`` raises on EVERY call made while
+    the engine serves weight version ``version`` — the new weights are
+    structurally valid but behaviorally broken (the failure mode
+    verification cannot catch). Behind a batcher it fails every call
+    after a swap to that version and opens the circuit breaker; after a
+    rollback to the previous version the same proxy serves cleanly."""
+    make_exc = exc_factory if exc_factory is not None else (
+        lambda: RuntimeError(f"injected crash on weight version {version}")
+    )
+
+    class _CrashOnVersion(_EngineProxy):
+        def _before_predict(self, i, batch):
+            if getattr(self._engine, "version", None) == version:
+                raise make_exc()
+
+    return _CrashOnVersion(engine)
 
 
 class FaultInjector:
