@@ -126,7 +126,9 @@ falls back to the CPU):
                ``incident``, ``memory`` and ``compile`` blocks, the
                ``serve`` block with JAX's keys (its closed- and open-loop
                levels printed, ``p99_bounded`` and
-               ``degradation_graceful`` among them); the line printed;
+               ``degradation_graceful`` among them; its ``publish``
+               section with JAX's keys, the swap ``swapped`` and the
+               rollback bit for bit); the line printed;
 12. scan      — K steps as one CUDA graph (``train_steps_batches``,
                ``GANTrainer.train_steps``) for the ResNet-50 slice (the
                example's SGD and a cosine schedule), DCGAN and RetinaNet:
@@ -251,6 +253,27 @@ falls back to the CPU):
                (``TPU_SYNCBN_METRICS_PORT=0``), the half-open probe
                recovers, one valid ``circuit_open`` bundle; the trainer's
                module stays in training mode;
+13f. publish  — weight publication (ROADMAP A.12b) on 13e's engine and
+               trainer, cuDNN deterministic, after one untimed swap and
+               rollback (a kernel's first launch waits for queued work):
+               ``publish_version`` of the trainer's weights, one training
+               step, ``SwapController.swap_from_trainer`` (no new capture,
+               the serve cache's misses unchanged; the bucket-128 replay
+               profiled: 53 ``bn_normalize``; no wrapper launch on the
+               replay path; the rows bitwise the engine copy's eager
+               forward at the padded size and within 1e-2 of it under
+               kernel mode "off"; the engine's weights the trainer's bit
+               for bit), ``swap_from_publication`` back to the published
+               weights (rows bitwise the pre-step rows), a truncated
+               publication rejected (rows unchanged bit for bit, one
+               ``serve.swap_rejected_total``, a ``weight_swap`` serve-ring
+               record), a canary crash on the new version rolled back, a
+               manual rollback bitwise, a memwatch contract aborting a swap
+               (its serve-ring record ``aborted``/``mem_pressure`` and one
+               ``mem_pressure`` bundle carrying the swap's detail, apart
+               from the sampler's own); ``weight_swap`` bundles one a swap,
+               rollback and rejection; swap, commit, publish, load and
+               rollback seconds, the payload's bytes, the double buffer;
 14. attn-parity — each attention kernel (forward, dK/dV, dQ) against its
                  plain version, causal and not, float32 (against float64)
                  and bfloat16, at the LM slice's shape and four others,
@@ -275,12 +298,13 @@ falls back to the CPU):
                  ``attn_impl="flash"`` (kernel forward, scan backward).
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13e's launches, times, the
+ratios) and ``{"paths": {...}}`` (phases 9-13f's launches, times, the
 bench line, the eager and captured steps, the compress, resilience, obs,
-incident, monitor and serve summaries); the second-to-last line is
+incident, monitor, serve and publish summaries); the second-to-last line is
 ``{"kernels": [...]}`` (the BN, attention and int8-wire kernels;
 ``bn_normalize``'s row carries the serving path's launches and times
-under ``serve``); the last line is
+under ``serve`` and the replay after a swap under ``publish``); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -2696,6 +2720,10 @@ BENCH_SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "le
                     "clients", "requests", "rejected", "throughput_rps", "latency_p50_ms",
                     "latency_p99_ms", "fill_ratio", "buckets_compiled", "drained",
                     "open_loop", "publish", "tenancy"}
+BENCH_PUBLISH_KEYS = {"swap_s", "commit_s", "swap_outcome", "requests_during_swap",
+                      "baseline_p99_ms", "p99_during_swap_ms", "p99_ratio",
+                      "double_buffer_peak_bytes", "memwatch_contract_bytes",
+                      "double_buffer_bounded", "rollback_s", "rollback_bit_identical"}
 BENCH_OPEN_LOOP_KEYS = {"slo_ms", "deadline_ms", "levels", "offered_rps", "goodput_rps",
                         "latency_p99_ms", "deadline_miss_rate", "shed_rate", "shed",
                         "rejected", "p99_bounded", "sheds_rise", "degradation_graceful"}
@@ -2715,7 +2743,9 @@ def phase_bench():
     forced bundle, the card's reading against the warm step's peak with
     its ``mem_pressure`` drill and a capture holding CUDA activity, the
     first step's compile event and no storm), the ``serve`` block (JAX's
-    keys, ``publish`` null, one program a bucket; its levels printed) and
+    keys, one program a bucket, its levels printed; its ``publish`` section
+    with JAX's keys, the swap ``swapped`` under load and the rollback bit
+    for bit) and
     the ``telemetry`` block (the registry's schema, a ``step.time_s``
     sample a timed step). Returns (failures, the line)."""
     t0 = time.perf_counter()
@@ -2776,14 +2806,19 @@ def phase_bench():
     if comp.get("storms") != 0 or not comp.get("events_total") \
             or "train" not in (comp.get("families") or {}):
         failures.append(f"[bench] compile block {comp}")
-    # the serve block: JAX's keys; publish null (ROADMAP A.12b); printed:
-    # the closed-loop levels, the open-loop levels with their flags
+    # the serve block: JAX's keys; the publish section's swap under load and
+    # its rollback; printed: the closed-loop levels, the open-loop levels
+    # with their flags, the publish section
     srv = line.get("serve") or {}
     ol, ten = srv.get("open_loop") or {}, srv.get("tenancy") or {}
+    pub = srv.get("publish") or {}
     if set(srv) != BENCH_SERVE_KEYS or set(ol) != BENCH_OPEN_LOOP_KEYS \
-            or set(ten) != BENCH_TENANCY_KEYS or srv.get("publish") is not None \
+            or set(ten) != BENCH_TENANCY_KEYS or set(pub) != BENCH_PUBLISH_KEYS \
+            or pub.get("swap_outcome") != "swapped" \
+            or pub.get("rollback_bit_identical") is not True \
             or srv.get("buckets_compiled") != len(srv.get("buckets") or ()):
         failures.append(f"[bench] serve block {srv}")
+    log(f"[bench] serve publish {json.dumps(pub)}")
     for lv in srv.get("levels") or []:
         log(f"[bench] serve closed loop {json.dumps(lv)}")
     for lv in ol.get("levels") or []:
@@ -5856,12 +5891,13 @@ def _serve_circuit(torch, serve, engine, x, failures) -> dict:
     return out
 
 
-def phase_serve(torch, card):
+def phase_serve(torch, card, keep: dict):
     """The serving path (ROADMAP A.12a) on full-width bf16 ResNet-50
     (``channels_last``), its SyncBN trainer taken SERVE_TRAIN_STEPS steps
     first: ``InferenceEngine.from_trainer(dp, buckets=(8, 32, 128))`` on
-    224² f32 requests, cuDNN deterministic. Returns (failures, summary,
-    the eval normalize's row for the kernel line)."""
+    224² f32 requests, cuDNN deterministic. Leaves the engine, the trainer
+    and the requests in ``keep`` for :func:`phase_publish`. Returns
+    (failures, summary, the eval normalize's row for the kernel line)."""
     import numpy as np
 
     from tpu_syncbn_torch import serve
@@ -5906,6 +5942,7 @@ def phase_serve(torch, card):
             failures.append(f"[serve] programs rebuilt: {engine.stats()}")
         log(f"[serve] stats {json.dumps(engine.stats())}; trainer still training: "
             f"{model.training}")
+        keep.update(engine=engine, dp=dp, x=x)
         del engine, dp, model, progs
     finally:
         torch.backends.cudnn.deterministic = prev_det
@@ -5918,6 +5955,226 @@ def phase_serve(torch, card):
     summary = {"replays": replays, "ab": ab, "swap": swap, "batcher": batcher,
                "circuit": circuit, "sizes": sizes_ok}
     return failures, summary, row
+
+
+# -- phase 13f: publish — weight publication into the serving engine (A.12b) --
+
+PUBLISH_STEP_SEED = 400  # the one training step between two versions
+
+
+def _publish_same(torch, engine, dp) -> bool:
+    """Whether the engine's parameters and buffers equal the trainer's
+    module's, bit for bit."""
+    params, rest = engine._live()
+    theirs = {**dict(dp.model.named_parameters()), **dict(dp.model.named_buffers())}
+    return all(torch.equal(t, theirs[n]) for n, t in {**params, **rest}.items())
+
+
+def _publish_counts(telemetry, before: dict) -> dict:
+    """The ``serve.*`` swap counters since ``before``."""
+    now = telemetry.snapshot()["counters"]
+    return {k: now.get(k, 0) - before.get(k, 0) for k in
+            ("serve.swaps_total", "serve.rollbacks_total", "serve.swap_rejected_total")}
+
+
+def phase_publish(torch, card, keep: dict):
+    """Weight publication (ROADMAP A.12b) on ``[serve]``'s engine and
+    trainer (``keep``), cuDNN deterministic, telemetry on, a flight recorder
+    installed: every source of a new version ends in ``swap_params``' copy
+    into the tensors the captured graphs read, so no swap captures again.
+    The bucket-128 rows are held against the engine copy's eager forward at
+    the padded size (``[serve]``'s reference) and its kernel-mode "off"
+    forward. Returns (failures, summary, the replay's row for
+    ``bn_normalize``'s kernel entry)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_syncbn_torch import serve
+    from tpu_syncbn_torch.obs import flightrec, memwatch, telemetry
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import triton_bn as T
+    from tpu_syncbn_torch.serve.publish import serving_state
+    from tpu_syncbn_torch.testing import faults
+    from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    engine, dp, x = keep.pop("engine"), keep.pop("dp"), keep.pop("x")
+    b = SERVE_BUCKETS[-1]
+    d = tempfile.mkdtemp(prefix="publish_")
+    pub, inc = os.path.join(d, "pub"), os.path.join(d, "inc")
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    telemetry.set_enabled(True)
+    rec = flightrec.install(flightrec.FlightRecorder(cooldown_s=0.0, incident_dir=inc))
+    ctl = serve.SwapController(engine, health_name="publish_chip")
+    out: dict = {}
+
+    def rows():
+        return engine.predict(x[:b])
+
+    try:
+        stats0 = engine.stats()
+        counters0 = telemetry.snapshot()["counters"]
+        # a kernel's first launch in a process waits for all queued work
+        # (lazy module loading): one untimed swap and rollback first
+        ctl.swap_from_trainer(dp, version=1)
+        ctl.rollback(reason="warm-up")
+        old = rows()
+        # the trainer's weights (those the engine serves) published, timed
+        t0 = time.perf_counter()
+        params, rest = serving_state(dp)
+        ckpt.publish_version(pub, 1, {"params": params, "rest": rest},
+                             step=SERVE_TRAIN_STEPS)
+        out["publish_s"] = round(time.perf_counter() - t0, 4)
+        out["publish_bytes"] = ckpt.read_published_manifest(pub, 1)["nbytes"]
+        # one training step: the trainer moves past the engine
+        dp.train_step(_trainer_batch(torch, PUBLISH_STEP_SEED))
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        res = ctl.swap_from_trainer(dp, version=2, canary=x[:1])
+        new = rows()
+        wrapper = T.launch_counts()
+        out["trainer_swap"] = res
+        names = _replay_kernels(torch, engine._program(b, x[:1]), engine._stream)
+        out["bn_normalize_a_replay"] = sum("bn_normalize_k::" in n for n in names)
+        out["kernels_a_replay"] = len(names)
+        out["wrapper_launches"] = wrapper
+        eager = _serve_eager(torch, engine, x, b)
+        with bn_ops.kernel_mode("off"):
+            plain = _serve_eager(torch, engine, x, b)
+        rel = float(np.abs(new - plain).max() / max(np.abs(plain).max(), 1e-6))
+        out["trainer_rows"] = {
+            "bitwise_eager": bool(np.array_equal(new, eager)),
+            "finite": bool(np.isfinite(new).all()), "changed": not np.array_equal(new, old),
+            "plain_rel_err": rel, "weights_the_trainers": _publish_same(torch, engine, dp)}
+        out["double_buffer_bytes"] = engine.params_nbytes()
+        log(f"[publish] swap_from_trainer: {json.dumps(res)}; bucket-{b} replay "
+            f"{len(names)} kernels, {out['bn_normalize_a_replay']} bn_normalize; wrapper "
+            f"launches on the replay path {json.dumps(wrapper)}; rows "
+            f"{json.dumps(out['trainer_rows'])}; double buffer "
+            f"{out['double_buffer_bytes'] / 2**20:.1f} MiB [{card}]")
+        if not (res["outcome"] == "swapped" and out["bn_normalize_a_replay"] == BN_LAYERS
+                and not any(wrapper.values()) and out["trainer_rows"]["bitwise_eager"]
+                and out["trainer_rows"]["finite"] and out["trainer_rows"]["changed"]
+                and rel <= SERVE_AB_TOL and out["trainer_rows"]["weights_the_trainers"]):
+            failures.append(f"[publish] swap_from_trainer {out}")
+        # back to the published (pre-step) weights, from disk
+        t0 = time.perf_counter()
+        res = ctl.swap_from_publication(pub, canary=x[:1])
+        out["publication_s"] = round(time.perf_counter() - t0, 4)
+        out["publication_swap"] = res
+        got = rows()
+        out["publication_rows_old"] = bool(np.array_equal(got, old)
+                                           and np.array_equal(got, _serve_eager(torch, engine, x, b)))
+        log(f"[publish] swap_from_publication ({out['publish_bytes'] / 1e6:.1f} MB, "
+            f"published in {out['publish_s']} s, loaded and swapped in "
+            f"{out['publication_s']} s): {json.dumps(res)}; rows bitwise the pre-step "
+            f"rows and the eager forward: {out['publication_rows_old']} [{card}]")
+        if res["outcome"] != "swapped" or res["version"] != 1 or not out["publication_rows_old"]:
+            failures.append(f"[publish] swap_from_publication {res}")
+        # a truncated publication: rejected, rows unchanged bit for bit
+        ckpt.publish_version(pub, 3, {"params": params, "rest": rest})
+        faults.corrupt_publication(pub, "truncate")
+        try:
+            ctl.swap_from_publication(pub)
+            out["truncated"] = "swapped"
+        except ckpt.CheckpointCorruptError:
+            out["truncated"] = "rejected"
+        ring = [e for e in rec.rings_snapshot()["serve"] if e["kind"] == "weight_swap"]
+        out["truncated_ring"] = ring[-1].get("outcome"), ring[-1].get("reason")
+        out["truncated_rows_unchanged"] = bool(np.array_equal(rows(), old)) \
+            and engine.version == 1
+        # a canary that crashes on the new version: rolled back
+        proxy = faults.crash_engine_on_version(engine, 4)
+        with serve.SwapController(proxy, health_name="publish_chip_canary") as c2:
+            res = c2.swap(*serving_state(dp), version=4, canary=x[:1])
+        out["canary"] = {k: res[k] for k in ("outcome", "version", "failed_version")}
+        out["canary_rows_old"] = bool(np.array_equal(rows(), old))
+        # a manual rollback after a swap: bit for bit
+        ctl.swap_from_trainer(dp, version=5)
+        t0 = time.perf_counter()
+        res = ctl.rollback(reason="chip drill")
+        out["rollback_s"] = round(time.perf_counter() - t0, 6)
+        out["rollback"] = {k: res[k] for k in ("outcome", "version", "failed_version")}
+        out["rollback_rows_old"] = bool(np.array_equal(rows(), old))
+        # a memwatch contract at the bytes now allocated: the double buffer
+        # cannot fit, the swap aborts with mem_pressure
+        sampler = memwatch.install(memwatch.MemorySampler(
+            contract_bytes_per_device=torch.cuda.memory_allocated(), interval_s=3600.0))
+        try:
+            ctl.swap_from_trainer(dp, version=6)
+            out["memwatch"] = "swapped"
+        except serve.SwapAbortedError:
+            out["memwatch"] = "aborted"
+        finally:
+            memwatch.uninstall()
+            sampler.close()
+        out["memwatch_version"] = engine.version
+        ring = [e for e in rec.rings_snapshot()["serve"] if e["kind"] == "weight_swap"]
+        out["memwatch_ring"] = ring[-1].get("outcome"), ring[-1].get("reason")
+        out["readiness"] = ctl.readiness()
+        stats1 = engine.stats()
+        out["new_captures"] = stats1["programs_compiled"] - stats0["programs_compiled"]
+        out["new_misses"] = (stats1["program_cache"]["misses"]
+                             - stats0["program_cache"]["misses"])
+        out["counters"] = _publish_counts(telemetry, counters0)
+    finally:
+        ctl.close()
+        flightrec.uninstall()
+        rec.close()
+        telemetry.set_enabled(None)
+        torch.backends.cudnn.deterministic = prev_det
+    bundles = _bundles_by_kind(inc)
+    out["bundles"] = {k: len(v) for k, v in bundles.items()}
+    # the preflight's own mem_pressure bundle, told from the sampler's
+    # (which also trips at this contract) by the swap's detail
+    out["memwatch_bundles"] = sum(
+        b["trigger"]["detail"].get("outcome") == "aborted"
+        and b["trigger"]["detail"].get("version") == 6
+        for b in bundles.get("mem_pressure", []))
+    shutil.rmtree(d, ignore_errors=True)
+    ts, ps = out["trainer_swap"], out["publication_swap"]
+    log(f"[publish] truncated publication {out['truncated']} (ring "
+        f"{out['truncated_ring']}, rows unchanged {out['truncated_rows_unchanged']}); "
+        f"canary crash {json.dumps(out['canary'])} (rows old {out['canary_rows_old']}); "
+        f"manual rollback {json.dumps(out['rollback'])} in {out['rollback_s'] * 1e3:.3f} ms "
+        f"(rows bitwise {out['rollback_rows_old']}); memwatch contract: "
+        f"{out['memwatch']} (ring {out['memwatch_ring']}, its mem_pressure bundles "
+        f"{out['memwatch_bundles']}); new captures {out['new_captures']}, new misses "
+        f"{out['new_misses']}; counters {json.dumps(out['counters'])}; bundles "
+        f"{json.dumps(out['bundles'])}")
+    log(f"[publish] swap_from_trainer swap_s {ts['swap_s'] * 1e3:.3f} ms (commit_s "
+        f"{ts['commit_s'] * 1e3:.3f} ms, the canary after it); swap_from_publication "
+        f"swap_s {ps['swap_s'] * 1e3:.3f} ms (commit_s {ps['commit_s'] * 1e3:.3f} ms), "
+        f"{out['publication_s'] * 1e3:.1f} ms with the load; publish_version "
+        f"{out['publish_s'] * 1e3:.1f} ms for {out['publish_bytes']} B; rollback "
+        f"{out['rollback_s'] * 1e3:.3f} ms; double buffer {out['double_buffer_bytes']} B "
+        f"[{card}]")
+    want_counts = {"serve.swaps_total": 4, "serve.rollbacks_total": 3,
+                   "serve.swap_rejected_total": 2}
+    if not (out["truncated"] == "rejected" and out["truncated_ring"] == ("rejected", "corrupt")
+            and out["truncated_rows_unchanged"]
+            and out["canary"] == {"outcome": "rolled_back", "version": 1, "failed_version": 4}
+            and out["canary_rows_old"]
+            and out["rollback"] == {"outcome": "rolled_back", "version": 1, "failed_version": 5}
+            and out["rollback_rows_old"] and out["memwatch"] == "aborted"
+            and out["memwatch_version"] == 1 and out["readiness"][0]
+            and out["new_captures"] == 0 and out["new_misses"] == 0
+            and out["counters"] == want_counts
+            and out["bundles"].get("weight_swap") == 8
+            and out["memwatch_ring"] == ("aborted", "mem_pressure")
+            and out["memwatch_bundles"] == 1):
+        failures.append(f"[publish] drills {out}")
+    del engine, dp, x, proxy
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[publish] phase done in {out['phase_s']}s (budget 30 s), {len(failures)} failures")
+    row = {"launches_a_replay": out["bn_normalize_a_replay"], "bucket": b,
+           "wrapper_launches": out["wrapper_launches"]["bn_normalize"],
+           "new_captures": out["new_captures"]}
+    return failures, out, row
 
 
 def attn_terms(torch, A, kern: str, args, causal: bool, scale: float, lse):
@@ -6493,8 +6750,11 @@ def main() -> int:
     mon_failures, monitor_out = phase_monitor(torch, card, shared)
     failures += mon_failures
     torch.cuda.empty_cache()
-    serve_failures, serve_out, serve_row = phase_serve(torch, card)
+    serving: dict = {}
+    serve_failures, serve_out, serve_row = phase_serve(torch, card, serving)
     failures += serve_failures
+    pub_failures, publish_out, publish_row = phase_publish(torch, card, serving)
+    failures += pub_failures
     torch.cuda.empty_cache()
 
     from tpu_syncbn_torch.ops import cuda_attention as A
@@ -6533,6 +6793,8 @@ def main() -> int:
             # the serving path: eval BN, 53 launches in each bucket's graph;
             # times a bucket-128 forward
             kernels[-1]["serve"] = serve_row
+            # weight publication: the bucket-128 replay after a swap
+            kernels[-1]["publish"] = publish_row
     n_layers = LM_CFG["n_layers"]
     for k in ATTN_KERNELS:  # per LM training step: n_layers causal calls
         t = attn_times[(k, True)]
@@ -6578,7 +6840,7 @@ def main() -> int:
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
         "resilience": resilience, "obs": obs, "incident": incident_out,
-        "monitor": monitor_out, "serve": serve_out}}),
+        "monitor": monitor_out, "serve": serve_out, "publish": publish_out}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

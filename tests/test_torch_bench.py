@@ -52,6 +52,10 @@ COMPILE_KEYS = {"warmup_s", "events_total", "storms", "time_s_count", "time_s_su
 SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "levels", "clients",
               "requests", "rejected", "throughput_rps", "latency_p50_ms", "latency_p99_ms",
               "fill_ratio", "buckets_compiled", "drained", "open_loop", "publish", "tenancy"}
+PUBLISH_KEYS = {"swap_s", "commit_s", "swap_outcome", "requests_during_swap",
+                "baseline_p99_ms", "p99_during_swap_ms", "p99_ratio",
+                "double_buffer_peak_bytes", "memwatch_contract_bytes",
+                "double_buffer_bounded", "rollback_s", "rollback_bit_identical"}
 SERVE_LEVEL_KEYS = {"clients", "requests", "throughput_rps", "latency_p50_ms",
                     "latency_p99_ms", "fill_ratio"}
 OPEN_LOOP_KEYS = {"slo_ms", "deadline_ms", "levels", "offered_rps", "goodput_rps",
@@ -218,8 +222,9 @@ def test_measure_serve_block_schema_on_the_cpu():
     fill >= 0.9 (JAX's acceptance bound), two programs built, the
     open-loop sweep's levels every request accounted for and offered load
     rising past the first level, the tenancy drill's aggressive tenant
-    firing while the steady one stays quiet, and ``publish`` null (ROADMAP
-    A.12b). Times are CPU times: shapes only."""
+    firing while the steady one stays quiet, and ``publish`` with JAX's
+    keys: a swap under load, its rollback bit for bit, no program rebuilt.
+    Times are CPU times: shapes only."""
     import numpy as np
     import torch
 
@@ -247,7 +252,13 @@ def test_measure_serve_block_schema_on_the_cpu():
         assert set(lv) == SERVE_LEVEL_KEYS and lv["requests"] >= 1
         assert lv["throughput_rps"] > 0 and 0 < lv["latency_p50_ms"] <= lv["latency_p99_ms"]
     assert block["requests"] == 256 and block["fill_ratio"] >= 0.9
-    assert block["drained"] is True and block["publish"] is None
+    assert block["drained"] is True
+    pub = block["publish"]
+    assert set(pub) == PUBLISH_KEYS and pub["swap_outcome"] == "swapped"
+    assert pub["rollback_bit_identical"] is True and pub["requests_during_swap"] >= 1
+    assert pub["swap_s"] >= pub["commit_s"] > 0 and pub["rollback_s"] > 0
+    assert pub["double_buffer_peak_bytes"] > 0 and pub["double_buffer_bounded"] is True
+    assert pub["memwatch_contract_bytes"] is None
     ol = block["open_loop"]
     assert set(ol) == OPEN_LOOP_KEYS and ol["slo_ms"] >= 200.0
     assert 2 <= len(ol["levels"]) <= 7

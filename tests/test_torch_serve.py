@@ -478,14 +478,15 @@ def test_dict_key_order_shares_one_program_and_feeds_each_key():
 def test_entry_points_default_to_the_card():
     """The engine runs where it is asked: with no device on a machine
     without a card it raises (never falls back to the CPU), a model on
-    another device is refused, and an FSDP layout names A.12b."""
+    another device is refused, and an FSDP layout names A.12c (the
+    engine's sharded store)."""
     from tpu_syncbn_torch.parallel.layout import SpecLayout
 
     model = nn.convert_sync_batchnorm(Net())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve.InferenceEngine(model)
-    with pytest.raises(NotImplementedError, match="A.12b"):
+    with pytest.raises(NotImplementedError, match="A.12c"):
         serve.InferenceEngine(model, device="cpu",
                               layout=SpecLayout.fsdp(data=1, fsdp=1, device="cpu"))
     eng = serve.InferenceEngine(model, device="cpu",

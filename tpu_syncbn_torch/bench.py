@@ -77,8 +77,8 @@ forced dump, as there.
 ``bench.py``'s serve block on the bench's trained state: an
 ``InferenceEngine`` (one CUDA graph a bucket) behind ``DynamicBatcher``s,
 closed-loop levels at 1 and 2 x ``max_batch`` clients, the open-loop
-sweep past saturation and the two-tenant isolation drill; its
-``publish`` section is null (weight publication is ROADMAP A.12b).
+sweep past saturation, the weight-swap drill (``publish``,
+:func:`measure_serve_publish`) and the two-tenant isolation drill.
 
 ``telemetry`` is the process registry's snapshot (``obs.telemetry``, schema
 1, as ``bench.py``'s): the timed loop's ``step.time_s`` and
@@ -710,9 +710,9 @@ def measure_serve(dp, batch) -> dict:
     for at most 7 levels, against a deadline-enabled
     batcher: ``p99_bounded`` and ``degradation_graceful`` say whether the
     tail stayed bounded while the excess was shed. ``tenancy``
-    (:func:`measure_serve_tenancy`) is the per-tenant isolation drill.
-    ``publish`` (weight publication, ROADMAP A.12b) is not ported and
-    reads null."""
+    (:func:`measure_serve_tenancy`) is the per-tenant isolation drill, and
+    ``publish`` (:func:`measure_serve_publish`) the weight-swap drill. A
+    section that fails reads null; the rest of the block stands."""
     import threading
 
     import numpy as np
@@ -798,7 +798,13 @@ def measure_serve(dp, batch) -> dict:
     except Exception as e:  # null only this section, keep closed-loop
         log(f"serve open-loop measurement failed: {type(e).__name__}: {e}")
         open_loop = None
-    log("serve publish: not measured (weight publication is ROADMAP A.12b)")
+    try:
+        publish = measure_serve_publish(
+            engine, x, gb=gb, max_batch=max_batch, max_wait_ms=max_wait_ms,
+        )
+    except Exception as e:  # null only this section, keep the rest
+        log(f"serve publish measurement failed: {type(e).__name__}: {e}")
+        publish = None
     try:
         tenancy = measure_serve_tenancy(
             engine, x, gb=gb, max_batch=max_batch, max_wait_ms=max_wait_ms,
@@ -824,8 +830,140 @@ def measure_serve(dp, batch) -> dict:
         "buckets_compiled": stats["programs_compiled"],
         "drained": bat.drained,
         "open_loop": open_loop,
-        "publish": None,
+        "publish": publish,
         "tenancy": tenancy,
+    }
+
+
+def measure_serve_publish(engine, x, *, gb: int, max_batch: int,
+                          max_wait_ms: float) -> dict:
+    """The ``publish`` section of the serve block (``bench.py``'s
+    ``measure_serve_publish``, key for key): the zero-downtime weight-swap
+    drill (``serve.publish``) against the live warmed engine.
+
+    Two identically loaded closed-loop runs: a baseline (no swap) and a
+    swap run whose midpoint hot-swaps a same-structure new weight version
+    through :class:`~tpu_syncbn_torch.serve.publish.SwapController` while
+    the clients keep submitting — ``p99_during_swap_ms`` against
+    ``baseline_p99_ms`` is the "zero downtime" claim as a number. The swap
+    copies into the tensors the captured graphs read and keeps the
+    outgoing weights as a device copy: ``double_buffer_peak_bytes`` is the
+    engine's serving state with that copy held (``params_nbytes``),
+    compared against the installed memwatch contract when one is pinned.
+    The drill closes with a rollback (``rollback_bit_identical``: the
+    restored first parameter equals its pre-swap copy bit for bit). One
+    untimed swap and rollback run first: a kernel's first launch in a
+    process waits for all queued work (CUDA's lazy module loading), which
+    is not what a swap costs."""
+    import threading
+
+    import numpy as np
+
+    from tpu_syncbn_torch import serve as serve_lib
+    from tpu_syncbn_torch.obs import memwatch
+
+    def run_load(clients, per_client, midpoint=None):
+        """Closed-loop load; optionally fires ``midpoint()`` on this
+        thread once every client has an answer. Returns (latencies,
+        midpoint's result)."""
+        bat = serve_lib.DynamicBatcher(
+            engine, max_batch=max_batch, max_wait_ms=max_wait_ms,
+            max_queue=4 * max_batch, health_name="serve_publish",
+        )
+        latencies: list[float] = []
+        lat_lock = threading.Lock()
+
+        def client(cid):
+            rng = np.random.RandomState(cid)
+            for _ in range(per_client):
+                i = int(rng.randint(0, gb))
+                t_req = time.perf_counter()
+                try:
+                    bat.submit(x[i:i + 1]).result(timeout=600)
+                except serve_lib.RejectedError:
+                    continue
+                # per request, not at the client's exit: the midpoint
+                # below watches this count to swap with requests in flight
+                with lat_lock:
+                    latencies.append(time.perf_counter() - t_req)
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(clients)]
+        try:
+            for th in threads:
+                th.start()
+            mid = None
+            if midpoint is not None:
+                deadline = time.monotonic() + 60.0
+                while time.monotonic() < deadline:
+                    with lat_lock:
+                        if len(latencies) >= clients:
+                            break
+                    time.sleep(0.005)
+                mid = midpoint(bat)
+            for th in threads:
+                th.join()
+        finally:
+            bat.close(drain=True)
+        return latencies, mid
+
+    # the new version: the same structure, one float tensor nudged —
+    # numerically distinguishable, so the rollback check has teeth
+    old_params = engine.param_template()
+    first = next(n for n, t in old_params.items() if t.is_floating_point())
+    probe_old = old_params[first].detach().cpu().clone()
+    new_params = {n: t + 1e-3 if n == first else t for n, t in old_params.items()}
+    rest = engine._live()[1]
+    base_version = int(engine.version)
+    engine.swap_params(new_params, rest, version=base_version + 1)
+    engine.rollback()
+
+    clients = max(2, max_batch)
+    per_client = 8
+    base_lat, _ = run_load(clients, per_client)
+    baseline_p99_ms = round(float(np.percentile(base_lat, 99)) * 1e3, 3)
+
+    def do_swap(bat):
+        ctl = serve_lib.SwapController(engine, batcher=bat, health_name="publish_drill")
+        try:
+            return ctl.swap(new_params, rest, version=base_version + 1, source="bench")
+        finally:
+            ctl.close()
+
+    swap_lat, swap_result = run_load(clients, per_client, midpoint=do_swap)
+    p99_during_swap_ms = round(float(np.percentile(swap_lat, 99)) * 1e3, 3)
+    log(f"serve publish: swap {swap_result['swap_s'] * 1e3:.1f} ms, "
+        f"p99 during swap {p99_during_swap_ms} ms (baseline {baseline_p99_ms} ms)")
+
+    # the double buffer: live serving state plus the retained device copy
+    double_buffer = int(engine.params_nbytes())
+    sampler = memwatch.get()
+    contract = sampler.contract().get("bytes_per_device") if sampler is not None else None
+    bounded = True if not contract else double_buffer <= contract
+
+    t0 = time.perf_counter()
+    restored = engine.rollback()
+    rollback_s = time.perf_counter() - t0
+    probe_restored = engine.param_template()[first].detach().cpu()
+    rollback_bit_identical = bool(torch.equal(probe_old, probe_restored))
+    log(f"serve publish: rollback to v{restored} {rollback_s * 1e3:.1f} ms, "
+        f"bit_identical={rollback_bit_identical}")
+    if restored != base_version:
+        raise RuntimeError(f"rollback restored v{restored}, not v{base_version}")
+
+    return {
+        "swap_s": round(swap_result["swap_s"], 6),
+        "commit_s": round(swap_result["commit_s"], 6),
+        "swap_outcome": swap_result["outcome"],
+        "requests_during_swap": len(swap_lat),
+        "baseline_p99_ms": baseline_p99_ms,
+        "p99_during_swap_ms": p99_during_swap_ms,
+        "p99_ratio": round(p99_during_swap_ms / max(baseline_p99_ms, 1e-9), 4),
+        "double_buffer_peak_bytes": double_buffer,
+        "memwatch_contract_bytes": contract,
+        "double_buffer_bounded": bounded,
+        "rollback_s": round(rollback_s, 6),
+        "rollback_bit_identical": rollback_bit_identical,
     }
 
 

@@ -78,10 +78,10 @@ MERGED_KIND = "tpu_syncbn.incident_merged"
 #: string may bind a label selector, ``serve.latency_s{tenant="a"} p99 <
 #: 0.25``), ``divergence_restore``, ``watchdog_stall``,
 #: ``numerics_drift``, ``mem_pressure``, ``recompile_storm``,
-#: ``manual`` and, from the serving batcher's circuit breaker,
-#: ``circuit_open``; ``weight_swap`` waits for weight publication
-#: (ROADMAP A.12b), ``autopilot`` and ``plan_change`` for the autopilot
-#: (A.14).
+#: ``manual``, from the serving batcher's circuit breaker
+#: ``circuit_open``, and from weight publication (``serve.publish``'s
+#: swaps, rejections and rollbacks) ``weight_swap``; ``autopilot`` and
+#: ``plan_change`` wait for the autopilot (ROADMAP A.14).
 TRIGGER_KINDS = ("slo_alert", "divergence_restore", "watchdog_stall",
                  "circuit_open", "numerics_drift", "mem_pressure",
                  "recompile_storm", "weight_swap", "autopilot",

@@ -35,8 +35,8 @@ with trace instant markers, fires the flight recorder's ``slo_alert``
 trigger on a transition to firing, and (once :meth:`~SLOTracker.attach`-ed)
 feeds ``/readyz`` — a firing alert flips the process not-ready. The rule
 sets: :func:`serve_overload_rules` and :func:`publication_rules` here (the
-first reads the serving batcher's ``serve.*`` series; the second series
-weight publication, ROADMAP A.12b, will produce), and
+first reads the serving batcher's ``serve.*`` series, the second the swap
+counters of weight publication, ``serve.publish``), and
 ``numerics_rules``, ``mem_rules`` and ``compile_rules`` beside their
 producers; :func:`standard_rules` gathers them.
 """

@@ -12,7 +12,9 @@ layout-change problem of "Memory-efficient array redistribution through
 portable collective communication", arXiv 2112.01075, at whole-model
 granularity): one tiled ``all_gather`` per dtype over the shard group,
 then the unflatten as views of the gathered vectors, with no host copy.
-Weight publication to a serving engine (ROADMAP A.12b) is its consumer.
+Weight publication needs no gather of its own: the trainer writes the
+gathered values into its module after every step, and
+``serve.publish.serving_state`` reads the module.
 """
 
 from __future__ import annotations

@@ -34,8 +34,10 @@ steps (``obs.stepstats``), sets the ``train.step`` gauge, publishes the
 numerics monitors (``obs.numerics.NumericsPublisher``) and counts its
 collective bytes (``collectives.DispatchWireTally``).
 
-Not ported yet: the autopilot (ROADMAP A.14) and serving publications
-(A.12b); the constructor arguments that need them raise
+With ``publish_dir`` the loop also writes manifest-verified serving
+publications (``utils.checkpoint.publish_version``) at its own cadence,
+which a serving process hot-swaps in (``serve.publish``). Not ported yet:
+the autopilot (ROADMAP A.14); ``autopilot=`` raises
 ``NotImplementedError``.
 """
 
@@ -481,12 +483,18 @@ class ResilientLoop:
         snapshot) and flushes pending writes on every exit path, so the
         preemption checkpoint is durable before the process yields.
 
-        ``publish_dir`` (serving publications, ROADMAP A.12b) and
-        ``autopilot`` (A.14) are not ported and raise."""
-        if publish_dir is not None or publish_every is not None or publish_keep != 3:
-            raise NotImplementedError(
-                "ResilientLoop(publish_dir=...): serving publications are "
-                "not ported yet (ROADMAP A.12b)")
+        ``publish_dir`` additionally emits manifest-verified *serving*
+        publications (``utils.checkpoint.publish_version``) every
+        ``publish_every`` steps (default: ``ckpt_every``), versioned by the
+        step counter and keeping the newest ``publish_keep``: the inference
+        pair ``{"params", "rest"}`` of the trainer's module (the BN running
+        statistics ride along; ``serve.publish.serving_state``) that a
+        serving process hot-swaps in through
+        ``serve.publish.SwapController.swap_from_publication``.
+        Publications follow the checkpoint transport: through the
+        ``AsyncCheckpointer`` when ``async_checkpoint=True``.
+
+        ``autopilot`` (ROADMAP A.14) is not ported and raises."""
         if autopilot is not None:
             raise NotImplementedError(
                 "ResilientLoop(autopilot=...): the autopilot is not ported "
@@ -495,6 +503,8 @@ class ResilientLoop:
             raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
         if scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+        if publish_every is not None and publish_every < 1:
+            raise ValueError(f"publish_every must be >= 1, got {publish_every}")
         self.trainer = trainer
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -502,6 +512,9 @@ class ResilientLoop:
         self.max_restores = max_restores
         self.step_deadline_s = step_deadline_s
         self.scan_steps = scan_steps
+        self.publish_dir = publish_dir
+        self.publish_every = int(publish_every) if publish_every is not None else ckpt_every
+        self.publish_keep = publish_keep
         self.counters = counters if counters is not None else _default_counters()
         self.step = 0
         #: True from a divergence restore until a finite step lands on the
@@ -578,6 +591,25 @@ class ResilientLoop:
             ckpt.save_checkpoint(self.ckpt_dir, self.step,
                                  self.trainer.state_dict(), keep=self.keep)
         self.counters.bump("checkpoints")
+
+    def publish(self) -> None:
+        """Emit a manifest-verified serving publication of the trainer's
+        current weights at ``publish_dir``, versioned by the step counter
+        (no-op without ``publish_dir``): the inference pair ``{"params",
+        "rest"}`` of ``serve.publish.serving_state``."""
+        if self.publish_dir is None:
+            return
+        from tpu_syncbn_torch.serve.publish import serving_state
+        from tpu_syncbn_torch.utils import checkpoint as ckpt
+
+        params, rest = serving_state(self.trainer)
+        tree = {"params": params, "rest": rest}
+        if self._async is not None:
+            self._async.publish(self.publish_dir, self.step, tree, keep=self.publish_keep)
+        else:
+            ckpt.publish_version(self.publish_dir, self.step, tree,
+                                 keep=self.publish_keep, step=self.step)
+        self.counters.bump("publishes")
 
     def _restore_last_good(self) -> None:
         from tpu_syncbn_torch.parallel.trainer import resume_latest
@@ -750,6 +782,9 @@ class ResilientLoop:
                         break
                     if self.step // self.ckpt_every != (self.step - k) // self.ckpt_every:
                         self.save()
+                    if (self.publish_dir is not None and self.step // self.publish_every
+                            != (self.step - k) // self.publish_every):
+                        self.publish()
         except BaseException:
             # async writes still get their chance, but a flush failure must
             # not replace the loop's own failure (a FloatingPointError or

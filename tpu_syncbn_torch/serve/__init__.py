@@ -1,6 +1,6 @@
-"""Serving: dynamic-batching inference on the trained model — the
-counterpart of ``tpu_syncbn.serve`` (its weight publication, ``publish``,
-is ROADMAP A.12b).
+"""Serving: dynamic-batching inference on the trained model, and
+zero-downtime weight publication into it — the counterpart of
+``tpu_syncbn.serve``.
 
 * :mod:`tpu_syncbn_torch.serve.engine` — :class:`InferenceEngine`: the
   trained module copied and pinned in eval mode (BN on running stats, no
@@ -20,6 +20,12 @@ is ROADMAP A.12b).
 * :mod:`tpu_syncbn_torch.serve.loadgen` — open-loop Poisson/trace-driven
   load generation (:class:`OpenLoopLoadGen`), the offered-load sweep
   ``bench --serve`` runs past saturation.
+* :mod:`tpu_syncbn_torch.serve.publish` — zero-downtime weight
+  publication: :class:`SwapController` hot-swaps manifest-verified
+  published versions (or a live trainer's weights, read from its
+  module, which holds them in full under every layout) into a running
+  engine with drain, a memwatch-bounded double buffer and automatic
+  rollback.
 
 Quickstart::
 
@@ -51,6 +57,12 @@ from tpu_syncbn_torch.serve.engine import (  # noqa: F401
     InferenceEngine,
     VersionSkewError,
 )
+from tpu_syncbn_torch.serve.publish import (  # noqa: F401
+    SWAP_PHASES,
+    PublicationError,
+    SwapAbortedError,
+    SwapController,
+)
 from tpu_syncbn_torch.serve.loadgen import (  # noqa: F401
     LoadReport,
     OpenLoopLoadGen,
@@ -72,5 +84,8 @@ __all__ = [
     "poisson_arrivals",
     "trace_arrivals",
     "unshard_params",
+    "SwapController",
+    "PublicationError",
+    "SwapAbortedError",
     "VersionSkewError",
 ]

@@ -251,7 +251,9 @@ class InferenceEngine:
     ``SpecLayout.zero()`` layout serves as is (the port's module holds
     its full parameters between steps under ZeRO too), a param-sharding
     FSDP layout raises ``NotImplementedError`` (the engine's sharded
-    store is ROADMAP A.12b).
+    store is ROADMAP A.12c: in a CUDA graph a gathered tree would live in
+    the graph's pool for the graph's whole life, so keeping flat shards
+    saves nothing until it is designed differently).
 
     Telemetry (``TPU_SYNCBN_TELEMETRY`` / bench force-enable):
     ``serve.infer_s`` per-program-call histogram, ``serve.compiles``
@@ -278,7 +280,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "InferenceEngine: a param-sharding layout "
                 f"(param_shard_axis={layout.param_shard_axis!r}) needs the "
-                "engine's sharded store, which is not ported yet (ROADMAP A.12b)")
+                "engine's sharded store, which is not ported yet (ROADMAP A.12c)")
         self.layout = layout
         self.device = resolve_device(device)
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
@@ -458,7 +460,25 @@ class InferenceEngine:
         module, in training mode. Under ``zero=True`` the trainer's
         module already holds the full parameters between steps, so no
         gather is needed; a param-sharding (FSDP) layout raises
-        ``NotImplementedError`` (ROADMAP A.12b)."""
+        ``NotImplementedError`` (ROADMAP A.12c).
+
+        Building an engine is a cold start (a deep copy and one graph
+        capture a bucket). Use it for the FIRST engine, then roll new
+        versions in through the publication path
+        (:mod:`tpu_syncbn_torch.serve.publish`), which copies into the
+        running engine's tensors; with a trainer world above 1 a warning
+        says so."""
+        from tpu_syncbn_torch.runtime import distributed as dist
+
+        world = int(getattr(trainer, "world", 1))
+        if world > 1:
+            dist.get_logger("tpu_syncbn_torch.serve").warning(
+                "InferenceEngine.from_trainer on a trainer of world %d builds "
+                "a new engine — a cold start (deep copy, one graph capture a "
+                "bucket). For rolling weight updates use the zero-downtime "
+                "publication path instead (tpu_syncbn_torch.serve.publish."
+                "SwapController.swap_from_trainer: on-device redistribution "
+                "+ hot swap into the running engine, no restart).", world)
         kwargs.setdefault("layout", getattr(trainer, "_layout", None))
         kwargs.setdefault("device", trainer.device)
         return cls(trainer.model, **kwargs)

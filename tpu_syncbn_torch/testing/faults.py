@@ -1,4 +1,4 @@
-"""Deterministic fault injection — the training and serving halves of
+"""Deterministic fault injection — the counterpart of
 ``tpu_syncbn.testing.faults``, kept as a copy.
 
 Every recovery path of the resilience layer (``runtime.resilience``,
@@ -23,8 +23,9 @@ by default the ``TPU_SYNCBN_FAULT_SEED`` environment variable
 The serving faults wrap an engine (deterministic by engine-call index):
 :func:`slow_engine`, :func:`crash_engine_at_batch`,
 :func:`poison_request` with :func:`poison_sensitive_engine`, and
-:func:`crash_engine_on_version`. The weight-publication faults of the JAX
-module come with the publication port (ROADMAP A.12b).
+:func:`crash_engine_on_version`. The weight-publication faults drive the
+swap chaos matrix of ``serve.publish``: :func:`corrupt_publication`,
+:func:`skew_published_manifest` and :func:`signal_at_phase`.
 """
 
 from __future__ import annotations
@@ -322,6 +323,99 @@ def poison_sensitive_engine(engine):
     return _PoisonSensitive(engine)
 
 
+# ---------------------------------------------------------------------------
+# weight-publication faults (the serve.publish swap chaos matrix)
+
+
+def corrupt_publication(directory: str, mode: str = "truncate", *,
+                        target: str = "payload",
+                        version: int | None = None,
+                        seed: int | None = None):
+    """Corrupt the *published* weight version in place — the pointed-at
+    version by default (the one a serving process would swap in next).
+    ``target='payload'`` hits the versioned weights file,
+    ``target='manifest'`` deletes the manifest outright (mode ignored — a
+    missing manifest must be treated as corruption, never as "verification
+    optional"). The pointer file itself is left intact: the injected state
+    is exactly "the pointer promises bytes the disk can no longer back",
+    which ``load_published`` verification must catch BEFORE any request
+    touches the new weights."""
+    from tpu_syncbn_torch.utils.checkpoint import (
+        _pub_manifest_path, _pub_path, published_version,
+    )
+
+    if version is None:
+        version = published_version(directory)
+    if version is None:
+        raise ValueError(f"no published version in {directory!r}")
+    if target == "manifest":
+        os.unlink(_pub_manifest_path(directory, version))
+        return None
+    if target != "payload":
+        raise ValueError(f"target must be 'payload' or 'manifest', got {target!r}")
+    path = _pub_path(directory, version)
+    if mode == "truncate":
+        return truncate_file(path)
+    if mode == "bitflip":
+        return bitflip_file(path, seed=seed)
+    raise ValueError(f"mode must be 'truncate' or 'bitflip', got {mode!r}")
+
+
+def skew_published_manifest(directory: str, *, version: int | None = None,
+                            seed: int | None = None) -> str:
+    """Rewrite the published manifest's declared ``tree_hash`` to a
+    seed-determined wrong value, leaving the payload bytes INTACT — the
+    on-disk signature of a publisher running different code than the
+    server (version skew: the bytes are fine, the structure they decode to
+    is not). ``load_published(expect_tree_hash=...)`` must reject this with
+    :class:`~tpu_syncbn_torch.utils.checkpoint.PublicationSkewError`
+    *before* deserializing. Returns the bogus hash."""
+    import json
+
+    from tpu_syncbn_torch.utils.checkpoint import (
+        _pub_manifest_path, published_version,
+    )
+
+    if version is None:
+        version = published_version(directory)
+    if version is None:
+        raise ValueError(f"no published version in {directory!r}")
+    rng = random.Random(fault_seed() if seed is None else seed)
+    bogus = f"{rng.getrandbits(64):016x}"
+    path = _pub_manifest_path(directory, version)
+    with open(path, "r", encoding="utf-8") as f:
+        manifest = json.load(f)
+    manifest["tree_hash"] = bogus
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(manifest, f)
+    return bogus
+
+
+def signal_at_phase(at_phase: str, sig: int = _signal.SIGTERM, *,
+                    calls: list | None = None) -> Callable[[str], None]:
+    """A ``SwapController(phase_hook=...)`` that delivers ``sig`` to this
+    process the first time the swap crosses ``at_phase`` — the preemption
+    notice landing at an exact, reproducible point of the swap's critical
+    window (phase names: ``serve.publish.SWAP_PHASES``). ``calls``
+    (optional list) collects every phase crossing for assertion. Install a
+    handler for ``sig`` first (a ``PreemptionGuard``): the default SIGTERM
+    handler ends the process."""
+    from tpu_syncbn_torch.serve.publish import SWAP_PHASES
+
+    if at_phase not in SWAP_PHASES:
+        raise ValueError(f"at_phase must be one of {SWAP_PHASES}, got {at_phase!r}")
+    fired = [False]
+
+    def hook(phase: str) -> None:
+        if calls is not None:
+            calls.append(phase)
+        if phase == at_phase and not fired[0]:
+            fired[0] = True
+            os.kill(os.getpid(), sig)
+
+    return hook
+
+
 def crash_engine_on_version(engine, version: int, *, exc_factory=None):
     """Wrap ``engine`` so ``predict`` raises on EVERY call made while
     the engine serves weight version ``version`` — the new weights are
@@ -342,7 +436,7 @@ def crash_engine_on_version(engine, version: int, *, exc_factory=None):
 
 
 class FaultInjector:
-    """Seeded façade over the checkpoint faults for multi-fault scripts:
+    """Seeded façade over the file faults for multi-fault scripts:
     one ``FaultInjector(seed)`` gives a reproducible sequence of
     corruptions (each draw advances its private RNG; no global state)."""
 
@@ -364,3 +458,14 @@ class FaultInjector:
                            mode: str | None = None):
         m = self._rng.choice(["truncate", "bitflip"]) if mode is None else mode
         return corrupt_checkpoint(directory, step, m, seed=self.next_seed())
+
+    def corrupt_publication(self, directory: str, mode: str | None = None, *,
+                            target: str = "payload", version: int | None = None):
+        m = self._rng.choice(["truncate", "bitflip"]) if mode is None else mode
+        return corrupt_publication(directory, m, target=target, version=version,
+                                   seed=self.next_seed())
+
+    def skew_published_manifest(self, directory: str,
+                                version: int | None = None) -> str:
+        return skew_published_manifest(directory, version=version,
+                                       seed=self.next_seed())

@@ -1,5 +1,5 @@
-"""Checkpoint / resume with integrity manifests — the counterpart of
-``tpu_syncbn.utils.checkpoint`` (its save, load and async-save half).
+"""Checkpoint / resume with integrity manifests, and weight publication —
+the counterpart of ``tpu_syncbn.utils.checkpoint``.
 
 The master process writes ("rank 0 writes", the recipe's convention for
 logging too) any nest of dicts, lists and tuples whose leaves are tensors
@@ -18,6 +18,13 @@ strictly before manifest, so a crash at any byte leaves either a fully
 certified checkpoint or an uncertified leftover, never a certified but
 truncated one. Loading the latest checkpoint skips candidates whose
 certification fails and falls back to the newest verified older step.
+
+Weight publication (the serving side's versioned hot swap,
+``serve.publish``) writes ``weights_v{N}.pt`` and its
+``weights_v{N}.manifest.json`` the same way, reads the landed payload back
+against its manifest, and only then flips the ``published.json`` pointer
+(:func:`publish_version`); :func:`load_published` resolves the pointer and
+rejects a corrupt or structurally skewed version instead of falling back.
 
 With more than one process, every rank restores the step the master
 chose: one barrier, one broadcast of the master's pick over the default
@@ -48,9 +55,16 @@ from tpu_syncbn_torch.obs import telemetry, tracing
 from tpu_syncbn_torch.runtime import distributed as dist
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
+_PUB_RE = re.compile(r"^weights_v(\d+)\.pt$")
 
 #: Bump when the manifest schema changes incompatibly.
 MANIFEST_FORMAT = 1
+
+#: The atomically renamed pointer file naming the currently published
+#: weight version. Serving consumers resolve through it, never by listing
+#: the directory: a half-written version is unreachable until the pointer
+#: lands, and the pointer lands only after read-back verification.
+PUBLISHED_POINTER = "published.json"
 
 #: Payloads up to this size also get a CRC32 (serial, ~1 GB/s); above it
 #: only the vectorized ``sum64`` checksum is computed, keeping
@@ -82,6 +96,14 @@ def payload_sum64(data: bytes) -> str:
 class CheckpointCorruptError(RuntimeError):
     """Raised when an explicitly requested checkpoint (or every available
     candidate) fails integrity verification or deserialization."""
+
+
+class PublicationSkewError(RuntimeError):
+    """Raised when a published weight version's recorded tree structure
+    (manifest ``tree_hash``) does not match what the consumer expects — a
+    publisher running ahead of (or behind) the server's model schema.
+    Distinct from :class:`CheckpointCorruptError`: the bytes are intact,
+    the *shape* is wrong, and retrying the read cannot help."""
 
 
 def _map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -509,6 +531,206 @@ def _read_manifest_with_retry(directory: str, step: int, attempts: int = 3,
         return None
 
 
+# ---------------------------------------------------------------------------
+# weight publication (the serving side's versioned hot swap, serve.publish)
+
+
+def _pub_path(directory: str, version: int) -> str:
+    return os.path.join(directory, f"weights_v{version}.pt")
+
+
+def _pub_manifest_path(directory: str, version: int) -> str:
+    return os.path.join(directory, f"weights_v{version}.manifest.json")
+
+
+def _pointer_path(directory: str) -> str:
+    return os.path.join(directory, PUBLISHED_POINTER)
+
+
+def published_versions(directory: str) -> list[int]:
+    """Ascending weight versions present on disk (payload files — some may
+    be unverified leftovers; the pointer is the authority)."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        m = _PUB_RE.match(name)
+        if m:
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def read_published_pointer(directory: str) -> dict | None:
+    """The parsed ``published.json`` pointer, or None when absent or
+    unreadable (no version has ever been published successfully)."""
+    try:
+        with open(_pointer_path(directory)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def published_version(directory: str) -> int | None:
+    """The currently published weight version number, or None."""
+    ptr = read_published_pointer(directory)
+    if ptr is None or not isinstance(ptr.get("version"), int):
+        return None
+    return ptr["version"]
+
+
+def read_published_manifest(directory: str, version: int) -> dict | None:
+    try:
+        with open(_pub_manifest_path(directory, version)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def _publishable(host_tree: Any) -> Any:
+    """``host_tree`` with numpy leaves as owned CPU tensors (copies): the
+    payload is read back with ``torch.load(weights_only=True)``, which
+    takes tensors and plain values only."""
+    return _map(lambda x: torch.tensor(x)
+                if isinstance(x, (np.ndarray, np.generic)) else x, host_tree)
+
+
+def _publish_host_tree(directory: str, version: int, host_tree: Any, *,
+                       keep: int, step: int | None = None) -> str:
+    """The publication write half (an already host-resident tree): payload
+    and manifest exactly like a checkpoint (atomic, payload before
+    manifest), then a **read-back verification** of the landed payload
+    against its manifest, and only then the atomic ``published.json``
+    pointer flip. A writer killed at any byte — or a disk that corrupted
+    the payload in flight — leaves the pointer on the previous good
+    version; a consumer never resolves to a truncated or bit-flipped
+    publication. Prunes to the newest ``keep`` versions, never the one the
+    pointer names."""
+    os.makedirs(directory, exist_ok=True)
+    data = _to_bytes(host_tree)
+    _atomic_write(directory, _pub_path(directory, version), data)
+    manifest = {
+        "format": MANIFEST_FORMAT,
+        "version": int(version),
+        "nbytes": len(data),
+        "sum64": payload_sum64(data),
+        "crc32": (zlib.crc32(data) & 0xFFFFFFFF)
+        if len(data) <= _CRC32_MAX_BYTES else None,
+        "tree_hash": tree_structure_hash(host_tree),
+    }
+    if step is not None:
+        manifest["step"] = int(step)
+    _atomic_write(directory, _pub_manifest_path(directory, version),
+                  json.dumps(manifest).encode())
+    # re-read what the filesystem holds (not the bytes still in hand)
+    # before making it reachable
+    with open(_pub_path(directory, version), "rb") as f:
+        landed = f.read()
+    if not _payload_matches(manifest, landed):
+        telemetry.count("checkpoint.verify_failures")
+        raise CheckpointCorruptError(
+            f"publication v{version} failed read-back verification in "
+            f"{directory!r} (wrote {len(data)} bytes, read back "
+            f"{len(landed)}) — pointer NOT updated")
+    pointer = {
+        "format": MANIFEST_FORMAT,
+        "version": int(version),
+        "path": os.path.basename(_pub_path(directory, version)),
+        "tree_hash": manifest["tree_hash"],
+        "nbytes": len(data),
+    }
+    if step is not None:
+        pointer["step"] = int(step)
+    _atomic_write(directory, _pointer_path(directory), json.dumps(pointer).encode())
+    if keep > 0:
+        # a rollback target must stay loadable: the pointed-at version is
+        # never pruned; manifest first, as the checkpoint pruner does
+        current = pointer["version"]
+        for old in published_versions(directory)[:-keep]:
+            if old == current:
+                continue
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(_pub_manifest_path(directory, old))
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(_pub_path(directory, old))
+    return _pub_path(directory, version)
+
+
+def publish_version(directory: str, version: int, tree: Any, *,
+                    keep: int = 3, step: int | None = None) -> str | None:
+    """Atomically publish ``tree`` (tensors on any device, numpy arrays or
+    plain values) as weight version ``version`` — master process only
+    (other ranks return None). The pointer flips only after the payload
+    passes read-back verification against its freshly written manifest,
+    so :func:`load_published` sees either the previous good version or
+    this one, never a torn write. Latency rides ``checkpoint.publish_s``
+    and ``checkpoint.publishes`` under a ``checkpoint_publish`` span."""
+    if not dist.is_master():
+        return None
+    t0 = time.perf_counter()
+    with tracing.span("checkpoint_publish", version=int(version)):
+        path = _publish_host_tree(directory, version,
+                                  _publishable(snapshot_to_host(tree)),
+                                  keep=keep, step=step)
+    telemetry.observe("checkpoint.publish_s", time.perf_counter() - t0)
+    telemetry.count("checkpoint.publishes")
+    return path
+
+
+def load_published(directory: str, target: Any, *,
+                   expect_tree_hash: str | None = None):
+    """Resolve the ``published.json`` pointer and load that weight version,
+    checked against ``target``'s structure (None checks nothing). Returns
+    ``(tree, version)`` with every tensor on the CPU.
+
+    Verification is mandatory: a missing manifest, a payload failing its
+    checksums, or a payload that does not deserialize into ``target``'s
+    structure raises :class:`CheckpointCorruptError` — the caller keeps
+    serving its current version (there is no fallback walk: the pointer
+    names ONE version, and a corrupt publication must be rejected, not
+    papered over). ``expect_tree_hash`` (the consumer's own
+    :func:`tree_structure_hash` of its template) also rejects a
+    structurally skewed publication with :class:`PublicationSkewError`
+    *before* the payload is read or deserialized. ``FileNotFoundError``
+    when nothing has been published."""
+    ptr = read_published_pointer(directory)
+    if ptr is None or not isinstance(ptr.get("version"), int):
+        raise FileNotFoundError(
+            f"no published version in {directory!r} (missing or "
+            f"unreadable {PUBLISHED_POINTER})")
+    version = ptr["version"]
+    manifest = read_published_manifest(directory, version)
+    if manifest is None:
+        telemetry.count("checkpoint.verify_failures")
+        raise CheckpointCorruptError(
+            f"published v{version} in {directory!r} has no readable "
+            "manifest — cannot certify the payload")
+    if expect_tree_hash is not None and manifest.get("tree_hash") != expect_tree_hash:
+        raise PublicationSkewError(
+            f"published v{version} tree_hash {manifest.get('tree_hash')!r} "
+            f"!= expected {expect_tree_hash!r} — publisher and server "
+            "disagree on the model structure (schema skew)")
+    try:
+        with open(_pub_path(directory, version), "rb") as f:
+            data = f.read()
+    except OSError as e:
+        telemetry.count("checkpoint.verify_failures")
+        raise CheckpointCorruptError(
+            f"published v{version} payload unreadable in {directory!r}: {e}") from e
+    if not _payload_matches(manifest, data):
+        telemetry.count("checkpoint.verify_failures")
+        raise CheckpointCorruptError(
+            f"published v{version} in {directory!r} fails manifest "
+            f"verification (expected {manifest.get('nbytes')} bytes "
+            f"sum64={manifest.get('sum64')}, got {len(data)} bytes "
+            f"sum64={payload_sum64(data)})")
+    try:
+        return _from_bytes(data, target), version
+    except Exception as e:
+        raise CheckpointCorruptError(
+            f"published v{version} in {directory!r} failed to deserialize "
+            f"({type(e).__name__}: {e})") from e
+
+
 class AsyncCheckpointer:
     """Checkpoint writes off the training hot path.
 
@@ -521,10 +743,10 @@ class AsyncCheckpointer:
 
     Ordering and durability:
 
-    * writes are processed strictly in ``save()`` order by a single
-      worker, so manifests certify in submission order and the
-      newest-verified resume walk never sees an out-of-order
-      certification;
+    * writes (saves and :meth:`publish`'s publications) are processed
+      strictly in submission order by a single worker, so manifests
+      certify in that order and the newest-verified resume walk never
+      sees an out-of-order certification;
     * ``max_pending`` bounds host memory (each pending write holds one
       full state snapshot); a ``save()`` past the bound *blocks* until the
       writer drains — backpressure, never silent dropping;
@@ -556,13 +778,20 @@ class AsyncCheckpointer:
             item = self._queue.get()
             if item is None:
                 return
-            directory, step, host_tree, keep = item
+            op, directory, number, host_tree, keep = item
             t0 = time.perf_counter()
             try:
-                with tracing.span("checkpoint_save", step=int(step), mode="async"):
-                    _write_host_tree(directory, step, host_tree, keep=keep)
-                telemetry.observe("checkpoint.save_s", time.perf_counter() - t0)
-                telemetry.count("checkpoint.saves")
+                if op == "publish":
+                    with tracing.span("checkpoint_publish", version=int(number),
+                                      mode="async"):
+                        _publish_host_tree(directory, number, host_tree, keep=keep)
+                    telemetry.observe("checkpoint.publish_s", time.perf_counter() - t0)
+                    telemetry.count("checkpoint.publishes")
+                else:
+                    with tracing.span("checkpoint_save", step=int(number), mode="async"):
+                        _write_host_tree(directory, number, host_tree, keep=keep)
+                    telemetry.observe("checkpoint.save_s", time.perf_counter() - t0)
+                    telemetry.count("checkpoint.saves")
             except BaseException as e:  # surfaces at the next save()/flush()
                 with self._cond:
                     self._errors.append(e)
@@ -604,7 +833,29 @@ class AsyncCheckpointer:
         # enqueue OUTSIDE the condition: a put on the bounded queue may
         # block (the documented backpressure), and the worker needs the
         # condition to drain
-        self._queue.put((directory, int(step), host_tree,
+        self._queue.put(("save", directory, int(step), host_tree,
+                         self.keep if keep is None else keep))
+
+    def publish(self, directory: str, version: int, tree: Any, *,
+                keep: int | None = None) -> None:
+        """Snapshot ``tree`` now and schedule an atomic weight publication
+        (:func:`publish_version`'s payload, manifest, read-back
+        verification and pointer flip) through the same ordered worker as
+        :meth:`save` — so a ``save(step=N)`` followed by a
+        ``publish(version=N)`` certifies in submission order and one
+        ``flush()`` covers both. The same backpressure, master-only and
+        error-surfacing contracts as :meth:`save`."""
+        self._raise_pending_error()
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer is closed")
+        if not dist.is_master():
+            return
+        t0 = time.perf_counter()
+        host_tree = _publishable(snapshot_to_host(tree))
+        telemetry.observe("checkpoint.async_snapshot_s", time.perf_counter() - t0)
+        with self._cond:
+            self._pending += 1
+        self._queue.put(("publish", directory, int(version), host_tree,
                          self.keep if keep is None else keep))
 
     def flush(self, timeout: float | None = None) -> bool:
