@@ -295,16 +295,42 @@ falls back to the CPU):
                  and with their plain versions (loss; every kernel call of
                  the kernel step against its plain version on the same
                  tensors; the gradients shown), and one step of
-                 ``attn_impl="flash"`` (kernel forward, scan backward).
+                 ``attn_impl="flash"`` (kernel forward, scan backward);
+18. seq        — sequence parallelism across ranks (ROADMAP A.13a): four
+                 processes on the card over one gloo group (as phase 6),
+                 kernel mode "on". Which gloo collectives take bf16 CUDA
+                 tensors. ``sharded_self_attention`` at the LM slice's
+                 attention, (2, 8192, 8, 64) bf16, 2048 tokens a rank: ring,
+                 zigzag ring and dense Ulysses (causal), Ulysses with the
+                 flash kernels under the scan backward (causal) and the
+                 kernel backward (causal and full); each output and dq, dk,
+                 dv, all-gathered, against the exact attention (float64)
+                 within a per-element limit (derived beside
+                 SEQ_HOP_ROUNDINGS) and against the world-1
+                 ``flash_attention`` run with the same backward; every
+                 kernel call at the per-rank shape (2, 8192, 2, 64) against
+                 its plain version under kernel mode "off", the calls and
+                 launches of each case (1 ``flash_fwd``, with the kernel
+                 backward 1 ``flash_bwd_dkdv`` and 1 ``flash_bwd_dq``, of
+                 the case's variant), no plain version run otherwise. Then
+                 the LM at world 4 in three arms — ring and dense Ulysses at
+                 depth 2, Ulysses on the flash kernels at depth 8 — 3 Adam
+                 steps each against the world-1 LM (same seed, depth and
+                 global batch): losses and step 1's gradient within 5x the
+                 world-1 step's own rounding floor (derived beside
+                 SEQ_FLOOR_FACTOR), launches a rank, step ms and peak
+                 memory of each process; the phase's seconds.
 
 Before the last two lines come ``{"groups": {...}}`` (phase 6's worst
-ratios) and ``{"paths": {...}}`` (phases 9-13f's launches, times, the
-bench line, the eager and captured steps, the compress, resilience, obs,
-incident, monitor, serve and publish summaries); the second-to-last line is
-``{"kernels": [...]}`` (the BN, attention and int8-wire kernels;
-``bn_normalize``'s row carries the serving path's launches and times
-under ``serve`` and the replay after a swap under ``publish``); the last
-line is
+ratios) and ``{"paths": {...}}`` (phases 9-13f's and 18's launches, times,
+the bench line, the eager and captured steps, the compress, resilience,
+obs, incident, monitor, serve, publish and seq summaries); the
+second-to-last line is ``{"kernels": [...]}`` (the BN, attention and
+int8-wire kernels; ``bn_normalize``'s row carries the serving path's
+launches and times under ``serve`` and the replay after a swap under
+``publish``; each attention row a rank's launches in phase 18's flash LM
+arm and its calls by variant in the attention cases under ``seq``); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 nvcc (phase 3) and Triton (at first launch) build every kernel from this
 checkout's sources into ``tpu_syncbn_torch/_build/`` (git-ignored).
@@ -6668,6 +6694,558 @@ def phase_lm_ab(torch, A, model, opt, batch, card):
     return failures
 
 
+# -- [seq]: sequence parallelism across ranks (ROADMAP A.13a) ------------------
+
+# Four processes share the one card over a gloo group, as [groups] does
+# (gloo moves CUDA tensors through the host; NCCL needs a card a rank): the
+# LM slice's attention at (2, 8192, 8, 64) bf16 sharded 2048 tokens a rank,
+# and the LM itself at world 4. Not a throughput figure.
+SEQ_WORLD = 4
+SEQ_JOIN_S = 600
+SEQ_SEED = 31
+# sharded_self_attention's cases: every rank holds the global tensors
+SEQ_CASES = {
+    "ring": dict(impl="ring", causal=True),
+    "ring_zigzag": dict(impl="ring_zigzag", causal=True),
+    "ulysses": dict(impl="ulysses", causal=True),
+    "ulysses+flash": dict(impl="ulysses", causal=True, local_impl="flash"),
+    "ulysses+flash+pallas": dict(impl="ulysses", causal=True, local_impl="flash",
+                                 local_backward="pallas"),
+    "ulysses+flash+pallas full": dict(impl="ulysses", causal=False, local_impl="flash",
+                                      local_backward="pallas"),
+}
+# each case's kernel calls a rank, in order: (kernel, variant)
+SEQ_CALLS = {
+    "ulysses+flash": [("flash_fwd", "causal")],
+    "ulysses+flash+pallas": [("flash_fwd", "causal"), ("flash_bwd_dkdv", "causal"),
+                             ("flash_bwd_dq", "causal")],
+    "ulysses+flash+pallas full": [("flash_fwd", "full"), ("flash_bwd_dkdv", "full"),
+                                  ("flash_bwd_dq", "full")],
+}
+# the LM at world 4: (depth, the LM's attention arguments). The dense arms'
+# block attention keeps ~0.8 GB of f32 scores a block a layer for the
+# backward, so they run 2 layers (8 would need ~26 GB a process)
+SEQ_LM_ARMS = {
+    "ring": (2, dict(attn_impl="ring")),
+    "ulysses": (2, dict(attn_impl="ulysses")),
+    "ulysses+flash+pallas": (LM_CFG["n_layers"], dict(
+        attn_impl="ulysses", local_impl="flash", local_backward="pallas")),
+}
+SEQ_LM_STEPS = 3
+# Attention limits, per element, against the exact attention (float64 plain
+# arithmetic on the same bf16 inputs, by 1024-query-row blocks): the
+# parity phase's bf16 limit (BF16_TERMS x the root sum of squares of the
+# element's terms + BF16_RTOL |x| + BF16_FLOOR x RMS), which bounds a
+# kernel's rounding of P and dS and the final bf16 rounding, and covers
+# the dense paths (f32 arithmetic, one rounding) with room. The ring and
+# the zigzag ring also carry k's and v's cotangents around the ring in
+# bf16: at most SEQ_HOP_ROUNDINGS roundings a hop (the casts of up to two
+# f32 block gradients, their add, the add of the cotangent coming back
+# from the next rank), each within u = 2^-8 of a value no larger than the
+# sum of |partial gradients| over 1024-query-row chunks; so dk and dv get
+# SEQ_HOP_ROUNDINGS x world x u x that sum on top. The flash backward
+# (world 1 and Ulysses alike) computes δ = rowsum(dO ∘ O) from its bf16
+# output, off the exact δ by at most Σ_d |dO| x the output's limit; δ
+# enters dS = P (dP − δ), so dq and dk get that error carried through P
+# and |k| (|q|) on top, in every case. Each case must also be within its
+# limit plus the reference's limit of the world-1 run of the same function
+# (the port's flash_attention with the same backward).
+SEQ_HOP_ROUNDINGS = 4
+U_BF16 = 2.0 ** -8
+# The LM arms against the world-1 LM (same seed, depth, global batch), bf16:
+# they differ by rounding only (the order of f32 sums; four bf16 partial
+# gradients, one a rank, summed across ranks in bf16 by gloo; GEMMs of a
+# quarter of the rows). The rounding floor is measured in the same run, as
+# [groups] does: the world-1 step whose gradient is taken as the same four
+# partials — one backward for each rank's chunk of the token losses, each
+# rounded to bf16 and accumulated in bf16 (4 roundings and 3 adds, as
+# world 4's). The world-4 gradient and later losses must agree within
+# SEQ_FLOOR_FACTOR x that floor (the other reorderings of f32 sums stay
+# below it); the loss also within the f32 sum of 16384 cross-entropies in
+# another order (16384 x 2^-24 of itself). A missing hop, mask or position
+# offset moves a loss or a gradient by O(1).
+SEQ_FLOOR_FACTOR = 5.0
+SEQ_LOSS_SUM = LM_BATCH * LM_CFG["max_len"] * 2.0 ** -24
+
+
+def _seq_inputs(torch, causal: bool):
+    """q, k, v, dO: bf16 (2, 8192, 8, 64) on cuda:0 from a seed, the same in
+    every process."""
+    return _attn_inputs(torch, ATTN_SHAPE, torch.bfloat16, SEQ_SEED + int(causal))
+
+
+def _seq_exact_bwd(torch, A, q, k, v, do, o, lse, dlim, causal: bool, scale: float):
+    """The exact attention's gradients for dO (float64 plain arithmetic on
+    the bf16 inputs, by query-row chunks of L / (2 world)), given the exact
+    output and logsumexp; beside them, the sums of |partial dk| and
+    |partial dv| over those chunks, and the bounds that an error of
+    ``dlim`` (B*H, L) in δ = rowsum(dO ∘ O) puts on dq and dk (δ enters
+    dS = P (dP − δ) in every row)."""
+    f = torch.float64
+    b, l, h, _ = q.shape
+    delta = A.row_delta(do.to(f), o)
+    _, qs, kf, vf, dof, lsef, deltaf = A._bwd_operands(
+        q.to(f), k.to(f), v.to(f), do.to(f), lse, delta, scale)
+    dq, edq = torch.empty_like(qs), torch.empty_like(qs)
+    dk, dv, adk, adv, edk = (torch.zeros_like(kf) for _ in range(5))
+    rows = l // (2 * SEQ_WORLD)
+    for r0 in range(0, l, rows):
+        r1 = r0 + rows
+        p, ds = A._p_ds(qs[:, r0:r1], kf, vf, dof[:, r0:r1], lsef[:, r0:r1],
+                        deltaf[:, r0:r1], A._live(r0, r1, l, causal, q.device))
+        pv = p.transpose(1, 2) @ dof[:, r0:r1]
+        pk = ds.transpose(1, 2) @ qs[:, r0:r1]
+        dv += pv
+        dk += pk
+        adv += pv.abs()
+        adk += pk.abs()
+        dq[:, r0:r1] = (ds @ kf) * scale
+        a = dlim[:, r0:r1, None]
+        edq[:, r0:r1] = a * (p @ kf.abs()) * scale
+        edk += p.transpose(1, 2) @ (a * qs[:, r0:r1].abs())
+        del p, ds, pv, pk
+    blhd = lambda x: A._blhd(x, b, h, f)  # noqa: E731
+    return ({"dq": blhd(dq), "dk": blhd(dk), "dv": blhd(dv)},
+            {"dk": blhd(adk), "dv": blhd(adv)},
+            {"dq": blhd(edq), "dk": blhd(edk)}, delta.float())
+
+
+def _seq_reference(torch, A, causal: bool) -> dict:
+    """For one mask: the exact outputs, the per-element limits (module
+    constants above), the ring's partial sums, and the world-1 runs of
+    flash_attention with each backward, on the inputs of ``_seq_inputs``.
+    The flash backward computes δ from its bf16 output, which is within
+    the forward's limit of the exact one; that error of δ is in the dq
+    and dk limits of every case."""
+    f = torch.float64
+    q, k, v, do = _seq_inputs(torch, causal)
+    scale = q.shape[-1] ** -0.5
+    o, lse = A.flash_fwd_plain(q.to(f), k.to(f), v.to(f), causal=causal, scale=scale)
+    base = lambda t, x: (BF16_TERMS * t.double() + BF16_RTOL * x.abs()  # noqa: E731
+                         + BF16_FLOOR * float(x.pow(2).mean().sqrt()))
+    t_out, = attn_terms(torch, A, "flash_fwd", (q, k, v), causal, scale, lse.float())
+    limit = {"out": base(t_out, o)}
+    b, l, h, _ = q.shape
+    dlim = (do.double() * limit["out"]).abs().sum(-1).transpose(1, 2).reshape(b * h, l)
+    grads, partials, from_delta, delta = _seq_exact_bwd(
+        torch, A, q, k, v, do, o, lse, dlim, causal, scale)
+    exact = {"out": o, **grads}
+    args = (q, k, v, do, lse.float(), delta)
+    terms = {}
+    terms["dk"], terms["dv"] = attn_terms(torch, A, "flash_bwd_dkdv", args, causal, scale,
+                                          lse.float())
+    terms["dq"], = attn_terms(torch, A, "flash_bwd_dq", args, causal, scale, lse.float())
+    for p_, t in terms.items():
+        limit[p_] = base(t, exact[p_]) + from_delta.get(p_, 0.0)
+    del terms, from_delta, dlim
+    world1 = {}
+    for backward in ("xla", "pallas"):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = A.flash_attention(*leaves, causal=causal, backward=backward)
+        out.backward(do)
+        world1[backward] = {"out": out.detach(), "dq": leaves[0].grad,
+                            "dk": leaves[1].grad, "dv": leaves[2].grad}
+    return {"exact": exact, "limit": limit, "partials": partials, "world1": world1}
+
+
+@contextlib.contextmanager
+def _seq_kernel_check(torch, A, bn_ops, seen: dict, calls: list, state: dict):
+    """Inside: each attention wrapper launches its kernel (kernel mode "on"),
+    then runs again on the same tensors under kernel mode "off" (its plain
+    version), and the two are held to the parity limits. ``seen["<kernel>
+    <variant>"] = [calls, worst error / limit, worst abs error]``; every
+    call appends ``(kernel, variant)`` to ``calls``; a plain version run
+    outside that comparison counts in ``state["stray_plain"]``."""
+    wrappers = {k: getattr(A, k) for k in ATTN_KERNELS}
+    plains = {k: getattr(A, f"{k}_plain") for k in ATTN_KERNELS}
+
+    def run(*args, _k, **kw):
+        got = wrappers[_k](*args, **kw)
+        state["checking"] = True
+        try:
+            with bn_ops.kernel_mode("off"):
+                want = wrappers[_k](*args, **kw)
+        finally:
+            state["checking"] = False
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        lse = want_t[1] if _k == "flash_fwd" else args[4]
+        terms = attn_terms(torch, A, _k, args, kw["causal"], kw["scale"], lse)
+        variant = "causal" if kw["causal"] else "full"
+        entry = seen.setdefault(f"{_k}<{variant}>", [0, 0.0, 0.0])
+        entry[0] += 1
+        for i, (g_, w_) in enumerate(zip(got_t, want_t)):
+            kind = "lse" if w_.dtype == torch.float32 else "out"
+            abs_e, r, _, _ = attn_check(torch, g_, w_, kind,
+                                        terms[i] if kind == "out" else None)
+            entry[1], entry[2] = max(entry[1], r), max(entry[2], abs_e)
+        calls.append((_k, variant))
+        return got
+
+    def plain(*args, _k, **kw):
+        if not state["checking"]:
+            state["stray_plain"] += 1
+        return plains[_k](*args, **kw)
+
+    for k in ATTN_KERNELS:
+        setattr(A, k, functools.partial(run, _k=k))
+        setattr(A, f"{k}_plain", functools.partial(plain, _k=k))
+    try:
+        yield
+    finally:
+        for k in ATTN_KERNELS:
+            setattr(A, k, wrappers[k])
+            setattr(A, f"{k}_plain", plains[k])
+
+
+def _seq_gloo_probe(torch, group) -> dict:
+    """Which gloo collectives take bf16 CUDA tensors, and whether the values
+    come back bit for bit: ``all_to_all_single`` and ``all_reduce``.
+    Point-to-point sends are not probed:
+    a send refused on one rank would leave its peer's receive waiting; the
+    port's ppermute stages CUDA tensors through the host on gloo."""
+    import torch.distributed as tdist
+
+    n, me = tdist.get_world_size(group), tdist.get_rank(group)
+    out = {}
+    # integers below 256: bf16 holds them and their sums over 4 ranks exactly
+    x = (torch.arange(4 * n, device="cuda") + 16 * me).to(torch.bfloat16)
+    try:
+        y = torch.empty_like(x)
+        tdist.all_to_all_single(y, x, group=group)
+        want = torch.cat([(torch.arange(4 * me, 4 * me + 4, device="cuda") + 16 * r)
+                          for r in range(n)]).to(torch.bfloat16)
+        out["all_to_all_single cuda bf16"] = "ok, bitwise" if torch.equal(y, want) \
+            else "ran, values differ"
+    except (RuntimeError, ValueError) as e:
+        out["all_to_all_single cuda bf16"] = f"refused: {type(e).__name__}: {e}"[:200]
+    try:
+        y = x.clone()
+        tdist.all_reduce(y, group=group)
+        want = sum((torch.arange(4 * n, device="cuda") + 16 * r) for r in range(n))
+        out["all_reduce cuda bf16"] = "ok, exact" if torch.equal(y, want.to(torch.bfloat16)) \
+            else "ran, values differ"
+    except (RuntimeError, ValueError) as e:
+        out["all_reduce cuda bf16"] = f"refused: {type(e).__name__}: {e}"[:200]
+    return out
+
+
+def _seq_child(rank, d):
+    """One of the SEQ_WORLD processes: cuda:0, a gloo group through a
+    file:// rendezvous, ``runtime.initialize("cuda")``, kernel mode "on".
+    Rank 0 saves the attention cases' whole outputs and gradients and the
+    LM arms' step-1 gradients; every rank writes ``d/rank<r>.json``."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SEQ_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(SEQ_WORLD))
+    import torch
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                             world_size=SEQ_WORLD, rank=rank)
+    from tpu_syncbn_torch import longcontext_train as lct
+    from tpu_syncbn_torch import models, runtime
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import cuda_attention as A
+    from tpu_syncbn_torch.parallel import sequence
+
+    if runtime.initialize("cuda") != torch.device("cuda", 0) \
+            or runtime.process_count() != SEQ_WORLD:
+        raise RuntimeError("runtime.initialize did not keep the gloo group")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bn_ops.set_kernel_mode("on")  # a CPU tensor raises; no wrapper falls back
+    group = tdist.group.WORLD
+    out = {"probe": _seq_gloo_probe(torch, group), "cases": {}, "lm": {}}
+    saved = {}
+    seen, calls, state = {}, [], {"checking": False, "stray_plain": 0}
+    A.reset_launch_counts()
+    with _seq_kernel_check(torch, A, bn_ops, seen, calls, state):
+        for name, kw in SEQ_CASES.items():
+            q, k, v, do = _seq_inputs(torch, kw["causal"])
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            before, first = A.launch_counts(), len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = sequence.sharded_self_attention(group, q, k, v, **kw)
+            o.backward(do)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+            out["cases"][name] = {
+                "seconds": secs, "calls": calls[first:],
+                "launches": {kk: n - before[kk] for kk, n in A.launch_counts().items()},
+                "sums": {p: float(x.double().sum()) for p, x in got.items()}}
+            if rank == 0:
+                saved[name] = {p: x.cpu() for p, x in got.items()}
+            del q, k, v, do, o, got
+    out["kernel_check"], out["stray_plain"] = seen, state["stray_plain"]
+    out["parity_launches"] = A.launch_counts()
+    if rank == 0:
+        torch.save(saved, os.path.join(d, "cases.pt"))
+    del saved
+    torch.cuda.empty_cache()
+
+    L, grads = LM_CFG["max_len"], {}
+    for arm, (depth, attn) in SEQ_LM_ARMS.items():
+        model = models.init_transformer_lm(0, **dict(LM_CFG, n_layers=depth),
+                                           dtype=torch.bfloat16, device="cuda")
+        opt = torch.optim.Adam(model.parameters(), lr=LM_LR)
+        stream = lct.periodic_batches(0, LM_BATCH, L, LM_CFG["vocab"])
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()  # the arm's path: counts from 0
+        losses, times = [], []
+        for step in range(SEQ_LM_STEPS):
+            inputs, labels = (torch.from_numpy(x).to("cuda") for x in
+                              lct.local_chunk(next(stream), rank, L // SEQ_WORLD))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(lct.train_step(model, opt, inputs, labels, group=group,
+                                               **attn)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if step == 0 and rank == 0:
+                grads[arm] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        out["lm"][arm] = {"losses": losses, "ms": times, "launches": A.launch_counts(),
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        del model, opt
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(grads, os.path.join(d, "lm_grads.pt"))
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown()
+
+
+def _seq_world1_lm(torch, depth: int, attn: dict, split: bool):
+    """The world-1 LM (group ALONE: ring and Ulysses are then their dense
+    or flash attention over the whole sequence) from the children's seed and
+    batches: SEQ_LM_STEPS Adam steps; returns the losses and step 1's
+    gradients. ``split``: the gradient accumulated from one backward for
+    each rank's chunk of the token losses (the rounding floor)."""
+    import torch.nn.functional as F
+
+    from tpu_syncbn_torch import longcontext_train as lct
+    from tpu_syncbn_torch import models
+    from tpu_syncbn_torch.parallel import collectives
+
+    L = LM_CFG["max_len"]
+    model = models.init_transformer_lm(0, **dict(LM_CFG, n_layers=depth),
+                                       dtype=torch.bfloat16, device="cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR)
+    stream = lct.periodic_batches(0, LM_BATCH, L, LM_CFG["vocab"])
+    losses, grads = [], None
+    for step in range(SEQ_LM_STEPS):
+        toks = torch.from_numpy(next(stream)).to("cuda")
+        inputs, labels = toks[:, :L], toks[:, 1:]
+        if not split:
+            loss = float(lct.train_step(model, opt, inputs, labels,
+                                        group=collectives.ALONE, **attn))
+        else:
+            opt.zero_grad(set_to_none=True)
+            logits = model(inputs, group=collectives.ALONE, **attn)
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1).long(), reduction="none")
+            ce = ce.view(labels.shape) / labels.numel()
+            chunk, loss = L // SEQ_WORLD, 0.0
+            for r in range(SEQ_WORLD):
+                part = ce[:, r * chunk:(r + 1) * chunk].sum()
+                part.backward(retain_graph=r < SEQ_WORLD - 1)
+                loss += float(part.detach())
+            del logits, ce
+            opt.step()
+        losses.append(loss)
+        if step == 0:
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def _grad_rel_err(torch, got: dict, want: dict) -> float:
+    """|got − want| / |want|, L2 over every parameter's gradient, float64."""
+    d2 = sum(float((got[n].to(w.device).double() - w.double()).pow(2).sum())
+             for n, w in want.items())
+    r2 = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return math.sqrt(d2 / r2)
+
+
+def _seq_attention_gates(torch, ref: dict, res: list, d: str, card) -> list:
+    """The attention cases against the exact attention and against the
+    world-1 run (SEQ_HOP_ROUNDINGS' comment), the kernel checks and the
+    launch counts."""
+    failures = []
+    cases = torch.load(os.path.join(d, "cases.pt"))
+    for name, kw in SEQ_CASES.items():
+        r = ref[kw["causal"]]
+        backward = kw.get("local_backward", "xla")
+        w1 = r["world1"][backward]
+        got = cases[name]
+        parts, worst, worst_w1, same = [], 0.0, 0.0, True
+        for p, x in r["exact"].items():
+            lim = r["limit"][p]
+            if kw["impl"].startswith("ring") and p in r["partials"]:
+                lim = lim + SEQ_HOP_ROUNDINGS * SEQ_WORLD * U_BF16 * r["partials"][p]
+            g = got[p].to(x.device)
+            err = (g.double() - x).abs()
+            ratio = float((err / lim).max())
+            ratio_w1 = float(((g.double() - w1[p].double()).abs()
+                              / (lim + r["limit"][p])).max())
+            same = same and torch.equal(g, w1[p])
+            worst, worst_w1 = max(worst, ratio), max(worst_w1, ratio_w1)
+            parts.append(f"{p} max_abs_err={float(err.max()):.3e} {ratio:.3f}")
+        secs = [res_["cases"][name]["seconds"] for res_ in res]
+        ranks_agree = all(res_["cases"][name]["sums"] == res[0]["cases"][name]["sums"]
+                          for res_ in res)
+        ok = worst <= 1.0 and worst_w1 <= 1.0 and ranks_agree
+        log(f"[seq] {name:25s} {'causal' if kw['causal'] else 'full'} {ATTN_SHAPE} bf16, "
+            f"world 4: vs exact {'; '.join(parts)} of limit; vs world-1 flash_attention "
+            f"(backward {backward!r}) {worst_w1:.3f} of both limits, bitwise {same}; ranks "
+            f"agree {ranks_agree}; {min(secs):.2f}-{max(secs):.2f}s a rank (fwd+bwd, "
+            f"four processes on one card) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"[seq] {name} disagrees ({worst:.3f} / {worst_w1:.3f} of limit)")
+        want_calls = SEQ_CALLS.get(name, [])
+        for rk, res_ in enumerate(res):
+            c = res_["cases"][name]
+            got_calls = [tuple(x) for x in c["calls"]]
+            counts = {k: sum(1 for kk, _ in want_calls if kk == k) for k in ATTN_KERNELS}
+            if got_calls != want_calls or c["launches"] != counts:
+                failures.append(f"[seq] {name} rank {rk}: kernel calls {got_calls}, "
+                                f"launches {c['launches']}, expected {want_calls}")
+    for key in sorted(res[0]["kernel_check"]):
+        per = [res_["kernel_check"][key] for res_ in res]
+        n_calls = [p_[0] for p_ in per]
+        r_ = max(p_[1] for p_ in per)
+        a_ = max(p_[2] for p_ in per)
+        b_, l_, h_, d_ = ATTN_SHAPE
+        log(f"[seq] kernel {key:22s} at {(b_, l_, h_ // SEQ_WORLD, d_)} (H/{SEQ_WORLD} heads a rank): "
+            f"{n_calls} calls a rank, each against its plain version (kernel mode "
+            f"'off') on the same tensors: worst {r_:.3f} of the parity limit, "
+            f"max_abs_err {a_:.3e} {'ok' if r_ <= 1.0 else 'FAIL'}")
+        if r_ > 1.0:
+            failures.append(f"[seq] {key} disagrees with its plain version ({r_:.3f})")
+    strays = [res_["stray_plain"] for res_ in res]
+    if any(strays):
+        failures.append(f"[seq] a plain attention version ran outside the check: {strays}")
+    log(f"[seq] plain versions run outside the kernel check, per rank: {strays}")
+    return failures
+
+
+def _seq_lm_gates(torch, res: list, d: str, card) -> tuple[list, dict]:
+    """The LM arms against the world-1 LM and its rounding floor
+    (SEQ_FLOOR_FACTOR's comment)."""
+    failures, summary = [], {}
+    grads = torch.load(os.path.join(d, "lm_grads.pt"))
+    refs: dict = {}
+    for arm, (depth, attn) in SEQ_LM_ARMS.items():
+        key = (depth, "flash" if "local_impl" in attn else "dense")
+        if key not in refs:  # ring and Ulysses are the same dense LM at world 1
+            t0 = time.perf_counter()
+            refs[key] = (_seq_world1_lm(torch, depth, attn, split=False),
+                         _seq_world1_lm(torch, depth, attn, split=True),
+                         time.perf_counter() - t0)
+        (l1, g1), (ls, gs), ref_s = refs[key]
+        l4 = [res_["lm"][arm]["losses"] for res_ in res]
+        floor_loss = max(abs(a - b) / abs(b) for a, b in zip(ls, l1))
+        loss_tol = SEQ_FLOOR_FACTOR * floor_loss + SEQ_LOSS_SUM
+        loss_err = max(abs(a - b) / abs(b) for l_ in l4 for a, b in zip(l_, l1))
+        floor_grad = _grad_rel_err(torch, gs, g1)
+        grad_err = _grad_rel_err(torch, grads[arm], g1)
+        grad_tol = SEQ_FLOOR_FACTOR * floor_grad
+        ok = loss_err <= loss_tol and grad_err <= grad_tol
+        counts = [res_["lm"][arm]["launches"] for res_ in res]
+        want = (depth * SEQ_LM_STEPS if "local_impl" in attn else 0)
+        launches_ok = all(c == {k: want if (k == "flash_fwd" or attn.get("local_backward")
+                                             == "pallas") else 0 for k in ATTN_KERNELS}
+                          for c in counts)
+        log(f"[seq] lm {arm:21s} depth {depth}, world 4 vs world 1 (global batch "
+            f"{LM_BATCH} x L {LM_CFG['max_len']}, bf16, {SEQ_LM_STEPS} Adam steps): losses "
+            f"{[round(x, 6) for x in l4[0]]} vs {[round(x, 6) for x in l1]}, worst rel "
+            f"err {loss_err:.3e} (tol {loss_tol:.3e} = {SEQ_FLOOR_FACTOR:g} x floor "
+            f"{floor_loss:.3e} + {SEQ_LOSS_SUM:.2e}); step-1 gradient rel L2 "
+            f"{grad_err:.3e} (tol {grad_tol:.3e} = {SEQ_FLOOR_FACTOR:g} x floor "
+            f"{floor_grad:.3e}, the world-1 step's gradient as four bf16 partials); "
+            f"world-1 reference and floor {ref_s:.1f}s {'ok' if ok else 'FAIL'}")
+        log(f"[seq] lm {arm:21s} kernel launches a rank over {SEQ_LM_STEPS} steps "
+            f"{counts[0]} (every rank the same: {all(c == counts[0] for c in counts)}; "
+            f"expected {want} of each kernel the arm runs)")
+        for rk, res_ in enumerate(res):
+            lm = res_["lm"][arm]
+            log(f"[seq] lm {arm:21s} rank {rk}: step ms "
+                + ", ".join(f"{t:.1f}" for t in lm["ms"])
+                + f"; peak {lm['peak_bytes'] / 2 ** 30:.2f} GiB: four processes "
+                f"time-slicing one card through gloo host copies, not a throughput "
+                f"figure [{card}]")
+        if not ok:
+            failures.append(f"[seq] lm {arm} at world 4 disagrees with world 1 "
+                            f"(loss {loss_err:.3e} / {loss_tol:.3e}, gradient "
+                            f"{grad_err:.3e} / {grad_tol:.3e})")
+        if not launches_ok:
+            failures.append(f"[seq] lm {arm}: launches {counts}, expected {want}")
+        summary[arm] = {"depth": depth, "loss_rel_err": loss_err, "loss_tol": loss_tol,
+                        "grad_rel_err": grad_err, "grad_tol": grad_tol,
+                        "step_ms": [res_["lm"][arm]["ms"] for res_ in res],
+                        "peak_bytes": [res_["lm"][arm]["peak_bytes"] for res_ in res],
+                        "launches_per_rank": counts[0]}
+    return failures, summary
+
+
+def phase_seq(torch, A, card):
+    """Sequence parallelism across ranks: the attention cases and the LM at
+    world 4, four processes on the one card over gloo (SEQ_WORLD). Returns
+    the failures and a summary."""
+    import multiprocessing
+    import tempfile
+
+    t_phase = time.perf_counter()
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = {causal: _seq_reference(torch, A, causal) for causal in (True, False)}
+    log(f"[seq] exact references, limits and world-1 runs in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as d:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_seq_child, args=(r, d)) for r in range(SEQ_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SEQ_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+        if alive:
+            fail(f"[seq] {len(alive)} of {SEQ_WORLD} processes still running after "
+                 f"{SEQ_JOIN_S}s; killed")
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SEQ_WORLD:
+            fail(f"[seq] process exit codes {codes}")
+        log(f"[seq] four processes: {time.perf_counter() - t0:.1f}s from spawn to join")
+        res = []
+        for r in range(SEQ_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        log(f"[seq] gloo on CUDA tensors: {json.dumps(res[0]['probe'])}")
+        failures += _seq_attention_gates(torch, ref, res, d, card)
+        del ref
+        torch.cuda.empty_cache()
+        lm_failures, lm = _seq_lm_gates(torch, res, d, card)
+        failures += lm_failures
+    secs = time.perf_counter() - t_phase
+    log(f"[seq] phase done in {secs:.1f}s, {len(failures)} failures")
+    variants = {}
+    for key, (n, _, _) in res[0]["kernel_check"].items():
+        variants[key] = n
+    return failures, {"seconds": secs, "lm": lm, "parity_calls_per_rank": variants,
+                      "probe": res[0]["probe"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_syncbn_torch")):
         fail("tpu_syncbn_torch/ not found beside chip_smoke.py; run it from "
@@ -6769,6 +7347,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, opt, batch, attn_launches = phase_lm(torch, A, card)
     failures += phase_lm_ab(torch, A, model, opt, batch, card)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    seq_failures, seq = phase_seq(torch, A, card)
+    failures += seq_failures
     if failures:
         fail("; ".join(failures))
 
@@ -6811,6 +7393,15 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": None if t["library_ms"] is None
             else n_layers * t["library_ms"],
+            # [seq]: a rank's launches in the world-4 LM arm through the
+            # kernels (its 3 steps), and a rank's calls by variant in the
+            # attention cases (each held against its plain version)
+            "seq": {"lm_launches_per_rank": seq["lm"]["ulysses+flash+pallas"][
+                "launches_per_rank"][k],
+                    "parity_calls_per_rank": {
+                        key.split("<")[1].rstrip(">"): n
+                        for key, n in seq["parity_calls_per_rank"].items()
+                        if key.startswith(k + "<")}},
         })
     for k in QUANT_KERNELS:  # per ResNet-50 int8 step: one call each
         t = quant[k]
@@ -6840,7 +7431,8 @@ def main() -> int:
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
         "resilience": resilience, "obs": obs, "incident": incident_out,
-        "monitor": monitor_out, "serve": serve_out, "publish": publish_out}}),
+        "monitor": monitor_out, "serve": serve_out, "publish": publish_out,
+        "seq": seq}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 """The port's transformer LM (``tpu_syncbn_torch.models.transformer``)
 against the JAX package's ``transformer_lm``: the same parameters (copied
 by ``load_jax_transformer_params``) and tokens give the same logits and
-gradients for each single-device attention impl, in float32. The JAX
-flash kernels run in interpret mode on the CPU, as its own tests run them.
+gradients for each single-device attention impl, in float32, and for the
+sequence-parallel impls at a group of one against JAX's LM on a mesh of one.
+The JAX flash kernels run in interpret mode on the CPU, as its own tests
+run them. The sequence-parallel impls across ranks are held against JAX in
+``tests/test_torch_longcontext.py`` (the LM at world 2) and
+``tests/test_torch_sequence.py``.
 
 Tolerance: rtol 1e-5 / atol 3e-4, as ``tests/test_transformer.py`` holds
 the JAX LM's attention impls against each other (f32 sums in another
@@ -21,6 +25,7 @@ from tpu_syncbn_torch.models import (
     init_transformer_lm,
     load_jax_transformer_params,
 )
+from tpu_syncbn_torch.parallel.collectives import ALONE
 
 CFG = dict(vocab=37, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_len=64)
 B, L = 2, 48  # L < max_len: the positions are sliced
@@ -101,14 +106,72 @@ def test_a_sequence_longer_than_max_len_raises():
         model(torch.zeros(1, 65, dtype=torch.long))
 
 
-@pytest.mark.parametrize("kw", [{"attn_impl": "ring"}, {"attn_impl": "ulysses"},
-                                {"local_impl": "flash"}])
-def test_sequence_parallel_impls_wait_for_the_multi_gpu_slice(kw):
+@pytest.mark.parametrize("kw,match", [
+    (dict(attn_impl="dense"), "unknown attention impl"),
+    (dict(attn_impl="ring_zigzag", group=ALONE), "ring_zigzag is not supported at the LM"),
+    (dict(attn_impl="flash", group=ALONE), "dense single-device kernel"),
+    (dict(attn_impl="ring", group=ALONE, local_impl="flash"), "apply to attn_impl='ulysses'"),
+    (dict(attn_impl="ulysses", local_impl="flash"), "apply to attn_impl='ulysses' with a"),
+    (dict(attn_impl="ulysses", group=ALONE, local_backward="pallas"),
+     "local_backward applies to local_impl='flash'"),
+])
+def test_attention_arguments_are_checked_as_jax_checks_them(kw, match):
     model = init_transformer_lm(0, **CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match=match):
         model(torch.zeros(1, 8, dtype=torch.long), **kw)
-    with pytest.raises(ValueError, match="unknown attention impl"):
-        model(torch.zeros(1, 8, dtype=torch.long), attn_impl="dense")
+
+
+SEQ_IMPLS = {
+    "ring": dict(attn_impl="ring"),
+    "ulysses": dict(attn_impl="ulysses"),
+    "ulysses+flash": dict(attn_impl="ulysses", local_impl="flash"),
+    "ulysses+flash+pallas": dict(attn_impl="ulysses", local_impl="flash",
+                                 local_backward="pallas"),
+}
+
+
+@pytest.mark.parametrize("name", list(SEQ_IMPLS))
+def test_sequence_impls_at_world_one_match_the_jax_lm(jax_params, tokens, name):
+    """A group of one (ALONE) against JAX's LM under shard_map on a mesh of
+    one ``seq`` device: logits and gradients."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from tpu_syncbn.compat import shard_map
+
+    kw = SEQ_IMPLS[name]
+    w = np.random.default_rng(2).standard_normal((B, L, CFG["vocab"])).astype(np.float32)
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("seq",))
+    lm = shard_map(lambda p, t: tfm.transformer_lm(p, t, n_heads=CFG["n_heads"],
+                                                   axis_name="seq", **kw),
+                   mesh=mesh, in_specs=(P(), P(None, "seq")), out_specs=P(None, "seq"),
+                   check_vma="local_impl" not in kw)
+
+    def loss(p):
+        return jnp.sum(jnp.tanh(lm(p, jnp.asarray(tokens))) * w)
+
+    want_logits = jax.jit(lm)(jax_params, jnp.asarray(tokens))
+    want = flat(jax.jit(jax.grad(loss))(jax_params))
+    model = port_model(jax_params)
+    logits = model(torch.from_numpy(tokens), group=ALONE, **kw)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want_logits), **TOL)
+    (torch.tanh(logits) * torch.from_numpy(w)).sum().backward()
+    for pname, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[pname], err_msg=pname, **TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 9, CFG["max_len"] - 20])
+def test_an_explicit_position_offset_matches_the_jax_lm(jax_params, offset):
+    """``pos_offset``: the chunk's first global position (JAX's
+    ``dynamic_slice`` start); one past ``max_len`` raises instead of
+    clamping."""
+    toks = np.random.default_rng(4).integers(0, CFG["vocab"], (B, 20)).astype(np.int32)
+    want = tfm.transformer_lm(jax_params, jnp.asarray(toks), n_heads=CFG["n_heads"],
+                              pos_offset=jnp.int32(offset))
+    with torch.no_grad():
+        got = port_model(jax_params)(torch.from_numpy(toks), pos_offset=offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="exceed max_len"):
+        port_model(jax_params)(torch.from_numpy(toks), pos_offset=offset + 45)
 
 
 def test_the_loader_pairs_every_name(jax_params):

@@ -4,8 +4,9 @@ Synchronized BatchNorm for data-parallel training, one process per GPU,
 with the BatchNorm hot ops as hand-written Triton kernels for Hopper
 (:mod:`tpu_syncbn_torch.ops.triton_bn`); and the causal transformer LM
 (:mod:`tpu_syncbn_torch.models.transformer`, trained by
-:mod:`tpu_syncbn_torch.longcontext_train`) with exact fused attention as
-hand-written CUDA C++ kernels for Hopper
+:mod:`tpu_syncbn_torch.longcontext_train`, its sequence sharded across
+processes by ring or Ulysses attention, :mod:`tpu_syncbn_torch.parallel.sequence`)
+with exact fused attention as hand-written CUDA C++ kernels for Hopper
 (:mod:`tpu_syncbn_torch.ops.cuda_attention`, built by ``nvcc`` at their
 first launch, never at import). The package imports ``torch`` and numpy
 only; it never imports JAX or the JAX package, which stays in the

@@ -9,11 +9,15 @@ layouts (``embed``, ``pos``, ``blocks.wqkv`` of shape (n_layers, d, 3d) in
 copies a JAX parameter tree in without a transpose. A Python loop over
 the layer axis takes the place of ``lax.scan``.
 
-Attention (``attn_impl``) is the dense single-device attention (None), or
-the fused flash kernels (``"flash"``: kernel forward, blockwise-scan
-backward; ``"flash_pallas_bwd"``: the forward and both backward kernels).
-The sequence-parallel impls (``"ring"``, ``"ulysses"``, ``local_impl``)
-wait for the multi-GPU slice of the port.
+Attention (``attn_impl``) is the dense single-device attention (None), the
+fused flash kernels over the whole sequence (``"flash"``: kernel forward,
+blockwise-scan backward; ``"flash_pallas_bwd"``: the forward and both
+backward kernels), or, with a process ``group`` across which the sequence
+is sharded, ring (``"ring"``) or Ulysses (``"ulysses"``, with
+``local_impl``/``local_backward``) attention — the JAX model's
+``axis_name``. Attention is the only cross-rank operation: under a group
+of n ranks each holds its contiguous chunk of every sequence, and the
+positions default to ``rank·L_local`` on.
 """
 
 from __future__ import annotations
@@ -25,11 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_syncbn_torch.ops.cuda_attention import flash_attention
-from tpu_syncbn_torch.parallel.sequence import _single_device_attention
+from tpu_syncbn_torch.parallel import collectives
+from tpu_syncbn_torch.parallel.sequence import (
+    _single_device_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from tpu_syncbn_torch.runtime.distributed import resolve_device
 
-ATTN_IMPLS = (None, "flash", "flash_pallas_bwd")
-_MULTI_GPU = ("ring", "ulysses")
+ATTN_IMPLS = (None, "flash", "flash_pallas_bwd", "ring", "ulysses")
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -39,22 +47,46 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (y * scale).to(x.dtype)
 
 
-def _check_impl(impl: Optional[str], local_impl: Optional[str]) -> None:
-    if impl in _MULTI_GPU or local_impl is not None:
-        what = f"attn_impl={impl!r}" if local_impl is None else "local_impl"
-        raise NotImplementedError(
-            f"{what} shards the sequence across devices: it waits for the "
-            "multi-GPU slice of the port (at one device, use attn_impl None, "
-            "'flash' or 'flash_pallas_bwd')")
+def _check_impl(impl: Optional[str], group, local_impl: Optional[str],
+                local_backward: str) -> None:
+    """The JAX model's argument checks (``transformer_lm`` and
+    ``_attend``), made before the first layer."""
+    if impl == "ring_zigzag":
+        raise ValueError(
+            "ring_zigzag is not supported at the LM layer: it requires the "
+            "token stream, position embeddings, and next-token labels to "
+            "all use the zigzag chunk order, which the LM's contiguous "
+            "pos_offset plumbing does not provide. Use "
+            "parallel.sequence.ring_attention_zigzag / "
+            "sharded_self_attention(impl='ring_zigzag') at the attention "
+            "level, or attn_impl='ring' here.")
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
+    if (local_impl is not None or local_backward != "xla") \
+            and (impl != "ulysses" or group is None):
+        # anything but sharded Ulysses would silently drop the kernel asked for
+        raise ValueError(
+            "local_impl/local_backward apply to attn_impl='ulysses' with a "
+            f"group only, got attn_impl={impl!r}, group={group!r}")
+    if impl in ("flash", "flash_pallas_bwd") and group is not None:
+        raise ValueError(
+            f"attn_impl={impl!r} is the dense single-device kernel; it would "
+            "silently attend only the local shard under a sequence-sharded "
+            "group. Use attn_impl='ring'/'ulysses' with the group, or "
+            f"{impl!r} with group=None.")
 
 
-def _attend(q, k, v, impl: Optional[str]):
-    if impl is None:
+def _attend(q, k, v, impl: Optional[str], group, local_impl: Optional[str],
+            local_backward: str):
+    if impl in ("flash", "flash_pallas_bwd"):
+        backward = "pallas" if impl == "flash_pallas_bwd" else "xla"
+        return flash_attention(q, k, v, causal=True, backward=backward)
+    if impl is None or group is None:
         return _single_device_attention(q, k, v, causal=True, scale=None)
-    backward = "pallas" if impl == "flash_pallas_bwd" else "xla"
-    return flash_attention(q, k, v, causal=True, backward=backward)
+    if impl == "ring":
+        return ring_attention(q, k, v, group, causal=True)
+    return ulysses_attention(q, k, v, group, causal=True, local_impl=local_impl,
+                             local_backward=local_backward)
 
 
 class _Blocks(nn.Module):
@@ -95,21 +127,31 @@ class TransformerLM(nn.Module):
         self.ln_f_scale = nn.Parameter(torch.ones(d_model, **kw))
 
     def forward(self, tokens: torch.Tensor, attn_impl: Optional[str] = None,
-                local_impl: Optional[str] = None) -> torch.Tensor:
-        _check_impl(attn_impl, local_impl)
+                local_impl: Optional[str] = None, local_backward: str = "xla",
+                group=None, pos_offset: Optional[int] = None) -> torch.Tensor:
+        """``tokens`` (B, L): the whole sequence, or with ``group`` this
+        rank's contiguous chunk of it; ``pos_offset`` (default ``rank·L``)
+        is the chunk's first global position."""
+        _check_impl(attn_impl, group, local_impl, local_backward)
         b, l = tokens.shape
         max_len, d_model = self.pos.shape
-        if l > max_len:
-            # JAX's dynamic_slice would clamp and silently reuse positions
-            raise ValueError(f"global sequence {l} exceeds max_len {max_len}")
+        if pos_offset is None:
+            n = collectives.world_size(group)
+            if n * l > max_len:
+                # JAX's dynamic_slice would clamp and silently reuse positions
+                raise ValueError(f"global sequence {n * l} exceeds max_len {max_len}")
+            pos_offset = collectives.axis_index(group) * l
+        elif not 0 <= pos_offset <= max_len - l:
+            raise ValueError(f"positions [{pos_offset}, {pos_offset + l}) exceed "
+                             f"max_len {max_len}")
         dh = d_model // self.n_heads
         blk = self.blocks
-        x = self.embed[tokens] + self.pos[:l]
+        x = self.embed[tokens] + self.pos[pos_offset:pos_offset + l]
         for i in range(self.n_layers):
             h = _rms_norm(x, blk.ln1_scale[i])
             q, k, v = (t.reshape(b, l, self.n_heads, dh)
                        for t in (h @ blk.wqkv[i]).split(d_model, -1))
-            o = _attend(q, k, v, attn_impl)
+            o = _attend(q, k, v, attn_impl, group, local_impl, local_backward)
             x = x + o.reshape(b, l, d_model) @ blk.wo[i]
             h = _rms_norm(x, blk.ln2_scale[i])
             x = x + F.gelu(h @ blk.w1[i], approximate="tanh") @ blk.w2[i]

@@ -12,6 +12,12 @@ explicit rank partition) are ``torch.distributed`` groups built once per
 (spec, parent group) by :func:`group_for` and cached, so a converted
 ResNet-50's 53 layers share one set.
 
+``ppermute`` and ``all_to_all`` move a tensor's bytes (so any dtype
+arrives bit for bit; gloo stages CUDA tensors through the host) and are
+differentiable, as JAX's are: the backward sends each cotangent back the
+way its value came. Ring and Ulysses attention
+(:mod:`~tpu_syncbn_torch.parallel.sequence`) train through them.
+
 Every collective issued is tallied per call (:func:`tallies`): op name,
 calls and the bytes of the per-replica payload, also counted into the
 telemetry registry as ``collectives.<op>.calls`` / ``.bytes`` while
@@ -199,6 +205,12 @@ def _rank(group) -> int:
     return 0 if world_size(group) == 1 else tdist.get_rank(group)
 
 
+# ``lax.axis_size`` / ``lax.axis_index`` over a group: its size, and this
+# replica's rank in it (0 for None or ALONE)
+axis_size = world_size
+axis_index = _rank
+
+
 def _all_reduce(op: str, tensor: torch.Tensor, group, red) -> torch.Tensor:
     out = tensor.clone()
     _tally(op, [out])
@@ -281,20 +293,28 @@ def reduce_scatter(tensor: torch.Tensor, group, *,
     return out.movedim(0, scatter_dimension)
 
 
-def ppermute(tensor: torch.Tensor, perm: Sequence[tuple[int, int]], group) -> torch.Tensor:
-    """Point-to-point permutation (``lax.ppermute``): ``perm`` holds
-    ``(source, destination)`` pairs of ranks of ``group``; this rank sends
-    ``tensor`` to each destination it is the source of, and returns what
-    its source sent it, or zeros when no pair names it as a destination.
-    One ``batch_isend_irecv`` of the pairs that involve this rank. gloo
-    sends host memory only, so there a CUDA tensor goes through the host."""
+def _wire_bytes(x: torch.Tensor, group) -> tuple[torch.Tensor, bool]:
+    """``x`` (contiguous) as the flat bytes a permutation or an all-to-all
+    sends, and whether they were staged through the host. These collectives
+    move bytes and do no arithmetic, so the values arrive bit for bit
+    whatever dtypes the backend takes; gloo moves host memory only, so
+    there a CUDA tensor goes through the host."""
+    host = x.is_cuda and tdist.get_backend(group) == "gloo"
+    return (x.cpu() if host else x).reshape(-1).view(torch.uint8), host
+
+
+def _from_wire(out: torch.Tensor, like: torch.Tensor, host: bool) -> torch.Tensor:
+    out = out.view(like.dtype).view(like.shape)
+    return out.to(like.device) if host else out
+
+
+def _ppermute(tensor: torch.Tensor, perm: tuple, group) -> torch.Tensor:
     me = _rank(group)
     x = tensor.contiguous()
     _tally("ppermute", [x])
     if world_size(group) == 1:
         return x.clone() if (me, me) in perm else torch.zeros_like(x)
-    host = x.is_cuda and tdist.get_backend(group) == "gloo"
-    send = x.cpu() if host else x
+    send, host = _wire_bytes(x, group)
     out = torch.zeros_like(send)
     ops = []
     for src, dst in perm:
@@ -307,7 +327,120 @@ def ppermute(tensor: torch.Tensor, perm: Sequence[tuple[int, int]], group) -> to
     if ops:
         for req in tdist.batch_isend_irecv(ops):
             req.wait()
-    return out.to(tensor.device) if host else out
+    return _from_wire(out, x, host)
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute``'s transpose rule: the cotangent goes back along the
+    inverted ``(source, destination)`` pairs."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _ppermute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = tuple((dst, src) for src, dst in ctx.perm)
+        return _ppermute(grad, inverse, ctx.group), None, None
+
+
+def ppermute(tensor: torch.Tensor, perm: Sequence[tuple[int, int]], group) -> torch.Tensor:
+    """Point-to-point permutation (``lax.ppermute``): ``perm`` holds
+    ``(source, destination)`` pairs of ranks of ``group``; this rank sends
+    ``tensor`` to each destination it is the source of, and returns what
+    its source sent it, or zeros when no pair names it as a destination.
+    One ``batch_isend_irecv`` of the pairs that involve this rank, on the
+    tensor's bytes (through the host on gloo). Differentiable: the
+    backward permutes the cotangent along the inverted pairs."""
+    perm = tuple((int(src), int(dst)) for src, dst in perm)
+    return _PPermute.apply(tensor, perm, group)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all on a stacked ``(n, ...)`` tensor: row ``j`` goes to
+    rank ``j``, and row ``i`` of the result came from rank ``i``. One
+    ``all_to_all_single`` on the bytes (through the host on gloo)."""
+    x = x.contiguous()
+    _tally("all_to_all", [x])
+    if world_size(group) == 1:
+        return x.clone()
+    send, host = _wire_bytes(x, group)
+    out = torch.empty_like(send)
+    tdist.all_to_all_single(out, send, group=group)
+    return _from_wire(out, x, host)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_exchange` is its own transpose: the cotangent of the row
+    that came from rank ``i`` goes back to rank ``i``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def all_to_all(tensor: torch.Tensor, group, *, split_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """All-to-all resharding (``lax.all_to_all``), the sequence- and
+    expert-parallel building block. Tiled: ``split_axis`` is cut into
+    ``world`` equal chunks, chunk ``j`` goes to rank ``j``, and the chunks
+    received are concatenated along ``concat_axis`` in rank order. Untiled:
+    ``split_axis`` must have ``world`` entries; entry ``j`` goes to rank
+    ``j``, and the received entries are stacked along a new axis at
+    ``concat_axis`` of the result. Differentiable: the backward is the same
+    exchange with the two axes swapped."""
+    n = world_size(group)
+    split_axis %= tensor.dim()
+    size = tensor.shape[split_axis]
+    if (size % n) if tiled else (size != n):
+        raise ValueError(
+            f"all_to_all: split_axis {split_axis} of size {size} "
+            + (f"is not divisible by the group size {n}" if tiled
+               else f"must equal the group size {n} when not tiled"))
+    recv = _AllToAll.apply(torch.stack(tensor.chunk(n, split_axis)), group).unbind(0)
+    if tiled:
+        return torch.cat(recv, concat_axis % tensor.dim())
+    return torch.stack([r.squeeze(split_axis) for r in recv], concat_axis % tensor.dim())
+
+
+def ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Bandwidth-optimal ring all-reduce built from :func:`ppermute` hops
+    (the JAX package's ``ring_all_reduce``, chunk for chunk): the flat
+    payload, zero-padded to a multiple of the world ``N``, is cut into N
+    chunks; N − 1 reduce-scatter hops each add this rank's copy of one
+    chunk to the partial sum received from the left neighbour, then N − 1
+    all-gather hops circulate the finished chunks. ``psum`` is the
+    production path; this pins the ring algebra ring attention rides on.
+    Identity at world 1."""
+    n = world_size(group)
+    if n == 1:
+        return x
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    chunks = flat.view(n, -1)
+    fwd = [(i, (i + 1) % n) for i in range(n)]
+    me = _rank(group)
+    # reduce-scatter: at hop s this rank receives the partial sum of chunk
+    # (me - s) and adds its own copy; it ends owning chunk (me + 1) % n
+    acc = chunks[me]
+    for s in range(1, n):
+        acc = ppermute(acc, fwd, group) + chunks[(me - s) % n]
+    # all-gather: hop s brings chunk (me + 1 - s) % n
+    gathered = [acc]
+    for _ in range(n - 1):
+        gathered.append(ppermute(gathered[-1], fwd, group))
+    out = torch.stack(gathered)[[(me + 1 - j) % n for j in range(n)]].reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape)
 
 
 def _prime_factors(n: int) -> list:
@@ -368,6 +501,14 @@ def broadcast_(tensors: Sequence[torch.Tensor], group, src: int = 0) -> None:
     for t in tensors:
         _tally("broadcast", [t])
         tdist.broadcast(t, src=global_src, group=group)
+
+
+def broadcast(tensor: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s values on every rank, as a new tensor (the JAX
+    package's ``broadcast``; :func:`broadcast_` works in place)."""
+    out = tensor.clone()
+    broadcast_([out], group, src)
+    return out
 
 
 # -- replica subgroups ------------------------------------------------------
