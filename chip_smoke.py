@@ -2794,6 +2794,11 @@ def phase_bench():
         failures.append(f"[bench] recovery block {rec}")
     if scan.get("k") != SCAN_KS[-1] or not scan.get("img_per_sec_per_chip"):
         failures.append(f"[bench] scan block {scan}")
+    # the pipeline sub-block and 1F1B's bubbles: null at world 1 ([parallel]
+    # runs the block at world 4)
+    if any(scan.get(k, "missing") is not None
+           for k in ("pipeline", "bubble_frac_predicted", "bubble_frac_measured")):
+        failures.append(f"[bench] scan block's pipeline keys {scan}")
     # the compressed wire on 1 MiB a GPU (262,144 f32): bytes and ratios
     coll = line.get("collectives") or {}
     modes = coll.get("modes") or {}
@@ -7246,6 +7251,668 @@ def phase_seq(torch, A, card):
                       "probe": res[0]["probe"]}
 
 
+# -- phase 20: tensor, expert and pipeline parallelism at world 4 ---------
+# Four processes on the one card over gloo, one spawn (PAR_WORLD), as
+# [seq]: Megatron TP and Switch EP at the LM slice's width, then the
+# PipelineTrainer with the LM's own blocks as stages on the flash kernels,
+# then the bench's pipeline sub-block. Not a throughput figure.
+PAR_WORLD = 4
+PAR_JOIN_S = 300
+PAR_SEED = 41
+PAR_TP = (2, 2048, LM_CFG["d_model"])  # TP input (B, L, d_model), f32
+PAR_EP = dict(tokens=4096, experts=8, capacity_factor=1.25)  # tokens a rank
+PAR_M = 8  # microbatches a step, each one 8192-token sequence of activations
+PAR_STEPS = 2
+PAR_LR = 1e-2
+PAR_BLOCKS = ("ln1_scale", "ln2_scale", "wqkv", "wo", "w1", "w2")
+# the pipeline arms: (data, pipe), LM blocks a stage, schedules
+PAR_ARMS = {"1x4": ((1, 4), 2, ("1f1b", "gpipe")), "2x2": ((2, 2), 1, ("1f1b",))}
+# TP and EP against the dense world-1 run: both are f32 sums of the same
+# products in another order (K = 512 partials summed across 4 ranks by gloo
+# against one K = 2048 GEMM; the experts' GEMMs batched (2, 2560) against
+# (8, 640)), so each tensor's relative L2 error against a float64 run of the
+# dense function must stay within PAR_FLOOR_FACTOR x the dense f32 run's own
+# (its rounding floor, measured in the same call, at least one f32 rounding).
+# A missing all-reduce, a wrong shard or a dropped 1/world moves them by O(1).
+PAR_FLOOR_FACTOR = 5.0
+U_F32 = 2.0 ** -24
+# The (2, 2) arm against its oracle: every stage's inputs and calls are the
+# oracle's, but the data-axis mean of the bf16 gradients is gloo's. Its
+# rounding floor is one bf16 rounding of the exact mean (relative L2 of the
+# f32 mean against its bf16 rounding): the gradients must stay within
+# PAR_FLOOR_FACTOR x that, the losses (an f32 mean of two) within
+# PAR_FLOOR_FACTOR f32 roundings, and a parameter may differ only where its
+# gradient does, by lr x the gradient's difference and a bf16 rounding of
+# each side.
+
+
+def _par_stage(params, x):
+    """A pipeline stage of [parallel]: the LM's blocks (each leaf's leading
+    axis) on x (1, L, d_model), attention through the three kernels."""
+    import types
+
+    from tpu_syncbn_torch.models.transformer import _block
+
+    blk = types.SimpleNamespace(**params)
+    for i in range(blk.wqkv.shape[0]):
+        x = _block(x, blk, i, n_heads=LM_CFG["n_heads"], attn_impl="flash_pallas_bwd",
+                   group=None, local_impl=None, local_backward="xla")
+    return x
+
+
+def _par_loss(y, t):
+    """The f32 MSE loss head."""
+    return ((y.float() - t.float()) ** 2).mean()
+
+
+def _par_batch(torch, step: int, replica: int = 0):
+    """One step's (x_mb, t_mb), each (PAR_M, 1, L, d_model) bf16 on cuda:0,
+    from a seed: the same in every process."""
+    g = torch.Generator(device="cuda").manual_seed(PAR_SEED + 100 * step + replica)
+    shape = (PAR_M, 1, LM_CFG["max_len"], LM_CFG["d_model"])
+    return tuple(torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+                 for _ in range(2))
+
+
+def _par_stages(torch):
+    """The arms' stacked stage parameters from the LM slice's bf16 init: the
+    8 blocks as (4, 2, ...) for 1x4, blocks 0 and 1 as (2, 1, ...) for 2x2."""
+    from tpu_syncbn_torch import models
+
+    lm = models.init_transformer_lm(0, **LM_CFG, dtype=torch.bfloat16, device="cpu")
+    blocks = {n: getattr(lm.blocks, n).detach() for n in PAR_BLOCKS}
+    out = {}
+    for arm, ((_, pipe), per, _) in PAR_ARMS.items():
+        out[arm] = {n: v[:pipe * per].reshape(pipe, per, *v.shape[1:]).clone()
+                    for n, v in blocks.items()}
+    return out
+
+
+def _par_inputs(torch):
+    """TP's and EP's f32 inputs on cuda:0 from a seed, the same in every
+    process: weights scaled by fan_in^-1/2, cotangents standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    d, f = LM_CFG["d_model"], LM_CFG["d_ff"]
+    e, t = PAR_EP["experts"], PAR_EP["tokens"]
+
+    def n(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    return {"x": n(*PAR_TP), "w1": n(d, f, scale=d ** -0.5), "b1": n(f, scale=0.1),
+            "w2": n(f, d, scale=f ** -0.5), "b2": n(d, scale=0.1), "dy": n(*PAR_TP),
+            "xa": n(*PAR_TP), **{k: n(d, d, scale=d ** -0.5) for k in ("wq", "wk", "wv", "wo")},
+            "dya": n(*PAR_TP), "xe": n(PAR_WORLD * t, d), "router": n(d, e, scale=d ** -0.5),
+            "w_in": n(e, d, f, scale=d ** -0.5), "w_out": n(e, f, d, scale=f ** -0.5),
+            "we": n(PAR_WORLD * t, d)}
+
+
+#: each TP/EP case's arguments: (input key, layout) — "rep" replicated,
+#: "col"/"row" the rank's block of the last/first dim, "tok" its token rows
+PAR_CASES = {
+    "tp_mlp": (("x", "rep"), ("w1", "col"), ("b1", "col"), ("w2", "row"), ("b2", "rep")),
+    "tp_attention": (("xa", "rep"), ("wq", "col"), ("wk", "col"), ("wv", "col"),
+                     ("wo", "row")),
+    "ep": (("xe", "tok"), ("router", "rep"), ("w_in", "row"), ("w_out", "row")),
+}
+
+
+def _par_block(x, how: str, rank: int, world: int):
+    from tpu_syncbn_torch.parallel.tensor import shard_columns, shard_rows
+
+    if how == "col":
+        return shard_columns(x, rank, world)
+    if how in ("row", "tok"):
+        return shard_rows(x, rank, world)
+    return x
+
+
+def _par_args(torch, name: str, inp: dict, rank: int, world: int, dtype) -> list:
+    """The case's arguments on this rank (world 1: whole), leaves that
+    require grad."""
+    return [_par_block(inp[k], how, rank, world).to(dtype).detach().requires_grad_()
+            for k, how in PAR_CASES[name]]
+
+
+def _par_finish(torch, name: str, y, aux, args, inp, rank: int, world: int) -> dict:
+    """Backward of ``sum(y * cotangent)`` (+ aux for EP); the output (EP:
+    its rows flattened, then aux) and every argument's gradient."""
+    w = _par_block(inp["we" if name == "ep" else "dy" if name == "tp_mlp" else "dya"],
+                   "tok" if name == "ep" else "rep", rank, world).to(y.dtype)
+    loss = (y * w).sum()
+    if aux is not None:
+        loss = loss + aux
+        y = torch.cat([y.reshape(-1), aux.reshape(1).to(y.dtype)])
+    loss.backward()
+    return {"out": y.detach(), **{f"g{i}": a.grad for i, a in enumerate(args)}}
+
+
+def _par_case(torch, name: str, inp: dict, group, rank: int, world: int) -> dict:
+    """One TP/EP case on this rank's blocks, f32."""
+    from tpu_syncbn_torch.parallel import expert, tensor
+
+    args = _par_args(torch, name, inp, rank, world, torch.float32)
+    aux = None
+    if name == "tp_mlp":
+        y = tensor.tp_mlp(*args, group)
+    elif name == "tp_attention":
+        y = tensor.tp_attention(*args, group, n_local_heads=LM_CFG["n_heads"] // world,
+                                causal=True)
+    else:
+        y, aux = expert.expert_parallel_moe(*args, group,
+                                            capacity_factor=PAR_EP["capacity_factor"])
+    return _par_finish(torch, name, y, aux, args, inp, rank, world)
+
+
+def _par_dense(torch, name: str, inp: dict, dtype) -> dict:
+    """The dense world-1 function of a case on the whole inputs: the port's
+    functions with no group in f32 (EP: dense_moe on every rank's shard, aux
+    averaged); in float64 the same formulas evaluated in float64, EP routed
+    as its f32 router routes (argmax, queue ranks, drops)."""
+    import torch.nn.functional as F
+
+    from tpu_syncbn_torch.parallel import expert, tensor
+
+    args = _par_args(torch, name, inp, 0, 1, dtype)
+    aux = None
+    if name == "tp_mlp":
+        y = tensor.tp_mlp(*args, None)
+    elif name == "tp_attention" and dtype == torch.float32:
+        y = tensor.tp_attention(*args, None, n_local_heads=LM_CFG["n_heads"], causal=True)
+    elif name == "tp_attention":
+        x, wq, wk, wv, wo = args
+        b, l, dm = x.shape
+        h = LM_CFG["n_heads"]
+        q, k, v = ((x @ w).view(b, l, h, dm // h) for w in (wq, wk, wv))
+        sc = torch.einsum("bqhd,bkhd->bqhk", q * (dm // h) ** -0.5, k)
+        causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+        sc = sc.masked_fill(~causal[None, :, None, :], float("-inf"))
+        o = torch.einsum("bqhk,bkhd->bqhd", sc.softmax(-1), v)
+        y = o.reshape(b, l, dm) @ wo
+    else:
+        x, router, w_in, w_out = args
+        cf, ys, aux = PAR_EP["capacity_factor"], [], 0.0
+        for r in range(PAR_WORLD):
+            xr = _par_block(x, "tok", r, PAR_WORLD)
+            if dtype == torch.float32:
+                y_r, a_r = expert.dense_moe(xr, router, w_in, w_out, capacity_factor=cf)
+            else:
+                e = router.shape[-1]
+                c = expert._capacity(xr.shape[0], e, cf)
+                dispatch, _, _ = expert.switch_route(xr.detach().float(),
+                                                     router.detach().float(), c)
+                dispatch = dispatch.to(dtype)
+                probs = torch.softmax(xr @ router, dim=-1)
+                idx = torch.argmax(torch.softmax(
+                    xr.detach().float() @ router.detach().float(), -1), -1)
+                onehot = F.one_hot(idx, e).to(dtype)
+                out = expert._expert_mlp(torch.einsum("tec,td->ecd", dispatch, xr),
+                                         w_in, w_out)
+                y_r = torch.einsum("tec,ecd->td", dispatch * probs[:, :, None], out)
+                a_r = e * torch.sum(onehot.mean(0) * probs.mean(0))
+            ys.append(y_r)
+            aux = aux + a_r / PAR_WORLD
+        y = torch.cat(ys)
+    return _par_finish(torch, name, y, aux, args, inp, 0, 1)
+
+
+def _digest(torch, t) -> list:
+    """(sha256 of the bytes, float64 L2 norm): bit-for-bit comparison across
+    processes without moving the tensors."""
+    import hashlib
+
+    b = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return [hashlib.sha256(b).hexdigest(), float(t.detach().double().norm())]
+
+
+def _par_train(torch, A, layout, stacked, sched, save=None):
+    """One pipeline arm on this rank: PAR_STEPS SGD steps; each step's loss,
+    host ms, launches a step (counts from 0 before each), and digests of the
+    stage's gradients and updated parameters."""
+    from tpu_syncbn_torch.parallel import pipeline as pp
+
+    tr = pp.PipelineTrainer(_par_stage, _par_loss, stacked,
+                            lambda ps: torch.optim.SGD(ps, lr=PAR_LR),
+                            num_microbatches=PAR_M, schedule=sched, layout=layout)
+    di = layout.ranks.index(int(os.environ["RANK"])) // layout.axis_sizes["pipe"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for k in range(PAR_STEPS):
+        batch = _par_batch(torch, k, di)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(batch).loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ps = tr._params
+        steps.append({"loss": loss, "ms": ms, "launches": A.launch_counts(),
+                      "grads": {n: _digest(torch, p.grad) for n, p in ps.items()},
+                      "params": {n: _digest(torch, p) for n, p in ps.items()}})
+        if save is not None:
+            save[k] = {"grads": {n: p.grad.to("cpu", copy=True) for n, p in ps.items()},
+                       "params": {n: p.detach().to("cpu", copy=True) for n, p in ps.items()}}
+    return {"stage": tr.stage, "replica": di, "ticks": tr.schedule.ticks, "steps": steps,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _par_child(rank, d):
+    """One of the PAR_WORLD processes: cuda:0, a gloo group through a
+    file:// rendezvous, kernel mode "on". Writes its TP/EP tensors to
+    ``d/case<r>.pt``, the 2x2 arm's stage-0/1 tensors to ``d/arm2x2_<r>.pt``
+    (replica 0) and everything else to ``d/rank<r>.json``."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PAR_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(PAR_WORLD))
+    import torch
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                             world_size=PAR_WORLD, rank=rank)
+    from tpu_syncbn_torch import bench, runtime
+    from tpu_syncbn_torch.ops import batch_norm as bn_ops
+    from tpu_syncbn_torch.ops import cuda_attention as A
+    from tpu_syncbn_torch.parallel import collectives
+    from tpu_syncbn_torch.parallel import pipeline as pp
+
+    if runtime.initialize("cuda") != torch.device("cuda", 0) \
+            or runtime.process_count() != PAR_WORLD:
+        raise RuntimeError("runtime.initialize did not keep the gloo group")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bn_ops.set_kernel_mode("on")  # a CPU tensor raises; no wrapper falls back
+    plain = _count_plain_attention(A)
+    group = tdist.group.WORLD
+    out = {"cases": {}, "arms": {}}
+    t0 = time.perf_counter()
+    inp = _par_inputs(torch)
+    saved = {}
+    for name in PAR_CASES:
+        collectives.reset_tallies()
+        res = _par_case(torch, name, inp, group, rank, PAR_WORLD)
+        out["cases"][name] = {"tallies": collectives.tallies()}
+        saved[name] = {k: v.cpu() for k, v in res.items()}
+    torch.save(saved, os.path.join(d, f"case{rank}.pt"))
+    del inp, saved
+    out["cases_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    stages = torch.load(os.path.join(d, "stages.pt"))
+    for arm, ((data, pipe), _, scheds) in PAR_ARMS.items():
+        layout = pp.pipeline_mesh(pipe, device="cuda")
+        if layout.axis_sizes != {"data": data, "pipe": pipe}:
+            raise RuntimeError(f"pipeline_mesh({pipe}) gave {layout.axis_sizes}")
+        for sched in scheds:
+            save = {} if arm == "2x2" and rank < pipe else None
+            out["arms"][f"{arm} {sched}"] = _par_train(
+                torch, A, layout, stages[arm], sched, save)
+            if save is not None:
+                torch.save(save, os.path.join(d, f"arm2x2_{rank}.pt"))
+            torch.cuda.empty_cache()
+    out["plain_calls"] = dict(plain)
+    collectives.reset_tallies()
+    t0 = time.perf_counter()
+    out["bench"] = bench.measure_pipeline_bubbles(group, torch.device("cuda", 0))
+    out["bench_s"] = time.perf_counter() - t0
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown()
+
+
+def _count_plain_attention(A) -> dict:
+    """Wrap the attention kernels' plain versions in this process with
+    counters: on CUDA tensors they must never run."""
+    calls = {k: 0 for k in ATTN_KERNELS}
+
+    def counted(fn, k):
+        def run(*a, **kw):
+            calls[k] += 1
+            return fn(*a, **kw)
+        return run
+
+    for k in ATTN_KERNELS:
+        setattr(A, f"{k}_plain", counted(getattr(A, f"{k}_plain"), k))
+    return calls
+
+
+def _par_oracle(torch, stacked: dict, replicas: int):
+    """The stages in sequence at world 1, PAR_STEPS SGD steps: for each
+    replica and microbatch the trainer's calls in its order — the forward
+    without a tape, then per microbatch (ascending, as both schedules run
+    them on every stage) the recompute from the saved input and
+    ``autograd.grad`` against the stage's parameters and input, the
+    gradients accumulated in the parameters' dtype, divided by M, averaged
+    over the replicas ((a + b) / 2 in bf16). Returns each step's loss,
+    gradients and updated parameters per stage, and with two replicas the
+    gradients' exact mean (in f32) beside them."""
+    from torch import nn
+
+    n = next(iter(stacked.values())).shape[0]
+    params = [{k: nn.Parameter(v[s].to("cuda", copy=True)) for k, v in stacked.items()}
+              for s in range(n)]
+    opts = [torch.optim.SGD(list(p.values()), lr=PAR_LR) for p in params]
+    steps = []
+    for k in range(PAR_STEPS):
+        losses, grads = [], []
+        for r in range(replicas):
+            x_mb, t_mb = _par_batch(torch, k, r)
+            gacc = [[torch.zeros_like(p) for p in ps.values()] for ps in params]
+            saved = [[None] * PAR_M for _ in range(n)]
+            loss_acc = torch.zeros((), dtype=torch.float32, device="cuda")
+            with torch.no_grad():
+                for j in range(PAR_M):
+                    x = x_mb[j]
+                    for s in range(n):
+                        saved[s][j] = x
+                        x = _par_stage(params[s], x)
+                    loss_acc = loss_acc + _par_loss(x, t_mb[j]).float()
+            for j in range(PAR_M):
+                gy = None
+                for s in reversed(range(n)):
+                    plist = list(params[s].values())
+                    with torch.enable_grad():
+                        xb = saved[s][j].detach().requires_grad_(s > 0)
+                        yb = _par_stage(params[s], xb)
+                        if s == n - 1:
+                            yy = yb.detach().requires_grad_()
+                            gy, = torch.autograd.grad(_par_loss(yy, t_mb[j]).float(), yy)
+                        g = torch.autograd.grad(yb, plist + [xb] if s > 0 else plist, gy)
+                    with torch.no_grad():
+                        for a, gi in zip(gacc[s], g):
+                            a.add_(gi)
+                    gy = g[-1] if s > 0 else None
+            losses.append(loss_acc / PAR_M)
+            grads.append([[a / PAR_M for a in ga] for ga in gacc])
+        loss = losses[0] if replicas == 1 else (losses[0] + losses[1]) / 2
+        mean, exact = grads[0], None
+        if replicas == 2:
+            mean = [[(a + b) / 2 for a, b in zip(ga, gb)] for ga, gb in zip(*grads)]
+            exact = [[(a.float() + b.float()) / 2 for a, b in zip(ga, gb)]
+                     for ga, gb in zip(*grads)]
+        for ps, opt, gs in zip(params, opts, mean):
+            for p, g in zip(ps.values(), gs):
+                p.grad = g
+            opt.step()
+        steps.append({"loss": float(loss),
+                      "exact": exact and [dict(zip(ps, e)) for ps, e in zip(params, exact)],
+                      "grads": [{n_: p.grad.detach().clone() for n_, p in ps.items()}
+                                for ps in params],
+                      "params": [{n_: p.detach().clone() for n_, p in ps.items()}
+                                 for ps in params]})
+    return steps
+
+
+def _rel_l2(torch, a, b) -> float:
+    """|a − b| / |b|, L2, float64."""
+    b64 = b.double()
+    return float((a.to(b.device).double() - b64).norm() / b64.norm().clamp_min(1e-300))
+
+
+def _par_case_gates(torch, d, card) -> tuple[list, dict]:
+    """TP and EP at world 4 against the dense world-1 run (PAR_FLOOR_FACTOR's
+    comment) and their all-reduce tallies."""
+    failures, summary = [], {}
+    loaded = [torch.load(os.path.join(d, f"case{r}.pt")) for r in range(PAR_WORLD)]
+    inp = _par_inputs(torch)
+    for name, spec in PAR_CASES.items():
+        ranks = [l_[name] for l_ in loaded]
+        t0 = time.perf_counter()
+        f32 = _par_dense(torch, name, inp, torch.float32)
+        f64 = _par_dense(torch, name, inp, torch.float64)
+        ref_s = time.perf_counter() - t0
+        parts, worst = [], 0.0
+        for part in ["out"] + [f"g{i}" for i in range(len(spec))]:
+            how = "tok" if part == "out" and name == "ep" else \
+                ("rep" if part == "out" else spec[int(part[1:])][1])
+            if part == "out" and name == "ep":  # the rows, then aux (averaged)
+                got = torch.cat([r_["out"][:-1].view(-1, LM_CFG["d_model"]) for r_ in ranks])
+                got = torch.cat([got.reshape(-1), ranks[0]["out"][-1:]])
+                agree = all(torch.equal(r_["out"][-1:], ranks[0]["out"][-1:]) for r_ in ranks)
+            elif how == "rep":  # every rank holds the whole tensor
+                got = ranks[0][part]
+                agree = all(torch.equal(r_[part], got) for r_ in ranks)
+            else:  # each rank its block: reassemble in rank order
+                dim = -1 if how == "col" else 0
+                got = torch.cat([r_[part] for r_ in ranks], dim=dim)
+                agree = True
+            err, floor = _rel_l2(torch, got, f64[part]), _rel_l2(torch, f32[part], f64[part])
+            limit = PAR_FLOOR_FACTOR * max(floor, U_F32)
+            worst = max(worst, err / limit)
+            parts.append(f"{part} {err:.2e}/{limit:.2e}{'' if agree else ' RANKS DIFFER'}")
+            if err > limit or not agree:
+                failures.append(f"[parallel] {name} {part}: rel err {err:.3e} > limit "
+                                f"{limit:.3e} (floor {floor:.3e}) or ranks differ")
+        log(f"[parallel] {name:12s} world 4 vs dense world 1, f32 (rel L2 vs float64 "
+            f"/ {PAR_FLOOR_FACTOR:g} x the dense f32 floor): {'; '.join(parts)}; "
+            f"worst {worst:.3f} of limit; references {ref_s:.1f}s "
+            f"{'ok' if worst <= 1.0 else 'FAIL'} [{card}]")
+        summary[name] = {"worst_of_limit": worst}
+        del f32, f64
+    del loaded, ranks, inp
+    torch.cuda.empty_cache()
+    return failures, summary
+
+
+def _par_tally_gates(res: list) -> list:
+    """One all-reduce in a TP block's forward and one in its backward (the
+    row half's g, the input's f), one in EP's backward (the router's f)
+    with its two all-to-alls each way and aux's pmean, on every rank."""
+    failures = []
+    want = {"tp_mlp": {"psum": 2}, "tp_attention": {"psum": 2},
+            "ep": {"all_to_all": 4, "pmean": 1, "psum": 1}}
+    for rk, r_ in enumerate(res):
+        for name, w in want.items():
+            got = {op: v["calls"] for op, v in r_["cases"][name]["tallies"].items()}
+            if got != w:
+                failures.append(f"[parallel] {name} rank {rk}: collectives {got}, "
+                                f"expected {w}")
+    log(f"[parallel] collectives a rank (forward + backward): "
+        f"{json.dumps({n: c['tallies'] for n, c in res[0]['cases'].items()})}")
+    return failures
+
+
+def _par_bitwise(torch, res, oracle, arm, sched) -> list:
+    """The 1x4 arm on every rank against the oracle's stage: losses and
+    each step's gradient and updated parameter digests, bit for bit."""
+    bad = []
+    for rk, r_ in enumerate(res):
+        a = r_["arms"][f"{arm} {sched}"]
+        s = a["stage"]
+        for k, st in enumerate(a["steps"]):
+            want = oracle[k]
+            if st["loss"] != want["loss"]:
+                bad.append(f"rank {rk} step {k + 1} loss {st['loss']!r} != {want['loss']!r}")
+            for part in ("grads", "params"):
+                for n, (sha, norm) in st[part].items():
+                    w_sha, w_norm = _digest(torch, want[part][s][n])
+                    if sha != w_sha:
+                        bad.append(f"rank {rk} step {k + 1} {part} {n}: norm {norm!r} vs "
+                                   f"{w_norm!r}")
+    return bad
+
+
+def _par_data_axis(torch, d, res, oracle) -> tuple[list, dict]:
+    """The 2x2 arm against its oracle (the comment under PAR_FLOOR_FACTOR):
+    replica 0's stage tensors; replica 1's digests equal to replica 0's."""
+    failures = []
+    worst = {"loss_rel_err": 0.0, "grads_of_limit": 0.0, "params_ok": True,
+             "bitwise": True}
+    for rk, r_ in enumerate(res):
+        a = r_["arms"]["2x2 1f1b"]
+        for k, st in enumerate(a["steps"]):
+            rel = abs(st["loss"] - oracle[k]["loss"]) / abs(oracle[k]["loss"])
+            worst["loss_rel_err"] = max(worst["loss_rel_err"], rel)
+            if rel > PAR_FLOOR_FACTOR * U_F32:
+                failures.append(f"[parallel] 2x2 rank {rk} step {k + 1} loss rel err {rel:.3e}")
+            twin = res[rk % 2]["arms"]["2x2 1f1b"]["steps"][k]
+            if (st["grads"], st["params"]) != (twin["grads"], twin["params"]):
+                failures.append(f"[parallel] 2x2 replicas disagree on stage {a['stage']} "
+                                f"at step {k + 1}")
+    for s in range(2):
+        saved = torch.load(os.path.join(d, f"arm2x2_{s}.pt"))
+        for k in range(PAR_STEPS):
+            for n in PAR_BLOCKS:
+                g, g_o = saved[k]["grads"][n].cuda(), oracle[k]["grads"][s][n]
+                exact = oracle[k]["exact"][s][n]
+                limit = PAR_FLOOR_FACTOR * max(
+                    _rel_l2(torch, exact.to(g_o.dtype), exact), U_F32)
+                err = _rel_l2(torch, g, g_o)
+                worst["grads_of_limit"] = max(worst["grads_of_limit"], err / limit)
+                if err > limit:
+                    failures.append(f"[parallel] 2x2 stage {s} step {k + 1} grad {n}: rel "
+                                    f"err {err:.3e} > {limit:.3e}")
+                p, p_o = saved[k]["params"][n].cuda(), oracle[k]["params"][s][n]
+                worst["bitwise"] &= torch.equal(g, g_o) and torch.equal(p, p_o)
+                # a parameter may differ only where its gradient does: by lr x
+                # the gradient's difference and a bf16 rounding of each side
+                room = (2 * U_BF16 * torch.maximum(p.abs(), p_o.abs()).float()
+                        + PAR_LR * (g.float() - g_o.float()).abs())
+                ok = bool(((p == p_o) | (g != g_o)).all()) \
+                    and bool(((p.float() - p_o.float()).abs() <= room).all())
+                worst["params_ok"] &= ok
+                if not ok:
+                    failures.append(f"[parallel] 2x2 stage {s} step {k + 1} parameter {n} "
+                                    f"differs beyond its gradient's difference")
+    return failures, worst
+
+
+# launches of each kernel a rank a step in the 1x4 arms: every microbatch
+# runs each of the stage's 2 blocks once in the forward slot and once in the
+# recompute (flash_fwd), and its backward once (dK/dV, dQ)
+PAR_LAUNCHES = {"flash_fwd": 2 * PAR_M * 2, "flash_bwd_dkdv": PAR_M * 2,
+                "flash_bwd_dq": PAR_M * 2}
+
+
+def _par_pipeline_gates(torch, A, d, res, stages, card) -> tuple[list, dict]:
+    """The pipeline arms: 1x4 bit for bit against the sequential oracle for
+    each schedule, 2x2 against its oracle, the launches a rank a step, no
+    plain attention version run, step times and peak memory a process."""
+    failures, summary = [], {}
+    plain = _count_plain_attention(A)
+    t0 = time.perf_counter()
+    A.reset_launch_counts()
+    oracle = _par_oracle(torch, stages["1x4"], 1)
+    oracle_launches = A.launch_counts()
+    oracle2 = _par_oracle(torch, stages["2x2"], 2)
+    oracle_s = time.perf_counter() - t0
+    want_oracle = {k: v * PAR_STEPS * PAR_ARMS["1x4"][0][1] for k, v in PAR_LAUNCHES.items()}
+    if oracle_launches != want_oracle:
+        failures.append(f"[parallel] oracle launches {oracle_launches}, expected {want_oracle}")
+    log(f"[parallel] oracles (stages in sequence at world 1: 1x4 and 2x2, {PAR_STEPS} steps) "
+        f"in {oracle_s:.1f}s; 1x4 losses {[s_['loss'] for s_ in oracle]}; launches "
+        f"{oracle_launches}")
+    for arm, (_, _, scheds) in PAR_ARMS.items():
+        for sched in scheds:
+            key = f"{arm} {sched}"
+            arms = [r_["arms"][key] for r_ in res]
+            launches = [[st["launches"] for st in a["steps"]] for a in arms]
+            if arm == "1x4":
+                bad = _par_bitwise(torch, res, oracle, arm, sched)
+                verdict = "bitwise" if not bad else f"{len(bad)} differ: {bad[:4]}"
+                if bad:
+                    failures.append(f"[parallel] {key} not bitwise its oracle: {bad[:4]}")
+                if any(c != PAR_LAUNCHES for per in launches for c in per):
+                    failures.append(f"[parallel] {key} launches {launches}, expected "
+                                    f"{PAR_LAUNCHES} a rank a step")
+            else:
+                bad2, worst = _par_data_axis(torch, d, res, oracle2)
+                failures += bad2
+                verdict = json.dumps(worst)
+            ms = [[round(st["ms"], 1) for st in a["steps"]] for a in arms]
+            peaks = [round(a["peak_bytes"] / 2 ** 30, 3) for a in arms]
+            log(f"[parallel] pipeline {key}: stages {[a['stage'] for a in arms]}, "
+                f"{arms[0]['ticks']} ticks, M {PAR_M} x (1, {LM_CFG['max_len']}, "
+                f"{LM_CFG['d_model']}) bf16, losses {[st['loss'] for st in arms[0]['steps']]}; "
+                f"vs oracle: {verdict}; launches a rank a step {launches[0][0]}; step ms "
+                f"a rank {ms}; peak GiB a process {peaks}: four processes time-slicing "
+                f"one card through gloo host copies, not a throughput figure [{card}]")
+            summary[key] = {"ticks": arms[0]["ticks"], "step_ms": ms, "peak_gib": peaks,
+                            "launches_per_rank_step": launches[0][0],
+                            "oracle": "bitwise" if verdict == "bitwise" else verdict}
+    strays = [r_["plain_calls"] for r_ in res] + [dict(plain)]
+    if any(any(c.values()) for c in strays):
+        failures.append(f"[parallel] a plain attention version ran: {strays}")
+    return failures, summary
+
+
+PAR_BENCH_KEYS = {"n_stages", "data_world", "microbatches", "dense_step_s",
+                  "canonical_gpipe_bubble", "schedules", "fused", "collective_calls"}
+
+
+def _par_bench_gates(res, card) -> list:
+    """The bench's pipeline sub-block at world 4: its keys, the predicted
+    bubble 1 − M/T from the tables, 2·T ppermutes a step for each schedule
+    timed, and no fused chunk on gloo (the reason is logged)."""
+    from tpu_syncbn_torch.parallel import pipeline_schedule as ps
+
+    failures = []
+    for rk, r_ in enumerate(res):
+        blk = r_["bench"] or {}
+        if set(blk) != PAR_BENCH_KEYS or blk.get("fused") is not None:
+            failures.append(f"[parallel] bench block rank {rk}: {blk}")
+            continue
+        n, m = blk["n_stages"], blk["microbatches"]
+        for name, sch in blk["schedules"].items():
+            t = ps.get_schedule(name, m, n).ticks
+            if sch["ticks"] != t or sch["bubble_frac_predicted"] != round(1 - m / t, 4) \
+                    or blk["collective_calls"][name].get("ppermute") != 2 * t:
+                failures.append(f"[parallel] bench {name} rank {rk}: {sch}, "
+                                f"{blk['collective_calls'][name]}")
+    log(f"[parallel] bench pipeline block (rank 0, {res[0]['bench_s']:.1f}s; bubbles "
+        f"measured with four processes on one card, not four cards): "
+        f"{json.dumps(res[0]['bench'])} [{card}]")
+    return failures
+
+
+def phase_parallel(torch, A, card):
+    """Tensor, expert and pipeline parallelism at world 4, four processes on
+    the one card over gloo (PAR_WORLD), one spawn. Returns the failures and
+    a summary."""
+    import multiprocessing
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as d:
+        stages = _par_stages(torch)
+        torch.save(stages, os.path.join(d, "stages.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_par_child, args=(r, d)) for r in range(PAR_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+        if alive:
+            fail(f"[parallel] {len(alive)} of {PAR_WORLD} processes still running after "
+                 f"{PAR_JOIN_S}s; killed")
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * PAR_WORLD:
+            fail(f"[parallel] process exit codes {codes}")
+        res = []
+        for r in range(PAR_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        log(f"[parallel] four processes: {time.perf_counter() - t0:.1f}s from spawn to "
+            f"join (TP/EP cases {res[0]['cases_s']:.1f}s a rank)")
+        failures = _par_tally_gates(res)
+        case_failures, cases = _par_case_gates(torch, d, card)
+        failures += case_failures
+        pipe_failures, arms = _par_pipeline_gates(torch, A, d, res, stages, card)
+        failures += pipe_failures
+        failures += _par_bench_gates(res, card)
+    secs = time.perf_counter() - t_phase
+    log(f"[parallel] phase done in {secs:.1f}s, {len(failures)} failures")
+    return failures, {"seconds": secs, "cases": cases, "arms": arms,
+                      "bench": res[0]["bench"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_syncbn_torch")):
         fail("tpu_syncbn_torch/ not found beside chip_smoke.py; run it from "
@@ -7351,6 +8018,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     seq_failures, seq = phase_seq(torch, A, card)
     failures += seq_failures
+    torch.cuda.empty_cache()
+    par_failures, par = phase_parallel(torch, A, card)
+    failures += par_failures
     if failures:
         fail("; ".join(failures))
 
@@ -7402,6 +8072,10 @@ def main() -> int:
                         key.split("<")[1].rstrip(">"): n
                         for key, n in seq["parity_calls_per_rank"].items()
                         if key.startswith(k + "<")}},
+            # [parallel]: a rank's launches a step in the world-4 pipeline of
+            # the LM's blocks (1x4, 2 blocks a stage, M microbatches)
+            "parallel": {sched: par["arms"][f"1x4 {sched}"]["launches_per_rank_step"][k]
+                         for sched in PAR_ARMS["1x4"][2]},
         })
     for k in QUANT_KERNELS:  # per ResNet-50 int8 step: one call each
         t = quant[k]
@@ -7432,7 +8106,7 @@ def main() -> int:
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
         "resilience": resilience, "obs": obs, "incident": incident_out,
         "monitor": monitor_out, "serve": serve_out, "publish": publish_out,
-        "seq": seq}}),
+        "seq": seq, "parallel": par}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead
                  "async_manifest_verified", "resume_after_kill_s",
                  "resumed_step_after_kill", "ckpt_bytes"}
 SCAN_KEYS = {"k", "host_gap_frac_scan1", "dispatch_frac_scan1", "chunks",
-             "host_gap_frac", "dispatch_frac", "img_per_sec_per_chip"}
+             "host_gap_frac", "dispatch_frac", "img_per_sec_per_chip", "pipeline",
+             "bubble_frac_predicted", "bubble_frac_measured"}
 COLLECTIVES_KEYS = {"payload_mb_per_chip", "world", "modes", "golden_ratio", "measure_s"}
 MODE_KEYS = {"wire_bytes", "ms", "gbytes_per_s", "compression_ratio"}
 INCIDENT_KEYS = {"dump_s", "bundle_bytes", "incident_id", "trigger", "ring_steps",
@@ -97,6 +98,10 @@ def test_bench_on_the_cpu_prints_its_line():
     assert rec["ckpt_bytes"] > 0
     assert set(line["scan"]) == SCAN_KEYS and line["scan"]["k"] == 1
     assert line["scan"]["chunks"] == 2
+    # the pipeline sub-block needs two processes (bench.py's: None at world 1)
+    assert line["scan"]["pipeline"] is None
+    assert line["scan"]["bubble_frac_predicted"] is None
+    assert line["scan"]["bubble_frac_measured"] is None
     check_collectives_block(line["collectives"], world=1)
     check_obs_blocks(line, steps=2)
     check_telemetry_block(line["telemetry"], steps=2)

@@ -23,6 +23,7 @@ from tpu_syncbn_torch import (
     nn,
     ops,
     parallel,
+    parallelism_tour,
     retinanet_train,
     runtime,
     train,
@@ -95,7 +96,12 @@ def test_importing_every_module_loads_no_jax():
                                     "tpu_syncbn_torch.ops.cuda_quant",
                                     "tpu_syncbn_torch.parallel.layout",
                                     "tpu_syncbn_torch.parallel.zero",
-                                    "tpu_syncbn_torch.parallel.redistribute"])
+                                    "tpu_syncbn_torch.parallel.redistribute",
+                                    "tpu_syncbn_torch.parallel.tensor",
+                                    "tpu_syncbn_torch.parallel.expert",
+                                    "tpu_syncbn_torch.parallel.pipeline",
+                                    "tpu_syncbn_torch.parallel.pipeline_schedule",
+                                    "tpu_syncbn_torch.parallelism_tour"])
 def test_the_runtime_entry_points_alone_load_no_jax(module):
     """The launcher, its entry point, the backend probe, the data path
     with its native bindings, meters, checkpoints, the trainer, the
@@ -103,8 +109,8 @@ def test_the_runtime_entry_points_alone_load_no_jax(module):
     the bench, the GAN and RetinaNet entry points, the fused K-step
     driver, the resilience layer, the fault injectors, the counters, and
     the compressed collectives with their int8 kernels' dispatch and
-    binding, and the layouts with the ZeRO store and its redistribution,
-    each
+    binding, the layouts with the ZeRO store and its redistribution, and
+    tensor, expert and pipeline parallelism with the tour, each
     imported alone in a fresh process (as ``python -m ...`` starts), pull
     in nothing of JAX; the launcher's help runs."""
     code = (
@@ -223,7 +229,7 @@ def test_gan_detection_and_bench_entry_points_refuse_to_fall_back(no_card):
     opt = torch.optim.Adam(g.parameters())
     with pytest.raises(RuntimeError, match=msg):
         parallel.GANTrainer(g, d, opt, opt)
-    for main in (gan_train.main, retinanet_train.main, bench.main):
+    for main in (gan_train.main, retinanet_train.main, bench.main, parallelism_tour.main):
         with pytest.raises(RuntimeError, match=msg):
             main([])
 

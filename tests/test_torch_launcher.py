@@ -289,3 +289,15 @@ def test_more_processes_than_cards_exit_naming_both(monkeypatch):
     msg = str(e.value.code)
     have = torch.cuda.device_count()
     assert "--nproc-per-node 2" in msg and f"this node has {have}" in msg
+
+
+@pytest.mark.slow
+def test_launch_parallelism_tour():
+    """The port's tour passes every mode's oracle check end to end through
+    the launcher at 4 simulated processes (tests/test_launcher.py's tour
+    test, for the port)."""
+    rc, out = _launch(["--simulate-chips", "4", "tpu_syncbn_torch/parallelism_tour.py",
+                       "--", "--device", "cpu"], timeout=600, OMP_NUM_THREADS="2")
+    assert rc == 0, out[-3000:]
+    assert "tour complete" in out and "FAIL" not in out
+    assert out.count("[PASS]") == 10

@@ -45,7 +45,11 @@ around each) / wall. With ``--scan K`` the same batch also runs through
 replay a chunk on the card), for ceil(steps / K) chunks (at least as
 many steps as the per-step loop), and the block
 gives that loop's fraction and img/s beside the per-step loop's
-(``host_gap_frac_scan1``).
+(``host_gap_frac_scan1``). Its ``pipeline`` sub-block
+(:func:`measure_pipeline_bubbles`, null at world 1) is the pipeline
+schedules' predicted and measured bubbles on a micro-model over every
+process, and ``bubble_frac_predicted`` / ``bubble_frac_measured`` are
+1F1B's.
 
 ``collectives`` (:func:`measure_collectives`) is the compressed wire on a
 1 MiB-a-GPU f32 payload: per mode (``fp32``, ``bf16``, ``int8``,
@@ -1178,6 +1182,116 @@ def measure_serve_open_loop(engine, x, *, gb: int, max_batch: int,
     }
 
 
+def measure_pipeline_bubbles(group, device: torch.device) -> dict | None:
+    """The ``scan`` block's ``pipeline`` sub-block (``bench.py``'s
+    ``measure_pipeline_bubbles``): bubble accounting for the pipeline
+    schedules, on JAX's micro-model (a ``tanh(x @ w + b)`` stage 16 wide,
+    2 rows a replica a microbatch, M = 2N) over a ``(data, pipe)`` mesh of
+    every process in ``group`` (the job's world; N = 4 when it divides,
+    else 2).
+
+    For GPipe and 1F1B the measured bubble is ``1 − t_dense / t_schedule``,
+    where ``t_dense`` times the same step on the zero-bubble timing
+    reference (``pipeline_schedule.dense_timing_schedule``: every slot
+    active, ``T = M`` ticks); predicted is the tables' ``1 − M/T``. Step
+    times are the host clock over 3 steps after a warm one, ending in a
+    synchronize. ``collective_calls`` is the port's tallies of one step a
+    schedule (``{schedule: {op: calls}}``; the JAX block counts its
+    programs' trace-time inventory): ``2·T`` ppermutes each. ``fused`` times
+    one K = 2 ``train_steps_batches`` chunk, or is ``None`` where the K-step
+    program cannot be built (a gloo group on CUDA tensors: only NCCL's
+    collectives can be captured), with the reason logged.
+
+    Returns ``None`` at world < 2, as JAX's does."""
+    import numpy as np
+
+    from tpu_syncbn_torch.parallel import collectives as coll
+    from tpu_syncbn_torch.parallel import pipeline as pp
+    from tpu_syncbn_torch.parallel import pipeline_schedule as ps
+
+    n_chips = coll.world_size(group)
+    if n_chips < 2:
+        return None
+    n = 4 if n_chips % 4 == 0 else 2
+    d = n_chips // n
+    m = 2 * n  # the M >= 2N regime the 1F1B-vs-GPipe claim is about
+    feat, per_replica_mb = 16, 2
+
+    def stage_fn(params, x):
+        return torch.tanh(x @ params["w"] + params["b"])
+
+    def loss_fn(y, t):
+        return ((y - t) ** 2).mean()
+
+    rng = np.random.default_rng(0)
+    stacked = {"w": rng.standard_normal((n, feat, feat)).astype(np.float32) * 0.5,
+               "b": rng.standard_normal((n, feat)).astype(np.float32)}
+    gmb = per_replica_mb * d
+    x = rng.standard_normal((m, gmb, feat)).astype(np.float32)
+    t = rng.standard_normal((m, gmb, feat)).astype(np.float32)
+    layout = pp.pipeline_mesh(n, device=device)
+    di = layout.ranks.index(torch.distributed.get_rank()) // n  # this replica
+    rows = slice(di * per_replica_mb, (di + 1) * per_replica_mb)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a[:, rows])).to(device)
+                  for a in (x, t))
+    calls = {}
+
+    def timed_steps(schedule, reps=3):
+        tr = pp.PipelineTrainer(stage_fn, loss_fn, stacked,
+                                lambda params: torch.optim.SGD(params, lr=1e-2),
+                                num_microbatches=m, schedule=schedule, layout=layout)
+        coll.reset_tallies()
+        tr.train_step(batch)  # warm
+        _sync(device)
+        calls[tr.schedule.name] = {op: v["calls"] for op, v in coll.tallies().items()}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(batch)
+        _sync(device)
+        return tr, (time.perf_counter() - t0) / reps
+
+    _, dense_s = timed_steps(ps.dense_timing_schedule(m, n))
+    schedules, fused = {}, None
+    for name in ("gpipe", "1f1b"):
+        sched = ps.get_schedule(name, m, n)
+        tr, step_s = timed_steps(sched)
+        schedules[name] = {
+            "ticks": sched.ticks,
+            "bubble_frac_predicted": round(sched.predicted_bubble_frac, 4),
+            "bubble_frac_measured": round(max(0.0, 1.0 - dense_s / step_s), 4)
+            if step_s > 0 else None,
+            "step_s": round(step_s, 6),
+        }
+    backend = torch.distributed.get_backend()
+    if device.type == "cuda" and backend != "nccl":
+        log(f"pipeline: fused K-step chunk not built: a {backend} group's collectives "
+            "cannot run inside a CUDA graph")
+    else:
+        k = 2
+        chunk = tuple(b.expand(k, *b.shape).clone() for b in batch)
+        tr.train_steps_batches(chunk)  # builds (captures) the program
+        _sync(device)
+        t0 = time.perf_counter()
+        tr.train_steps_batches(chunk)
+        _sync(device)
+        fused = {"k": k, "dispatches": 1, "chunk_s": round(time.perf_counter() - t0, 6)}
+    log(f"pipeline: {n} stages x {d} data, M={m} — bubble "
+        f"gpipe {schedules['gpipe']['bubble_frac_measured']} "
+        f"(predicted {schedules['gpipe']['bubble_frac_predicted']}), "
+        f"1f1b {schedules['1f1b']['bubble_frac_measured']} "
+        f"(predicted {schedules['1f1b']['bubble_frac_predicted']})")
+    return {
+        "n_stages": n,
+        "data_world": d,
+        "microbatches": m,
+        "dense_step_s": round(dense_s, 6),
+        "canonical_gpipe_bubble": round(ps.canonical_gpipe_bubble(m, n), 4),
+        "schedules": schedules,
+        "fused": fused,
+        "collective_calls": calls,
+    }
+
+
 def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
     """Build, warm up, count FLOPs, time; returns the JSON line's dict."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -1269,6 +1383,20 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
         scan_info.update({"chunks": chunks, "host_gap_frac": gap_k,
                           "dispatch_frac": dispatch_k,
                           "img_per_sec_per_chip": round(bs * chunks * scan_k / dt_k, 2)})
+    # pipeline-schedule bubble accounting, always measured at world > 1
+    # (the micro-mesh trainers are tiny); the headline fields are 1F1B's
+    # (the default schedule). A failure nulls only itself.
+    try:
+        pipeline_info = measure_pipeline_bubbles(
+            torch.distributed.group.WORLD if torch.distributed.is_initialized() else None,
+            device)
+    except Exception as e:  # null the sub-block, keep the line
+        log(f"pipeline bubble measurement failed: {type(e).__name__}: {e}")
+        pipeline_info = None
+    one_f1b = (pipeline_info or {}).get("schedules", {}).get("1f1b", {})
+    scan_info.update({"pipeline": pipeline_info,
+                      "bubble_frac_predicted": one_f1b.get("bubble_frac_predicted"),
+                      "bubble_frac_measured": one_f1b.get("bubble_frac_measured")})
     publisher.flush()
     try:
         monitor_info = measure_monitor(agg)

@@ -89,6 +89,22 @@ def _attend(q, k, v, impl: Optional[str], group, local_impl: Optional[str],
                              local_backward=local_backward)
 
 
+def _block(x: torch.Tensor, blk, i: int, *, n_heads: int, attn_impl: Optional[str],
+           group, local_impl: Optional[str], local_backward: str) -> torch.Tensor:
+    """Layer ``i`` of the stacked block parameters ``blk`` (anything with
+    the ``_Blocks`` attributes, each indexed by layer) on ``x`` (B, L,
+    d_model): the JAX model's inner ``block``. Pre-RMSNorm attention and
+    MLP, each added back to the residual stream."""
+    b, l, d_model = x.shape
+    dh = d_model // n_heads
+    h = _rms_norm(x, blk.ln1_scale[i])
+    q, k, v = (t.reshape(b, l, n_heads, dh) for t in (h @ blk.wqkv[i]).split(d_model, -1))
+    o = _attend(q, k, v, attn_impl, group, local_impl, local_backward)
+    x = x + o.reshape(b, l, d_model) @ blk.wo[i]
+    h = _rms_norm(x, blk.ln2_scale[i])
+    return x + F.gelu(h @ blk.w1[i], approximate="tanh") @ blk.w2[i]
+
+
 class _Blocks(nn.Module):
     """The stacked per-layer parameters (the JAX tree's ``blocks``)."""
 
@@ -134,7 +150,7 @@ class TransformerLM(nn.Module):
         is the chunk's first global position."""
         _check_impl(attn_impl, group, local_impl, local_backward)
         b, l = tokens.shape
-        max_len, d_model = self.pos.shape
+        max_len = self.pos.shape[0]
         if pos_offset is None:
             n = collectives.world_size(group)
             if n * l > max_len:
@@ -144,17 +160,11 @@ class TransformerLM(nn.Module):
         elif not 0 <= pos_offset <= max_len - l:
             raise ValueError(f"positions [{pos_offset}, {pos_offset + l}) exceed "
                              f"max_len {max_len}")
-        dh = d_model // self.n_heads
-        blk = self.blocks
         x = self.embed[tokens] + self.pos[pos_offset:pos_offset + l]
         for i in range(self.n_layers):
-            h = _rms_norm(x, blk.ln1_scale[i])
-            q, k, v = (t.reshape(b, l, self.n_heads, dh)
-                       for t in (h @ blk.wqkv[i]).split(d_model, -1))
-            o = _attend(q, k, v, attn_impl, group, local_impl, local_backward)
-            x = x + o.reshape(b, l, d_model) @ blk.wo[i]
-            h = _rms_norm(x, blk.ln2_scale[i])
-            x = x + F.gelu(h @ blk.w1[i], approximate="tanh") @ blk.w2[i]
+            x = _block(x, self.blocks, i, n_heads=self.n_heads, attn_impl=attn_impl,
+                       group=group, local_impl=local_impl,
+                       local_backward=local_backward)
         x = _rms_norm(x, self.ln_f_scale)
         return (x @ self.embed.T).float()
 

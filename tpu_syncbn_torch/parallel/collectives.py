@@ -248,6 +248,69 @@ def pmin(tensor: torch.Tensor, group) -> torch.Tensor:
     return _all_reduce("pmin", tensor, group, tdist.ReduceOp.MIN)
 
 
+# The three all-reduce rules of a group-sharded model, as JAX's transpose
+# rules give them under ``shard_map`` with the VMA checker (the plain
+# psum/pmean above clone and reduce outside autograd):
+# * a replicated operand meeting rank-varying data gets an implicit
+#   ``pvary`` whose transpose is a psum, so its gradient is the full
+#   gradient on every rank: :func:`copy_to_group` (Megatron's *f*);
+# * a psum of rank-varying values transposes to no communication:
+#   :func:`reduce_from_group` (Megatron's *g*) and :func:`mean_from_group`,
+#   whose backward divides the cotangent by the world size.
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group).view_as(x)  # a view, never the input itself
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _MeanFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = world_size(group)
+        return pmean(x, group).view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def copy_to_group(tensor: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*: the identity forward; the backward all-reduces the
+    cotangent over ``group`` (one ``psum`` in the tallies), so a replicated
+    input used by rank-varying computation gets its full gradient on every
+    rank. Identity both ways at world 1."""
+    return _CopyToGroup.apply(tensor, group)
+
+
+def reduce_from_group(tensor: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g*: :func:`psum` forward, the identity backward (each
+    rank's partial takes the replicated result's cotangent as is)."""
+    return _ReduceFromGroup.apply(tensor, group)
+
+
+def mean_from_group(tensor: torch.Tensor, group) -> torch.Tensor:
+    """:func:`pmean` forward; the backward divides the cotangent by the
+    world size, with no communication."""
+    return _MeanFromGroup.apply(tensor, group)
+
+
 def all_gather(tensor: torch.Tensor, group, *, axis: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """Every replica's tensor, in rank order: stacked along a new axis
