@@ -50,9 +50,7 @@ falls back to the CPU):
                and global batch 64; three bf16 steps with ``group_size=2``
                after each of which every rank's parameters and buffers equal
                rank 0's bit for bit, every BN kernel launching 53 x 3 times
-               on every rank; then ``python -m tpu_syncbn_torch.launch``
-               runs ``train.py`` (ResNet-50) at ``--nproc-per-node 1`` and
-               refuses one process more than the card count; the
+               on every rank; the
                compressed collectives on CUDA tensors (``compressed_pmean``
                bf16 and int8, ``ef_compressed_pmean``,
                ``compressed_reduce_scatter``, ``shuffle_sharded_psum``)
@@ -74,9 +72,13 @@ falls back to the CPU):
                arrays; its median step and data wait beside the synthetic
                slice's step; a 2-step profiler window (device busy, the
                host-to-device copies on a stream of their own, and their
-               overlap with the compute stream's kernels); and the example
-               under ``python -m tpu_syncbn_torch.launch`` with process
-               workers, to its done line;
+               overlap with the compute stream's kernels); then, side by
+               side, the example under ``python -m tpu_syncbn_torch.launch``
+               with process workers on the tree's first 16 train and 4 val
+               images a class, to its done line, and phase 6's launcher
+               checks: ``train.py`` (ResNet-50) at ``--nproc-per-node 1`` to
+               its done line, and one process more than the card count
+               refused;
 8. trainer   — the rest of ``DataParallel`` on the slice's model and batch
                (bf16 ResNet-50 SyncBN, 64 at 224x224, the example's
                optimizer with its schedule in the trainer), every BN launch
@@ -161,6 +163,25 @@ falls back to the CPU):
                bitwise against its
                body) and its step time against ``"none"`` in turns, eager
                and captured; one DCGAN iteration at ``compress="bf16"``;
+12c. autopilot — the closed loop (ROADMAP A.14a) on the int8 ResNet-50
+               step (monitors on, cuDNN deterministic): ``ResilientLoop(
+               scan_steps=4, autopilot=...)`` fed by ``chunked_batches``,
+               the controller on ``numerics_rules() + mem_rules()`` over
+               the ladder, K in (4, 8) and a byte budget from the int8
+               K = 4 graph's pool, on an injected clock of 30 s a chunk.
+               A clip fault on every 256-element chunk (gain 1000x the
+               largest real gradient, ``clip_fraction`` >= 0.9) until the
+               first actuation, then a real ``mem.headroom_frac`` sample,
+               then a planted ``mem_pressure`` burn. Gates: int8 -> bf16
+               within 2 chunks on ``numerics_clip``, one valid bundle an
+               actuation; the rung cycle back to int8 with no capture and
+               its first chunk bitwise its eager body, no storm; K 4 -> 8
+               -> 4 with the watchdog's deadline at K x the step's and no
+               capture on the way back; the evicted K = 8 graph's pool
+               returned to the card; 53 launches of each BN kernel a step
+               and one of each int8 kernel on the int8 rung only, every
+               eager call held against its plain version; the live gauges
+               on ``/statusz``; captures, step ms a rung and seconds;
 13. resilience — ``ResilientLoop(scan_steps=4, async_checkpoint=True)`` on
                the ResNet slice: a NaN step under ``restore_last_good``
                restores the last checkpoint and continues; SIGTERM before
@@ -609,17 +630,31 @@ DISPATCH = {"bn_stats": ("_stats_2d", "stats_plain"),
             "bn_backward_elemt": ("_backward_elemt_2d", "backward_elemt_plain")}
 
 
+def _note_capture(torch, seen, k) -> bool:
+    """Inside a CUDA graph capture a kernel call is recorded, not run: count
+    it in ``seen[kernel + " captured"]`` and say so (a replay is held
+    against the body run eagerly instead)."""
+    if not torch.cuda.is_current_stream_capturing():
+        return False
+    calls = seen.get(k + " captured", (0, 0.0, 0.0))[0]
+    seen[k + " captured"] = (calls + 1, 0.0, 0.0)
+    return True
+
+
 @contextlib.contextmanager
 def checking_every_call(torch, T, seen):
     """Inside the block, every call that ``FusedBatchNorm`` makes to a
     kernel is followed by the kernel's plain version on the same arguments,
     and ``seen[kernel] = (calls, worst error / tolerance, worst abs
     error)`` is kept: the kernels held against their plain versions on a
-    real step's own activations and gradients, layer by layer."""
+    real step's own activations and gradients, layer by layer. A call
+    inside a graph capture is only counted (``_note_capture``)."""
     saved = {disp: getattr(T, disp) for disp, _ in DISPATCH.values()}
     for k, (disp, plain) in DISPATCH.items():
         def run(*args, _k=k, _kern=saved[disp], _plain=getattr(T, plain)):
             got = _kern(*args)
+            if _note_capture(torch, seen, _k):
+                return got
             # stats also hands back its count, which the plain sums lack
             cmp = got[:2] if _k == "bn_stats" else got
             abs_e, rel_e = _err(torch, cmp, _plain(*args), _k in ELEMENTWISE,
@@ -1567,36 +1602,56 @@ def _world1_reference(torch, path):
     return loss, floor
 
 
-def _launcher_on_the_card():
-    """``python -m tpu_syncbn_torch.launch`` with ``train.py``: ResNet-50 at
-    --nproc-per-node 1 must run to its ``done:`` line; --nproc-per-node 2
-    on a one-card machine must exit non-zero, naming the card count."""
-    import torch
-
-    failures = []
-    env = dict(os.environ, PYTHONPATH=HERE)
+def _launcher_commands(n: int) -> dict:
+    """``python -m tpu_syncbn_torch.launch`` with ``train.py`` (ResNet-50):
+    at --nproc-per-node 1, and at one process more than the ``n`` cards."""
     base = [sys.executable, "-m", "tpu_syncbn_torch.launch"]
     train = [os.path.join("tpu_syncbn_torch", "train.py"), "--", "--arch",
              "resnet50", "--epochs", "1", "--dataset-size", "128",
              "--batch-size", "64"]
-    t0 = time.perf_counter()
-    r = subprocess.run(base + ["--nproc-per-node", "1"] + train, cwd=HERE, env=env,
-                       capture_output=True, text=True, timeout=300)
+    return {"train": base + ["--nproc-per-node", "1"] + train,
+            "refusal": base + ["--nproc-per-node", str(n + 1)] + train}
+
+
+def _launcher_gates(res: dict, n: int) -> list:
+    """``_launcher_commands``' runs: train.py must reach its ``done:`` line;
+    the request for ``n + 1`` processes must exit non-zero, naming the
+    card count."""
+    failures = []
+    r = res["train"]
     done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
     log(f"[groups] launcher --nproc-per-node 1 train.py --arch resnet50: exit "
-        f"{r.returncode} in {time.perf_counter() - t0:.1f}s; {done[-1] if done else 'no done: line'}")
+        f"{r.returncode}; {done[-1] if done else 'no done: line'}")
     if r.returncode != 0 or not done:
-        failures.append("the launcher did not run train.py at --nproc-per-node 1: "
+        failures.append("[groups] the launcher did not run train.py at --nproc-per-node 1: "
                         + (r.stdout + r.stderr)[-2000:])
-    n = torch.cuda.device_count()
-    r = subprocess.run(base + ["--nproc-per-node", str(n + 1)] + train, cwd=HERE,
-                       env=env, capture_output=True, text=True, timeout=300)
+    r = res["refusal"]
     msg = (r.stdout + r.stderr).strip().splitlines()
     log(f"[groups] launcher --nproc-per-node {n + 1} on {n} card(s): exit "
         f"{r.returncode}: {msg[-1] if msg else ''}")
     if r.returncode == 0 or f"this node has {n}" not in r.stdout + r.stderr:
-        failures.append(f"the launcher did not refuse --nproc-per-node {n + 1}")
+        failures.append(f"[groups] the launcher did not refuse --nproc-per-node {n + 1}")
     return failures
+
+
+def _side_by_side(cmds: dict, timeout: float = 300) -> dict:
+    """Every command at once, from the checkout with it on ``PYTHONPATH``,
+    each to its end or ``timeout``: ``{name: CompletedProcess}``. The
+    launcher runs are start-up bound (imports, the card, cuDNN's plans,
+    spawned workers), so together they take about the longest one."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = {name: subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    out = {}
+    for name, p in procs.items():
+        try:
+            o, e = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, e = p.communicate()
+        out[name] = subprocess.CompletedProcess(p.args, p.returncode, o, e)
+    return out
 
 
 def phase_groups(torch, card):
@@ -1703,8 +1758,8 @@ def phase_groups(torch, card):
             f"time-slicing one card through gloo host copies, not a throughput "
             f"figure [{card}]")
     failures += _groups_zero_summary(res, summary, card)
-    log(f"[groups] four processes: {secs:.1f}s from spawn to join")
-    failures += _launcher_on_the_card()
+    log(f"[groups] four processes: {secs:.1f}s from spawn to join (the launcher checks "
+        f"run at the end of [imagenet])")
     return summary, failures
 
 
@@ -1951,21 +2006,35 @@ def _example_in_process(torch, tree):
     return summary, done, train_launches, eval_launches, kept, host, prof, window[0]
 
 
-def _example_under_the_launcher(tree):
+#: the launcher run's tree, a class: one training batch of 64 and one eval
+#: batch over the 4 classes (the loader alone and the in-process example
+#: read the whole tree)
+LAUNCHER_TRAIN, LAUNCHER_VAL = 16, 4
+
+
+def launcher_tree(tree: str, root: str) -> int:
+    """``root`` as a copy of the first ``LAUNCHER_TRAIN`` / ``LAUNCHER_VAL``
+    images of each class of ``tree``. Returns the files."""
+    import shutil
+
+    n_files = 0
+    for split, n in (("train", LAUNCHER_TRAIN), ("val", LAUNCHER_VAL)):
+        for c in sorted(os.listdir(os.path.join(tree, split))):
+            os.makedirs(os.path.join(root, split, c))
+            for f in sorted(os.listdir(os.path.join(tree, split, c)))[:n]:
+                shutil.copyfile(os.path.join(tree, split, c, f), os.path.join(root, split, c, f))
+                n_files += 1
+    return n_files
+
+
+def _example_launcher_command(tree: str) -> list:
     """``python -m tpu_syncbn_torch.launch --nproc-per-node 1
-    tpu_syncbn_torch/imagenet_resnet50.py`` with process workers, to its
-    done line."""
-    env = dict(os.environ, PYTHONPATH=HERE)
-    cmd = [sys.executable, "-m", "tpu_syncbn_torch.launch", "--nproc-per-node", "1",
-           os.path.join("tpu_syncbn_torch", "imagenet_resnet50.py"), "--",
-           "--data-root", tree, "--worker-type", "process", "--epochs", "1",
-           "--batch-size", str(BATCH), "--image-size", str(IMAGE_SIZE),
-           "--dtype", "bf16", "--eval-every", "1"]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
-                       timeout=300)
-    done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
-    return r, done, time.perf_counter() - t0
+    tpu_syncbn_torch/imagenet_resnet50.py`` with process workers."""
+    return [sys.executable, "-m", "tpu_syncbn_torch.launch", "--nproc-per-node", "1",
+            os.path.join("tpu_syncbn_torch", "imagenet_resnet50.py"), "--",
+            "--data-root", tree, "--worker-type", "process", "--epochs", "1",
+            "--batch-size", str(BATCH), "--image-size", str(IMAGE_SIZE),
+            "--dtype", "bf16", "--eval-every", "1"]
 
 
 def phase_imagenet(torch, card, slice_med):
@@ -2085,10 +2154,22 @@ def phase_imagenet(torch, card, slice_med):
         if n_h2d and not side:
             failures.append("[imagenet] the H2D copies ran on the compute stream")
 
-        r, done, secs = _example_under_the_launcher(tree)
+        # the example under the launcher, side by side with [groups]' two
+        # launcher checks: each only has to reach its end
+        small = os.path.join(tree, "launcher")
+        n_small = launcher_tree(tree, small)
+        n_cards = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        res = _side_by_side({**_launcher_commands(n_cards),
+                             "example": _example_launcher_command(small)})
+        secs = time.perf_counter() - t0
+        failures += _launcher_gates(res, n_cards)
+        r = res["example"]
+        done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
         log(f"[imagenet] launcher --nproc-per-node 1 imagenet_resnet50.py "
-            f"--worker-type process: exit {r.returncode} in {secs:.1f}s; "
+            f"--worker-type process on {n_small} files of the tree: exit {r.returncode}; "
             f"{done[-1] if done else 'no done: line'}")
+        log(f"[imagenet] the three launcher runs side by side took {secs:.1f}s")
         if r.returncode != 0 or not done:
             failures.append("[imagenet] the launcher did not run the example: "
                             + (r.stdout + r.stderr)[-2000:])
@@ -2740,7 +2821,7 @@ BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
               "device_kind", "host_load_1m", "collectives", "monitor", "numerics",
-              "incident", "memory", "compile", "serve", "telemetry")
+              "autopilot", "incident", "memory", "compile", "serve", "telemetry")
 # the serve block's keys (bench.py's measure_serve and its sections)
 BENCH_SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "levels",
                     "clients", "requests", "rejected", "throughput_rps", "latency_p50_ms",
@@ -2768,7 +2849,9 @@ def phase_bench():
     and ``compile`` blocks (a
     forced bundle, the card's reading against the warm step's peak with
     its ``mem_pressure`` drill and a capture holding CUDA activity, the
-    first step's compile event and no storm), the ``serve`` block (JAX's
+    first step's compile event and no storm), the ``autopilot`` block (JAX's
+    validator: off int8 within 2 chunks, the A/B, one bundle an
+    actuation; its arms launch the int8 kernels), the ``serve`` block (JAX's
     keys, one program a bucket, its levels printed; its ``publish`` section
     with JAX's keys, the swap ``swapped`` under load and the rollback bit
     for bit) and
@@ -2825,6 +2908,21 @@ def phase_bench():
             and num.get("rules") == ["numerics_residual", "numerics_skew", "numerics_clip"]
             and isinstance(num.get("record_overhead_frac"), (int, float))):
         failures.append(f"[bench] numerics block {num}")
+    # the autopilot block, as JAX's validator holds it: off int8 within one
+    # window on numerics_clip, the controlled arm converging while the
+    # static int8 arm ends at least 2x worse, one valid bundle an actuation
+    ap = line.get("autopilot") or {}
+    bundles = ap.get("bundles") or {}
+    log(f"[bench] autopilot {json.dumps(ap)}")
+    if not (1 <= (ap.get("escalate_within_chunks") or 0) <= 2
+            and ap.get("first_signal") == "numerics_clip"
+            and (ap.get("modes_visited") or [None])[0] == "int8"
+            and ap.get("final_mode") in ("bf16", "none") and ap.get("actuations", 0) >= 1
+            and ap.get("autopilot_final_mse", math.inf) < ap.get("initial_mse", -math.inf)
+            and ap.get("advantage_ratio", 0) >= 2.0 and bundles.get("valid") is True
+            and bundles.get("count") == ap.get("actuations")
+            and all(x == "numerics_clip" for x in bundles.get("signals") or [None])):
+        failures.append(f"[bench] autopilot block {ap}")
     inc, mem, comp = (line.get(k) or {} for k in ("incident", "memory", "compile"))
     if inc.get("trigger") != "manual" or not inc.get("bundle_bytes") \
             or inc.get("ring_steps") != line.get("steps"):
@@ -4029,6 +4127,484 @@ def phase_zero(torch, card, zero_chunks):
     log(f"[zero] phase done in {secs:.1f}s, {len(failures)} failures [{card}]")
     return failures, {"held_bytes": held, "captured_bitwise": bitwise, "int8": int8,
                       "times": times, "seconds": secs}
+
+
+# -- phase: autopilot — the closed loop on the full-width path (ROADMAP A.14a)
+
+AP_K = (4, 8)  # the controller's K candidates; the loop starts at 4
+AP_CLOCK_S = 30.0  # injected seconds a chunk boundary (the bench block's)
+AP_WINDOW_S, AP_HEALTHY_S = 60.0, 60.0  # two chunk boundaries each
+AP_DEADLINE_S = 30.0  # the loop's per-step watchdog deadline
+AP_GAIN_OVER_MAX = 1000.0  # the fault's gradient over the largest real one
+AP_STRIDE = 128  # every 128th element of each parameter carries the fault
+AP_LR = 1e-10  # the spiked weights move < 1e-3 over the phase (gated)
+AP_MIN_CLIP = 0.9  # the fault's clip_fraction, at least
+AP_MAX_CHUNKS = 40  # a bound on the loop: the script's sequence takes ~26
+AP_STEP_SEEDS = 8  # distinct per-step batches, cycled
+
+
+def _ap_loss(model, batch):
+    """The slice's loss plus the planted clip fault: ``flag`` times the sum
+    of every ``AP_STRIDE``-th element of each parameter, so every 256-element
+    int8 chunk of the fused gradient holds a +flag element (a chunk inside
+    one parameter holds two; one that spans parameters holds the next
+    one's first element). With flag 0 the term adds an exact 0."""
+    x, y, flag = batch
+    spike = sum(p.reshape(-1)[::AP_STRIDE].float().sum()
+                for p in model.parameters() if p.requires_grad)
+    return _loss_fn(model, (x, y)) + flag * spike
+
+
+@contextlib.contextmanager
+def checking_every_quant_call(torch, Q, seen):
+    """``checking_every_call`` for the three int8 kernels: every call the
+    wire makes is followed by the plain version on the same inputs (the
+    residual the encode may write in place is copied first), and
+    ``seen[kernel] = (calls, 0.0 if bit-identical else 2.0, 0.0)`` is
+    kept; a call inside a graph capture is only counted."""
+    saved = {k: getattr(Q, k) for k in ("minmax", "encode", "decode")}
+
+    def note(k, same):
+        calls, worst, _ = seen.get(k, (0, 0.0, 0.0))
+        seen[k] = (calls + 1, max(worst, 0.0 if same else 2.0), 0.0)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+    def minmax(g, e=None, *, chunk):
+        got = saved["minmax"](g, e, chunk=chunk)
+        if not _note_capture(torch, seen, "quant_minmax"):
+            note("quant_minmax", equal((got,), (Q.minmax_plain(g, e, chunk),)))
+        return got
+
+    def encode(g, e, ranges, qmax, *, chunk, want_residual=False, residual_out=None):
+        e0 = None if e is None or torch.cuda.is_current_stream_capturing() else e.clone()
+        got = saved["encode"](g, e, ranges, qmax, chunk=chunk, want_residual=want_residual,
+                              residual_out=residual_out)
+        if not _note_capture(torch, seen, "quant_encode"):
+            note("quant_encode", equal(got, Q.encode_plain(g, e0, ranges, qmax, chunk,
+                                                           want_residual)))
+        return got
+
+    def decode(sumq, scale, zp, *, world, n, chunk, mean=False):
+        got = saved["decode"](sumq, scale, zp, world=world, n=n, chunk=chunk, mean=mean)
+        if not _note_capture(torch, seen, "quant_decode"):
+            note("quant_decode", equal((got,), (Q.decode_plain(sumq, scale, zp, world, n,
+                                                               mean),)))
+        return got
+
+    Q.minmax, Q.encode, Q.decode = minmax, encode, decode
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(Q, k, fn)
+
+
+def _ap_trainer(torch):
+    """The slice's trainer at ``compress="int8"`` (error feedback on) with
+    monitors, the example's optimizer at ``AP_LR`` and the faulted loss."""
+    from tpu_syncbn_torch import imagenet_resnet50, models, nn, parallel
+
+    model = nn.convert_sync_batchnorm(models.resnet50(
+        num_classes=1000, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(0)))
+    opt, sched = imagenet_resnet50.make_optimizer(model, AP_LR, 1000)
+    return model, parallel.DataParallel(model, opt, _ap_loss, device="cuda",
+                                        lr_scheduler=sched, compress="int8", monitors=True)
+
+
+def phase_autopilot(torch, card):
+    """The autopilot (ROADMAP A.14a) turning the knobs of the full-width
+    int8 ResNet-50 step, captured K at a time under ``ResilientLoop``,
+    through ``chunked_batches``, on an injected clock (30 s a chunk
+    boundary), each actuation dumping a bundle into a temporary directory
+    (cooldown 0). The script plants a clip fault until the controller
+    moves, then a ``mem.headroom_frac`` sample, then a ``mem_pressure``
+    burn, and gates: the escalation within 2 chunks (one valid bundle an
+    actuation); the int8 program recalled after the rung cycle with no
+    capture, its first chunk bitwise its body run eagerly; K 4 -> 8 -> 4
+    with the watchdog deadline following and no capture on the way back;
+    the evicted graph's pool returned to the card; 53 launches a step of
+    each BN kernel and one of each int8 kernel on the int8 rung, none on
+    the others, each eager call held against its plain version; the live
+    gauges on /statusz. Returns (failures, summary)."""
+    import gc
+    import tempfile
+
+    from tpu_syncbn_torch.obs import (
+        flightrec, memwatch, numerics as obs_numerics, server as obs_server, telemetry,
+        timeseries,
+    )
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+    from tpu_syncbn_torch.ops import triton_bn as T
+    from tpu_syncbn_torch.parallel import scan_driver
+    from tpu_syncbn_torch.runtime import autopilot as ap_mod
+    from tpu_syncbn_torch.runtime import resilience
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the recalled chunk against its body
+    steps = [_trainer_batch(torch, 900 + i) for i in range(AP_STEP_SEEDS)]
+    model, dp = _ap_trainer(torch)
+    zero = torch.zeros((), device="cuda")
+    dp.train_step((*steps[0], zero))  # cuDNN's plans, the builds
+    gmax = max((float(p.grad.abs().max()) for p in model.parameters() if p.grad is not None),
+               default=0.0)
+    if not gmax > 0:
+        fail("[autopilot] the first step left no gradient to size the fault by")
+    gain = 2.0 ** math.ceil(math.log2(AP_GAIN_OVER_MAX * gmax))
+    log(f"[autopilot] largest real gradient {gmax:.4g}: the fault's gain {gain:g} "
+        f"(2^{int(math.log2(gain))}), on every {AP_STRIDE}th element of each parameter")
+    spiked0 = {n: p.detach().reshape(-1)[::AP_STRIDE].float().clone()
+               for n, p in model.named_parameters()}
+
+    st = {"fault": False, "check": False, "stage": "fault", "measure": False, "c": 0}
+
+    def source():
+        i = 0
+        while True:
+            x, y = steps[i % len(steps)]
+            i += 1
+            yield x, y, torch.full((), gain if st["fault"] else 0.0, device="cuda")
+
+    per_step: list = []  # (rung, launches of each kernel in one step)
+    real_step = dp._chunk_step
+
+    def counted_step(chunk, k, batch):
+        before = {**T.launch_counts(), **Q.launch_counts()}
+        out = real_step(chunk, k, batch)
+        after = {**T.launch_counts(), **Q.launch_counts()}
+        per_step.append((dp.compress, {n: after[n] - before[n] for n in after}))
+        return out
+
+    dp._chunk_step = counted_step  # every program steps through it
+
+    # the int8 K = 4 program before the loop (its pool sets the byte budget)
+    src = source()
+    dp.train_steps_batches(scan_driver.stack_batches([next(src) for _ in range(AP_K[0])]))
+    int8_cache = dp._train_steps_cache
+    k4_pool = _program(dp, AP_K[0]).pool_bytes
+    # the first shrink (to 3x) keeps int8's K = 4 and K = 8 graphs, the
+    # second (to 1.5x) evicts the least recently used of them (K = 8): a
+    # graph's pool is about one step's activations, whatever its K
+    bounds = (k4_pool // 2, 6 * k4_pool)
+    per_step.clear()
+
+    prev_reg = telemetry.REGISTRY
+    telemetry.REGISTRY = scratch = telemetry.Registry()
+    telemetry.set_enabled(True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+    rec = flightrec.install(flightrec.FlightRecorder(incident_dir=d, cooldown_s=0.0))
+    agg = timeseries.WindowedAggregator(scratch)
+    clock = {"t": 0.0}
+    agg.tick(now=0.0)
+
+    def now():
+        clock["t"] += AP_CLOCK_S
+        agg.tick(now=clock["t"])
+        return clock["t"]
+
+    pilot = ap_mod.Autopilot(
+        dp, aggregator=agg, rules=obs_numerics.numerics_rules() + memwatch.mem_rules(),
+        modes=ap_mod.COMPRESS_LADDER, k_candidates=AP_K, cache_bytes_bounds=bounds,
+        window_s=AP_WINDOW_S, healthy_for_s=AP_HEALTHY_S, now=now)
+    sampler = memwatch.MemorySampler(
+        contract_bytes_per_device=torch.cuda.get_device_properties(0).total_memory,
+        contract_source="card capacity", pressure_threshold=None)
+
+    # -- the harness around the loop: chunks, decisions, launches, times
+    chunks: list = []  # one dict a chunk
+    decisions: list = []
+    evictions: list = []
+    held: dict = {}
+    real_tsb = dp.train_steps_batches
+
+    def tsb(stacked):
+        k, rung, cache = scan_driver.scan_length(stacked), dp.compress, dp._train_steps_cache
+        misses = cache.misses
+        info = {"c": st["c"], "rung": rung, "k": k, "fault": st["fault"]}
+        if st["check"]:
+            st["check"] = False
+            start = dp.state_dict()
+            out = real_tsb(stacked)
+            st_c = dp.state_dict()
+            prog = _program(dp, k)
+            looped = []
+            for _ in range(2):  # the body eagerly from the same state, twice
+                _restore_in_place(torch, dp, start)
+                looped.append((_dp_losses(prog.loop(stacked)), dp.state_dict()))
+            info["bitwise"] = _scan_compare(
+                torch, f"autopilot recalled {rung} K={k} chunk vs the body run eagerly",
+                start, looped[0][1], looped[1][1], st_c, _flat(looped[0][0]),
+                out.loss.tolist(), failures)
+            _restore_in_place(torch, dp, st_c)
+        else:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real_tsb(stacked)
+            b.record()
+            info["events"] = (a, b)
+        info["captured"] = cache.misses - misses
+        if info["captured"]:
+            p = _program(dp, k)
+            info.update(capture_s=p.capture_s, pool_bytes=p.pool_bytes)
+        if rung == "int8":
+            info["clip"] = out.monitors["clip_fraction"]
+        chunks.append(info)
+        return out
+
+    dp.train_steps_batches = tsb
+
+    def live_pools():
+        return {(id(c), key): p.pool_bytes for c in dp.program_caches for key, p in c.items()}
+
+    real_on_chunk = pilot.on_chunk
+
+    def on_chunk(**kw):
+        if st["measure"]:
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved, pools = torch.cuda.memory_reserved(), live_pools()
+        out = real_on_chunk(**kw)
+        for dec in out:
+            dec = dict(dec, firing=sorted(r for r, s in pilot.tracker.state().items()
+                                         if s["firing"]))
+            decisions.append(dec)
+            log(f"[autopilot] chunk {dec['chunk']} (t={dec['t_mono']:.0f}s): {dec['knob']} "
+                f"{dec['action']} {dec.get('frm')} -> {dec.get('to')} on {dec.get('signal')} "
+                f"(rules firing {dec['firing']})")
+        if st["measure"] and any(x["action"] == "shrink" for x in out):
+            gone = {key: v for key, v in pools.items() if key not in live_pools()}
+            gc.collect()
+            torch.cuda.empty_cache()
+            evictions.append({"chunk": pilot.chunks, "programs": len(gone),
+                              "pool_bytes": sum(gone.values()),
+                              "released_bytes": reserved - torch.cuda.memory_reserved()})
+        return out
+
+    pilot.on_chunk = on_chunk
+
+    def driver():
+        """The chunk source: waits for the previous chunk (so its monitors
+        are published at the next boundary), then steps the script."""
+        inner = ap_mod.chunked_batches(source(), pilot)
+        k8_chunks = 0
+        for c in range(1, AP_MAX_CHUNKS + 1):
+            torch.cuda.synchronize()
+            st["c"] = c
+            acts = [x for x in decisions if x["action"] not in ("clamp", "suppress")]
+            stage = st["stage"]
+            if stage == "fault":
+                st["fault"] = not acts
+                if acts:
+                    st["stage"] = "recall"
+            if stage == "recall" and dp.compress == "int8":
+                st["check"], st["stage"] = True, "headroom"
+            elif stage == "headroom":
+                sampler.sample()  # a real reading: the K raise's headroom
+                st["stage"] = "k8"
+            elif stage == "k8":
+                k8_chunks += pilot.scan_k == AP_K[1]
+                if k8_chunks == 2:  # the captured K = 8 chunk and one replay
+                    for _ in range(20):  # mem.used_frac over the 0.9 pressure SLO
+                        telemetry.observe("mem.used_frac", 0.95, buckets=(0.5, 0.9, 1.0))
+                    st["stage"], st["measure"] = "pressure", True
+            elif stage == "pressure" and len(evictions) > 0 and evictions[-1]["programs"]:
+                st["stage"] = "done"
+            elif stage == "done":
+                return
+            yield next(inner)
+        failures.append(f"[autopilot] the script stopped at stage {st['stage']!r} "
+                        f"after {AP_MAX_CHUNKS} chunks")
+
+    deadlines: list = []
+    real_watchdog = resilience.Watchdog
+
+    class DeadlineWatchdog(real_watchdog):
+        def pat(self):
+            deadlines.append(self.deadline_s)
+            super().pat()
+
+    int8_misses = int8_cache.misses
+    T.reset_launch_counts()
+    Q.reset_launch_counts()  # the main path: every count from 0
+    t_loop = time.perf_counter()
+    resilience.Watchdog = DeadlineWatchdog
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ap_ckpt_") as ck, \
+                checking_every_call(torch, T, held), checking_every_quant_call(torch, Q, held):
+            loop = resilience.ResilientLoop(dp, ck, ckpt_every=10 ** 9, scan_steps=AP_K[0],
+                                            step_deadline_s=AP_DEADLINE_S, autopilot=pilot)
+            summary = loop.run(driver())
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t_loop
+        launches = {**T.launch_counts(), **Q.launch_counts()}
+        report = obs_server.statusz_report(registry=scratch)
+        text = obs_server.render_statusz(report)
+        snap = scratch.snapshot()
+        bundles = _bundles_by_kind(d)
+    finally:
+        resilience.Watchdog = real_watchdog
+        dp.train_steps_batches, pilot.on_chunk = real_tsb, real_on_chunk
+        del dp._chunk_step
+        flightrec.uninstall()
+        rec.close()
+        telemetry.REGISTRY = prev_reg
+        telemetry.set_enabled(None)
+        torch.backends.cudnn.deterministic = determ
+    st_final = pilot.state()
+    acts = [x for x in decisions if x["action"] not in ("clamp", "suppress")]
+
+    # 1. escalation on the fault, a bundle an actuation
+    clip = [float(v) for x in chunks if x["fault"] and "clip" in x for v in x["clip"]]
+    first = acts[0] if acts else {}
+    log(f"[autopilot] the fault's clip_fraction on its int8 steps: min "
+        f"{min(clip, default=float('nan')):.4f} over {len(clip)} steps (gate >= {AP_MIN_CLIP})")
+    if not clip or min(clip) < AP_MIN_CLIP:
+        failures.append(f"[autopilot] the fault's clip_fraction {clip} < {AP_MIN_CLIP}")
+    ok1 = (first.get("action") == "escalate" and (first.get("frm"), first.get("to"))
+           == ("int8", "bf16") and first.get("chunk", 99) <= 2
+           and "numerics_clip" in first.get("firing", ()))
+    ap_bundles = bundles.get("autopilot", [])
+    valid = [b for b in ap_bundles if b["trigger"]["detail"].get("signal")
+             and b["rings"].get("autopilot")]
+    log(f"[autopilot] escalation: {first.get('frm')} -> {first.get('to')} at chunk "
+        f"{first.get('chunk')} on {first.get('signal')} (numerics_clip firing: "
+        f"{'numerics_clip' in first.get('firing', ())}; gate <= 2 chunks) "
+        f"{'ok' if ok1 else 'FAIL'}; {len(acts)} actuations, {len(ap_bundles)} autopilot "
+        f"bundles, {len(valid)} naming their signal with the ring; other kinds "
+        f"{ {k: len(v) for k, v in bundles.items() if k != 'autopilot'} }")
+    if not ok1:
+        failures.append(f"[autopilot] no int8 -> bf16 escalation within 2 chunks: {first}")
+    if len(ap_bundles) != len(acts) or len(valid) != len(acts):
+        failures.append(f"[autopilot] {len(acts)} actuations left {len(ap_bundles)} bundles, "
+                        f"{len(valid)} valid")
+
+    # 2. the recalled int8 program: no capture, bitwise its body, no storm
+    recalled = [x for x in chunks if "bitwise" in x]
+    storms = snap["counters"].get("compile.storms", 0)
+    modes = [x["to"] for x in acts if x["knob"] == "compress"]
+    int8_new = int8_cache.misses - int8_misses  # its K = 8 graph only
+    ok2 = (len(recalled) == 1 and recalled[0]["bitwise"] and not recalled[0]["captured"]
+           and recalled[0]["rung"] == "int8" and storms == 0 and int8_new == 1
+           and "recompile_storm" not in bundles and modes == ["bf16", "none", "bf16", "int8"])
+    log(f"[autopilot] rungs visited int8 -> {' -> '.join(modes)}; the recalled int8 K=4 "
+        f"chunk: captures {recalled[0]['captured'] if recalled else None}, bitwise its body "
+        f"{recalled[0]['bitwise'] if recalled else None}; the int8 cache's captures in the "
+        f"loop {int8_new} (its K=8 graph); compile.storms {storms} {'ok' if ok2 else 'FAIL'}")
+    if not ok2:
+        failures.append(f"[autopilot] recall: {recalled}, rungs {modes}, storms {storms}")
+
+    # 3. K both ways, the deadline following
+    ks = [(x["frm"], x["to"]) for x in acts if x["knob"] == "scan_k"]
+    k_chunks = [x["k"] for x in chunks]
+    want_dl = [AP_DEADLINE_S * AP_K[0]] + [AP_DEADLINE_S * k for k in k_chunks[1:]]
+    back = [x for x in chunks if x["k"] == AP_K[0] and any(
+        y["k"] == AP_K[1] for y in chunks[:chunks.index(x)])]
+    ok3 = (ks == [(AP_K[0], AP_K[1]), (AP_K[1], AP_K[0])] and deadlines == want_dl
+           and back and not any(x["captured"] for x in back)
+           and loop.scan_steps == AP_K[0])
+    log(f"[autopilot] K moves {ks}; chunk Ks {k_chunks}; watchdog deadlines at the pats "
+        f"{deadlines} (want {want_dl}); K={AP_K[0]} chunks after K={AP_K[1]}: "
+        f"{len(back)}, captures {sum(x['captured'] for x in back)} "
+        f"{'ok' if ok3 else 'FAIL'}")
+    if not ok3:
+        failures.append(f"[autopilot] K moves {ks}, deadlines {deadlines} vs {want_dl}")
+
+    # 4. the shrink that evicted gave its pools back
+    ev = [e for e in evictions if e["programs"]]
+    ok4 = bool(ev) and all(e["released_bytes"] >= 0.95 * e["pool_bytes"] for e in ev)
+    for e in evictions:
+        log(f"[autopilot] shrink at chunk {e['chunk']}: {e['programs']} program(s) "
+            f"evicted, pools {e['pool_bytes'] / 2**30:.3f} GiB, memory_reserved fell "
+            f"{e['released_bytes'] / 2**30:.3f} GiB after empty_cache (gate >= 95% of the "
+            f"pools when one was evicted)")
+    if not ok4:
+        failures.append(f"[autopilot] evictions {evictions}")
+
+    # 5. launches a step by rung, every eager call held
+    bad = [(r, n) for r, n in per_step
+           if any(n[k] != BN_LAYERS for k in MOVES)
+           or any(n[k] != (1 if r == "int8" else 0) for k in QUANT_KERNELS)]
+    by_rung = {}
+    for r, _ in per_step:
+        by_rung[r] = by_rung.get(r, 0) + 1
+    want_launch = {k: BN_LAYERS * len(per_step) for k in MOVES}
+    want_launch.update({k: by_rung.get("int8", 0) for k in QUANT_KERNELS})
+    worst = {k: round(v[1], 3) for k, v in held.items() if "captured" not in k}
+    eager_calls = {k: v[0] for k, v in held.items() if "captured" not in k}
+    captured_calls = {k: v[0] for k, v in held.items() if "captured" in k}
+    ok5 = (not bad and launches == want_launch
+           and all(v <= 1.0 for v in worst.values())
+           and sum(eager_calls.values()) + sum(captured_calls.values())
+           == sum(want_launch.values()))
+    log(f"[autopilot] steps through the kernels by rung {by_rung} (warm-ups, captures, the "
+        f"eager bodies; replays launch none): launches {json.dumps(launches)} (want "
+        f"{json.dumps(want_launch)}); steps off 53 BN / 1-or-0 int8: {len(bad)}; eager calls "
+        f"held {json.dumps(eager_calls)}, worst/tol {json.dumps(worst)} (int8 bitwise: 0); "
+        f"recorded in captures {json.dumps(captured_calls)} {'ok' if ok5 else 'FAIL'}")
+    if not ok5:
+        failures.append(f"[autopilot] launches {launches} vs {want_launch}, {len(bad)} steps "
+                        f"off, worst {worst}")
+
+    # 6. the live gauges
+    gauges = report["autopilot"]
+    want_g = {"autopilot.compress_rung": float(st_final["compress_rung"]),
+              "autopilot.scan_k": float(st_final["scan_k"]),
+              "autopilot.cache_max_bytes": float(st_final["cache_max_bytes"]),
+              "autopilot.actuations": st_final["actuations"],
+              "autopilot.clamped": st_final["clamped"]}
+    ok6 = (all(gauges.get(k) == v for k, v in want_g.items())
+           and st_final["compress"] == "int8" and st_final["scan_k"] == AP_K[0]
+           and "autopilot.actuations" in text)
+    log(f"[autopilot] /statusz autopilot section {json.dumps(gauges)}; state "
+        f"{st_final['compress']} K={st_final['scan_k']} budget "
+        f"{st_final['cache_max_bytes']} {'ok' if ok6 else 'FAIL'}")
+    if not ok6:
+        failures.append(f"[autopilot] gauges {gauges} vs {want_g}")
+
+    moved = max(float((p.detach().reshape(-1)[::AP_STRIDE].float() - spiked0[n]).abs().max())
+                for n, p in model.named_parameters())
+    log(f"[autopilot] the spiked weights moved at most {moved:.3g} over the phase (gate < 1e-3)")
+    if not moved < 1e-3:
+        failures.append(f"[autopilot] the spiked weights moved {moved}")
+
+    # captures and step times by rung and K
+    captures = [{"rung": x["rung"], "k": x["k"], "capture_s": x["capture_s"],
+                 "pool_bytes": x["pool_bytes"]} for x in chunks if x["captured"]]
+    for x in captures:
+        log(f"[autopilot] capture {x['rung']} K={x['k']}: {x['capture_s']:.2f}s, graph pool "
+            f"{x['pool_bytes'] / 2**30:.3f} GiB [{card}]")
+    times: dict = {}
+    for x in chunks:
+        if "events" in x and not x["captured"]:
+            times.setdefault(f"{x['rung']} K={x['k']}", []).append(
+                x["events"][0].elapsed_time(x["events"][1]) / x["k"])
+    step_ms = {key: statistics.median(v) for key, v in times.items()}
+    for key, v in step_ms.items():
+        log(f"[autopilot] {key}: {v:.3f} ms a step (CUDA events, median of "
+            f"{len(times[key])} replayed chunks) [{card}]")
+    secs = time.perf_counter() - t_phase
+    log(f"[autopilot] {len(chunks)} chunks ({summary['steps']} steps) in {loop_s:.1f}s; "
+        f"int8 K=4 pool before the loop {k4_pool / 2**30:.3f} GiB, budget bounds "
+        f"{bounds}; phase done in {secs:.1f}s, {len(failures)} failures [{card}]")
+    for c in dp.program_caches:
+        c.clear()
+    del dp, model, pilot, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, {
+        "chunks": len(chunks), "steps": summary["steps"], "gain": gain,
+        "clip_fraction_min": min(clip, default=None),
+        "decisions": [{k: x.get(k) for k in ("chunk", "knob", "action", "frm", "to", "signal")}
+                      for x in decisions],
+        "captures": captures, "step_ms": step_ms, "evictions": evictions,
+        "launches": launches, "bitwise_recall": bool(recalled and recalled[0]["bitwise"]),
+        "deadlines": sorted(set(deadlines)), "statusz": gauges, "seconds": secs,
+    }
 
 
 RES_CHUNKS, RES_K = 3, 4  # ResilientLoop's chunks of K steps
@@ -7982,6 +8558,9 @@ def main() -> int:
     zero_failures, zero = phase_zero(torch, card, compress["zero_chunks"])
     failures += zero_failures
     torch.cuda.empty_cache()
+    ap_failures, autopilot = phase_autopilot(torch, card)
+    failures += ap_failures
+    torch.cuda.empty_cache()
     res_failures, resilience = phase_resilience(torch, card)
     failures += res_failures
     torch.cuda.empty_cache()
@@ -8096,6 +8675,10 @@ def main() -> int:
             # of the whole payload at world 1
             "zero_chunk": {"chunk": RESNET50_GRADS, "launches": zero["int8"]["launches"][k],
                            **zc},
+            # [autopilot]: the main path's launches through the wrapper while
+            # the controller moved the int8 step between rungs and Ks (one a
+            # step on the int8 rung, recorded at captures and the eager body)
+            "autopilot": {"launches": autopilot["launches"][k]},
         })
     print(json.dumps({"groups": groups}), flush=True)
     print(json.dumps({"paths": {
@@ -8104,6 +8687,7 @@ def main() -> int:
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
+        "autopilot": autopilot,
         "resilience": resilience, "obs": obs, "incident": incident_out,
         "monitor": monitor_out, "serve": serve_out, "publish": publish_out,
         "seq": seq, "parallel": par}}),

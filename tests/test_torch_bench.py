@@ -9,6 +9,8 @@ the loop's window, the publisher's samples and one forced
 reading with no device contract, one planted ``mem_pressure`` bundle, a
 profiler capture through ``serve_capture``, the first step's compile
 event), and the
+``autopilot`` block (the controller's A/B under a planted int8 clip
+fault, held to JAX's validator and, in process, to JAX's block), the
 ``telemetry`` block checked against the registry schema
 (``obs.telemetry.validate_snapshot``), and ``serve`` null without
 ``--serve``; ``--trace`` writes a Chrome trace that validates. The serve
@@ -25,7 +27,16 @@ KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
         "device_kind", "host_load_1m", "recovery", "scan", "collectives",
-        "monitor", "numerics", "incident", "memory", "compile", "serve", "telemetry"}
+        "monitor", "numerics", "autopilot", "incident", "memory", "compile", "serve",
+        "telemetry"}
+AUTOPILOT_KEYS = {"steps", "fault_gain", "initial_mse", "static_final_mse",
+                  "autopilot_final_mse", "advantage_ratio", "escalate_within_chunks",
+                  "first_signal", "modes_visited", "final_mode", "actuations", "clamped",
+                  "suppressed", "bundles"}
+#: the block's fields that do not depend on the arithmetic of the wire: equal
+#: to JAX's at the same global batch
+AUTOPILOT_DISCRETE = ("steps", "fault_gain", "escalate_within_chunks", "first_signal",
+                      "modes_visited", "final_mode", "actuations", "clamped", "suppressed")
 RECOVERY_KEYS = {"ckpt_roundtrip_s", "ckpt_roundtrip_seed_s", "manifest_overhead_s",
                  "manifest_overhead_frac", "ckpt_async_enqueue_s", "ckpt_async_flush_s",
                  "async_manifest_verified", "resume_after_kill_s",
@@ -106,6 +117,77 @@ def test_bench_on_the_cpu_prints_its_line():
     check_obs_blocks(line, steps=2)
     check_telemetry_block(line["telemetry"], steps=2)
     assert line["serve"] is None  # without --serve
+    check_autopilot_block(line["autopilot"])
+
+
+def check_autopilot_block(block):
+    """``tests/test_bench_tooling.py``'s ``_validate_autopilot_block``: the
+    planted-fault A/B escalates off int8 within one evaluation window (2
+    chunks at the injected 30 s clock) on ``numerics_clip``, the controlled
+    arm converges below its start while the static int8 arm ends at least
+    2x worse, and every actuation dumped one valid ``autopilot`` bundle
+    quoting its signal."""
+    assert block is not None and set(block) == AUTOPILOT_KEYS
+    assert block["escalate_within_chunks"] is not None
+    assert 1 <= block["escalate_within_chunks"] <= 2
+    assert block["first_signal"] == "numerics_clip"
+    assert block["modes_visited"][0] == "int8"
+    assert block["final_mode"] in ("bf16", "none")
+    assert block["actuations"] >= 1
+    assert block["autopilot_final_mse"] < block["initial_mse"]
+    assert block["advantage_ratio"] >= 2.0
+    bundles = block["bundles"]
+    assert bundles is not None and bundles["valid"] is True
+    assert bundles["count"] == block["actuations"]
+    assert all(s == "numerics_clip" for s in bundles["signals"])
+
+
+def test_measure_autopilot_block_against_jax(tmp_path):
+    """``measure_autopilot`` in process at the JAX bench's global batch of
+    16 (2 a chip on the tests' 8-device mesh), each package with a recorder
+    installed: the port's block passes the validator, and its discrete
+    fields and bundle signals equal JAX's ``bench.measure_autopilot``. The
+    MSEs are held to the validator's inequalities only: JAX's int8 wire
+    quantizes each of its 8 replicas' shares, the port's one world's."""
+    import importlib.util
+
+    import jax
+    import torch
+
+    from tpu_syncbn.obs import flightrec as jfr, telemetry as jtel
+    from tpu_syncbn_torch import bench
+    from tpu_syncbn_torch.obs import flightrec, telemetry
+
+    spec = importlib.util.spec_from_file_location("bench_jax_reference",
+                                                  os.path.join(ROOT, "bench.py"))
+    jbench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jbench)
+    n_chips = len(jax.devices())
+    assert n_chips == 8
+    blocks = {}
+    for name, fr, tel, measure in (
+            ("port", flightrec, telemetry,
+             lambda: bench.measure_autopilot(n_chips=n_chips, device=torch.device("cpu"))),
+            ("jax", jfr, jtel, lambda: jbench.measure_autopilot(n_chips=n_chips))):
+        tel.set_enabled(True)
+        rec = fr.install(fr.FlightRecorder(incident_dir=str(tmp_path / name)))
+        try:
+            blocks[name] = measure()
+        finally:
+            fr.uninstall()
+            rec.close()
+            tel.REGISTRY.reset()
+            tel.set_enabled(None)
+        # the block restored the recorder's directory and cooldown
+        assert rec.incident_dir == str(tmp_path / name) and rec.cooldown_s > 0
+    port, ref = blocks["port"], blocks["jax"]
+    check_autopilot_block(port)
+    for key in AUTOPILOT_DISCRETE:
+        assert port[key] == ref[key], key
+    assert port["bundles"]["signals"] == ref["bundles"]["signals"]
+    assert port["bundles"]["count"] == ref["bundles"]["count"]
+    # one starting point (the JAX FaultyNet's weights), before any wire
+    assert abs(port["initial_mse"] - ref["initial_mse"]) <= 1e-5 * ref["initial_mse"]
 
 
 def check_obs_blocks(line, steps):

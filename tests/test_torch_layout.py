@@ -221,7 +221,7 @@ def test_the_trainer_resolves_its_layout_as_jax_does():
         _dp(layout=fsdp, mesh=object())
     with pytest.raises(ValueError, match="process_group= is the 1-D"):
         _dp(layout=fsdp, process_group=C.ALONE)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 10d"):
         _dp(layout=SpecLayout.tensor_parallel(model=1, rules=(("*", P()),), device="cpu"))
 
 

@@ -766,7 +766,8 @@ class TestTrainerIntegration:
 
     def test_loop_arguments(self, tmp_path):
         """``publish_every`` defaults to ``ckpt_every`` and must be >= 1;
-        ``autopilot=`` (ROADMAP A.14) still raises."""
+        ``autopilot=`` beside a publication directory is kept on the loop
+        (``test_torch_autopilot.py`` drives it)."""
         from tpu_syncbn_torch.runtime.resilience import ResilientLoop
 
         dp = _shared_dp()
@@ -774,8 +775,9 @@ class TestTrainerIntegration:
         assert loop.publish_every == 5 and loop.publish_keep == 3
         with pytest.raises(ValueError, match="publish_every"):
             ResilientLoop(dp, str(tmp_path), publish_dir=str(tmp_path), publish_every=0)
-        with pytest.raises(NotImplementedError, match="A.14"):
-            ResilientLoop(dp, str(tmp_path), autopilot=object())
+        pilot = object()
+        loop = ResilientLoop(dp, str(tmp_path), publish_dir=str(tmp_path), autopilot=pilot)
+        assert loop.autopilot is pilot and loop.publish_dir == str(tmp_path)
 
 
 # ------------------------------------------------------ parity with JAX

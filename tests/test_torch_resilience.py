@@ -7,7 +7,7 @@ the watchdog's diagnostics, ``stall_guard``, the event counters, and
 SIGTERM in the middle of a chunk checkpointing at its boundary, the async
 writer stopped by ``close()``, a flush error that must not mask the
 loop's own failure, ``restore_last_good`` at a chunk boundary, and the
-constructor arguments whose hooks are not ported raising. Where a case
+constructor arguments of the publication and autopilot hooks. Where a case
 counts a trigger (a stall, a divergence restore), it also checks that an
 installed flight recorder dumps exactly one bundle for it
 (``obs.flightrec``).
@@ -283,13 +283,14 @@ class TestResilientLoopValidation:
                                          (dict(publish_every=5), "A.12"),
                                          (dict(autopilot=object()), "A.14")])
     def test_unported_hooks_raise_naming_their_item(self, tmp_path, kw, item):
-        """The autopilot (A.14) is not ported: it raises naming its item.
-        The publication arguments (A.12, ported since) construct the loop
-        with their settings (``publish_every`` defaults to ``ckpt_every``);
-        ``test_torch_publish.py`` drives them."""
+        """The hooks of later items, all ported since, construct the loop
+        with their settings: the publication arguments (A.12;
+        ``publish_every`` defaults to ``ckpt_every``; ``test_torch_publish.py``
+        drives them) and the autopilot (A.14a; ``test_torch_autopilot.py``
+        drives it)."""
         if item == "A.14":
-            with pytest.raises(NotImplementedError, match=item):
-                resilience.ResilientLoop(object(), str(tmp_path), **kw)
+            loop = resilience.ResilientLoop(object(), str(tmp_path), **kw)
+            assert loop.autopilot is kw["autopilot"]
             return
         loop = resilience.ResilientLoop(object(), str(tmp_path), ckpt_every=7, **kw)
         assert loop.publish_dir == kw.get("publish_dir")

@@ -9,7 +9,7 @@ JSON line:
      "flops_source", "peak_flops", "peak_source", "device_kind",
      "host_load_1m", "recovery": {...}, "scan": {...},
      "collectives": {...}, "monitor": {...}, "numerics": {...},
-     "incident": {...}, "memory": {...}, "compile": {...},
+     "autopilot": {...}, "incident": {...}, "memory": {...}, "compile": {...},
      "serve": {...} or null, "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
@@ -75,7 +75,9 @@ probes, the windowed step rate and p99, and one SLO evaluation.
 rode the loop: the final monitors, its samples, its cost a publish and one
 forced ``numerics_drift`` bundle. Both are ``bench.py``'s blocks of those
 names, key for key, and ``numerics`` runs before the ``incident`` block's
-forced dump, as there.
+forced dump, as there. ``autopilot`` (:func:`measure_autopilot`) is the
+closed-loop controller's A/B under a planted int8 clip fault, with its
+bundles; it runs between those two blocks, as ``bench.py``'s does.
 
 ``serve`` (:func:`measure_serve`, with ``--serve``; null without it) is
 ``bench.py``'s serve block on the bench's trained state: an
@@ -289,7 +291,7 @@ def measure_collectives(device: torch.device, *, payload_mb: float = 1.0,
 
     ``golden_ratio`` is null for both lossy modes: the JAX bench reads it
     from its audit layer's pinned program contracts, which are not ported
-    (ROADMAP A.14)."""
+    (ROADMAP A.14b)."""
     from tpu_syncbn_torch.parallel import collectives as coll
     from tpu_syncbn_torch.parallel.trainer import _default_group
 
@@ -573,6 +575,189 @@ def measure_numerics(publisher, monitors, *, steps: int, wall_s: float) -> dict:
     }
 
 
+#: ``measure_autopilot``'s starting weight, (out, in): the JAX bench's
+#: ``FaultyNet`` initialisation (flax's ``nnx.Linear(8, 4)`` under
+#: ``nnx.Rngs(0)``, zero bias) as a table, so both blocks start from one
+#: point. The planted fault's first steps are sensitive to it: at a global
+#: batch of 2 the second step's clip fraction, hence the escalation's
+#: chunk, moves with the weights.
+_FAULTY_NET_WEIGHT = (
+    (0.37836495, -0.32997137, 0.59664911, -0.4314579, 0.22701877, -0.24174356,
+     0.34358928, -0.76552171),
+    (-0.34285027, 0.22467545, -0.65830928, 0.09172684, -0.18077911, -0.32969859,
+     -0.18817075, 0.1689815),
+    (-0.28441685, 0.27537689, -0.47841427, 0.6201849, 0.34625265, 0.28822023,
+     0.33631027, 0.63963628),
+    (-0.43788025, -0.38614255, 0.05124438, 0.19298476, 0.13830097, 0.39950079,
+     0.59191257, -0.43849984),
+)
+
+
+def measure_autopilot(*, n_chips: int, device: torch.device) -> dict:
+    """The ``autopilot`` block (``bench.py``'s ``measure_autopilot``, key
+    for key): the closed-loop controller A/B under a planted numerics
+    fault, on a SCRATCH registry so its ``numerics.*`` series never reach
+    the run's own numerics block or SLO evaluations.
+
+    Two arms train the same tiny regression (one init, one batch, one
+    learning rate) on the bench's device, each a ``DataParallel`` at
+    ``compress="int8"`` without error feedback (on the card every step
+    launches the three int8 kernels). The model carries an inert ``fault``
+    parameter whose L1 penalty puts a gradient of ``FAULT_GAIN`` (three
+    orders of magnitude above the real gradients) into the same 256-element
+    chunk as every real gradient, so the chunk's range pins every real
+    gradient to the clip edge (``clip_fraction`` ≈ 1):
+
+    * **static int8**: the real signal never reaches the wire and the
+      dequantized bias degrades the loss;
+    * **autopilot**: the same trainer plus an
+      :class:`~tpu_syncbn_torch.runtime.autopilot.Autopilot` on the
+      ``numerics_rules()`` SLOs — ``numerics_clip`` burns, the controller
+      escalates off int8 within one evaluation window
+      (``escalate_within_chunks``) and the arm converges
+      (``advantage_ratio``: the static arm's final eval MSE over this
+      one's).
+
+    The controller's clock is injected (30 s a chunk) and the installed
+    flight recorder, if any, is pointed at a temporary directory with
+    cooldown 0 for the block: every actuation must dump one schema-valid
+    ``autopilot`` bundle naming its signal (``bundles``; None without a
+    recorder). ``n_chips`` sets the global batch (2 a chip, as JAX's);
+    each rank trains on its contiguous share."""
+    import numpy as np
+
+    from tpu_syncbn_torch import parallel, runtime
+    from tpu_syncbn_torch.obs import (
+        flightrec, incident as incident_mod, numerics as obs_numerics, telemetry, timeseries,
+    )
+    from tpu_syncbn_torch.runtime import autopilot as autopilot_mod
+
+    FAULT_GAIN, FEATURES, OUT, STEPS, LR = 1000.0, 8, 4, 36, 0.2
+    B = 2 * n_chips
+    rng = np.random.RandomState(0)
+    xs = rng.randn(B, FEATURES).astype(np.float32)
+    w_true = (0.7 * rng.randn(FEATURES, OUT)).astype(np.float32)
+    ys = xs @ w_true
+    w0 = np.asarray(_FAULTY_NET_WEIGHT, np.float32)
+    world, rank = runtime.process_count(), runtime.process_index()
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+
+    class FaultyNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = torch.nn.Linear(FEATURES, OUT, device=device)
+            with torch.no_grad():
+                self.fc.weight.copy_(torch.from_numpy(w0))
+                self.fc.bias.zero_()
+            # inert for predictions; only the loss's L1 term sees it
+            self.fault = torch.nn.Parameter(torch.ones(1, device=device))
+
+        def forward(self, x):
+            return self.fc(x)
+
+    def loss_fn(m, batch):
+        bx, by, flag = batch
+        mse = ((m(bx) - by) ** 2).mean()
+        return mse + flag.mean() * m.fault.abs().sum()
+
+    def batch_with(flag):
+        return tuple(torch.from_numpy(a[rows]).to(device)
+                     for a in (xs, ys, np.full((B,), flag, np.float32)))
+
+    train_batch = batch_with(FAULT_GAIN)
+    eval_batch = batch_with(0.0)  # fault term off: the pure MSE
+
+    def make_arm():
+        model = FaultyNet()
+        return parallel.DataParallel(
+            model, torch.optim.SGD(model.parameters(), lr=LR), loss_fn, device=device,
+            compress="int8", error_feedback=False, monitors=True)
+
+    def eval_mse(dp):
+        return round(float(dp.eval_step(eval_batch).loss), 6)
+
+    live_registry = telemetry.REGISTRY
+    rec = flightrec.get()
+    ap_dir = prev_dir = prev_cooldown = None
+    if rec is not None:
+        ap_dir = tempfile.mkdtemp(prefix="bench_autopilot_")
+        prev_dir, prev_cooldown = rec.incident_dir, rec.cooldown_s
+        rec.incident_dir, rec.cooldown_s = ap_dir, 0.0
+    try:
+        telemetry.REGISTRY = scratch = telemetry.Registry()
+
+        # static arm: int8 all the way down
+        dp_static = make_arm()
+        initial_mse = eval_mse(dp_static)
+        for _ in range(STEPS):
+            dp_static.train_step(train_batch)
+        static_final = eval_mse(dp_static)
+
+        # autopilot arm: the same trainer plus the controller on the
+        # numerics SLOs, escalation only
+        dp_auto = make_arm()
+        agg = timeseries.WindowedAggregator(scratch)
+        clock = {"t": 0.0}
+        pilot = autopilot_mod.Autopilot(
+            dp_auto, aggregator=agg, rules=obs_numerics.numerics_rules(),
+            modes=("int8", "bf16", "none"), window_s=60.0, healthy_for_s=1e9,
+            now=lambda: clock["t"])
+        publisher = obs_numerics.NumericsPublisher(thresholds={})
+        decisions: list[dict] = []
+        for i in range(STEPS):
+            out = dp_auto.train_step(train_batch)
+            publisher.publish(i, out.monitors)
+            publisher.flush()
+            clock["t"] = 30.0 * (i + 1)
+            agg.tick(now=clock["t"])
+            decisions += pilot.on_chunk(step=i)
+        auto_final = eval_mse(dp_auto)
+    finally:
+        telemetry.REGISTRY = live_registry
+        bundles = None
+        if rec is not None:
+            rec.incident_dir, rec.cooldown_s = prev_dir, prev_cooldown
+            # with cooldown 0 the tracker's own slo_alert bundles land here
+            # too; only the autopilot ones are under test
+            signals, n_autopilot, valid, other = [], 0, True, 0
+            for name in sorted(os.listdir(ap_dir)):
+                if not name.endswith(".json"):
+                    continue
+                b = incident_mod.load_bundle(os.path.join(ap_dir, name))  # validates
+                if b["trigger"]["kind"] != "autopilot":
+                    other += 1
+                    continue
+                n_autopilot += 1
+                signals.append(b["trigger"]["detail"].get("signal"))
+                valid = valid and (bool(b["trigger"]["detail"].get("signal"))
+                                   and len(b["rings"].get("autopilot", ())) > 0)
+            bundles = {"count": n_autopilot, "valid": valid and n_autopilot > 0,
+                       "signals": signals, "other_kinds": other}
+            shutil.rmtree(ap_dir, ignore_errors=True)
+    escalations = [d for d in decisions if d["action"] == "escalate"]
+    first_escalate = escalations[0] if escalations else None
+    st = pilot.state()
+    return {
+        "steps": STEPS,
+        "fault_gain": FAULT_GAIN,
+        "initial_mse": initial_mse,
+        "static_final_mse": static_final,
+        "autopilot_final_mse": auto_final,
+        # the A/B verdict: how much worse the uncontrolled arm ends up
+        "advantage_ratio": round(static_final / max(auto_final, 1e-9), 3),
+        # the 1-based chunk of the first escalation: "within one evaluation
+        # window" is <= 2 (window_s over 30 s a chunk)
+        "escalate_within_chunks": first_escalate["chunk"] if first_escalate else None,
+        "first_signal": first_escalate["signal"] if first_escalate else None,
+        "modes_visited": ["int8"] + [d["to"] for d in escalations],
+        "final_mode": st["compress"],
+        "actuations": st["actuations"],
+        "clamped": st["clamped"],
+        "suppressed": st["suppressed"],
+        "bundles": bundles,
+    }
+
+
 def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
                    wall_s: float) -> dict:
     """The ``memory`` block (``bench.py``'s ``measure_memory``): the sampler
@@ -580,7 +765,7 @@ def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
     host's evidence on the CPU). The contract is the warm step's measured
     ``max_memory_allocated`` (``contract_source: "warm_step_peak"``) — the
     JAX bench uses its auditor's pinned peak, which the port does not have
-    (ROADMAP A.14) — so ``used_frac`` says how far live memory after the
+    (ROADMAP A.14b) — so ``used_frac`` says how far live memory after the
     loop sits from one step's peak. On the CPU there is no device reading:
     ``warm_peak_bytes``, the contract and both fractions are ``None``.
 
@@ -1405,6 +1590,17 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
         # cooldown
         numerics_info = measure_numerics(publisher, last[0].monitors, steps=steps,
                                          wall_s=dt)
+        # between the numerics and incident blocks, as in bench.py: it
+        # zeroes the recorder's cooldown for its own bundles (restored
+        # after), so it must not precede the drift trigger. An annotation:
+        # a failure nulls only the block
+        try:
+            with stepstats.timed_span("autopilot_bench", "bench.autopilot_s"):
+                autopilot_info = measure_autopilot(n_chips=runtime.process_count(),
+                                                   device=device)
+        except Exception as e:
+            log(f"autopilot measurement failed: {type(e).__name__}: {e}")
+            autopilot_info = None
         incident_info = measure_incident(recorder, last[0], steps=steps, wall_s=dt,
                                          flops_per_step=flops, tallies=step_tallies)
         memory_info = measure_memory(mem_sampler, warm_peak_bytes=warm_peak,
@@ -1451,6 +1647,7 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
         "collectives": collectives,
         "monitor": monitor_info,
         "numerics": numerics_info,
+        "autopilot": autopilot_info,
         "incident": incident_info,
         "memory": memory_info,
         "compile": compile_info,

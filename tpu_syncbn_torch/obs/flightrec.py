@@ -24,8 +24,9 @@ contract, the seconds *before* the event are gone. The
   (:class:`~tpu_syncbn_torch.obs.memwatch.MemorySampler`), **compile
   events** (:func:`tpu_syncbn_torch.obs.profiling.note_compile`), and the
   **serve** ring (the batcher's sheds, rejections, deadline misses and
-  circuit-breaker transitions) and the **autopilot** ring, which stays
-  empty until the autopilot (ROADMAP A.14) is ported.
+  circuit-breaker transitions) and the **autopilot** ring (every decision
+  of :class:`~tpu_syncbn_torch.runtime.autopilot.Autopilot`: actuations,
+  clamps and suppressions).
 
 On a trigger (:meth:`FlightRecorder.trigger` — fired by the divergence
 restore, the watchdog and the data stall, the numerics publisher, the
@@ -418,8 +419,8 @@ class FlightRecorder:
             self._compile.append(entry)
 
     def record_autopilot(self, knob: str, **detail) -> None:
-        """Append one autopilot decision to the autopilot ring (the
-        autopilot itself is ROADMAP A.14)."""
+        """Append one autopilot decision to the autopilot ring (fed by
+        ``runtime.autopilot.Autopilot`` at every decision)."""
         entry = {"knob": str(knob), "t": self._now(), **detail}
         with self._lock:
             self._autopilot.append(entry)

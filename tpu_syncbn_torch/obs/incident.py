@@ -32,7 +32,7 @@ cleanly — ``python -m tpu_syncbn_torch.obs.incident diff a.json b.json``
 names the component that moved.
 
 Where the port differs from the JAX module: :func:`contract_fingerprint`
-has no goldens to hash (``None``; ROADMAP A.14), ``config.env`` records
+has no goldens to hash (``None``; ROADMAP A.14b), ``config.env`` records
 ``CUDA_VISIBLE_DEVICES`` where JAX records ``JAX_PLATFORMS``, and the
 attribution rates are the H100's, not the JAX module's TPU-class ones.
 ``state.alerts`` is :func:`tpu_syncbn_torch.obs.slo.tracker_states`, the
@@ -80,8 +80,10 @@ MERGED_KIND = "tpu_syncbn.incident_merged"
 #: ``numerics_drift``, ``mem_pressure``, ``recompile_storm``,
 #: ``manual``, from the serving batcher's circuit breaker
 #: ``circuit_open``, and from weight publication (``serve.publish``'s
-#: swaps, rejections and rollbacks) ``weight_swap``; ``autopilot`` and
-#: ``plan_change`` wait for the autopilot (ROADMAP A.14).
+#: swaps, rejections and rollbacks) ``weight_swap``, and from the
+#: autopilot (``runtime.autopilot``) ``autopilot`` for every actuation and
+#: ``plan_change`` for its layout knob's (the planner's ranked plans that
+#: would feed that knob are ROADMAP A.14c).
 TRIGGER_KINDS = ("slo_alert", "divergence_restore", "watchdog_stall",
                  "circuit_open", "numerics_drift", "mem_pressure",
                  "recompile_storm", "weight_swap", "autopilot",
@@ -121,7 +123,7 @@ def contract_fingerprint(golden_dir: str | None = None) -> dict | None:
     The JAX package hashes its audit goldens (``tests/contracts/``); those
     pin JAX programs, not the port's, so with no ``golden_dir`` the port
     records ``None`` until its own contract extractor exists (ROADMAP
-    A.14). ``None`` also when the directory holds no goldens — a bundle
+    A.14b). ``None`` also when the directory holds no goldens — a bundle
     must never fail over its annotations."""
     import hashlib
 

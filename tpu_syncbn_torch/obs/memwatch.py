@@ -274,7 +274,7 @@ class MemorySampler:
         """Pin (or clear, with ``None``) the per-device peak the
         reconciler divides live usage by — a measured steady peak (the
         bench feeds its warm step's ``max_memory_allocated``; the port has
-        no audited peak until its contract extractor, ROADMAP A.14) or a
+        no audited peak until its contract extractor, ROADMAP A.14b) or a
         deliberate operator budget. ``source`` is recorded in every
         reading so a bundle says whose number the headroom was
         computed against."""

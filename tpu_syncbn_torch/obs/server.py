@@ -338,7 +338,7 @@ def statusz_report(
         compiles["compile.time_s.sum"] = round(
             compile_hist.get("sum", 0.0), 4
         )
-    # autopilot (the autopilot, ROADMAP A.14): per-knob state gauges
+    # autopilot (runtime.autopilot.Autopilot): per-knob state gauges
     # and the actuation/clamp/suppression tallies, read from the
     # registry (no runtime import — the controller publishes, /statusz
     # renders), so "is something turning my knobs, and where are they"

@@ -557,8 +557,10 @@ class DataParallel:
     layers on the default group are rewired to the composed batch group,
     a group-scoped one raises), the update sharded over ``fsdp``.
     ``process_group=`` is the 1-D surface and excludes all three; a layout
-    with tensor-parallel ``rules`` raises ``NotImplementedError`` (ROADMAP
-    A.13). Under a sharding layout:
+    with tensor-parallel ``rules`` raises ``NotImplementedError``: JAX's
+    compiler partitions any model around such rules, and the port waits on
+    a design (ROADMAP 10d: storage gathered by spec, or a rewrite into
+    ``parallel/tensor.py``'s layers). Under a sharding layout:
 
     * one flat shard a dtype (:class:`~tpu_syncbn_torch.parallel.zero.FlatLayout`
       over the trainable parameters in ``named_parameters()`` order, padded
@@ -669,8 +671,9 @@ class DataParallel:
         if self._layout is not None:
             if self._layout.rules:
                 raise NotImplementedError(
-                    "DataParallel with tensor-parallel rules: parallel/tensor.py "
-                    "is not ported yet (ROADMAP A.13)")
+                    "DataParallel with tensor-parallel rules waits on a design "
+                    "(ROADMAP 10d): storage gathered by spec, or a module rewrite "
+                    "into parallel/tensor.py's layers")
             self._layout.check(compress=compress)
             if isinstance(self._layout.stat_axes, tuple):
                 _rewire_syncbn_groups(model, self._layout.batch_group())
@@ -1133,7 +1136,16 @@ class DataParallel:
             stacked=stacked, device=self.device,
             state=lambda: self._state_tensors(chunk))
         prog.chunk = chunk
-        return prog.prepare(batch)
+        prog.prepare(batch)
+        if prog.graph is not None:
+            # the gradients the capture left (the module's parameters', and
+            # the shards' under a sharding layout) are the graph's own
+            # buffers: every replay of this program rebinds .grad to them
+            owners = list(self.model.parameters())
+            if self.zero:
+                owners += list(self._shards.values())
+            prog.grads = [(p, p.grad) for p in owners]
+        return prog
 
     def _run_scanned(self, batch, n_steps: int, stacked: bool) -> StepOutput:
         batch = _to_device(batch, self.device)
@@ -1148,6 +1160,11 @@ class DataParallel:
             chunk.lr_scale.fill_(self.guard_state["lr_scale"])
             chunk.count.fill_(self.guard_state["nonfinite_count"])
         out = prog(batch)
+        for p, g in getattr(prog, "grads", ()):
+            # .grad follows the program that ran last: another program's
+            # buffers hold its own last step, and would keep its memory
+            # pool alive after the cache evicted it
+            p.grad = g
         taken = n_steps
         if guarded:  # the chunk's one host read
             taken, scale, count = torch.stack(
@@ -1182,7 +1199,8 @@ class DataParallel:
         ``lr_scale`` too when the guard is armed). The chunk is only read.
 
         After a chunk the parameters' ``.grad`` hold the last step's
-        gradients in the graph's memory, which the next chunk overwrites."""
+        gradients in the graph's memory (the program that ran, whichever of
+        the cached ones it was), which the next chunk overwrites."""
         return self._run_scanned(batches, scan_driver.scan_length(batches), True)
 
     @property

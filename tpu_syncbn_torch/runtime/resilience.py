@@ -36,9 +36,10 @@ collective bytes (``collectives.DispatchWireTally``).
 
 With ``publish_dir`` the loop also writes manifest-verified serving
 publications (``utils.checkpoint.publish_version``) at its own cadence,
-which a serving process hot-swaps in (``serve.publish``). Not ported yet:
-the autopilot (ROADMAP A.14); ``autopilot=`` raises
-``NotImplementedError``.
+which a serving process hot-swaps in (``serve.publish``). With
+``autopilot=`` (``runtime.autopilot.Autopilot``) it runs the controller's
+policy step at every chunk boundary, follows its live K and suppresses it
+while a divergence rollback is in flight.
 """
 
 from __future__ import annotations
@@ -494,11 +495,17 @@ class ResilientLoop:
         Publications follow the checkpoint transport: through the
         ``AsyncCheckpointer`` when ``async_checkpoint=True``.
 
-        ``autopilot`` (ROADMAP A.14) is not ported and raises."""
-        if autopilot is not None:
-            raise NotImplementedError(
-                "ResilientLoop(autopilot=...): the autopilot is not ported "
-                "yet (ROADMAP A.14)")
+        ``autopilot`` attaches a
+        :class:`~tpu_syncbn_torch.runtime.autopilot.Autopilot`: the loop
+        calls its :meth:`~tpu_syncbn_torch.runtime.autopilot.Autopilot.on_chunk`
+        at every chunk boundary (with ``recovering=True`` right after a
+        ``restore_last_good``, so the rollback suppresses every knob),
+        mirrors its live ``scan_k`` into ``self.scan_steps`` in chunked
+        mode, and recomputes the watchdog deadline from the live K at every
+        chunk. Feed the loop through
+        :func:`~tpu_syncbn_torch.runtime.autopilot.chunked_batches` so the
+        data side follows the K actuator; a chunk of one step still runs
+        through ``train_steps_batches``."""
         if ckpt_every < 1:
             raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
         if scan_steps < 1:
@@ -512,6 +519,7 @@ class ResilientLoop:
         self.max_restores = max_restores
         self.step_deadline_s = step_deadline_s
         self.scan_steps = scan_steps
+        self.autopilot = autopilot
         self.publish_dir = publish_dir
         self.publish_every = int(publish_every) if publish_every is not None else ckpt_every
         self.publish_keep = publish_keep
@@ -763,6 +771,12 @@ class ResilientLoop:
                                         f"{self.max_restores} restore_last_good "
                                         "recoveries — refusing to thrash")
                                 self._restore_last_good()
+                                if self.autopilot is not None:
+                                    # the guard owns the process during a
+                                    # rollback: the policy step is
+                                    # suppressed, and recorded as such
+                                    self.autopilot.on_chunk(step=self.step, k=k,
+                                                            recovering=True)
                                 if guard.preempted:
                                     # the restored state IS the last durable
                                     # checkpoint: exit now
@@ -773,6 +787,18 @@ class ResilientLoop:
                                         "exiting cleanly", self.step)
                                     break
                                 continue
+                    if self.autopilot is not None:
+                        # the chunk-boundary policy step, the only place
+                        # knobs turn; the loop mirrors the live K (the data
+                        # side follows through chunked_batches)
+                        self.autopilot.on_chunk(step=self.step, k=k,
+                                                recovering=self.recovering)
+                        if scanned:
+                            self.scan_steps = max(1, int(self.autopilot.scan_k))
+                    if watchdog is not None and self.step_deadline_s is not None:
+                        # recomputed a chunk from the live K: a K actuation
+                        # must not leave a stale stall threshold
+                        watchdog.deadline_s = self.step_deadline_s * max(1, self.scan_steps)
                     if guard.preempted:
                         self.save()
                         preempted = True
