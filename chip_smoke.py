@@ -1471,6 +1471,11 @@ def _groups_child(rank, d, ref_path):
             out["layer"][f"{name} {str(dtype).split('.')[-1]}"] = \
                 _group_layer_case(torch, rank, spec, dtype, 1)
     out["faults"] = _group_faults(torch, rank)
+    deadline = time.monotonic() + GROUP_JOIN_S  # the parent writes it meanwhile
+    while not os.path.exists(ref_path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no world-1 reference at {ref_path}")
+        time.sleep(0.2)
     ref = torch.load(ref_path, map_location="cpu")
     out["trainer"] = _group_trainer_check(torch, rank, ref)
     del ref
@@ -1598,7 +1603,9 @@ def _world1_reference(torch, path):
     torch.cuda.empty_cache()
     params = {k: state[k] for k in after}
     floor = _update_rel_err(params, after_rev, after)
-    torch.save({"state": state, "x": x, "y": y, "loss": loss, "after": after}, path)
+    # the children wait for the file: it appears whole
+    torch.save({"state": state, "x": x, "y": y, "loss": loss, "after": after}, path + ".tmp")
+    os.replace(path + ".tmp", path)
     return loss, floor
 
 
@@ -1663,15 +1670,23 @@ def phase_groups(torch, card):
     failures = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_groups_") as d:
         ref_path = os.path.join(d, "world1.pt")
-        t0 = time.perf_counter()
-        ref_loss, floor = _world1_reference(torch, ref_path)
-        log(f"[groups] world-1 reference steps in {time.perf_counter() - t0:.1f}s")
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_groups_child, args=(r, d, ref_path))
                  for r in range(GROUP_WORLD)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
+        # the reference is read only at the children's trainer check: it is
+        # computed while they start and run their layer cases
+        t1 = time.perf_counter()
+        try:
+            ref_loss, floor = _world1_reference(torch, ref_path)
+        except BaseException:
+            for p in procs:
+                p.kill()
+            raise
+        log(f"[groups] world-1 reference steps in {time.perf_counter() - t1:.1f}s, beside "
+            "the four processes' start")
         deadline = time.monotonic() + GROUP_JOIN_S
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -4610,6 +4625,259 @@ def phase_autopilot(torch, card):
 RES_CHUNKS, RES_K = 3, 4  # ResilientLoop's chunks of K steps
 
 
+# -- [audit]: the program contracts of the main path on the card -------------
+
+AUDIT_K = 4  # the stacked chunk held against the one-step body
+AUDIT_BUCKET = 128  # the serving bucket recorded
+AUDIT_STATE = ("params", "rest", "opt_state")
+
+
+def _audit_state_counts(torch, dp) -> dict:
+    """The leaves each state group must write in place: the module's
+    parameters and buffers, the optimizer's state tensors (and the
+    error-feedback residual)."""
+    opt = sum(1 for st in dp.optimizer.state.values()
+              for v in st.values() if isinstance(v, torch.Tensor))
+    return {"params": len(list(dp.model.parameters())),
+            "rest": sum(1 for b in dp.model.buffers() if b is not None),
+            "opt_state": opt + len(dp._residuals())}
+
+
+def _audit_capture(torch, dp, batch, k: int, record: bool):
+    """A ``k``-step program of ``dp`` captured from the trainer's current
+    state by the trainer's own ``_build_program``, its learning rates
+    filled as ``train_steps`` fills them: ``(program, recorder or None,
+    capture seconds)``. With ``record`` the audit's recorder (sync debug
+    mode "error" armed) is entered around the captured applications
+    alone."""
+    from tpu_syncbn_torch.audit import contracts
+    from tpu_syncbn_torch.parallel.trainer import _schedule_lrs
+
+    box = []
+
+    def recorder(state):
+        box.append(contracts.Recorder(state, sync_debug=True))
+        return box[-1]
+
+    t0 = time.perf_counter()
+    prog = dp._build_program(k, True, batch, recorder=recorder if record else None)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    prog.chunk.opt.fill(_schedule_lrs(dp.optimizer, dp.lr_scheduler, k))
+    return prog, (box[0] if box else None), capture_s
+
+
+def _audit_wire(torch, T, Q, wire: str, card, failures) -> dict:
+    """Gates 1-5 on the bf16 ResNet-50 slice at ``compress=wire``: the
+    one-step body and a stacked K-step chunk recorded while they are
+    captured, their contracts per step, the state written in place, the
+    K = 4 chunk replayed bitwise against the same chunk captured without
+    the recorder from the same state, and the launches (the eager warm-up
+    applications held against the plain versions)."""
+    from tpu_syncbn_torch.audit.contracts import compare_contracts
+    from tpu_syncbn_torch.parallel import scan_driver
+
+    tag = f"audit/{wire}"
+    _, dp = _resnet_trainer(torch, compress=wire, monitors=True)
+    steps = [_trainer_batch(torch, 700 + i) for i in range(AUDIT_K)]
+    stacked = scan_driver.stack_batches(steps)
+    one = scan_driver.stack_batches(steps[:1])
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    seen: dict = {}
+    T.reset_launch_counts()
+    Q.reset_launch_counts()
+    with checking_every_call(torch, T, seen), checking_every_quant_call(torch, Q, seen):
+        prog1, rec1, cap1_s = _audit_capture(torch, dp, one, 1, True)
+    launches1 = {**T.launch_counts(), **Q.launch_counts()}
+    del prog1
+    dp._zero_grad()
+    start = dp.state_dict()
+    prog_r, rec4, cap_rec_s = _audit_capture(torch, dp, stacked, AUDIT_K, True)
+    out_r = prog_r(stacked)
+    state_r = dp.state_dict()
+    del prog_r
+    dp._zero_grad()
+    torch.cuda.empty_cache()
+    _restore_in_place(torch, dp, start)
+    prog_p, _, cap_plain_s = _audit_capture(torch, dp, stacked, AUDIT_K, False)
+    out_p = prog_p(stacked)
+    state_p = dp.state_dict()
+    del prog_p
+    dp._zero_grad()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = determ
+
+    name = "resnet50_bf16." + wire
+    t0 = time.perf_counter()
+    c1 = rec1.contract(name=name, world=dp.world, declared_donated=AUDIT_STATE)
+    extract_s = time.perf_counter() - t0
+    c4 = rec4.contract(name=name, world=dp.world, declared_donated=AUDIT_STATE,
+                       steps=AUDIT_K)
+    log(f"[audit] {wire} one-step body, recorded at its capture: {json.dumps(c1.to_json())}")
+    log(f"[audit] {wire} K={AUDIT_K} chunk a step: {json.dumps(c4.to_json())}; "
+        f"{len(rec4.ops)} dispatched ops, {rec4.flops / AUDIT_K / 1e12:.4f} TFLOP a step")
+    # 1. no host read (a sync inside raised under sync debug mode "error")
+    if c1.host_callbacks or c4.host_callbacks:
+        failures.append(f"[{tag}] host reads in the body: {c1.host_callbacks} "
+                        f"{c4.host_callbacks}")
+    # 2. every state leaf written in place; the batch not written
+    want = _audit_state_counts(torch, dp)
+    for what, c in (("K=1", c1), (f"K={AUDIT_K}", c4)):
+        if c.donated_aliased != want:
+            failures.append(f"[{tag}] {what}: state written in place {c.donated_aliased}, "
+                            f"want {want} (module and optimizer leaves)")
+    # 3. the K-step chunk's contract a step equals the one-step body's
+    k_diffs = compare_contracts(c4, c1)
+    if k_diffs:
+        failures.append(f"[{tag}] K={AUDIT_K} chunk a step differs from the body: {k_diffs}")
+    # 4. the recorder changes nothing: bitwise the chunk captured without it
+    same_loss = torch.equal(out_r["loss"], out_p["loss"])
+    leaves_r, leaves_p = _state_leaves(state_r), _state_leaves(state_p)
+    same_state = len(leaves_r) == len(leaves_p) and all(
+        pa == pb and _same_leaf(torch, a, b) for (pa, a), (pb, b) in zip(leaves_r, leaves_p))
+    if not (same_loss and same_state):
+        failures.append(f"[{tag}] the chunk captured under the recorder is not bitwise "
+                        f"the one captured without it (losses {same_loss}, state {same_state})")
+    # 5. launches: 53 of each BN kernel a step, 1 (int8) or 0 of each quant
+    # kernel; the warm-up applications' launches held against the plain versions
+    n_quant = 1 if wire == "int8" else 0
+    steps_run = scan_driver.WARMUP_STEPS + 1
+    for k in MOVES:
+        want_k = BN_LAYERS * steps_run
+        if launches1[k] != want_k or seen.get(k + " captured", (0,))[0] != BN_LAYERS:
+            failures.append(f"[{tag}] {k}: {launches1[k]} launches (want {want_k}), "
+                            f"{seen.get(k + ' captured', (0,))[0]} captured (want {BN_LAYERS})")
+    for k in QUANT_KERNELS:
+        if launches1[k] != n_quant * steps_run:
+            failures.append(f"[{tag}] {k}: {launches1[k]} launches, want "
+                            f"{n_quant * steps_run}")
+    held = dict.fromkeys(MOVES, BN_LAYERS * scan_driver.WARMUP_STEPS)
+    _held(tag, seen, held, failures)
+    for k in QUANT_KERNELS:
+        calls, worst, _ = seen.get(k, (0, 0.0, 0.0))
+        if calls != n_quant * scan_driver.WARMUP_STEPS or worst > 0.0:
+            failures.append(f"[{tag}] {k}: {calls} eager calls held, worst {worst}")
+    log(f"[audit] {wire}: launches of the one-step program (2 eager warm-ups + its "
+        f"capture) {json.dumps(launches1)}; the chunk under the recorder bitwise the "
+        f"chunk without it: losses {same_loss}, state {same_state}; capture s K=1 "
+        f"{cap1_s:.2f} (recorded), K={AUDIT_K} {cap_rec_s:.2f} recorded / "
+        f"{cap_plain_s:.2f} not; contract from the recording {extract_s * 1e3:.1f} ms "
+        f"[{card}]")
+    return dp, {"contract_step": c1.to_json(), "ops_a_step": len(rec4.ops) // AUDIT_K,
+            "tflop_a_step": rec4.flops / AUDIT_K / 1e12,
+            "capture_s": {"k1_recorded": cap1_s, f"k{AUDIT_K}_recorded": cap_rec_s,
+                          f"k{AUDIT_K}_plain": cap_plain_s},
+            "extract_ms": extract_s * 1e3, "bitwise": same_loss and same_state,
+            "launches": launches1}
+
+
+def _audit_serve(torch, T, dp, card, failures) -> dict:
+    """Gate 6: the bucket-128 program (the eval forward each bucket's graph
+    captures) recorded on an engine built from ``dp``: no collective,
+    nothing of its input or of the weights written, no host read (sync
+    debug mode "error"), 53 ``bn_normalize`` launches; a second forward
+    holds each against its plain version."""
+    from tpu_syncbn_torch import serve
+    from tpu_syncbn_torch.audit import contracts
+
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    engine = serve.InferenceEngine.from_trainer(dp, buckets=(AUDIT_BUCKET,))
+    x = torch.randn(AUDIT_BUCKET, IMAGE_SIZE, IMAGE_SIZE, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    params = list(engine.model.parameters())
+    rest = [b for b in engine.model.buffers() if b is not None]
+    with torch.no_grad():
+        engine._forward(x)  # builds cuDNN's plans outside the timed calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._forward(x)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        T.reset_launch_counts()
+        rec = contracts.Recorder({"params": params, "rest": rest, "batch": x},
+                                 sync_debug=True)
+        t0 = time.perf_counter()
+        with rec:
+            engine._forward(x)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        launches = T.launch_counts()
+        seen: dict = {}
+        with checking_every_call(torch, T, seen):
+            engine._forward(x)
+    torch.backends.cudnn.deterministic = determ
+    c = rec.contract(name=f"serve.eval_bucket{AUDIT_BUCKET}", world=1)
+    log(f"[audit] serve bucket {AUDIT_BUCKET}: {json.dumps(c.to_json())}; "
+        f"launches {json.dumps(launches)}; eager forward {plain_s * 1e3:.1f} ms, recorded "
+        f"{rec_s * 1e3:.1f} ms [{card}]")
+    if c.collectives or c.donated_aliased or c.host_callbacks:
+        failures.append(f"[audit/serve] the bucket program has collectives "
+                        f"{c.collectives}, writes {c.donated_aliased}, host reads "
+                        f"{c.host_callbacks}")
+    want = {k: (BN_LAYERS if k == "bn_normalize" else 0) for k in MOVES}
+    if {k: launches[k] for k in MOVES} != want:
+        failures.append(f"[audit/serve] launches {launches}, want {want}")
+    calls, worst, _ = seen.get("bn_normalize", (0, 0.0, 0.0))
+    if calls != BN_LAYERS or worst > 1.0:
+        failures.append(f"[audit/serve] bn_normalize: {calls} calls held, worst {worst:.2f} "
+                        "of tol")
+    del engine
+    torch.cuda.empty_cache()
+    return {"contract": c.to_json(), "launches": launches, "forward_ms": plain_s * 1e3,
+            "recorded_forward_ms": rec_s * 1e3, "held_worst": worst}
+
+
+def _audit_fingerprint(failures) -> dict:
+    """Gate 7: a bundle written now carries the hash of the port's goldens."""
+    import tempfile
+
+    from tpu_syncbn_torch.audit import program_audit
+    from tpu_syncbn_torch.obs import flightrec, incident
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as d:
+        rec = flightrec.FlightRecorder(incident_dir=d, cooldown_s=0.0)
+        try:
+            bundle = incident.load_bundle(rec.trigger("manual", force=True))
+        finally:
+            rec.close()
+    got = bundle["contract"]["fingerprint"]
+    want = incident.contract_fingerprint(program_audit.default_golden_dir())
+    log(f"[audit] a bundle's contract.fingerprint {got}, the goldens' {want}")
+    if got is None or got != want:
+        failures.append(f"[audit] bundle fingerprint {got}, want {want}")
+    return {"fingerprint": got}
+
+
+def phase_audit(torch, card):
+    """The audit's contracts of the main path on the card (ROADMAP A.14b):
+    the bf16 ResNet-50 SyncBN body on the wires ``none`` and ``int8``,
+    recorded while its CUDA graphs are captured, and the serving bucket's
+    forward; seven gates (``_audit_wire``, ``_audit_serve``,
+    ``_audit_fingerprint``). Returns (failures, summary)."""
+    from tpu_syncbn_torch.ops import quant_int8 as Q
+    from tpu_syncbn_torch.ops import triton_bn as T
+
+    t0 = time.perf_counter()
+    failures: list = []
+    wires = {}
+    for wire in ("none", "int8"):
+        dp, wires[wire] = _audit_wire(torch, T, Q, wire, card, failures)
+        if wire == "none":
+            del dp
+            torch.cuda.empty_cache()
+    serve_out = _audit_serve(torch, T, dp, card, failures)  # the int8 trainer's model
+    del dp
+    fp = _audit_fingerprint(failures)
+    secs = time.perf_counter() - t0
+    launches = {k: sum(w["launches"][k] for w in wires.values())
+                + serve_out["launches"].get(k, 0) for k in (*MOVES, *QUANT_KERNELS)}
+    log(f"[audit] phase done in {secs:.1f}s, {len(failures)} failures [{card}]")
+    return failures, {"wires": wires, "serve": serve_out, **fp, "seconds": secs,
+                      "launches": launches}
+
+
 def _resilience_chunks(torch, n_chunks, seed, poison=None):
     from tpu_syncbn_torch.parallel import scan_driver
     from tpu_syncbn_torch.testing import faults
@@ -4928,19 +5196,21 @@ def _obs_publisher_alone(failures) -> dict:
     (``-k``), where their page-locked blocks and kernel launches are the
     process's first: the first publish and record behind queued work must
     still return at once (both take their blocks and launch their kernels
-    when built, and each test launches its own kernels before its sleep)."""
+    when built, and each test launches its own kernels before its sleep).
+    The two processes run side by side (``_side_by_side``: each is start-up
+    bound), each test still alone in its own."""
     out = {}
-    for name in OBS_ALONE:
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_gpu.py",
-                            "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider",
-                            "-k", name], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-                           capture_output=True, text=True, timeout=300)
+    t0 = time.perf_counter()
+    runs = _side_by_side({name: [sys.executable, "-m", "pytest", "tests/test_torch_gpu.py",
+                                 "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider",
+                                 "-k", name] for name in OBS_ALONE})
+    secs = time.perf_counter() - t0
+    for name, r in runs.items():
         lines = r.stdout.strip().splitlines()
         tail = lines[-1] if lines else ""
         ok = r.returncode == 0 and tail.startswith("1 passed")
-        log(f"[obs] {name} alone in a fresh process (-k): exit {r.returncode}, {tail!r} in "
-            f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}")
+        log(f"[obs] {name} alone in a fresh process (-k): exit {r.returncode}, {tail!r}; "
+            f"the two side by side in {secs:.1f}s {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"[obs] {name} alone: {r.stdout[-1500:]} {r.stderr[-500:]}")
         out[name] = {"exit": r.returncode, "summary": tail}
@@ -8561,6 +8831,9 @@ def main() -> int:
     ap_failures, autopilot = phase_autopilot(torch, card)
     failures += ap_failures
     torch.cuda.empty_cache()
+    audit_failures, audit = phase_audit(torch, card)
+    failures += audit_failures
+    torch.cuda.empty_cache()
     res_failures, resilience = phase_resilience(torch, card)
     failures += res_failures
     torch.cuda.empty_cache()
@@ -8619,6 +8892,9 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        # [audit]: the launches of its recorded programs (each wire's eager
+        # warm-ups and capture; the serving forward's normalizes)
+        kernels[-1]["audit"] = {"launches": audit["launches"][k]}
         if k == "bn_normalize":  # "ms" is the wrapper, fold included
             kernels[-1]["kernel_alone_ms"] = t["alone_ms"]
             # the serving path: eval BN, 53 launches in each bucket's graph;
@@ -8679,6 +8955,7 @@ def main() -> int:
             # the controller moved the int8 step between rungs and Ks (one a
             # step on the int8 rung, recorded at captures and the eager body)
             "autopilot": {"launches": autopilot["launches"][k]},
+            "audit": {"launches": audit["launches"][k]},
         })
     print(json.dumps({"groups": groups}), flush=True)
     print(json.dumps({"paths": {
@@ -8687,7 +8964,7 @@ def main() -> int:
         "retinanet": {"launches": rn_launches, "step_ms": rn_med,
                       "peak_bytes": rn_peak},
         "bench": bench_line, "scan": scan, "compress": compress, "zero": zero,
-        "autopilot": autopilot,
+        "autopilot": autopilot, "audit": audit,
         "resilience": resilience, "obs": obs, "incident": incident_out,
         "monitor": monitor_out, "serve": serve_out, "publish": publish_out,
         "seq": seq, "parallel": par}}),

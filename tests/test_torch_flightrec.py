@@ -237,7 +237,10 @@ def test_each_wired_trigger_yields_one_bundle_valid_in_both_packages(case, tmp_p
     assert {k: detail[k] for k in want} == want
     assert [e["metrics"]["loss"] for e in bundle["rings"]["steps"]] == \
         [float(torch.tensor(0.1 * i)) for i in (1, 2, 3)]
-    assert bundle["contract"]["fingerprint"] is None  # no port goldens yet
+    # the port's audit goldens (tpu_syncbn_torch/audit/goldens/)
+    assert bundle["contract"]["fingerprint"] == incident.contract_fingerprint(
+        os.path.join(os.path.dirname(incident.__file__), "..", "audit", "goldens"))
+    assert bundle["contract"]["fingerprint"]["programs"] == 23
     assert bundle["state"]["alerts"] == {}
     if case == "mem_pressure":
         assert [e["used_frac"] for e in bundle["rings"]["mem"]][:2] == [0.05, 5.0]

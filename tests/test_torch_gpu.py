@@ -1387,3 +1387,68 @@ def test_engine_dict_batches_in_any_key_order_feed_each_key(cuda_triton):
                 - 2 * torch.from_numpy(b).cuda()[:, 0, 0, :1]).cpu().numpy()
     np.testing.assert_allclose(first, want, rtol=2e-2, atol=2e-2)
     assert eng.stats()["programs_compiled"] == 1
+
+
+def test_dataparallel_body_contract_on_the_card_at_world_one(cuda_triton):
+    """The audit's recorder (``DataParallel.lowered_train_step``) around the
+    step body a K-step program captures, on the card at world 1: no
+    collective, no host read, every parameter, buffer and momentum buffer
+    written in place and the batch not, the 20 BN layers through the
+    kernels; the trainer's state, ``.grad`` and step count as they were."""
+    model, dp = _card_trainer()
+    batch = _card_batch(3)
+    dp.train_step(_card_batch(4))  # momentum buffers exist
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    moms = [st["momentum_buffer"].clone() for st in dp.optimizer.state.values()]
+    grads = [p.grad for p in model.parameters()]
+    T.reset_launch_counts()
+    lowered = dp.lowered_train_step(batch)
+    torch.cuda.synchronize()
+    c = lowered.contract(name="dataparallel.train_step")
+    assert c.world == 1 and c.collectives == {} and c.host_callbacks == {}
+    n_params = len(list(model.parameters()))
+    assert c.donated_aliased == {"params": n_params, "rest": 3 * 20, "opt_state": n_params}
+    assert T.launch_counts() == dict.fromkeys(T.launch_counts(), 20)
+    assert lowered.cost_analysis()["flops"] > 0
+    assert "aten.convolution" in lowered.as_text()
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert all(torch.equal(st["momentum_buffer"], m)
+               for st, m in zip(dp.optimizer.state.values(), moms))
+    assert all(p.grad is g for p, g in zip(model.parameters(), grads))
+
+
+def test_recorder_keeps_the_seam_calls_of_the_cuda_backward_thread(cuda_triton):
+    """A seam call in a CUDA tensor's backward runs on the autograd engine's
+    device thread, which inherits the recorder's dispatch mode: the
+    recorder keeps it. A call from a thread of its own is dropped."""
+    import threading
+
+    from tpu_syncbn_torch.audit import contracts
+    from tpu_syncbn_torch.parallel import collectives
+
+    threads = []
+
+    class Tallied(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            threads.append(threading.get_ident())
+            collectives._tally("psum", [g])
+            return g * 2
+
+    x = torch.ones(4, device="cuda", requires_grad=True)
+    tallies = collectives._snapshot_tallies()
+    try:
+        with contracts.Recorder() as rec:
+            Tallied.apply(x).sum().backward()
+            side = threading.Thread(target=collectives._tally, args=("pmax", [x.detach()]))
+            side.start()
+            side.join()
+    finally:
+        collectives._restore_tallies(tallies)
+    assert threads and threads[0] != threading.get_ident()
+    assert [s[:2] for s in rec.seam] == [("psum", 16)]

@@ -32,7 +32,8 @@ cleanly — ``python -m tpu_syncbn_torch.obs.incident diff a.json b.json``
 names the component that moved.
 
 Where the port differs from the JAX module: :func:`contract_fingerprint`
-has no goldens to hash (``None``; ROADMAP A.14b), ``config.env`` records
+hashes the port's own goldens (``tpu_syncbn_torch/audit/goldens/``, where
+JAX hashes ``tests/contracts/``), ``config.env`` records
 ``CUDA_VISIBLE_DEVICES`` where JAX records ``JAX_PLATFORMS``, and the
 attribution rates are the H100's, not the JAX module's TPU-class ones.
 ``state.alerts`` is :func:`tpu_syncbn_torch.obs.slo.tracker_states`, the
@@ -120,15 +121,16 @@ def contract_fingerprint(golden_dir: str | None = None) -> dict | None:
     golden contract JSONs in ``golden_dir`` — the "which programs was this
     build running" join key between an incident and an audit layer.
 
-    The JAX package hashes its audit goldens (``tests/contracts/``); those
-    pin JAX programs, not the port's, so with no ``golden_dir`` the port
-    records ``None`` until its own contract extractor exists (ROADMAP
-    A.14b). ``None`` also when the directory holds no goldens — a bundle
-    must never fail over its annotations."""
+    With no ``golden_dir``, the port's audit goldens
+    (``tpu_syncbn_torch/audit/goldens/``, found beside the package without
+    importing the audit layer on the dump path). ``None`` when the
+    directory holds no goldens — a bundle must never fail over its
+    annotations."""
     import hashlib
 
     if golden_dir is None:
-        return None
+        pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        golden_dir = os.path.join(pkg, "audit", "goldens")
     try:
         names = sorted(
             n for n in os.listdir(golden_dir) if n.endswith(".json")

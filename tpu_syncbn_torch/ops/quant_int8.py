@@ -186,6 +186,11 @@ def encode(g: torch.Tensor, e: torch.Tensor | None, ranges: torch.Tensor, qmax: 
     if n_chunks:
         cuda_quant.encode(g, e, g.numel(), chunk, n_chunks, ranges, qmax, q, scale, zp, res)
         LAUNCHES["quant_encode"] += 1
+        if res is not None and res is residual_out:
+            # the kernel wrote the caller's tensor in place, out of torch's
+            # sight: advance its version as an in-place op would (autograd's
+            # saved-tensor check, the audit's record of state written)
+            torch.autograd.graph.increment_version(res)
     return q, scale, zp, res
 
 

@@ -66,6 +66,10 @@ _capture = threading.local()
 # (partition, id(parent)) -> (this rank's group or None, parent): the
 # parent is held so its id cannot be reused while the entry lives
 _GROUPS: dict[tuple, tuple] = {}
+# callables given (op, bytes) of every tallied call, from whatever thread
+# issues it: the audit's recorders (audit.contracts.Recorder), each of which
+# keeps the calls of its own threads
+_OBSERVERS: list = []
 
 
 def _tally(op: str, tensors: Sequence[torch.Tensor]) -> None:
@@ -74,6 +78,8 @@ def _tally(op: str, tensors: Sequence[torch.Tensor]) -> None:
     2(N−1)/N). Called at the transmission site, with the tensor that is
     actually sent."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    for observe in list(_OBSERVERS):
+        observe(op, nbytes)
     with _lock:
         entry = _TALLIES.setdefault(op, [0, 0])
         entry[0] += 1
@@ -108,6 +114,23 @@ def reset_tallies() -> None:
     with _lock:
         _TALLIES.clear()
         _COMPRESSED[:] = [0, 0, None]
+
+
+def _snapshot_tallies():
+    """Every tally of this module, to put back with :func:`_restore_tallies`
+    (the audit's extraction applies a step body and then undoes it)."""
+    with _lock:
+        return ({op: list(v) for op, v in _TALLIES.items()}, list(_COMPRESSED),
+                dict(_WIRE))
+
+
+def _restore_tallies(snapshot) -> None:
+    tallies, compressed, wire = snapshot
+    with _lock:
+        _TALLIES.clear()
+        _TALLIES.update({op: list(v) for op, v in tallies.items()})
+        _COMPRESSED[:] = compressed
+        _WIRE.update(wire)
 
 
 def traced_bytes_total() -> int:

@@ -54,7 +54,8 @@ def switch_route(x: torch.Tensor, router_w: torch.Tensor, capacity: int):
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     idx = torch.argmax(probs, dim=-1)  # (T,), the first maximum
-    onehot = torch.nn.functional.one_hot(idx, e).float()  # (T, E)
+    # jax.nn.one_hot's comparison: F.one_hot reads idx's range on the host
+    onehot = (idx[:, None] == torch.arange(e, device=x.device)).float()  # (T, E)
     # rank of each token within its expert's queue (>= 0 at the chosen
     # expert since the cumsum includes the token itself; -1 elsewhere)
     pos = torch.cumsum(onehot, dim=0) * onehot - 1.0

@@ -31,6 +31,7 @@ Contract notes:
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 import weakref
@@ -151,9 +152,12 @@ class ScanSteps:
         (its replay would write memory the state no longer uses)."""
         return self._ptrs is not None and self._ptrs != self._state_ptrs()
 
-    def prepare(self, batch) -> "ScanSteps":
+    def prepare(self, batch, recorder=None) -> "ScanSteps":
         """Capture the graph for batches shaped like ``batch`` (a no-op on
-        the CPU). The trainer's state is left as it was."""
+        the CPU). The trainer's state is left as it was. ``recorder``
+        (``static_batch -> context manager``, the audit's
+        :class:`~tpu_syncbn_torch.audit.contracts.Recorder`) is entered
+        around the captured applications alone, inside the capture."""
         if self.device.type != "cuda" or self.graph is not None:
             return self
         dev = self.device
@@ -182,7 +186,8 @@ class ScanSteps:
         from tpu_syncbn_torch.parallel import collectives
 
         with collectives.capturing() as inventory, \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                torch.cuda.graph(graph, capture_error_mode="thread_local"), \
+                (recorder(static) if recorder is not None else contextlib.nullcontext()):
             out = self.loop(static)
         self.wire_bytes = inventory[0]
         torch.cuda.synchronize(dev)

@@ -1120,7 +1120,10 @@ class DataParallel:
                     for n, v in self._finish_monitors(monitors, numx).items()})
         return out
 
-    def _build_program(self, n_steps: int, stacked: bool, batch):
+    def _program_body(self, n_steps: int, stacked: bool):
+        """The K-step program before its capture: ``prog.loop`` is the body
+        applied K times eagerly, ``prog.chunk`` its device scalars and
+        optimizer (the audit records this body)."""
         if isinstance(self.lr_scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
             raise ValueError("train_steps: ReduceLROnPlateau steps on a metric "
                              "the chunk has not produced yet; use train_step")
@@ -1136,7 +1139,76 @@ class DataParallel:
             stacked=stacked, device=self.device,
             state=lambda: self._state_tensors(chunk))
         prog.chunk = chunk
-        prog.prepare(batch)
+        return prog
+
+    def _state_groups(self, chunk) -> dict:
+        """The state a step body updates in place, by the audit's labels:
+        ``params`` (the module's parameters, and the shards under a
+        sharding layout), ``rest`` (the buffers) and ``opt_state`` (the
+        optimizer's state and the error-feedback residual)."""
+        params = list(self.model.parameters())
+        if self.zero:
+            params += list(self._shards.values())
+        return {"params": params,
+                "rest": [b for b in self.model.buffers() if b is not None],
+                "opt_state": chunk.opt.state_tensors() + self._residuals()}
+
+    def lowered_train_step(self, batch):
+        """One step body recorded on this trainer's state and ``batch`` (the
+        JAX trainer's ``lowered_train_step``): the body a K-step program
+        captures, applied once eagerly under the audit's recorder, then
+        undone. Returns an :class:`~tpu_syncbn_torch.audit.contracts.LoweredStep`
+        — ``.cost_analysis()["flops"]``, ``.as_text()`` (the dispatched
+        ops) and ``.contract(name=...)``. Parameters, buffers, the
+        optimizer's state and groups, ``.grad``, the RNG, the train/eval
+        flag and the collective tallies are left as they were, also when
+        the body raises."""
+        from tpu_syncbn_torch.audit import contracts
+
+        batch = _to_device(batch, self.device)
+        opt = self.optimizer
+        saved_state = {p: dict(st) for p, st in opt.state.items()}
+        saved_groups = [dict(g) for g in opt.param_groups]
+        owners = list(self.model.parameters()) + (list(self._shards.values())
+                                                   if self.zero else [])
+        grads = [(p, p.grad) for p in owners]
+        first, training = self._first_flags, self.model.training
+        rng = torch.get_rng_state()
+        cuda_rng = torch.cuda.get_rng_state(self.device) if self.device.type == "cuda" else None
+        tallies = collectives._snapshot_tallies()
+        try:
+            prog = self._program_body(1, False)
+            prog.chunk.opt.fill(_schedule_lrs(opt, self.lr_scheduler, 1))
+            groups = self._state_groups(prog.chunk)
+            with contracts.Recorder({**groups, "batch": batch}, restore=True) as rec:
+                prog.loop(batch)
+        finally:
+            opt.state.clear()
+            opt.state.update(saved_state)
+            for g, s in zip(opt.param_groups, saved_groups):
+                g.clear()
+                g.update(s)
+            for p, g in grads:
+                p.grad = g
+            self._first_flags = first
+            self.model.train(training)
+            torch.set_rng_state(rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+            collectives._restore_tallies(tallies)
+        # a group with no leaf (a model without buffers) has nothing to alias
+        return contracts.LoweredStep(rec, world=self.world,
+                                     declared_donated=[k for k, v in groups.items() if v])
+
+    def _build_program(self, n_steps: int, stacked: bool, batch, recorder=None):
+        """The K-step program captured for batches shaped like ``batch``.
+        ``recorder`` (``state -> context manager``, the audit's
+        :class:`~tpu_syncbn_torch.audit.contracts.Recorder`) is entered
+        around the captured applications, given the state groups of
+        :meth:`_state_groups` and the graph's static batch as ``batches``."""
+        prog = self._program_body(n_steps, stacked)
+        prog.prepare(batch, recorder=None if recorder is None else (
+            lambda static: recorder({**self._state_groups(prog.chunk), "batches": static})))
         if prog.graph is not None:
             # the gradients the capture left (the module's parameters', and
             # the shards' under a sharding layout) are the graph's own

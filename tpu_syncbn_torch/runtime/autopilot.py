@@ -35,13 +35,16 @@ already exposes:
   knob's fires ``autopilot``. The planner that ranks such pairs from
   contracts is ROADMAP A.14c; the knob itself needs only the pairs.
 
-**The stand-in for the audit.** The JAX controller moves only between
-program variants that its audit has golden-pinned (the ``autopilot.*``
-program contracts of ``python -m tpu_syncbn.audit``). The port has no
-audit yet (ROADMAP A.14b). What it guarantees instead is weaker: after
-warm-up, moving between rungs or K candidates that were already visited
-captures no new CUDA graph — the trainer's ``ProgramCache.misses`` do not
-move and the recompile-storm detector (``obs.profiling``) stays quiet.
+**The pinned variants.** The JAX controller moves only between program
+variants that its audit has golden-pinned (the ``autopilot.*`` program
+contracts of ``python -m tpu_syncbn.audit``). So does this one: its three
+compress rungs are the port's ``autopilot.compressed_{fp32,bf16,int8}.train_step``
+contracts (``python -m tpu_syncbn_torch.audit``; one trainer built at int8
+with error feedback, then ``set_compress``ed, as the controller runs it).
+It also keeps its cache guarantee: after warm-up, moving between rungs or
+K candidates that were already visited captures no new CUDA graph — the
+trainer's ``ProgramCache.misses`` do not move and the recompile-storm
+detector (``obs.profiling``) stays quiet.
 One gap follows from ``set_compress`` as JAX has it: a rung first visited
 after a cache shrink starts with a fresh cache whose budget is unset,
 until the next cache actuation sets it.
