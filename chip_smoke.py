@@ -4690,6 +4690,7 @@ def _audit_wire(torch, T, Q, wire: str, card, failures) -> dict:
     with checking_every_call(torch, T, seen), checking_every_quant_call(torch, Q, seen):
         prog1, rec1, cap1_s = _audit_capture(torch, dp, one, 1, True)
     launches1 = {**T.launch_counts(), **Q.launch_counts()}
+    body = _audit_code(prog1.step_fn)
     del prog1
     dp._zero_grad()
     start = dp.state_dict()
@@ -4769,7 +4770,7 @@ def _audit_wire(torch, T, Q, wire: str, card, failures) -> dict:
             "capture_s": {"k1_recorded": cap1_s, f"k{AUDIT_K}_recorded": cap_rec_s,
                           f"k{AUDIT_K}_plain": cap_plain_s},
             "extract_ms": extract_s * 1e3, "bitwise": same_loss and same_state,
-            "launches": launches1}
+            "launches": launches1, "body": body}
 
 
 def _audit_serve(torch, T, dp, card, failures) -> dict:
@@ -4808,6 +4809,7 @@ def _audit_serve(torch, T, dp, card, failures) -> dict:
         with checking_every_call(torch, T, seen):
             engine._forward(x)
     torch.backends.cudnn.deterministic = determ
+    body = _audit_code(engine._forward)
     c = rec.contract(name=f"serve.eval_bucket{AUDIT_BUCKET}", world=1)
     log(f"[audit] serve bucket {AUDIT_BUCKET}: {json.dumps(c.to_json())}; "
         f"launches {json.dumps(launches)}; eager forward {plain_s * 1e3:.1f} ms, recorded "
@@ -4826,7 +4828,8 @@ def _audit_serve(torch, T, dp, card, failures) -> dict:
     del engine
     torch.cuda.empty_cache()
     return {"contract": c.to_json(), "launches": launches, "forward_ms": plain_s * 1e3,
-            "recorded_forward_ms": rec_s * 1e3, "held_worst": worst}
+            "recorded_forward_ms": rec_s * 1e3, "held_worst": worst,
+            "body": body}
 
 
 def _audit_fingerprint(failures) -> dict:
@@ -4850,12 +4853,160 @@ def _audit_fingerprint(failures) -> dict:
     return {"fingerprint": got}
 
 
+def _audit_code(fn) -> dict:
+    """Where the function a program captures is defined: the function
+    under any ``functools.partial`` and bound method."""
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    code = getattr(fn, "__func__", fn).__code__
+    return {"name": code.co_name, "file": code.co_filename, "line": code.co_firstlineno}
+
+
+def _audit_lint(card, failures) -> dict:
+    """Gate 8 (a): the source lint over the package that runs here, every
+    rule, strict."""
+    from tpu_syncbn_torch import audit
+
+    t0 = time.perf_counter()
+    result = audit.run_audit(contracts=False, strict=True)
+    secs = time.perf_counter() - t0
+    for v in result.violations:
+        failures.append(f"[audit/lint] {v.format()}")
+    log(f"[audit] gate (a) lint: {result.files_linted} files linted, "
+        f"{len(result.violations)} violations in {secs:.2f}s [{card}]")
+    return {"files_linted": result.files_linted, "violations": len(result.violations),
+            "seconds": secs}
+
+
+def _audit_sync_cases(torch):
+    """Gate 8 (b)'s calls: one a host-sync form of ``host_sync_in_step``
+    and the near misses the rule leaves clean, on small CUDA tensors made
+    before the mode is armed."""
+    F = torch.nn.functional
+    x = torch.arange(8, device="cuda", dtype=torch.float32)
+    y = torch.tensor([0, 3, 1, 2], device="cuda")
+    r = torch.tensor([1, 2, 1, 0], device="cuda")
+    mask = x > 3
+    stream = torch.cuda.Stream()
+    event = torch.cuda.Event()
+    event.record()
+    pinned = torch.ones(4, pin_memory=True)
+    torch.cuda.synchronize()
+    named = {
+        ".item()": lambda: x.sum().item(),
+        ".tolist()": lambda: x.tolist(),
+        ".cpu()": lambda: x.cpu(),
+        ".numpy()": lambda: x.numpy(),
+        "torch.cuda.synchronize": lambda: torch.cuda.synchronize(),
+        "stream.synchronize()": lambda: stream.synchronize(),
+        "event.synchronize()": lambda: event.synchronize(),
+        "torch.nonzero": lambda: torch.nonzero(mask),
+        ".nonzero()": lambda: mask.nonzero(),
+        "torch.unique": lambda: torch.unique(y),
+        ".unique()": lambda: y.unique(),
+        "torch.masked_select": lambda: torch.masked_select(x, mask),
+        ".masked_select()": lambda: x.masked_select(mask),
+        "torch.argwhere": lambda: torch.argwhere(mask),
+        ".argwhere()": lambda: mask.argwhere(),
+        "torch.where(condition)": lambda: torch.where(mask),
+        "one_hot without num_classes": lambda: F.one_hot(y),
+        "repeat_interleave without output_size": lambda: y.repeat_interleave(r),
+    }
+    near = {
+        "F.one_hot(y, num_classes=8)": lambda: F.one_hot(y, num_classes=8),
+        "repeat_interleave(r, output_size=4)": lambda: y.repeat_interleave(r, output_size=4),
+        "repeat_interleave(2)": lambda: y.repeat_interleave(2),
+        "torch.where(mask, x, 0.0)": lambda: torch.where(mask, x, 0.0),
+        "pinned.to('cuda', non_blocking=True)": lambda: pinned.to("cuda", non_blocking=True),
+    }
+    return named, near
+
+
+def _audit_sync_vocabulary(torch, card, failures) -> dict:
+    """Gate 8 (b): each host-sync form ``host_sync_in_step`` names raises
+    under ``torch.cuda.set_sync_debug_mode("error")`` on this card, but
+    those ``srclint.NOT_OBSERVABLE`` lists (printed as not observable by
+    sync debug mode, counted as no pass; one that raises fails the gate,
+    as the list would be wrong); each near miss runs without raising."""
+    from tpu_syncbn_torch.audit import srclint
+
+    named, near = _audit_sync_cases(torch)
+    if tuple(named) != srclint.HOST_SYNC_FORMS:
+        failures.append(f"[audit/sync] the gate's forms {list(named)} are not the rule's "
+                        f"{list(srclint.HOST_SYNC_FORMS)}")
+    outcome = {}
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for form, call in {**named, **near}.items():
+            try:
+                call()
+                outcome[form] = "ran"
+            except RuntimeError as e:
+                outcome[form] = ("raised" if "synchroniz" in str(e)
+                                 else f"RuntimeError: {str(e)[:80]}")
+            except Exception as e:  # noqa: BLE001 — printed, and gated below
+                outcome[form] = f"{type(e).__name__}: {str(e)[:80]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    raised, unseen = [], []
+    for form in named:
+        if form in srclint.NOT_OBSERVABLE:
+            unseen.append(form)
+            if outcome[form] == "raised":
+                failures.append(f"[audit/sync] {form} raised under sync debug mode, but "
+                                "srclint.NOT_OBSERVABLE lists it")
+        elif outcome[form] == "raised":
+            raised.append(form)
+        else:
+            failures.append(f"[audit/sync] {form} did not raise under sync debug mode "
+                            f"'error': {outcome[form]}")
+    for form in near:
+        if outcome[form] != "ran":
+            failures.append(f"[audit/sync] near miss {form} raised: {outcome[form]}")
+    log(f"[audit] gate (b) host syncs: {len(raised)} of {len(named)} named forms raised "
+        f"under sync debug mode 'error' ({', '.join(raised)}); not observable by sync "
+        f"debug mode: {', '.join(f'{f} ({outcome[f]})' for f in unseen)}; "
+        f"{sum(outcome[f] == 'ran' for f in near)} of {len(near)} near misses ran "
+        f"({', '.join(near)}) [{card}]")
+    return {"raised": raised, "not_observable": {f: outcome[f] for f in unseen},
+            "near_misses_ran": [f for f in near if outcome[f] == "ran"]}
+
+
+def _audit_body_coverage(bodies, card, failures) -> dict:
+    """Gate 8 (c): every body function ``[audit]`` captured on the card is
+    a step body of ``host_sync_in_step``, by file and first line."""
+    import ast
+
+    from tpu_syncbn_torch.audit import srclint
+
+    found = {}
+    for tag, body in bodies.items():
+        with open(body["file"]) as f:
+            tree = ast.parse(f.read())
+        firsts = {min([d.lineno for d in fn.decorator_list] + [fn.lineno])
+                  for fn in srclint.step_body_functions(tree)}
+        found[tag] = body["line"] in firsts
+        if not found[tag]:
+            failures.append(f"[audit/bodies] {tag}: {body['name']} at "
+                            f"{body['file']}:{body['line']} is not a step body of the rule")
+    log(f"[audit] gate (c) bodies: "
+        + ", ".join(f"{tag} {b['name']} {os.path.relpath(b['file'])}:{b['line']} "
+                    f"{'covered' if found[tag] else 'MISSED'}" for tag, b in bodies.items())
+        + f" [{card}]")
+    return found
+
+
 def phase_audit(torch, card):
     """The audit's contracts of the main path on the card (ROADMAP A.14b):
     the bf16 ResNet-50 SyncBN body on the wires ``none`` and ``int8``,
     recorded while its CUDA graphs are captured, and the serving bucket's
     forward; seven gates (``_audit_wire``, ``_audit_serve``,
-    ``_audit_fingerprint``). Returns (failures, summary)."""
+    ``_audit_fingerprint``). Then the source lint's three (gate 8): the
+    lint clean over the package here, its host-sync vocabulary against
+    this card's sync debug mode, and the bodies captured above among the
+    rule's step bodies. Returns (failures, summary)."""
     from tpu_syncbn_torch.ops import quant_int8 as Q
     from tpu_syncbn_torch.ops import triton_bn as T
 
@@ -4870,12 +5021,22 @@ def phase_audit(torch, card):
     serve_out = _audit_serve(torch, T, dp, card, failures)  # the int8 trainer's model
     del dp
     fp = _audit_fingerprint(failures)
+    t_lint = time.perf_counter()
+    lint = _audit_lint(card, failures)
+    sync = _audit_sync_vocabulary(torch, card, failures)
+    bodies = _audit_body_coverage(
+        {**{f"trainer/{w}": wires[w]["body"] for w in wires},
+         f"serve/bucket{AUDIT_BUCKET}": serve_out["body"]}, card, failures)
+    lint_s = time.perf_counter() - t_lint
     secs = time.perf_counter() - t0
     launches = {k: sum(w["launches"][k] for w in wires.values())
                 + serve_out["launches"].get(k, 0) for k in (*MOVES, *QUANT_KERNELS)}
-    log(f"[audit] phase done in {secs:.1f}s, {len(failures)} failures [{card}]")
+    log(f"[audit] phase done in {secs:.1f}s ({lint_s:.2f}s of it gates (a)-(c)), "
+        f"{len(failures)} failures [{card}]")
     return failures, {"wires": wires, "serve": serve_out, **fp, "seconds": secs,
-                      "launches": launches}
+                      "launches": launches,
+                      "srclint": {**lint, "sync": sync, "bodies": bodies,
+                                  "gates_s": lint_s}}
 
 
 def _resilience_chunks(torch, n_chunks, seed, poison=None):

@@ -34,7 +34,7 @@ import torch
 import torch.distributed as tdist
 import torch.multiprocessing as tmp
 
-from tpu_syncbn_torch.audit import contract_cache, program_audit
+from tpu_syncbn_torch.audit import contract_cache, program_audit, srclint
 from tpu_syncbn_torch.audit.contracts import (
     ExtractionError,
     ProgramContract,
@@ -549,10 +549,9 @@ class TestAuditCLI:
         assert report["ok"] is True and report["strict"] is True
         assert report["violations"] == [] and report["unpinned"] == []
         assert report["programs_checked"] == len(program_audit.PROGRAM_BUILDERS)
-        assert report["files_linted"] == 0  # the source lint is A.14b-2
+        assert report["files_linted"] == len(srclint.package_files())
 
-    @pytest.mark.parametrize("argv", [["--no-contracts"], ["--rules", "x"], ["--changed-only",
-                                      "HEAD"], ["--shardings"], ["--mem-budget=1g"], ["plan"]])
+    @pytest.mark.parametrize("argv", [["--shardings"], ["--mem-budget=1g"], ["plan"]])
     def test_a_later_layers_flag_is_a_usage_error(self, argv, capsys):
         from tpu_syncbn_torch.audit.__main__ import LATER_FLAGS, main
 
@@ -594,7 +593,7 @@ class TestTelemetryWiring:
         telemetry.set_enabled(True)
         telemetry.REGISTRY.reset()
         try:
-            result = run_audit(live=live, golden_dir=GOLDEN_DIR)
+            result = run_audit(lint=False, live=live, golden_dir=GOLDEN_DIR)
             return result, telemetry.snapshot()["counters"]
         finally:
             telemetry.set_enabled(None)

@@ -15,10 +15,17 @@ is the design note).
 * :mod:`tpu_syncbn_torch.audit.contract_cache` — one recording per
   program fingerprint per process.
 
-The JAX package's other two layers wait: the source lint (ROADMAP
-A.14b-2) and the sharding flow with per-device peak memory (A.14b-3).
-Run ``python -m tpu_syncbn_torch.audit [--strict] [--json]`` or
-:func:`run_audit`; results feed the ``audit.*`` telemetry counters.
+* :mod:`tpu_syncbn_torch.audit.srclint` — layer 2, the source lint:
+  standard-library ``ast`` rules over the port's own files (host syncs
+  in step bodies, raw collectives and the raw profiler, lock
+  discipline, the telemetry schema, unbounded waits, mesh-axis
+  literals, private process groups, lossy defaults; ``DESIGN.md`` §7).
+
+The JAX package's third layer, the sharding flow with per-device peak
+memory, waits (ROADMAP A.14b-3). Run ``python -m tpu_syncbn_torch.audit
+[--strict] [--json] [--no-contracts | --no-lint] [--rules R1,R2]
+[--root PATH] [--changed-only REF]`` or :func:`run_audit`; results feed
+the ``audit.*`` telemetry counters.
 """
 
 from __future__ import annotations
@@ -37,7 +44,13 @@ from tpu_syncbn_torch.audit.contracts import (  # noqa: F401
     save_contract,
     weighted_cost_summary,
 )
-from tpu_syncbn_torch.audit.program_audit import Violation  # noqa: F401
+from tpu_syncbn_torch.audit.srclint import (  # noqa: F401
+    RULES,
+    Violation,
+    lint_file,
+    lint_package,
+    lint_source,
+)
 
 #: Bump when the CLI/JSON report shape changes incompatibly.
 REPORT_SCHEMA = 1
@@ -45,9 +58,8 @@ REPORT_SCHEMA = 1
 
 @dataclasses.dataclass
 class AuditResult:
-    """Aggregate outcome of one audit run — the violations plus the
-    accounting the CLI, the tests and the ``audit.*`` counters key on.
-    ``files_linted`` stays 0 until the source lint is ported (A.14b-2)."""
+    """Aggregate outcome of one audit run — both layers' violations plus
+    the accounting the CLI, the tests and the ``audit.*`` counters key on."""
 
     violations: list[Violation]
     unpinned: list[str]
@@ -81,30 +93,52 @@ class AuditResult:
         }
 
 
-def run_audit(*, strict: bool = False, golden_dir: str | None = None,
-              live: dict | None = None) -> AuditResult:
-    """Record the registry on the pinned world, hold it to the invariants
-    and the goldens, and fold the outcome into the ``audit.*`` telemetry
-    counters. ``live`` is a :func:`~tpu_syncbn_torch.audit.program_audit.pinned_world_contracts`
-    result to check instead of recording anew. Touches no environment
-    variable and no process group of the caller."""
-    from tpu_syncbn_torch.audit import program_audit
+def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True,
+              golden_dir: str | None = None, pkg_root: str | None = None,
+              rules=None, lint_paths=None, live: dict | None = None) -> AuditResult:
+    """Run the audit layers and fold the outcome into the ``audit.*``
+    telemetry counters. ``lint`` runs the source lint over ``pkg_root``
+    (default: the port's package) or over the files of ``lint_paths``
+    (the ``--changed-only`` mode), with the ``rules`` subset (default:
+    all). ``contracts`` records the registry on the pinned world and
+    holds it to the invariants and the goldens; ``live`` is a
+    :func:`~tpu_syncbn_torch.audit.program_audit.pinned_world_contracts`
+    result to check instead of recording anew. ``contracts=False`` starts
+    no process and imports no trainer. Touches no environment variable
+    and no process group of the caller."""
+    from tpu_syncbn_torch.audit import srclint
     from tpu_syncbn_torch.obs import telemetry
 
-    if live is None:
-        live = program_audit.pinned_world_contracts()
-    contracts = live["contracts"]
-    violations = [Violation(rule=rule, message=msg, path="<recording>", line=0)
-                  for _, rule, msg in live["errors"]]
-    violations += program_audit.check_invariants(contracts)
-    gdir = golden_dir or program_audit.default_golden_dir()
-    golden_violations, unpinned = program_audit.check_goldens(contracts, gdir)
-    violations += golden_violations
-    result = AuditResult(violations=violations, unpinned=unpinned, files_linted=0,
-                         programs_checked=len(contracts), strict=strict)
+    violations: list[Violation] = []
+    unpinned: list[str] = []
+    files_linted = programs_checked = 0
+    if lint:
+        files = (list(lint_paths) if lint_paths is not None
+                 else srclint.package_files(pkg_root))
+        files_linted = len(files)
+        for path in files:
+            violations.extend(srclint.lint_file(path, rules=rules))
+    if contracts:
+        from tpu_syncbn_torch.audit import program_audit
+
+        if live is None:
+            live = program_audit.pinned_world_contracts()
+        recorded = live["contracts"]
+        programs_checked = len(recorded)
+        violations += [Violation(rule=rule, message=msg, path="<recording>", line=0)
+                       for _, rule, msg in live["errors"]]
+        violations += program_audit.check_invariants(recorded)
+        gdir = golden_dir or program_audit.default_golden_dir()
+        golden_violations, unpinned = program_audit.check_goldens(recorded, gdir)
+        violations += golden_violations
+    result = AuditResult(violations=violations, unpinned=unpinned,
+                         files_linted=files_linted,
+                         programs_checked=programs_checked, strict=strict)
     telemetry.count("audit.runs")
-    if result.programs_checked:
-        telemetry.count("audit.programs_checked", result.programs_checked)
+    if files_linted:
+        telemetry.count("audit.files_linted", files_linted)
+    if programs_checked:
+        telemetry.count("audit.programs_checked", programs_checked)
     telemetry.count("audit.violations", len(violations))
     for rule, n in result.rule_counts.items():
         telemetry.count(f"audit.rule.{rule}", n)
@@ -119,8 +153,12 @@ __all__ = [
     "LoweredStep",
     "ProgramContract",
     "Recorder",
+    "RULES",
     "Violation",
     "run_audit",
+    "lint_file",
+    "lint_package",
+    "lint_source",
     "compare_contracts",
     "extract_contract",
     "load_contract",

@@ -1,17 +1,21 @@
 """The CLI: ``python -m tpu_syncbn_torch.audit [--strict] [--json]
-[--write-goldens [--force]] [--golden-dir D]``.
+[--no-contracts | --no-lint] [--rules R1,R2] [--root PATH]
+[--changed-only GIT_REF] [--write-goldens [--force]] [--golden-dir D]``.
 
 Exit codes, as the JAX CLI's: 0 — clean; 1 — violations (or, under
 ``--strict``, a recorded program with no pinned golden; or
 ``--write-goldens`` refusing to overwrite a mismatching golden without
-``--force``); 2 — usage error, including every flag of a layer not
-ported yet (each message names the ROADMAP item that adds it).
+``--force``); 2 — usage error, including an unknown rule and every flag
+of a layer not ported yet (each message names the ROADMAP item that adds
+it).
 
-The registry runs on the CPU, in :data:`~tpu_syncbn_torch.audit.program_audit.PINNED_WORLD`
-spawned gloo processes (goldens record the world they were pinned at),
-whatever card the machine has: the JAX CLI forces its 8-device CPU mesh
-the same way. The children get their settings as arguments, so this
-process's environment and process group are left as they were.
+The source lint (layer 2) reads the port's files and imports none of
+them. The registry (layer 1) runs on the CPU, in
+:data:`~tpu_syncbn_torch.audit.program_audit.PINNED_WORLD` spawned gloo
+processes (goldens record the world they were pinned at), whatever card
+the machine has: the JAX CLI forces its 8-device CPU mesh the same way.
+The children get their settings as arguments, so this process's
+environment and process group are left as they were.
 """
 
 from __future__ import annotations
@@ -19,21 +23,57 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 #: Flags of the JAX CLI that belong to layers the port has not ported yet,
 #: and the ROADMAP item that adds each.
 LATER_FLAGS = {
-    "--no-contracts": "A.14b-2 (the source lint)",
-    "--no-lint": "A.14b-2 (the source lint)",
-    "--rules": "A.14b-2 (the source lint)",
-    "--rule": "A.14b-2 (the source lint)",
-    "--root": "A.14b-2 (the source lint)",
-    "--changed-only": "A.14b-2 (the source lint)",
     "--shardings": "A.14b-3 (placement and per-device peak memory)",
     "--mem-budget": "A.14b-3 (placement and per-device peak memory)",
     "plan": "A.14c (the planner)",
 }
+
+#: Package subtrees whose change can change a registered program:
+#: ``--changed-only`` runs the contract layer only when one of them
+#: changed (the JAX CLI's ``_CONTRACT_SOURCES``, without ``compat.py``).
+CONTRACT_SOURCES = ("parallel", "serve", "nn", "ops", "audit", "runtime",
+                    "mesh_axes.py")
+
+
+def _changed_files(ref: str, pkg_root: str) -> list[str] | None:
+    """The package's ``.py`` files changed against ``ref``, untracked ones
+    included (a new module is the likeliest home of a new finding). None
+    when ``git`` fails: the caller falls back to the full sweep rather
+    than lint nothing."""
+    base = os.path.dirname(os.path.abspath(pkg_root))
+    rels: list[str] = []
+    for cmd in (["git", "diff", "--name-only", "--relative", ref, "--", "*.py"],
+                ["git", "ls-files", "--others", "--exclude-standard", "--", "*.py"]):
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=30, cwd=base)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        if proc.returncode != 0:
+            return None
+        rels.extend(proc.stdout.splitlines())
+    root = os.path.abspath(pkg_root) + os.sep
+    out = []
+    for rel in dict.fromkeys(r.strip() for r in rels):
+        path = os.path.join(base, rel)
+        if path.endswith(".py") and os.path.exists(path) \
+                and os.path.abspath(path).startswith(root):
+            out.append(path)
+    return out
+
+
+def _touches_programs(paths, pkg_root: str) -> bool:
+    for path in paths:
+        rel = os.path.relpath(path, pkg_root).replace(os.sep, "/")
+        if rel.split("/")[0] in CONTRACT_SOURCES:
+            return True
+    return False
 
 
 def _later_flag(argv) -> str | None:
@@ -47,10 +87,11 @@ def _later_flag(argv) -> str | None:
 def _parse(argv):
     parser = argparse.ArgumentParser(
         prog="python -m tpu_syncbn_torch.audit",
-        description="Program-contract audit of the port (layer 1): records "
-        "every registered step body on a gloo world of 8 CPU processes, "
-        "whatever card the machine has, and holds it to the cross-program "
-        "invariants and the goldens (tpu_syncbn_torch/audit/DESIGN.md).",
+        description="Audit of the port: the program contracts (layer 1: every "
+        "registered step body recorded on a gloo world of 8 CPU processes, "
+        "whatever card the machine has, held to the cross-program invariants "
+        "and the goldens) and the source lint (layer 2: ast rules over the "
+        "port's files) (tpu_syncbn_torch/audit/DESIGN.md).",
     )
     parser.add_argument(
         "--strict", action="store_true",
@@ -70,6 +111,22 @@ def _parse(argv):
     parser.add_argument(
         "--golden-dir", default=None, metavar="DIR",
         help="golden-contract directory (default: tpu_syncbn_torch/audit/goldens/)")
+    parser.add_argument(
+        "--no-contracts", action="store_true",
+        help="source lint only: records no program (no process, no trainer)")
+    parser.add_argument(
+        "--no-lint", action="store_true", help="contract layer only")
+    parser.add_argument(
+        "--rules", default=None, metavar="R1,R2",
+        help="comma-separated lint rule subset (default: all)")
+    parser.add_argument(
+        "--root", default=None, metavar="PATH",
+        help="lint this source tree instead of the port's package")
+    parser.add_argument(
+        "--changed-only", default=None, metavar="GIT_REF",
+        help="lint only the package files changed against the git ref "
+        "(untracked ones included), and record the programs only when a "
+        "program-defining subtree changed")
     return parser.parse_args(argv)
 
 
@@ -89,11 +146,34 @@ def main(argv=None) -> int:
         return 2
 
     from tpu_syncbn_torch import audit
-    from tpu_syncbn_torch.audit import program_audit
+    from tpu_syncbn_torch.audit import program_audit, srclint
+
+    rules = None
+    if args.rules:
+        rules = [r.strip() for r in args.rules.split(",") if r.strip()]
+        unknown = [r for r in rules if r not in srclint.RULES]
+        if unknown:
+            print(f"unknown rule(s): {', '.join(unknown)} "
+                  f"(have: {', '.join(srclint.RULES)})", file=sys.stderr)
+            return 2
+    lint_paths = None
+    contracts = not args.no_contracts
+    if args.changed_only is not None:
+        pkg_root = args.root or srclint.PKG_ROOT
+        changed = _changed_files(args.changed_only, pkg_root)
+        if changed is None:
+            print(f"--changed-only: git diff vs {args.changed_only!r} failed; "
+                  "falling back to the full sweep", file=sys.stderr)
+        else:
+            lint_paths = changed
+            if contracts and not _touches_programs(changed, pkg_root):
+                contracts = False
+                print("--changed-only: no program-defining sources changed; "
+                      "skipping the contract layer", file=sys.stderr)
 
     gdir = args.golden_dir or program_audit.default_golden_dir()
-    live = program_audit.pinned_world_contracts()
     if args.write_goldens:
+        live = program_audit.pinned_world_contracts()
         if live["errors"]:
             for name, rule, msg in live["errors"]:
                 print(f"<recording>: [{rule}] {msg}")
@@ -117,7 +197,11 @@ def main(argv=None) -> int:
             print(f"pinned {os.path.relpath(path)}")
         return 0
 
-    result = audit.run_audit(strict=args.strict, golden_dir=gdir, live=live)
+    live = program_audit.pinned_world_contracts() if contracts else None
+    result = audit.run_audit(strict=args.strict, lint=not args.no_lint,
+                             contracts=contracts, golden_dir=gdir,
+                             pkg_root=args.root, rules=rules,
+                             lint_paths=lint_paths, live=live)
     if args.as_json:
         print(json.dumps(result.to_json(), indent=1, sort_keys=False))
     else:
@@ -127,8 +211,10 @@ def main(argv=None) -> int:
             tag = "FAIL" if args.strict else "warn"
             print(f"{tag}: program {name!r} has no pinned golden "
                   "(--write-goldens to pin)")
-        print(f"audit: {result.programs_checked} programs checked at world "
-              f"{program_audit.PINNED_WORLD} in {live['seconds']:.1f}s, "
+        recorded = (f" at world {program_audit.PINNED_WORLD} in {live['seconds']:.1f}s"
+                    if live is not None else "")
+        print(f"audit: {result.files_linted} files linted, "
+              f"{result.programs_checked} programs checked{recorded}, "
               f"{len(result.violations)} violation(s)"
               + (f", {len(result.unpinned)} unpinned" if result.unpinned else ""))
     return 0 if result.ok else 1

@@ -364,11 +364,15 @@ class Recorder:
                                for label, leaves in self._state.items()}
         self._before = self._snapshot()
 
+        # the hooks are global: they run on whichever thread steps an
+        # optimizer, beside the recording thread's ops
         def enter_opt(*_):
-            self._in_optimizer += 1
+            with self._lock:
+                self._in_optimizer += 1
 
         def leave_opt(*_):
-            self._in_optimizer -= 1
+            with self._lock:
+                self._in_optimizer -= 1
 
         self._hooks = [register_optimizer_step_pre_hook(enter_opt),
                        register_optimizer_step_post_hook(leave_opt)]
@@ -392,11 +396,13 @@ class Recorder:
             h.remove()
         try:
             after = self._snapshot()
-            self.written = {}
-            for label, leaves in self._before.items():
-                self.written[label] = sum(
-                    1 for t, (p0, v0), (p1, v1) in zip(self._state[label], leaves, after[label])
-                    if p0 == p1 and (v1 > v0 or self._was_written(t)))
+            # published whole: a reader on another thread sees the old
+            # counts or the new ones, never a part
+            self.written = {
+                label: sum(1 for t, (p0, v0), (p1, v1)
+                           in zip(self._state[label], leaves, after[label])
+                           if p0 == p1 and (v1 > v0 or self._was_written(t)))
+                for label, leaves in self._before.items()}
         finally:
             if self._saved is not None:
                 with torch.no_grad():

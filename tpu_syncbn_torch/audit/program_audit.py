@@ -41,6 +41,8 @@ from tpu_syncbn_torch.audit.contracts import (
     load_contract,
     save_contract,
 )
+# the one finding type of both layers, kept in the standard-library lint
+from tpu_syncbn_torch.audit.srclint import Violation
 
 #: World the goldens are pinned at: JAX's virtual CPU mesh
 #: (``tpu_syncbn/audit/jaxpr_audit.py:76``), here gloo processes.
@@ -64,24 +66,6 @@ HOST_READ_ITEMS = {
     "layout.dp_fsdp.train_step": "C.6",
     "layout.dp_fsdp_int8.train_step": "C.6",
 }
-
-
-@dataclasses.dataclass
-class Violation:
-    """One finding of the audit (``rule``, ``message``, where)."""
-
-    rule: str
-    message: str
-    path: str
-    line: int
-    col: int = 0
-
-    def format(self) -> str:
-        loc = f"{self.path}:{self.line}" if self.line else self.path
-        return f"{loc}: [{self.rule}] {self.message}"
-
-    def to_json(self) -> dict:
-        return dataclasses.asdict(self)
 
 
 def lossy_collective_bytes(contract: ProgramContract) -> int:

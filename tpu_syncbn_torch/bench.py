@@ -266,6 +266,24 @@ def _timed_loop(device, n: int, dispatch) -> tuple[float, float]:
     return time.perf_counter() - t0, inside
 
 
+#: How long the serving blocks wait for their client threads: each client
+#: sends a few requests, and each request waits at most 600 s for its result.
+CLIENT_JOIN_S = 900.0
+
+
+def _join_clients(threads, timeout_s: float = CLIENT_JOIN_S) -> None:
+    """Join a serving block's client threads within one shared deadline,
+    and raise if one is still running (a wedged engine or batcher) rather
+    than wait for it forever."""
+    deadline = time.monotonic() + timeout_s
+    for th in threads:
+        th.join(max(0.0, deadline - time.monotonic()))
+    alive = [th.name for th in threads if th.is_alive()]
+    if alive:
+        raise RuntimeError(
+            f"serve bench clients still running after {timeout_s:g} s: {alive}")
+
+
 def _gap(wall: float, inside: float) -> tuple[float, float]:
     """``(host_gap_frac, dispatch_frac)`` of a timed loop."""
     frac = inside / wall
@@ -958,8 +976,7 @@ def measure_serve(dp, batch) -> dict:
         t0 = time.perf_counter()
         for th in threads:
             th.start()
-        for th in threads:
-            th.join()
+        _join_clients(threads)
         wall = time.perf_counter() - t0
         bat.close(drain=True)
         fill = bat.fill_ratio
@@ -1090,8 +1107,7 @@ def measure_serve_publish(engine, x, *, gb: int, max_batch: int,
                             break
                     time.sleep(0.005)
                 mid = midpoint(bat)
-            for th in threads:
-                th.join()
+            _join_clients(threads)
         finally:
             bat.close(drain=True)
         return latencies, mid
@@ -1229,8 +1245,7 @@ def measure_serve_tenancy(engine, x, *, gb: int, max_batch: int,
                        for c in range(clients)]
             for th in threads:
                 th.start()
-            for th in threads:
-                th.join()
+            _join_clients(threads)
             bat.close(drain=True)
             agg.tick()  # land this tenant's deltas in a windowed frame
             requests = bat.counters.count("requests")

@@ -529,7 +529,10 @@ class InferenceEngine:
                                   labels=self._model_labels)
                 telemetry.count("serve.compiles",
                                 labels=self._model_labels)
-            self._programs_compiled += 1
+            # build() runs inside cached_program under _build_lock below,
+            # which the rule cannot see lexically (the JAX engine
+            # suppresses its int bump at tpu_syncbn/serve/engine.py:579)
+            self._programs_compiled += 1  # audit: ok[unlocked_shared_state]
             return prog
 
         with self._build_lock:

@@ -774,8 +774,10 @@ class AsyncCheckpointer:
 
     def _run(self) -> None:
         while True:
-            # close() always enqueues the None sentinel, so this ends
-            item = self._queue.get()
+            # idle-wait for work by design: close() always enqueues the
+            # None sentinel, so this get provably ends (as JAX's,
+            # tpu_syncbn/utils/checkpoint.py:791)
+            item = self._queue.get()  # audit: ok[unbounded_blocking]
             if item is None:
                 return
             op, directory, number, host_tree, keep = item
@@ -832,8 +834,10 @@ class AsyncCheckpointer:
             self._pending += 1
         # enqueue OUTSIDE the condition: a put on the bounded queue may
         # block (the documented backpressure), and the worker needs the
-        # condition to drain
-        self._queue.put(("save", directory, int(step), host_tree,
+        # condition to drain. The single worker stops only at close()'s
+        # sentinel (its loop catches BaseException per item), so the put
+        # always drains (JAX: tpu_syncbn/utils/checkpoint.py:865)
+        self._queue.put(("save", directory, int(step), host_tree,  # audit: ok[unbounded_blocking]
                          self.keep if keep is None else keep))
 
     def publish(self, directory: str, version: int, tree: Any, *,
@@ -855,7 +859,9 @@ class AsyncCheckpointer:
         telemetry.observe("checkpoint.async_snapshot_s", time.perf_counter() - t0)
         with self._cond:
             self._pending += 1
-        self._queue.put(("publish", directory, int(version), host_tree,
+        # the same backpressure as save()'s, drained by the same worker
+        # (JAX: tpu_syncbn/utils/checkpoint.py:889)
+        self._queue.put(("publish", directory, int(version), host_tree,  # audit: ok[unbounded_blocking]
                          self.keep if keep is None else keep))
 
     def flush(self, timeout: float | None = None) -> bool:
