@@ -362,6 +362,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -2836,7 +2837,15 @@ BENCH_KEYS = ("metric", "value", "unit", "backend", "bn_backend", "chips",
               "per_chip_batch", "image_side", "steps", "compile_warmup_s", "mfu",
               "flops_per_step", "flops_source", "peak_flops", "peak_source",
               "device_kind", "host_load_1m", "collectives", "monitor", "numerics",
-              "autopilot", "incident", "memory", "compile", "serve", "telemetry")
+              "autopilot", "incident", "memory", "compile", "serve", "telemetry",
+              "audit", "layout")
+# the audit and layout blocks' keys (bench.py's measure_audit, measure_layout)
+BENCH_AUDIT_KEYS = {"files_linted", "lint_violations", "sharding", "audit_s"}
+BENCH_AUDIT_SHARDING_KEYS = {"collectives_explained", "implicit_reshards",
+                             "replicated_intermediates", "max_replicated_mb",
+                             "peak_mb_per_device", "peak_bytes_per_device", "xla_peak_bytes"}
+BENCH_LAYOUT_KEYS = {"dp", "dp_fsdp", "dp_fsdp_int8", "fsdp_peak_ratio", "int8_wire_ratio",
+                     "layout_s"}
 # the serve block's keys (bench.py's measure_serve and its sections)
 BENCH_SERVE_KEYS = {"buckets", "max_batch", "max_wait_ms", "warm_compile_s", "levels",
                     "clients", "requests", "rejected", "throughput_rps", "latency_p50_ms",
@@ -2862,9 +2871,11 @@ def phase_bench():
     server's scrape and probes, one SLO evaluation; the publisher's samples
     and one forced ``numerics_drift`` bundle), the ``incident``, ``memory``
     and ``compile`` blocks (a
-    forced bundle, the card's reading against the warm step's peak with
-    its ``mem_pressure`` drill and a capture holding CUDA activity, the
-    first step's compile event and no storm), the ``autopilot`` block (JAX's
+    forced bundle, the card's reading against the audited peak of the
+    benched step, ``contract_source`` ``"sharding_audit"``, with its
+    ``mem_pressure`` drill and a capture holding CUDA activity, the first
+    step's compile event and no storm), the ``audit`` and ``layout`` blocks
+    (``_bench_audit_blocks``), the ``autopilot`` block (JAX's
     validator: off int8 within 2 chunks, the A/B, one bundle an
     actuation; its arms launch the int8 kernels), the ``serve`` block (JAX's
     keys, one program a bucket, its levels printed; its ``publish`` section
@@ -2907,8 +2918,8 @@ def phase_bench():
     if got != want or not all(isinstance(v.get("ms"), (int, float)) and v["ms"] >= 0
                               for v in modes.values()):
         failures.append(f"[bench] collectives block {coll}")
-    # the obs blocks: a forced bundle; the card's reading against the warm
-    # step's peak, the planted mem_pressure drill, a capture with CUDA
+    # the obs blocks: a forced bundle; the card's reading against the
+    # audited peak, the planted mem_pressure drill, a capture with CUDA
     # activity; the first step's compile event and no storm
     # the monitor block: a port-0 server's scrape and probes over the loop's
     # window, one SLO evaluation that does not fire; the numerics block: the
@@ -2942,7 +2953,7 @@ def phase_bench():
     if inc.get("trigger") != "manual" or not inc.get("bundle_bytes") \
             or inc.get("ring_steps") != line.get("steps"):
         failures.append(f"[bench] incident block {inc}")
-    if (mem.get("source") != "device" or mem.get("contract_source") != "warm_step_peak"
+    if (mem.get("source") != "device" or mem.get("contract_source") != "sharding_audit"
             or mem.get("used_frac") is None or not (mem.get("pressure") or {}).get("valid")
             or (mem.get("profilez") or {}).get("status") != 200
             or not (mem.get("profilez") or {}).get("device_events")):
@@ -2950,6 +2961,7 @@ def phase_bench():
     if comp.get("storms") != 0 or not comp.get("events_total") \
             or "train" not in (comp.get("families") or {}):
         failures.append(f"[bench] compile block {comp}")
+    failures += _bench_audit_blocks(line)
     # the serve block: JAX's keys; the publish section's swap under load and
     # its rollback; printed: the closed-loop levels, the open-loop levels
     # with their flags, the publish section
@@ -2982,6 +2994,53 @@ def phase_bench():
     except ValueError as e:
         failures.append(f"[bench] telemetry block: {e}")
     return failures, line
+
+
+def _jax_layout_ratio() -> float | None:
+    """JAX's golden DP×FSDP/DP peak ratio, read from its pinned contract
+    files (data: nothing of the JAX package is imported)."""
+    peaks = []
+    for kind in ("dp_fsdp", "dp"):
+        path = os.path.join(HERE, "tests", "contracts", f"layout.{kind}.train_step.json")
+        try:
+            with open(path) as f:
+                peaks.append(json.load(f)["sharding"]["peak_bytes_per_device"])
+        except (OSError, KeyError, ValueError):
+            return None
+    return peaks[0] / peaks[1]
+
+
+def _bench_audit_blocks(line) -> list:
+    """The bench line's ``audit`` and ``layout`` blocks: JAX's keys; the lint
+    clean; layer 3 over the benched step with no implicit reshard, its peak
+    the memory block's contract and at most the allocator's reading; the
+    layout block's three programs at the pinned world and C.7's ratio as
+    measured, beside JAX's golden one. Each block's seconds are printed."""
+    failures = []
+    aud, lay = line.get("audit") or {}, line.get("layout") or {}
+    sh = aud.get("sharding") or {}
+    mem = line.get("memory") or {}
+    if set(aud) != BENCH_AUDIT_KEYS or set(sh) != BENCH_AUDIT_SHARDING_KEYS \
+            or aud.get("lint_violations") != 0 or sh.get("implicit_reshards") != 0 \
+            or not 0 < (sh.get("peak_bytes_per_device") or 0) <= (sh.get("xla_peak_bytes") or 0) \
+            or mem.get("contract_bytes_per_device") != sh.get("peak_bytes_per_device"):
+        failures.append(f"[bench] audit block {aud} (memory contract "
+                        f"{mem.get('contract_bytes_per_device')})")
+    if set(lay) != BENCH_LAYOUT_KEYS or any(
+            (lay.get(k) or {}).get("world") != 8 for k in ("dp", "dp_fsdp", "dp_fsdp_int8")):
+        failures.append(f"[bench] layout block {lay}")
+    jax_ratio = _jax_layout_ratio()
+    log(f"[bench] audit: {aud.get('files_linted')} files linted, "
+        f"{aud.get('lint_violations')} violations; the benched step's peak "
+        f"{(sh.get('peak_bytes_per_device') or 0) / 2**30:.3f} GiB, the allocator's "
+        f"{(sh.get('xla_peak_bytes') or 0) / 2**30:.3f} GiB; memory contract_source "
+        f"{mem.get('contract_source')}; in {aud.get('audit_s')}s")
+    log(f"[bench] layout: fsdp_peak_ratio {lay.get('fsdp_peak_ratio')} (JAX's golden "
+        f"{jax_ratio if jax_ratio is None else round(jax_ratio, 4)}; ROADMAP C.7), "
+        f"int8_wire_ratio {lay.get('int8_wire_ratio')}, "
+        + ", ".join(f"{k} {json.dumps(lay.get(k))}" for k in ("dp", "dp_fsdp", "dp_fsdp_int8"))
+        + f"; in {lay.get('layout_s')}s")
+    return failures
 
 
 # -- phases 12-13: scan (K steps captured into one CUDA graph) and resilience
@@ -4648,15 +4707,17 @@ def _audit_capture(torch, dp, batch, k: int, record: bool):
     state by the trainer's own ``_build_program``, its learning rates
     filled as ``train_steps`` fills them: ``(program, recorder or None,
     capture seconds)``. With ``record`` the audit's recorder (sync debug
-    mode "error" armed) is entered around the captured applications
-    alone."""
+    mode "error" armed, layer 3 on the trainer's mesh and declared specs)
+    is entered around the captured applications alone."""
     from tpu_syncbn_torch.audit import contracts
     from tpu_syncbn_torch.parallel.trainer import _schedule_lrs
 
     box = []
+    mesh_axes, layout = dp.audit_mesh()
 
-    def recorder(state):
-        box.append(contracts.Recorder(state, sync_debug=True))
+    def recorder(state, specs):
+        box.append(contracts.Recorder(state, sync_debug=True, mesh_axes=mesh_axes,
+                                      in_specs=specs, declared=AUDIT_STATE, layout=layout))
         return box[-1]
 
     t0 = time.perf_counter()
@@ -4728,8 +4789,10 @@ def _audit_wire(torch, T, Q, wire: str, card, failures) -> dict:
         if c.donated_aliased != want:
             failures.append(f"[{tag}] {what}: state written in place {c.donated_aliased}, "
                             f"want {want} (module and optimizer leaves)")
-    # 3. the K-step chunk's contract a step equals the one-step body's
-    k_diffs = compare_contracts(c4, c1)
+    # 3. the K-step chunk's contract a step equals the one-step body's (layer
+    # 3's peak holds the chunk's K batches: gate (f))
+    k_diffs = compare_contracts(dataclasses.replace(c4, sharding=None),
+                                dataclasses.replace(c1, sharding=None))
     if k_diffs:
         failures.append(f"[{tag}] K={AUDIT_K} chunk a step differs from the body: {k_diffs}")
     # 4. the recorder changes nothing: bitwise the chunk captured without it
@@ -4765,12 +4828,153 @@ def _audit_wire(torch, T, Q, wire: str, card, failures) -> dict:
         f"{cap1_s:.2f} (recorded), K={AUDIT_K} {cap_rec_s:.2f} recorded / "
         f"{cap_plain_s:.2f} not; contract from the recording {extract_s * 1e3:.1f} ms "
         f"[{card}]")
+    from tpu_syncbn_torch.audit.contracts import tensor_leaves
+
+    out_step = sum(t.numel() * t.element_size() for t in tensor_leaves(out_r)) // AUDIT_K
+    layer3 = _audit_layer3(torch, dp, wire, c1, c4, one, out_step, steps[0], card, failures)
     return dp, {"contract_step": c1.to_json(), "ops_a_step": len(rec4.ops) // AUDIT_K,
+            "layer3": layer3,
             "tflop_a_step": rec4.flops / AUDIT_K / 1e12,
             "capture_s": {"k1_recorded": cap1_s, f"k{AUDIT_K}_recorded": cap_rec_s,
                           f"k{AUDIT_K}_plain": cap_plain_s},
             "extract_ms": extract_s * 1e3, "bitwise": same_loss and same_state,
             "launches": launches1, "body": body}
+
+
+# gate (e)'s bound: the allocator's reading over the recorded peak
+AUDIT_ALLOCATOR_RATIO = 1.25
+# dispatched ops whose kernels take cuDNN's and cuBLAS's workspaces
+CUBLAS_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "matmul", "_scaled_mm", "linear",
+                        "addmv", "mv", "dot"})
+
+
+class _WorkspaceProbe:
+    """A dispatch mode that reads, for every op, the bytes the caching
+    allocator handed out inside it beyond what the op left allocated (its
+    workspace: cuDNN's for a convolution, cuBLAS's for a matrix product),
+    and the allocator's most above the start of the block, op by op. It
+    also notes the storages each ``stack`` reads: the last run of stacks
+    in a K-step body is ``ScanSteps.loop`` stacking the steps' results, so
+    their storages are what each step keeps until the chunk ends
+    (:meth:`result_bytes`)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        probe = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                torch.cuda.reset_peak_memory_stats()
+                m0 = torch.cuda.memory_allocated()
+                out = func(*args, **(kwargs or {}))
+                top = torch.cuda.max_memory_allocated()
+                left = torch.cuda.memory_allocated()
+                name = func._opname
+                probe.ops.append((name, [(t.untyped_storage().data_ptr(),
+                                          t.untyped_storage().nbytes())
+                                         for t in (args[0] if name == "stack" else ())]))
+                fam = ("cudnn" if "conv" in name or "cudnn" in name
+                       else "cublas" if name in CUBLAS_OPS else "other")
+                ws = top - max(left, m0)
+                if ws > probe.most[fam]:
+                    probe.most[fam], probe.where[fam] = ws, name
+                if top - probe.start > probe.peak:
+                    probe.peak, probe.at = top - probe.start, (name, fam, ws)
+                return out
+
+        self.mode = Mode()
+        self.torch = torch
+        self.most = {"cudnn": 0, "cublas": 0, "other": 0}
+        self.where = {"cudnn": None, "cublas": None, "other": None}
+        self.peak, self.at, self.start = 0, None, 0
+        self.ops: list = []
+
+    def result_bytes(self) -> int:
+        """Bytes of the distinct storages the last run of ``stack`` ops read."""
+        i = max((k for k, (n, _) in enumerate(self.ops) if n == "stack"), default=-1)
+        seen = {}
+        while i >= 0 and self.ops[i][0] == "stack":
+            seen.update(self.ops[i][1])
+            i -= 1
+        return sum(seen.values())
+
+    def __enter__(self):
+        self.start = self.torch.cuda.memory_allocated()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def _audit_layer3(torch, dp, wire, c1, c4, one, out_step, batch, card, failures) -> dict:
+    """Gates (d)-(f), layer 3 on the card: (d) no implicit reshard in the
+    one-step body nor the K = 4 chunk recorded at their captures; (e) one
+    eager application recorded with the allocator's reading: the recorded
+    peak at most the allocator's, the allocator's at most
+    ``AUDIT_ALLOCATOR_RATIO`` times the recorded, and the workspaces the gap
+    is made of (a second eager application under ``_WorkspaceProbe``); (f)
+    the K = 4 chunk's peak above the body's by at most its three extra
+    steps' inputs and results: the batches of its stacked input and the
+    storages of the per-step losses and metrics the chunk keeps until it
+    stacks them (read by the probe; ``out_step``, the stacked results' bytes
+    a step, is printed beside), nothing that grows with K besides."""
+    t0 = time.perf_counter()
+    s1, s4 = c1.sharding, c4.sharding
+    if s1.implicit_reshards or s4.implicit_reshards:
+        failures.append(f"[audit/{wire}] gate (d): implicit reshards {s1.reshard_detail} "
+                        f"{s4.reshard_detail}")
+    flow = dp.lowered_train_step(batch, sharding=True, memory=True).flow()
+    recorded, allocator = flow.peak_bytes_per_device, flow.xla_peak_bytes
+    ratio = allocator / max(recorded, 1)
+    if not recorded <= allocator <= AUDIT_ALLOCATOR_RATIO * recorded or flow.implicit_reshards:
+        failures.append(f"[audit/{wire}] gate (e): recorded peak {recorded} B, the "
+                        f"allocator's {allocator} B (ratio {ratio:.4f}, bound "
+                        f"{AUDIT_ALLOCATOR_RATIO}); reshards {flow.reshard_detail}")
+    probe = _WorkspaceProbe(torch)
+    with probe:
+        dp.lowered_train_step(batch)
+    # (f): what each step keeps until the chunk ends is its batch and the
+    # storages of the results the chunk stacks
+    kept = probe.result_bytes()
+    batch_bytes = sum(t.numel() * t.element_size() for t in one)
+    grow = s4.peak_bytes_per_device - s1.peak_bytes_per_device
+    if grow > (AUDIT_K - 1) * (batch_bytes + kept):
+        failures.append(f"[audit/{wire}] gate (f): the K={AUDIT_K} chunk's peak "
+                        f"{s4.peak_bytes_per_device} B is {grow} B above the body's "
+                        f"{s1.peak_bytes_per_device} B, more than {AUDIT_K - 1} steps' batch "
+                        f"({batch_bytes} B) and results ({kept} B)")
+    blas = getattr(torch.backends.cuda, "cublas_workspace_size", None)
+    blaslt = getattr(torch.backends.cuda, "cublaslt_workspace_size", None)
+    secs = time.perf_counter() - t0
+    log(f"[audit] {wire} layer 3: gate (d) implicit reshards K=1 {s1.implicit_reshards}, "
+        f"K={AUDIT_K} {s4.implicit_reshards}, eager {flow.implicit_reshards}; replicated "
+        f"intermediates {s1.replicated_intermediates} (world 1: the detector is off, "
+        f"DESIGN.md §8) {s1.replication_detail}; gate (f) peak K=1 "
+        f"{s1.peak_bytes_per_device} B ({s1.peak_bytes_per_device / 2**30:.3f} GiB), "
+        f"K={AUDIT_K} {s4.peak_bytes_per_device} B: +{grow} B against {AUDIT_K - 1} x "
+        f"({batch_bytes} B of batch + {kept} B of results, their storages; the stacked "
+        f"results {out_step} B a step); gate (e) eager recorded "
+        f"{recorded} B "
+        f"({recorded / 2**30:.3f} GiB), the allocator's {allocator} B, ratio {ratio:.4f} "
+        f"(bound {AUDIT_ALLOCATOR_RATIO}), gap {allocator - recorded} B; workspaces an op, "
+        f"largest: cuDNN {probe.most['cudnn']} B ({probe.where['cudnn']}), cuBLAS "
+        f"{probe.most['cublas']} B ({probe.where['cublas']}), other {probe.most['other']} B "
+        f"({probe.where['other']}); at the allocator's peak ({probe.peak} B above the start) "
+        f"op {probe.at}; cuBLAS workspace setting "
+        f"{blas() if blas else None} B, cuBLASLt {blaslt() if blaslt else None} B; "
+        f"in {secs:.1f}s [{card}]")
+    return {"k1": s1.to_json(), f"k{AUDIT_K}": s4.to_json(),
+            "eager": {"peak_bytes_per_device": recorded, "xla_peak_bytes": allocator,
+                      "ratio": ratio, "implicit_reshards": flow.implicit_reshards},
+            "workspaces": {"largest": dict(probe.most), "ops": dict(probe.where),
+                           "at_peak": probe.at,
+                           "probe_peak_bytes": probe.peak,
+                           "cublas_setting": blas() if blas else None,
+                           "cublaslt_setting": blaslt() if blaslt else None},
+            "batch_bytes": batch_bytes, "result_bytes": kept, "out_step_bytes": out_step,
+            "seconds": secs}
 
 
 def _audit_serve(torch, T, dp, card, failures) -> dict:
@@ -4781,6 +4985,8 @@ def _audit_serve(torch, T, dp, card, failures) -> dict:
     holds each against its plain version."""
     from tpu_syncbn_torch import serve
     from tpu_syncbn_torch.audit import contracts
+    from tpu_syncbn_torch.mesh_axes import DATA_AXIS
+    from tpu_syncbn_torch.parallel.layout import P
 
     determ = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -4798,7 +5004,8 @@ def _audit_serve(torch, T, dp, card, failures) -> dict:
         plain_s = time.perf_counter() - t0
         T.reset_launch_counts()
         rec = contracts.Recorder({"params": params, "rest": rest, "batch": x},
-                                 sync_debug=True)
+                                 sync_debug=True, mesh_axes={DATA_AXIS: 1},
+                                 in_specs={"params": P(), "rest": P(), "batch": P(DATA_AXIS)})
         t0 = time.perf_counter()
         with rec:
             engine._forward(x)
@@ -4818,6 +5025,12 @@ def _audit_serve(torch, T, dp, card, failures) -> dict:
         failures.append(f"[audit/serve] the bucket program has collectives "
                         f"{c.collectives}, writes {c.donated_aliased}, host reads "
                         f"{c.host_callbacks}")
+    if c.sharding.implicit_reshards:  # gate (d)
+        failures.append(f"[audit/serve] gate (d): implicit reshards "
+                        f"{c.sharding.reshard_detail}")
+    log(f"[audit] serve bucket {AUDIT_BUCKET} layer 3: implicit reshards "
+        f"{c.sharding.implicit_reshards}, peak {c.sharding.peak_bytes_per_device} B "
+        f"({c.sharding.peak_bytes_per_device / 2**30:.3f} GiB) [{card}]")
     want = {k: (BN_LAYERS if k == "bn_normalize" else 0) for k in MOVES}
     if {k: launches[k] for k in MOVES} != want:
         failures.append(f"[audit/serve] launches {launches}, want {want}")
@@ -4998,15 +5211,20 @@ def _audit_body_coverage(bodies, card, failures) -> dict:
     return found
 
 
-def phase_audit(torch, card):
+def phase_audit(torch, card, scan=None, zero=None):
     """The audit's contracts of the main path on the card (ROADMAP A.14b):
     the bf16 ResNet-50 SyncBN body on the wires ``none`` and ``int8``,
     recorded while its CUDA graphs are captured, and the serving bucket's
     forward; seven gates (``_audit_wire``, ``_audit_serve``,
-    ``_audit_fingerprint``). Then the source lint's three (gate 8): the
-    lint clean over the package here, its host-sync vocabulary against
-    this card's sync debug mode, and the bodies captured above among the
-    rule's step bodies. Returns (failures, summary)."""
+    ``_audit_fingerprint``), and layer 3's three on the same recordings
+    (``_audit_layer3``: (d) no implicit reshard, (e) an eager body's
+    recorded peak against the caching allocator's reading, (f) the K = 4
+    chunk's peak against the body's). Then the source lint's three (gate
+    8): the lint clean over the package here, its host-sync vocabulary
+    against this card's sync debug mode, and the bodies captured above
+    among the rule's step bodies. The body's peak is printed beside
+    ``scan``'s graph pools and ``zero``'s held bytes when given. Returns
+    (failures, summary)."""
     from tpu_syncbn_torch.ops import quant_int8 as Q
     from tpu_syncbn_torch.ops import triton_bn as T
 
@@ -5020,6 +5238,15 @@ def phase_audit(torch, card):
             torch.cuda.empty_cache()
     serve_out = _audit_serve(torch, T, dp, card, failures)  # the int8 trainer's model
     del dp
+    peak = wires["none"]["layer3"]["k1"]["peak_bytes_per_device"]
+    res = (scan or {}).get("resnet50") or {}
+    held = (zero or {}).get("held_bytes") or {}
+    beside = [f"[scan]'s K={k[1:]} graph pool {v['pool_bytes'] / 2**30:.3f} GiB"
+              for k, v in res.items() if isinstance(v, dict) and "pool_bytes" in v]
+    beside += [f"[zero]'s {k} parameters and optimizer state held {held[k] / 2**30:.3f} GiB"
+               for k in ("replicated", "zero") if k in held]
+    log(f"[audit] the bf16 ResNet-50 body's recorded peak {peak / 2**30:.3f} GiB; "
+        f"{'; '.join(beside) or 'no [scan] or [zero] figures in this run'} [{card}]")
     fp = _audit_fingerprint(failures)
     t_lint = time.perf_counter()
     lint = _audit_lint(card, failures)
@@ -8992,7 +9219,7 @@ def main() -> int:
     ap_failures, autopilot = phase_autopilot(torch, card)
     failures += ap_failures
     torch.cuda.empty_cache()
-    audit_failures, audit = phase_audit(torch, card)
+    audit_failures, audit = phase_audit(torch, card, scan, zero)
     failures += audit_failures
     torch.cuda.empty_cache()
     res_failures, resilience = phase_resilience(torch, card)

@@ -4,9 +4,9 @@ covers it, the contract cache's cases of ``tests/test_planner.py``, and
 one parity case a registered program against its JAX golden.
 
 The registry runs once for the whole run in a spawned gloo world of
-``program_audit.PINNED_WORLD`` (8) CPU processes (``_shared_dir``: one
-spawn whatever the number of xdist workers); each rank also records the
-hand-built world-8 extraction cases. Every other case reads that world's
+``program_audit.PINNED_WORLD`` (8) CPU processes (``torch_audit_world``:
+one spawn whatever the number of xdist workers and of files that read
+it); each rank also records the hand-built world-8 extraction cases. Every other case reads that world's
 JSON or runs in this process at world 1.
 
 Parity with JAX (``TestJaxParity``, a case a program): the collective
@@ -25,14 +25,10 @@ import json
 import os
 import subprocess
 import sys
-import tempfile
 import threading
-import time
 
 import pytest
 import torch
-import torch.distributed as tdist
-import torch.multiprocessing as tmp
 
 from tpu_syncbn_torch.audit import contract_cache, program_audit, srclint
 from tpu_syncbn_torch.audit.contracts import (
@@ -43,139 +39,39 @@ from tpu_syncbn_torch.audit.contracts import (
 )
 from tpu_syncbn_torch.obs import telemetry
 
+import torch_audit_world
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = program_audit.default_golden_dir()
 JAX_GOLDEN_DIR = os.path.join(ROOT, "tests", "contracts")
-JOIN_TIMEOUT_S = 300
 
 #: JAX's registry programs the port does not register, and why.
 NOT_REGISTERED = {"layout.serve.eval_fsdp": "the engine refuses sharded layouts (A.12c)"}
 
 
 # ---------------------------------------------------------------------------
-# the world-8 spawn, shared by the whole run
-
-
-def _extraction_cases(world: int) -> dict:
-    """The hand-built cases that need collectives, on this rank."""
-    from tpu_syncbn_torch.parallel import collectives as C
-
-    group = tdist.group.WORLD
-    out = {}
-    c = extract_contract(lambda x: C.psum(x, group), (torch.ones(4),), name="t",
-                         world=world, arg_labels=("x",))
-    out["psum"] = c.to_json()
-    try:
-        extract_contract(lambda x: tdist.all_reduce(x.clone()), (torch.ones(4),),
-                         name="t", world=world, arg_labels=("x",))
-        out["outside_seam"] = None
-    except ExtractionError as e:
-        out["outside_seam"] = [e.rule, str(e)]
-    # another thread's seam calls while the body records (a psum, and a
-    # ppermute, a kind the dispatcher does not see) are not the body's
-    side = tdist.new_group(list(range(world)))
-
-    def other():
-        C.psum(torch.ones(2), side)
-        C.ppermute(torch.ones(2), [(r, (r + 1) % world) for r in range(world)], side)
-
-    def body(x):
-        t = threading.Thread(target=other)
-        t.start()
-        t.join()
-        return C.psum(x, group)
-
-    out["foreign_thread"] = extract_contract(body, (torch.ones(4),), name="t", world=world,
-                                             arg_labels=("x",)).to_json()
-    return out
-
-
-def _replica(rank: int, world: int, rdv: str, out_dir: str) -> None:
-    torch.set_num_threads(1)
-    tdist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world,
-                             rank=rank)
-    try:
-        costs: dict = {}
-        errors: list = []
-        live = program_audit.build_contracts(costs=costs, errors=errors)
-        blob = {"contracts": {n: c.to_json() for n, c in live.items()}, "costs": costs,
-                "errors": errors, "extraction": _extraction_cases(world)}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(blob, f)
-    finally:
-        tdist.destroy_process_group()
-
-
-def _shared_dir(tmp_path_factory, name: str, make):
-    """The directory ``make(d)`` filled, made once per test run whatever the
-    number of xdist workers: the first worker to take the lock runs it and
-    marks it done; the others wait on the lock, then read its files."""
-    import fcntl
-
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent  # the run's directory, which its workers share
-    d = root / name
-    d.mkdir(exist_ok=True)
-    with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not (d / "done").exists():
-                make(d)
-                (d / "done").touch()
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return d
+# the world-8 spawn, shared by the whole run (torch_audit_world.py)
 
 
 @pytest.fixture(scope="module")
 def world8(tmp_path_factory):
     """Each rank's JSON of the pinned world: the registry's contracts and
     costs, its extraction errors, the hand-built world-8 cases."""
-    world = program_audit.PINNED_WORLD
-
-    def run(out):
-        rdv = tempfile.mkdtemp(dir=out)  # a fresh rendezvous each attempt
-        ctx = tmp.get_context("spawn")
-        procs = [ctx.Process(target=_replica,
-                             args=(r, world, os.path.join(rdv, "rdv"), str(out)))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + JOIN_TIMEOUT_S
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join(5)
-        assert not alive, f"world-{world} replicas still running after {JOIN_TIMEOUT_S}s"
-        assert [p.exitcode for p in procs] == [0] * world
-
-    d = _shared_dir(tmp_path_factory, "audit8", run)
-    blobs = []
-    for r in range(world):
-        with open(d / f"rank{r}.json") as f:
-            blobs.append(json.load(f))
-    return blobs
+    return torch_audit_world.world8_blobs(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
-def live(world8) -> dict:
-    """The registry's live contracts (rank 0's, every rank agreeing)."""
-    return {n: ProgramContract.from_json(c) for n, c in world8[0]["contracts"].items()}
-
-
-@pytest.fixture(scope="module")
-def pinned(world8, live) -> dict:
+def pinned(world8) -> dict:
     """What ``program_audit.pinned_world_contracts`` returns, from the
-    shared world (flops the largest of any rank)."""
-    costs = copy.deepcopy(world8[0]["costs"])
-    for name, cost in costs.items():
-        cost["flops"] = max(b["costs"][name]["flops"] for b in world8)
-    errors = [tuple(e) for e in world8[0]["errors"]]
-    errors += program_audit.rank_diffs([b["contracts"] for b in world8])
-    return {"contracts": live, "costs": costs, "errors": errors, "seconds": 0.0}
+    shared world (``program_audit.merge_ranks``: flops the largest of any
+    rank, layer 3's per-rank fields combined over the ranks)."""
+    return {**program_audit.merge_ranks(copy.deepcopy(world8)), "seconds": 0.0}
+
+
+@pytest.fixture(scope="module")
+def live(pinned) -> dict:
+    """The registry's live contracts (rank 0's, every rank agreeing)."""
+    return pinned["contracts"]
 
 
 # ---------------------------------------------------------------------------
@@ -551,7 +447,7 @@ class TestAuditCLI:
         assert report["programs_checked"] == len(program_audit.PROGRAM_BUILDERS)
         assert report["files_linted"] == len(srclint.package_files())
 
-    @pytest.mark.parametrize("argv", [["--shardings"], ["--mem-budget=1g"], ["plan"]])
+    @pytest.mark.parametrize("argv", [["plan"]])
     def test_a_later_layers_flag_is_a_usage_error(self, argv, capsys):
         from tpu_syncbn_torch.audit.__main__ import LATER_FLAGS, main
 

@@ -11,6 +11,8 @@ profiler capture through ``serve_capture``, the first step's compile
 event), and the
 ``autopilot`` block (the controller's A/B under a planted int8 clip
 fault, held to JAX's validator and, in process, to JAX's block), the
+``audit`` and ``layout`` blocks (JAX's keys: the lint and layer 3 over the
+benched step, the three ``layout.*`` programs on the pinned world), the
 ``telemetry`` block checked against the registry schema
 (``obs.telemetry.validate_snapshot``), and ``serve`` null without
 ``--serve``; ``--trace`` writes a Chrome trace that validates. The serve
@@ -28,7 +30,14 @@ KEYS = {"metric", "value", "unit", "backend", "bn_backend", "chips",
         "flops_per_step", "flops_source", "peak_flops", "peak_source",
         "device_kind", "host_load_1m", "recovery", "scan", "collectives",
         "monitor", "numerics", "autopilot", "incident", "memory", "compile", "serve",
-        "telemetry"}
+        "telemetry", "audit", "layout"}
+AUDIT_KEYS = {"files_linted", "lint_violations", "sharding", "audit_s"}
+AUDIT_SHARDING_KEYS = {"collectives_explained", "implicit_reshards",
+                       "replicated_intermediates", "max_replicated_mb", "peak_mb_per_device",
+                       "peak_bytes_per_device", "xla_peak_bytes"}
+LAYOUT_KEYS = {"dp", "dp_fsdp", "dp_fsdp_int8", "fsdp_peak_ratio", "int8_wire_ratio",
+               "layout_s"}
+LAYOUT_KIND_KEYS = {"world", "peak_bytes_per_device", "wire_bytes_per_device"}
 AUTOPILOT_KEYS = {"steps", "fault_gain", "initial_mse", "static_final_mse",
                   "autopilot_final_mse", "advantage_ratio", "escalate_within_chunks",
                   "first_signal", "modes_visited", "final_mode", "actuations", "clamped",
@@ -118,6 +127,43 @@ def test_bench_on_the_cpu_prints_its_line():
     check_telemetry_block(line["telemetry"], steps=2)
     assert line["serve"] is None  # without --serve
     check_autopilot_block(line["autopilot"])
+    check_audit_blocks(line)
+
+
+def check_audit_blocks(line):
+    """JAX's ``audit`` and ``layout`` keys (``bench.py:1877-1982``): the lint
+    clean over the package; layer 3 over the benched step at world 1 (every
+    axis of one device: nothing varies, nothing reshards), its peak at most
+    the allocator's reading of the same application; the layout block's
+    figures the pinned goldens' (the peaks of ``audit/goldens``, C.7's ratio
+    unclamped)."""
+    from tpu_syncbn_torch.audit import program_audit
+    from tpu_syncbn_torch.audit.contracts import load_contract
+    from tpu_syncbn_torch.audit.srclint import package_files
+
+    audit = line["audit"]
+    assert set(audit) == AUDIT_KEYS and set(audit["sharding"]) == AUDIT_SHARDING_KEYS
+    assert audit["files_linted"] == len(package_files()) and audit["lint_violations"] == 0
+    sh = audit["sharding"]
+    assert sh["implicit_reshards"] == 0 and sh["replicated_intermediates"] == 0
+    assert sh["collectives_explained"] == 0 and sh["max_replicated_mb"] == 0.0
+    assert 0 < sh["peak_bytes_per_device"] <= sh["xla_peak_bytes"]
+    assert sh["peak_mb_per_device"] == round(sh["peak_bytes_per_device"] / 1e6, 3)
+    assert audit["audit_s"] > 0
+    lay = line["layout"]
+    assert set(lay) == LAYOUT_KEYS and lay["layout_s"] > 0
+    peaks = {}
+    for kind in ("dp", "dp_fsdp", "dp_fsdp_int8"):
+        assert set(lay[kind]) == LAYOUT_KIND_KEYS and lay[kind]["world"] == 8
+        golden = load_contract(program_audit.golden_path(
+            program_audit.default_golden_dir(), f"layout.{kind}.train_step"))
+        peaks[kind] = golden.sharding.peak_bytes_per_device
+        assert lay[kind]["peak_bytes_per_device"] == peaks[kind]
+        assert lay[kind]["wire_bytes_per_device"] == sum(golden.collective_bytes.values())
+    assert lay["fsdp_peak_ratio"] == round(peaks["dp_fsdp"] / peaks["dp"], 4)
+    assert lay["fsdp_peak_ratio"] > 0.6  # ROADMAP C.7, printed as measured
+    assert lay["int8_wire_ratio"] == round(lay["dp_fsdp"]["wire_bytes_per_device"]
+                                           / lay["dp_fsdp_int8"]["wire_bytes_per_device"], 4)
 
 
 def check_autopilot_block(block):
@@ -225,6 +271,7 @@ def check_obs_blocks(line, steps):
     assert set(mem) == MEMORY_KEYS
     assert mem["source"] == "host" and mem["bytes_in_use"] > 0
     assert mem["warm_peak_bytes"] is None and mem["contract_bytes_per_device"] is None
+    assert mem["contract_source"] is None  # the card's: "sharding_audit"
     assert mem["used_frac"] is None and mem["headroom_frac"] is None
     assert mem["samples"] >= 2 + 1 + 25 and mem["sample_cost_s"] > 0
     assert mem["pressure"] == {"bundles": 1, "trigger": "mem_pressure", "ring_mem": 3,
@@ -259,7 +306,17 @@ def check_collectives_block(block, world):
     8 B of range a chunk; shuffle-sharding sends nothing at world 1."""
     assert set(block) == COLLECTIVES_KEYS
     assert block["world"] == world and block["payload_mb_per_chip"] == 1.0
-    assert block["golden_ratio"] == {"bf16": None, "int8": None}
+    # the ratios the port's pinned compressed_* goldens give (bench.py's)
+    from tpu_syncbn_torch.audit import program_audit
+    from tpu_syncbn_torch.audit.contracts import load_contract
+
+    def lossy(mode):
+        return program_audit.lossy_collective_bytes(load_contract(program_audit.golden_path(
+            program_audit.default_golden_dir(), f"dataparallel.compressed_{mode}.train_step")))
+
+    assert block["golden_ratio"] == {m: round(lossy("fp32") / lossy(m), 3)
+                                     for m in ("bf16", "int8")}
+    assert block["golden_ratio"]["bf16"] >= 2.0 and block["golden_ratio"]["int8"] >= 3.5
     modes = block["modes"]
     assert set(modes) == {"fp32", "bf16", "int8", "shuffle_sharded"}
     for m in modes.values():

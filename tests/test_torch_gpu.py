@@ -1418,6 +1418,36 @@ def test_dataparallel_body_contract_on_the_card_at_world_one(cuda_triton):
     assert all(p.grad is g for p, g in zip(model.parameters(), grads))
 
 
+def test_layer_three_on_a_cuda_body(cuda_triton):
+    """The audit's layer 3 on the card at world 1: the trainer's step body
+    recorded with the caching allocator's reading has no implicit reshard
+    and a recorded peak at most the allocator's; and a storage freed
+    mid-body leaves the live sum (two 4 MiB temporaries, the first dropped
+    before the second is made: the input and one of them at the peak, as
+    the allocator reads it too)."""
+    from tpu_syncbn_torch.audit.contracts import extract_contract
+    from tpu_syncbn_torch.mesh_axes import DATA_AXIS
+    from tpu_syncbn_torch.parallel.layout import P
+
+    model, dp = _card_trainer()
+    dp.train_step(_card_batch(4))
+    flow = dp.lowered_train_step(_card_batch(3), sharding=True, memory=True).flow()
+    assert flow.mesh_axes == {DATA_AXIS: 1} and flow.implicit_reshards == 0
+    assert 0 < flow.peak_bytes_per_device <= flow.xla_peak_bytes
+
+    x = torch.zeros(1 << 20, device="cuda")
+
+    def body(t):
+        a = t + 1
+        del a
+        return t * 2
+
+    s = extract_contract(body, (x,), name="t", world=1, arg_labels=("x",),
+                         mesh_axes={DATA_AXIS: 1}, in_specs=(P(),), memory=True).sharding
+    assert s.peak_bytes_per_device == 2 * (4 << 20)
+    assert s.peak_bytes_per_device <= s.xla_peak_bytes
+
+
 def test_recorder_keeps_the_seam_calls_of_the_cuda_backward_thread(cuda_triton):
     """A seam call in a CUDA tensor's backward runs on the autograd engine's
     device thread, which inherits the recorder's dispatch mode: the

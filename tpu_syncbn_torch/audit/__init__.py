@@ -1,5 +1,5 @@
 """Program-contract auditor for the port — the counterpart of
-``tpu_syncbn.audit``, its first layer (``DESIGN.md`` beside this file
+``tpu_syncbn.audit``, its three layers (``DESIGN.md`` beside this file
 is the design note).
 
 * :mod:`tpu_syncbn_torch.audit.contracts` — the extractor: a
@@ -21,9 +21,15 @@ is the design note).
   discipline, the telemetry schema, unbounded waits, mesh-axis
   literals, private process groups, lossy defaults; ``DESIGN.md`` §7).
 
-The JAX package's third layer, the sharding flow with per-device peak
-memory, waits (ROADMAP A.14b-3). Run ``python -m tpu_syncbn_torch.audit
-[--strict] [--json] [--no-contracts | --no-lint] [--rules R1,R2]
+* :mod:`tpu_syncbn_torch.audit.sharding_audit` — layer 3, placement and
+  per-device peak memory over the same recording: where every value
+  lives (the mesh axes it is replicated over), the collectives that
+  explain each change, implicit reshards, accidental replication and the
+  rank's peak live bytes, in each contract's ``sharding`` block
+  (``DESIGN.md`` §8).
+
+Run ``python -m tpu_syncbn_torch.audit [--strict] [--json] [--shardings]
+[--mem-budget N] [--no-contracts | --no-lint] [--rules R1,R2]
 [--root PATH] [--changed-only REF]`` or :func:`run_audit`; results feed
 the ``audit.*`` telemetry counters.
 """
@@ -34,11 +40,14 @@ import dataclasses
 
 from tpu_syncbn_torch.audit.contracts import (  # noqa: F401
     CONTRACT_SCHEMA,
+    SHARDING_SCHEMA,
     ExtractionError,
     LoweredStep,
     ProgramContract,
     Recorder,
+    ShardingContract,
     compare_contracts,
+    compare_sharding,
     extract_contract,
     load_contract,
     save_contract,
@@ -95,7 +104,8 @@ class AuditResult:
 
 def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True,
               golden_dir: str | None = None, pkg_root: str | None = None,
-              rules=None, lint_paths=None, live: dict | None = None) -> AuditResult:
+              rules=None, lint_paths=None, live: dict | None = None,
+              shardings: bool = False, mem_budget: int | None = None) -> AuditResult:
     """Run the audit layers and fold the outcome into the ``audit.*``
     telemetry counters. ``lint`` runs the source lint over ``pkg_root``
     (default: the port's package) or over the files of ``lint_paths``
@@ -103,7 +113,10 @@ def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True
     all). ``contracts`` records the registry on the pinned world and
     holds it to the invariants and the goldens; ``live`` is a
     :func:`~tpu_syncbn_torch.audit.program_audit.pinned_world_contracts`
-    result to check instead of recording anew. ``contracts=False`` starts
+    result to check instead of recording anew. ``shardings`` takes the
+    allocator's reading of each application (layer 3's ``xla_peak_bytes``);
+    ``mem_budget`` (bytes) arms the per-device peak contract
+    (``sharding.mem_budget``). ``contracts=False`` starts
     no process and imports no trainer. Touches no environment variable
     and no process group of the caller."""
     from tpu_syncbn_torch.audit import srclint
@@ -111,7 +124,7 @@ def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True
 
     violations: list[Violation] = []
     unpinned: list[str] = []
-    files_linted = programs_checked = 0
+    files_linted = programs_checked = sharding_programs = sharding_violations = 0
     if lint:
         files = (list(lint_paths) if lint_paths is not None
                  else srclint.package_files(pkg_root))
@@ -122,12 +135,16 @@ def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True
         from tpu_syncbn_torch.audit import program_audit
 
         if live is None:
-            live = program_audit.pinned_world_contracts()
+            live = program_audit.pinned_world_contracts(memory=shardings)
         recorded = live["contracts"]
         programs_checked = len(recorded)
+        sharding_programs = sum(1 for c in recorded.values() if c.sharding is not None)
         violations += [Violation(rule=rule, message=msg, path="<recording>", line=0)
                        for _, rule, msg in live["errors"]]
         violations += program_audit.check_invariants(recorded)
+        found = program_audit.check_sharding(recorded, mem_budget=mem_budget)
+        sharding_violations = len(found)
+        violations += found
         gdir = golden_dir or program_audit.default_golden_dir()
         golden_violations, unpinned = program_audit.check_goldens(recorded, gdir)
         violations += golden_violations
@@ -139,6 +156,11 @@ def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True
         telemetry.count("audit.files_linted", files_linted)
     if programs_checked:
         telemetry.count("audit.programs_checked", programs_checked)
+    if sharding_programs:
+        telemetry.count("audit.sharding.programs", sharding_programs)
+    if contracts:
+        # counted at 0 too, but only when the layer ran
+        telemetry.count("audit.sharding.violations", sharding_violations)
     telemetry.count("audit.violations", len(violations))
     for rule, n in result.rule_counts.items():
         telemetry.count(f"audit.rule.{rule}", n)
@@ -148,11 +170,13 @@ def run_audit(*, strict: bool = False, lint: bool = True, contracts: bool = True
 __all__ = [
     "REPORT_SCHEMA",
     "CONTRACT_SCHEMA",
+    "SHARDING_SCHEMA",
     "AuditResult",
     "ExtractionError",
     "LoweredStep",
     "ProgramContract",
     "Recorder",
+    "ShardingContract",
     "RULES",
     "Violation",
     "run_audit",
@@ -160,6 +184,7 @@ __all__ = [
     "lint_package",
     "lint_source",
     "compare_contracts",
+    "compare_sharding",
     "extract_contract",
     "load_contract",
     "save_contract",

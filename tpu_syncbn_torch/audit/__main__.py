@@ -1,13 +1,19 @@
 """The CLI: ``python -m tpu_syncbn_torch.audit [--strict] [--json]
-[--no-contracts | --no-lint] [--rules R1,R2] [--root PATH]
-[--changed-only GIT_REF] [--write-goldens [--force]] [--golden-dir D]``.
+[--shardings] [--mem-budget N] [--no-contracts | --no-lint] [--rules R1,R2]
+[--root PATH] [--changed-only GIT_REF] [--write-goldens [--force]]
+[--golden-dir D]``.
 
 Exit codes, as the JAX CLI's: 0 — clean; 1 — violations (or, under
 ``--strict``, a recorded program with no pinned golden; or
 ``--write-goldens`` refusing to overwrite a mismatching golden without
-``--force``); 2 — usage error, including an unknown rule and every flag
-of a layer not ported yet (each message names the ROADMAP item that adds
-it).
+``--force``); 2 — usage error, including an unknown rule, an unparsable
+``--mem-budget`` and the planner's ``plan``, not ported yet (its message
+names the ROADMAP item that adds it).
+
+``--shardings`` takes the allocator's reading of each recorded application
+(layer 3's ``xla_peak_bytes``, ``DESIGN.md`` §8); ``--mem-budget N``
+(``1048576``, ``512k``, ``64m``, ``2g``) fails every program whose
+per-device peak exceeds N bytes (``sharding.mem_budget``).
 
 The source lint (layer 2) reads the port's files and imports none of
 them. The registry (layer 1) runs on the CPU, in
@@ -29,8 +35,6 @@ import sys
 #: Flags of the JAX CLI that belong to layers the port has not ported yet,
 #: and the ROADMAP item that adds each.
 LATER_FLAGS = {
-    "--shardings": "A.14b-3 (placement and per-device peak memory)",
-    "--mem-budget": "A.14b-3 (placement and per-device peak memory)",
     "plan": "A.14c (the planner)",
 }
 
@@ -39,6 +43,14 @@ LATER_FLAGS = {
 #: changed (the JAX CLI's ``_CONTRACT_SOURCES``, without ``compat.py``).
 CONTRACT_SOURCES = ("parallel", "serve", "nn", "ops", "audit", "runtime",
                     "mesh_axes.py")
+
+
+def _parse_bytes(text: str) -> int:
+    """``1048576`` / ``512k`` / ``64m`` / ``2g`` → bytes (the JAX CLI's)."""
+    text = text.strip().lower()
+    mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}.get(text[-1:], 1)
+    digits = text[:-1] if mult != 1 else text
+    return int(digits) * mult
 
 
 def _changed_files(ref: str, pkg_root: str) -> list[str] | None:
@@ -90,8 +102,9 @@ def _parse(argv):
         description="Audit of the port: the program contracts (layer 1: every "
         "registered step body recorded on a gloo world of 8 CPU processes, "
         "whatever card the machine has, held to the cross-program invariants "
-        "and the goldens) and the source lint (layer 2: ast rules over the "
-        "port's files) (tpu_syncbn_torch/audit/DESIGN.md).",
+        "and the goldens), the source lint (layer 2: ast rules over the "
+        "port's files) and placement with per-device peak memory (layer 3, "
+        "over the same recordings) (tpu_syncbn_torch/audit/DESIGN.md).",
     )
     parser.add_argument(
         "--strict", action="store_true",
@@ -99,6 +112,15 @@ def _parse(argv):
     parser.add_argument(
         "--json", action="store_true", dest="as_json",
         help="emit one machine-readable JSON report on stdout")
+    parser.add_argument(
+        "--shardings", action="store_true",
+        help="layer 3's cross-check: take the allocator's reading of each recorded "
+        "application (xla_peak_bytes; the placement pass itself always runs with the "
+        "contract layer)")
+    parser.add_argument(
+        "--mem-budget", default=None, metavar="BYTES",
+        help="per-device peak-memory contract (k/m/g suffixes): a program whose peak "
+        "exceeds it is a sharding.mem_budget violation")
     parser.add_argument(
         "--write-goldens", action="store_true",
         help="re-pin every program contract under the golden dir. Prints the "
@@ -141,6 +163,17 @@ def main(argv=None) -> int:
         args = _parse(argv)
     except SystemExit as e:
         return int(e.code or 0)
+    mem_budget = None
+    if args.mem_budget is not None:
+        try:
+            mem_budget = _parse_bytes(args.mem_budget)
+        except ValueError:
+            print(f"--mem-budget: cannot parse {args.mem_budget!r} "
+                  "(want bytes, or k/m/g-suffixed)", file=sys.stderr)
+            return 2
+        if mem_budget < 1:
+            print("--mem-budget must be positive", file=sys.stderr)
+            return 2
     if args.force and not args.write_goldens:
         print("--force only applies to --write-goldens", file=sys.stderr)
         return 2
@@ -172,8 +205,9 @@ def main(argv=None) -> int:
                       "skipping the contract layer", file=sys.stderr)
 
     gdir = args.golden_dir or program_audit.default_golden_dir()
+    record = {"memory": True} if args.shardings else {}
     if args.write_goldens:
-        live = program_audit.pinned_world_contracts()
+        live = program_audit.pinned_world_contracts(**record)
         if live["errors"]:
             for name, rule, msg in live["errors"]:
                 print(f"<recording>: [{rule}] {msg}")
@@ -197,11 +231,12 @@ def main(argv=None) -> int:
             print(f"pinned {os.path.relpath(path)}")
         return 0
 
-    live = program_audit.pinned_world_contracts() if contracts else None
+    live = program_audit.pinned_world_contracts(**record) if contracts else None
     result = audit.run_audit(strict=args.strict, lint=not args.no_lint,
                              contracts=contracts, golden_dir=gdir,
                              pkg_root=args.root, rules=rules,
-                             lint_paths=lint_paths, live=live)
+                             lint_paths=lint_paths, live=live,
+                             shardings=args.shardings, mem_budget=mem_budget)
     if args.as_json:
         print(json.dumps(result.to_json(), indent=1, sort_keys=False))
     else:

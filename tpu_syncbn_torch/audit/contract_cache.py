@@ -11,7 +11,9 @@ callable's identity (trainers are rebuilt per call):
 * the program name, and whether it is a contract or a cost,
 * the world,
 * every argument's structure and tensor shapes and dtypes,
-* the declared in-place state and the steps a call applies.
+* the declared in-place state and the steps a call applies,
+* layer 3's mesh axes and declared specs, and whether the allocator's
+  reading is taken.
 
 Hits and misses are counted as ``planner.contract_cache_hits`` /
 ``planner.contract_cache_misses``. The cache is process-global and
@@ -46,10 +48,13 @@ def _signature(tree) -> Any:
 
 
 def fingerprint(*, name: str, world: int, example_args: Sequence[Any],
-                declared_donated: Sequence[str] = (), steps: int = 1) -> tuple:
+                declared_donated: Sequence[str] = (), steps: int = 1,
+                mesh_axes=None, in_specs=None, memory: bool = False) -> tuple:
     """The (program fingerprint, world) cache key."""
     return (name, int(world), _signature(tuple(example_args)),
-            tuple(declared_donated), int(steps))
+            tuple(declared_donated), int(steps),
+            None if mesh_axes is None else tuple(sorted(mesh_axes.items())),
+            repr(in_specs), bool(memory))
 
 
 def _cost_key(name: str, world: int, example_args) -> tuple:
@@ -69,7 +74,8 @@ def _lookup(cache: dict, key: tuple, build: Callable[[], Any]):
 
 def cached_contract(fn: Callable, example_args: Sequence[Any], *, name: str, world: int,
                     arg_labels: Sequence[str], declared_donated: Sequence[str] = (),
-                    steps: int = 1):
+                    steps: int = 1, mesh_axes=None, in_specs=None, layout=None,
+                    out_specs=None, memory: bool = False):
     """Memoizing front end for
     :func:`tpu_syncbn_torch.audit.contracts.extract_contract` — same
     arguments, same return, at most one recording per fingerprint per
@@ -80,12 +86,15 @@ def cached_contract(fn: Callable, example_args: Sequence[Any], *, name: str, wor
         rec: list = []
         out = contracts.extract_contract(
             fn, example_args, name=name, world=world, arg_labels=arg_labels,
-            declared_donated=declared_donated, steps=steps, recording=rec)
+            declared_donated=declared_donated, steps=steps, recording=rec,
+            mesh_axes=mesh_axes, in_specs=in_specs, layout=layout, out_specs=out_specs,
+            memory=memory)
         _COSTS.setdefault(_cost_key(name, world, example_args), rec[0].cost())
         return out
 
     key = fingerprint(name=name, world=world, example_args=example_args,
-                      declared_donated=declared_donated, steps=steps)
+                      declared_donated=declared_donated, steps=steps, mesh_axes=mesh_axes,
+                      in_specs=in_specs, memory=memory)
     return _lookup(_CONTRACTS, key, build)
 
 

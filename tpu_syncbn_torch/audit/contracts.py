@@ -30,6 +30,11 @@ JAX one:
   device-to-host copies. A read inside ``torch.optim.Optimizer.step`` is
   keyed ``<op>@optimizer.step`` (ROADMAP C.6).
 * **upcasts** — widening float conversions by ``"src->dst"``.
+* **sharding** (optional, layer 3: :mod:`~tpu_syncbn_torch.audit.sharding_audit`)
+  — given the program's mesh axes and declared specs, where every value
+  lives, the collectives that explain each change, implicit reshards,
+  accidental replication and the per-device peak, in a
+  :class:`ShardingContract` block.
 
 Counts are per optimizer step: a body applied ``steps`` times must total
 ``steps`` times one application's (else :class:`ExtractionError` under
@@ -52,6 +57,15 @@ from torch.utils.flop_counter import flop_registry
 
 #: Bump when the contract JSON shape changes incompatibly.
 CONTRACT_SCHEMA = 1
+
+#: Bump when the layer-3 sharding block's shape changes incompatibly (the
+#: block is optional inside the contract JSON, so adding it did not bump
+#: CONTRACT_SCHEMA) — JAX's value (``tpu_syncbn/audit/contracts.py:49``).
+SHARDING_SCHEMA = 1
+
+#: Relative tolerance of ``xla_peak_bytes`` against a golden: the
+#: allocator's reading is a cross-check, not a number the pass controls.
+XLA_PEAK_RTOL = 0.10
 
 #: The port seam's op names (``collectives._tally``) → the JAX primitive a
 #: call stands for, and the dispatcher kinds that may carry it.
@@ -109,11 +123,81 @@ class ExtractionError(ValueError):
 
 
 @dataclasses.dataclass
+class ShardingContract:
+    """The layer-3 block of one program, JAX's fields
+    (``tpu_syncbn/audit/contracts.py:71-141``): the mesh, each label's
+    distinct declared spec strings, the outputs' distinct specs (state
+    written in place included), the collectives that explain a placement
+    change, implicit reshards, accidental replication and the per-device
+    peak of the recorded body. ``xla_peak_bytes`` is the allocator's reading
+    of the same application (``DESIGN.md`` §8), null when none was taken."""
+
+    name: str
+    mesh_axes: dict[str, int]
+    in_specs: dict[str, list[str]]
+    out_specs: list[str]
+    collectives_explained: int
+    implicit_reshards: int
+    reshard_detail: list[str]
+    replicated_intermediates: int
+    replication_detail: list[str]
+    max_replicated_bytes: int
+    peak_bytes_per_device: int
+    replication_threshold: int
+    xla_peak_bytes: int | None = None
+    #: each output leaf's (axes it varies over, spec string) on this rank,
+    #: which the pinned world merges over ranks; not part of the JSON
+    out_leaves: list = dataclasses.field(default_factory=list, compare=False, repr=False)
+
+    def to_json(self) -> dict:
+        return {
+            "schema": SHARDING_SCHEMA,
+            "mesh_axes": dict(sorted(self.mesh_axes.items())),
+            "in_specs": {k: list(v) for k, v in sorted(self.in_specs.items())},
+            "out_specs": list(self.out_specs),
+            "collectives_explained": self.collectives_explained,
+            "implicit_reshards": self.implicit_reshards,
+            "reshard_detail": list(self.reshard_detail),
+            "replicated_intermediates": self.replicated_intermediates,
+            "replication_detail": list(self.replication_detail),
+            "max_replicated_bytes": self.max_replicated_bytes,
+            "peak_bytes_per_device": self.peak_bytes_per_device,
+            "replication_threshold": self.replication_threshold,
+            "xla_peak_bytes": self.xla_peak_bytes,
+        }
+
+    @classmethod
+    def from_json(cls, name: str, blob: dict) -> "ShardingContract":
+        if blob.get("schema") != SHARDING_SCHEMA:
+            raise ValueError(
+                f"sharding schema {blob.get('schema')!r} != {SHARDING_SCHEMA}"
+                " — re-pin the golden (tpu_syncbn_torch/audit/DESIGN.md §8)")
+        xla = blob.get("xla_peak_bytes")
+        return cls(
+            name=name,
+            mesh_axes={k: int(v) for k, v in blob["mesh_axes"].items()},
+            in_specs={k: list(v) for k, v in blob["in_specs"].items()},
+            out_specs=list(blob["out_specs"]),
+            collectives_explained=int(blob["collectives_explained"]),
+            implicit_reshards=int(blob["implicit_reshards"]),
+            reshard_detail=list(blob["reshard_detail"]),
+            replicated_intermediates=int(blob["replicated_intermediates"]),
+            replication_detail=list(blob["replication_detail"]),
+            max_replicated_bytes=int(blob["max_replicated_bytes"]),
+            peak_bytes_per_device=int(blob["peak_bytes_per_device"]),
+            replication_threshold=int(blob["replication_threshold"]),
+            xla_peak_bytes=int(xla) if xla is not None else None,
+        )
+
+
+@dataclasses.dataclass
 class ProgramContract:
     """The contract of one step body, per optimizer step.
     ``donated_declared`` lists the argument labels the body must update in
     place; ``donated_aliased`` maps each label to the leaves it wrote in
-    place (an undeclared label appears only when written)."""
+    place (an undeclared label appears only when written). ``sharding``
+    is the optional layer-3 block (:class:`ShardingContract`), there when
+    the recorder was given the program's mesh axes and declared specs."""
 
     name: str
     world: int
@@ -123,9 +207,10 @@ class ProgramContract:
     donated_aliased: dict[str, int]
     host_callbacks: dict[str, int]
     upcasts: dict[str, int]
+    sharding: ShardingContract | None = None
 
     def to_json(self) -> dict:
-        return {
+        out = {
             "schema": CONTRACT_SCHEMA,
             "name": self.name,
             "world": self.world,
@@ -136,17 +221,21 @@ class ProgramContract:
             "host_callbacks": dict(sorted(self.host_callbacks.items())),
             "upcasts": dict(sorted(self.upcasts.items())),
         }
+        if self.sharding is not None:
+            out["sharding"] = self.sharding.to_json()
+        return out
 
     @classmethod
     def from_json(cls, blob: dict) -> "ProgramContract":
-        """A contract from its JSON. A JAX golden's layer-3 ``sharding``
-        block is read past: placement and peak memory are ROADMAP
-        A.14b-3."""
+        """A contract from its JSON, its ``sharding`` block included."""
         if blob.get("schema") != CONTRACT_SCHEMA:
             raise ValueError(
                 f"contract schema {blob.get('schema')!r} != {CONTRACT_SCHEMA}"
                 " — re-pin the golden (tpu_syncbn_torch/audit/DESIGN.md)"
             )
+        sharding = None
+        if blob.get("sharding") is not None:
+            sharding = ShardingContract.from_json(blob["name"], blob["sharding"])
         return cls(
             name=blob["name"],
             world=int(blob["world"]),
@@ -156,6 +245,7 @@ class ProgramContract:
             donated_aliased={k: int(v) for k, v in blob["donated_aliased"].items()},
             host_callbacks={k: int(v) for k, v in blob["host_callbacks"].items()},
             upcasts={k: int(v) for k, v in blob["upcasts"].items()},
+            sharding=sharding,
         )
 
     @property
@@ -245,6 +335,15 @@ class Recorder:
     arms ``torch.cuda.set_sync_debug_mode("error")`` inside, so on the
     card a synchronizing call the dispatcher does not show raises.
 
+    With ``mesh_axes`` and ``in_specs`` (each label's declared spec tree)
+    the same dispatch mode also runs layer 3
+    (:class:`~tpu_syncbn_torch.audit.sharding_audit.Placement`): ``declared``
+    names the state labels the body updates in place, ``layout`` the
+    ``SpecLayout`` whose groups its collectives use, ``out_specs`` the
+    outputs' declared specs (given to :meth:`note_outputs`); ``memory=True``
+    also takes the allocator's reading of the application
+    (``xla_peak_bytes``). Read it with :meth:`flow`.
+
     Inside, every dispatched op is recorded (on every thread the body's
     autograd runs on), every ``collectives`` seam call made on those
     threads is noted (another thread's calls are not the body's), and flops
@@ -254,10 +353,27 @@ class Recorder:
     :meth:`contract`, :meth:`cost` and :meth:`as_text`."""
 
     def __init__(self, state: Mapping[str, Any] | None = None, *, restore: bool = False,
-                 sync_debug: bool = False):
+                 sync_debug: bool = False, mesh_axes: Mapping[str, int] | None = None,
+                 in_specs: Mapping[str, Any] | None = None, declared: Sequence[str] = (),
+                 layout=None, out_specs=None, memory: bool = False,
+                 replication_threshold: int | None = None):
         self._state = {label: tensor_leaves(tree) for label, tree in (state or {}).items()}
         self._restore = restore
         self._sync_debug = sync_debug
+        self._layer3 = None
+        if mesh_axes is not None and in_specs is not None:
+            from tpu_syncbn_torch.audit import sharding_audit
+
+            self._layer3 = dict(
+                mesh_axes=mesh_axes, in_specs=in_specs, declared=tuple(declared),
+                layout=layout, out_specs=out_specs,
+                threshold=(sharding_audit.REPLICATION_THRESHOLD_BYTES
+                           if replication_threshold is None else replication_threshold))
+        self._memory = memory and self._layer3 is not None
+        #: the layer-3 tracker while recording (None without mesh and specs)
+        self.placement = None
+        self._outputs = ()
+        self._reading = None
         self._lock = threading.Lock()
         #: every dispatched op overload, in order
         self.ops: list = []
@@ -280,13 +396,15 @@ class Recorder:
 
     # -- events --------------------------------------------------------------
 
-    def _on_seam(self, op: str, nbytes: int) -> None:
+    def _on_seam(self, op: str, nbytes: int, group=None) -> None:
         # the dispatch mode is on the recording thread's stack and on those
         # of the autograd threads its backward runs on, which inherit it
         if self._mode not in _get_current_dispatch_mode_stack():
             return
         with self._lock:
             self.seam.append((op, int(nbytes), len(self.wire)))
+            if self.placement is not None:
+                self.placement.on_seam(op, group)
 
     def _host_read(self, key: str) -> None:
         if self._in_optimizer:
@@ -300,12 +418,16 @@ class Recorder:
             self.ops.append(func)
             if count is not None:
                 self.flops += int(count(*args, **kwargs, out_val=out))
+            written = []
             for i, name, kw_only in _written_args(func):
                 val = kwargs.get(name) if kw_only or i >= len(args) else args[i]
                 for t in tensor_leaves(val):
+                    written.append(t)
                     if t.numel():
                         ptr, lo, hi = _extent(t)
                         self._writes.setdefault(ptr, []).append((lo, hi))
+            if self.placement is not None:
+                self.placement.on_op(func, args, kwargs, out, written)
             if ns == "c10d":
                 self._on_wire(op, args)
             elif ns != "aten":
@@ -377,10 +499,20 @@ class Recorder:
         self._hooks = [register_optimizer_step_pre_hook(enter_opt),
                        register_optimizer_step_post_hook(leave_opt)]
         collectives._OBSERVERS.append(self._on_seam)
+        if self._layer3 is not None:
+            from tpu_syncbn_torch.audit import sharding_audit
+
+            self.placement = sharding_audit.Placement(state=self._state, **self._layer3)
         self._sync_prev = None
         if self._sync_debug and torch.cuda.is_available():
             self._sync_prev = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
+        if self._memory:
+            from tpu_syncbn_torch.obs import profiling
+
+            cuda = any(t.is_cuda for leaves in self._state.values() for t in leaves)
+            self._reading_cm = profiling.allocation_peak("cuda" if cuda else "cpu")
+            self._reading = self._reading_cm.__enter__()
         self._mode = _Dispatch(self)
         self._mode.__enter__()
         return self
@@ -389,6 +521,8 @@ class Recorder:
         from tpu_syncbn_torch.parallel import collectives
 
         self._mode.__exit__(*exc)
+        if self._memory:
+            self._reading_cm.__exit__(*exc)
         if self._sync_prev is not None:
             torch.cuda.set_sync_debug_mode(self._sync_prev)
         collectives._OBSERVERS.remove(self._on_seam)
@@ -478,6 +612,17 @@ class Recorder:
 
         written = {k: v for k, v in self.written.items()
                    if v or k in declared_donated}
+        flow = self.flow(steps)
+        sharding = None if flow is None else ShardingContract(
+            name=name, mesh_axes=flow.mesh_axes, in_specs=flow.in_specs,
+            out_specs=flow.out_spec_strs(), collectives_explained=flow.collectives_explained,
+            implicit_reshards=flow.implicit_reshards, reshard_detail=flow.reshard_detail,
+            replicated_intermediates=flow.replicated_intermediates,
+            replication_detail=flow.replication_detail,
+            max_replicated_bytes=flow.max_replicated_bytes,
+            peak_bytes_per_device=flow.peak_bytes_per_device,
+            replication_threshold=flow.replication_threshold,
+            xla_peak_bytes=flow.xla_peak_bytes, out_leaves=flow.out_leaves)
         return ProgramContract(
             name=name,
             world=int(world),
@@ -487,7 +632,25 @@ class Recorder:
             donated_aliased={k: v for k, v in written.items() if v},
             host_callbacks=per_step("host_callbacks", self.host_reads),
             upcasts=per_step("upcasts", self.upcasts),
+            sharding=sharding,
         )
+
+    def note_outputs(self, outputs) -> None:
+        """The body's returned values: layer 3's outputs, beside the state
+        it writes in place."""
+        self._outputs = outputs
+
+    def flow(self, steps: int = 1):
+        """Layer 3's :class:`~tpu_syncbn_torch.audit.sharding_audit.ShardingFlow`
+        of this recording (counts per optimizer step), its ``xla_peak_bytes``
+        the allocator's reading when ``memory=True``; None without mesh
+        axes and specs."""
+        if self.placement is None:
+            return None
+        flow = self.placement.flow(self._outputs, steps=steps)
+        if self._reading is not None and self._reading.get("bytes") is not None:
+            flow.xla_peak_bytes = flow.input_bytes + int(self._reading["bytes"])
+        return flow
 
     def cost(self) -> dict:
         """:func:`weighted_cost_summary` of this recording."""
@@ -501,8 +664,8 @@ class Recorder:
 class LoweredStep:
     """One recorded application of a trainer's step body (what
     ``DataParallel.lowered_train_step`` returns; JAX's is a ``Lowered``):
-    ``cost_analysis()["flops"]``, ``as_text()`` (the recorded op list) and
-    ``contract(name=...)``."""
+    ``cost_analysis()["flops"]``, ``as_text()`` (the recorded op list),
+    ``contract(name=...)`` and ``flow()`` (layer 3)."""
 
     def __init__(self, recording: Recorder, *, world: int,
                  declared_donated: Sequence[str]):
@@ -519,6 +682,11 @@ class LoweredStep:
     def contract(self, name: str = "dataparallel.train_step") -> ProgramContract:
         return self.recording.contract(name=name, world=self.world,
                                        declared_donated=self.declared_donated)
+
+    def flow(self):
+        """Layer 3's result (``lowered_train_step(..., sharding=True)``), or
+        None."""
+        return self.recording.flow()
 
 
 def weighted_cost_summary(recording: Recorder) -> dict:
@@ -552,6 +720,11 @@ def extract_contract(
     declared_donated: Sequence[str] = (),
     steps: int = 1,
     recording: list | None = None,
+    mesh_axes: Mapping[str, int] | None = None,
+    in_specs: Sequence[Any] | None = None,
+    layout=None,
+    out_specs=None,
+    memory: bool = False,
 ) -> ProgramContract:
     """Apply ``fn(*example_args)`` once under a :class:`Recorder` and
     assemble its contract, per optimizer step (``steps`` applications of
@@ -559,13 +732,53 @@ def extract_contract(
     tensors for the in-place check. Every labelled tensor is put back
     afterwards, so extraction leaves the state as it found it, also when
     ``fn`` raises. ``recording``, a list, receives the
-    :class:`Recorder` (its cost and op text)."""
-    with Recorder(dict(zip(arg_labels, example_args)), restore=True) as rec:
-        fn(*example_args)
+    :class:`Recorder` (its cost and op text).
+
+    With ``mesh_axes`` and ``in_specs`` (one prefix spec tree per argument),
+    layer 3 runs in the same recording and its :class:`ShardingContract`
+    is attached (``layout``: the ``SpecLayout`` whose groups the body's
+    collectives use; ``out_specs``: the outputs' declared specs);
+    ``memory=True`` also takes the allocator's reading,
+    ``xla_peak_bytes``."""
+    rec = Recorder(dict(zip(arg_labels, example_args)), restore=True, mesh_axes=mesh_axes,
+                   in_specs=None if in_specs is None else dict(zip(arg_labels, in_specs)),
+                   declared=declared_donated, layout=layout, out_specs=out_specs,
+                   memory=memory)
+    with rec:
+        rec.note_outputs(fn(*example_args))
     if recording is not None:
         recording.append(rec)
     return rec.contract(name=name, world=world, declared_donated=declared_donated,
                         steps=steps)
+
+
+def compare_sharding(actual: ShardingContract, golden: ShardingContract,
+                     name: str) -> list[str]:
+    """Field-by-field diff of two layer-3 blocks: exact, but
+    ``xla_peak_bytes`` at :data:`XLA_PEAK_RTOL`, skipped when either side
+    took no reading (``tpu_syncbn/audit/contracts.py:550-596``)."""
+    diffs: list[str] = []
+
+    def _ne(field: str, a, g) -> None:
+        if a != g:
+            diffs.append(f"{name}: sharding.{field} = {a!r}, golden pins {g!r}")
+
+    _ne("mesh_axes", dict(sorted(actual.mesh_axes.items())),
+        dict(sorted(golden.mesh_axes.items())))
+    for label in sorted(set(actual.in_specs) | set(golden.in_specs)):
+        _ne(f"in_specs[{label}]", actual.in_specs.get(label, []),
+            golden.in_specs.get(label, []))
+    for field in ("out_specs", "collectives_explained", "implicit_reshards",
+                  "reshard_detail", "replicated_intermediates", "replication_detail",
+                  "max_replicated_bytes", "peak_bytes_per_device", "replication_threshold"):
+        _ne(field, getattr(actual, field), getattr(golden, field))
+    a, g = actual.xla_peak_bytes, golden.xla_peak_bytes
+    if a is not None and g is not None:
+        hi = max(a, g)
+        if hi and abs(a - g) > XLA_PEAK_RTOL * hi:
+            diffs.append(f"{name}: sharding.xla_peak_bytes = {a}, golden pins {g} "
+                         f"(>±{XLA_PEAK_RTOL:.0%})")
+    return diffs
 
 
 def compare_contracts(actual: ProgramContract, golden: ProgramContract) -> list[str]:
@@ -596,6 +809,17 @@ def compare_contracts(actual: ProgramContract, golden: ProgramContract) -> list[
             f"!= golden {golden.donated_declared}"
         )
     _dict_diff("donated_aliased", actual.donated_aliased, golden.donated_aliased)
+    if actual.sharding is not None and golden.sharding is not None:
+        diffs.extend(compare_sharding(actual.sharding, golden.sharding, actual.name))
+    elif actual.sharding is not None:
+        diffs.append(f"{actual.name}: program has a layer-3 sharding block but the golden "
+                     "pins none — re-pin with --write-goldens (DESIGN.md §8)")
+    elif golden.sharding is not None:
+        # a registry edit that stops supplying mesh axes and specs would
+        # otherwise silently disable every pinned layer-3 field
+        diffs.append(f"{actual.name}: golden pins a layer-3 sharding block but the program "
+                     "was recorded without one — the recorder lost its mesh axes and specs "
+                     "(registry regression), or re-pin deliberately with --write-goldens")
     return diffs
 
 

@@ -11,7 +11,11 @@ and records one application of it on every rank of a gloo world of
 rank extracts its own contract; ranks that disagree are an error naming
 the rank and the field. Programs are registered under the JAX names
 (``DESIGN.md`` beside this file maps each, and says how an executed count
-relates to JAX's program-text count where they differ).
+relates to JAX's program-text count where they differ), each with the mesh
+and declared specs JAX's golden pins, so the same recording runs layer 3
+(:mod:`~tpu_syncbn_torch.audit.sharding_audit`): each contract's
+``sharding`` block, :func:`check_sharding`'s rules and
+``contract.fsdp_peak_memory`` (ROADMAP C.7 pinned, :data:`PEAK_ITEMS`).
 
 Goldens live in ``tpu_syncbn_torch/audit/goldens/<name>.json`` (re-pin
 with ``python -m tpu_syncbn_torch.audit --write-goldens``: the CLI prints
@@ -34,6 +38,8 @@ import torch
 from torch import nn as tnn
 
 from tpu_syncbn_torch.audit import contract_cache
+from tpu_syncbn_torch.mesh_axes import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
+from tpu_syncbn_torch.parallel.layout import P
 from tpu_syncbn_torch.audit.contracts import (
     ExtractionError,
     ProgramContract,
@@ -68,6 +74,16 @@ HOST_READ_ITEMS = {
 }
 
 
+#: The DP×FSDP pair of ``contract.fsdp_peak_memory`` whose recorded peak
+#: ratio is a recorded divergence from JAX's goldens, and its ROADMAP C
+#: item: the port's sharded layout keeps the module's full parameters
+#: between steps beside the flat shards (ROADMAP 10a, C.7's repair).
+PEAK_ITEMS = {("layout.dp_fsdp.train_step", "layout.dp.train_step"): "C.7"}
+
+#: ``contract.fsdp_peak_memory``'s bound (``jaxpr_audit.py:905-924``).
+FSDP_PEAK_RATIO = 0.6
+
+
 def lossy_collective_bytes(contract: ProgramContract) -> int:
     """A program's lossy-eligible wire bytes: every collective byte but
     the ``pmin`` family (the divergence guard's finiteness consensus stays
@@ -89,7 +105,13 @@ def golden_path(golden_dir: str, name: str) -> str:
 class ProgramSpec:
     """One registered program: ``fn(*example_args)`` applies its body
     ``steps`` times; ``arg_labels`` names each argument's tensors and
-    ``declared_donated`` those the body must update in place."""
+    ``declared_donated`` those the body must update in place.
+    ``mesh_axes`` and ``in_specs`` (one prefix spec tree a label) are the
+    mesh and the declared specs JAX's golden pins for the same program
+    (layer 3); ``layout`` is the ``SpecLayout`` whose groups the body's
+    collectives run over (None: the world group spans every axis), and
+    ``out_specs`` the outputs' specs where JAX's builder declares a
+    ``shard_map`` ``out_specs`` for values the port returns as is."""
 
     name: str
     fn: Callable
@@ -98,6 +120,10 @@ class ProgramSpec:
     world: int
     declared_donated: tuple[str, ...] = ()
     steps: int = 1
+    mesh_axes: dict | None = None
+    in_specs: tuple | None = None
+    layout: Any = None
+    out_specs: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -170,19 +196,25 @@ def _batch(*lead, seed: int = 1):
 def _dp_spec(name: str, dp, *, k: int = 1, stacked: bool = False,
              declared=("params", "rest", "opt_state")) -> ProgramSpec:
     """A ``DataParallel`` step body (K applications when ``k > 1``) with the
-    chunk's learning rates filled as ``train_steps`` fills them."""
+    chunk's learning rates filled as ``train_steps`` fills them, and the
+    trainer's own mesh and declared specs (a stacked batch: a leading
+    unsharded axis)."""
     from tpu_syncbn_torch.parallel.trainer import _schedule_lrs
 
     prog = dp._program_body(k, stacked)
     prog.chunk.opt.fill(_schedule_lrs(dp.optimizer, dp.lr_scheduler, k))
     groups = dp._state_groups(prog.chunk)
+    specs = dp._state_specs(prog.chunk, (lambda b: P(None, *b)) if stacked else (lambda b: b))
+    mesh_axes, layout = dp.audit_mesh()
     batch = _batch(k) if stacked else _batch()
     return ProgramSpec(
         name=name,
         fn=lambda params, rest, opt_state, b: prog.loop(b),
         example_args=(groups["params"], groups["rest"], groups["opt_state"], batch),
         arg_labels=("params", "rest", "opt_state", "batches" if stacked else "batch"),
-        declared_donated=tuple(declared), world=_world(), steps=k)
+        declared_donated=tuple(declared), world=_world(), steps=k,
+        mesh_axes=mesh_axes, layout=layout,
+        in_specs=(specs["params"], specs["rest"], specs["opt_state"], specs["batch"]))
 
 
 def _sgd(params):
@@ -271,10 +303,15 @@ def _syncbn_compressed_stats() -> ProgramSpec:
     group = _group()
     args = (_randn(_FEATURES, seed=2), _randn(_FEATURES, seed=3).abs(),
             torch.tensor(float(_GLOBAL_BATCH // _world())))
+    data = P(DATA_AXIS)
     return ProgramSpec(
         name="syncbn.compressed_stats",
         fn=lambda s, sq, c: collectives.reduce_moments(s, sq, c, group, mode="bf16"),
-        example_args=args, arg_labels=("sum", "sumsq", "count"), world=_world())
+        example_args=args, arg_labels=("sum", "sumsq", "count"), world=_world(),
+        mesh_axes={DATA_AXIS: _world()}, in_specs=(data, data, data),
+        # JAX's shard_map stacks each replica's (replicated) moments along
+        # dim 0 under out_specs P('data') (jaxpr_audit.py:454-457)
+        out_specs=(data, data, data))
 
 
 def _gan_train_step() -> ProgramSpec:
@@ -294,17 +331,20 @@ def _gan_train_step() -> ProgramSpec:
     def buffers(m):
         return [b for b in m.buffers() if b is not None]
 
+    # the step's batches unstacked, as JAX's step takes them (the body's
+    # one-step stack is a view of each)
     return ProgramSpec(
         name="gan.train_step",
-        fn=lambda *a: prog.loop(a[6:]),
+        fn=lambda *a: prog.loop(tuple(t.unsqueeze(0) for t in a[6:])),
         example_args=(list(g.parameters()), buffers(g), list(d.parameters()), buffers(d),
                       prog.opts[id(gan.g_optimizer)].state_tensors(),
-                      prog.opts[id(gan.d_optimizer)].state_tensors(), *batch),
+                      prog.opts[id(gan.d_optimizer)].state_tensors(), *(b[0] for b in batch)),
         arg_labels=("g_params", "g_rest", "d_params", "d_rest",
                     "g_opt_state", "d_opt_state", "real", "z_d", "z_g"),
         declared_donated=("g_params", "g_rest", "d_params", "d_rest",
                           "g_opt_state", "d_opt_state"),
-        world=_world())
+        world=_world(), mesh_axes={DATA_AXIS: _world()}, layout=gan.layout,
+        in_specs=(P(),) * 6 + (P(DATA_AXIS),) * 3)
 
 
 def _serve_eval_bucket() -> ProgramSpec:
@@ -323,7 +363,8 @@ def _serve_eval_bucket() -> ProgramSpec:
         example_args=(list(eng.model.parameters()),
                       [b for b in eng.model.buffers() if b is not None],
                       _randn(eng.buckets[0], _FEATURES, seed=7)),
-        arg_labels=("params", "rest", "batch"), world=_world())
+        arg_labels=("params", "rest", "batch"), world=_world(),
+        mesh_axes={DATA_AXIS: _world()}, in_specs=(P(), P(), P(DATA_AXIS)))
 
 
 def _serve_redistribute() -> ProgramSpec:
@@ -341,7 +382,8 @@ def _serve_redistribute() -> ProgramSpec:
         store = {dt: v.view(world, -1)[_rank()].clone() for dt, v in full.items()}
     return ProgramSpec(
         name="serve.redistribute", fn=build_redistribute(layout, speclay),
-        example_args=(store,), arg_labels=("store",), world=world)
+        example_args=(store,), arg_labels=("store",), world=world,
+        mesh_axes=dict(speclay.axis_sizes), layout=speclay, in_specs=(P(DATA_AXIS),))
 
 
 def _no_grad(fn):
@@ -366,7 +408,9 @@ def _tensor_tp_mlp() -> ProgramSpec:
     return ProgramSpec(
         name="tensor.tp_mlp",
         fn=_no_grad(lambda x, a, b, c, e: tensor.tp_mlp(x, a, b, c, e, group)),
-        example_args=args, arg_labels=("x", "w1", "b1", "w2", "b2"), world=world)
+        example_args=args, arg_labels=("x", "w1", "b1", "w2", "b2"), world=world,
+        mesh_axes={MODEL_AXIS: world},
+        in_specs=(P(), P(None, MODEL_AXIS), P(MODEL_AXIS), P(MODEL_AXIS, None), P()))
 
 
 def _stage_fn(params, x):
@@ -385,7 +429,8 @@ def _pipeline_gpipe() -> ProgramSpec:
     return ProgramSpec(
         name="pipeline.gpipe", fn=_no_grad(run),
         example_args=(stacked, _randn(m, mb, d, seed=15, shared=True)),
-        arg_labels=("stage_params", "microbatches"), world=world)
+        arg_labels=("stage_params", "microbatches"), world=world,
+        mesh_axes={PIPE_AXIS: world}, in_specs=(P(PIPE_AXIS), P()))
 
 
 def _pipeline_train(schedule: str) -> ProgramSpec:
@@ -410,12 +455,18 @@ def _pipeline_train(schedule: str) -> ProgramSpec:
     batch = (_randn(m, mb, d, seed=16, shared=True), _randn(m, mb, d, seed=17, shared=True))
     prog = tr._build_program(1, False, batch)
     prog.chunk.opt.fill(_schedule_lrs(tr.optimizer, None, 1))
+    opt_state = prog.chunk.opt.state_tensors()
     return ProgramSpec(
         name=f"pipeline.train_{schedule}",
         fn=lambda params, opt_state, b: prog.loop(b),
-        example_args=(list(tr._params.values()), prog.chunk.opt.state_tensors(), batch),
+        example_args=(list(tr._params.values()), opt_state, batch),
         arg_labels=("params", "opt_state", "batch"),
-        declared_donated=("params", "opt_state"), world=_world())
+        declared_donated=("params", "opt_state"), world=_world(),
+        mesh_axes=dict(tr.layout.axis_sizes), layout=tr.layout,
+        # the stage's parameters and their momenta over the pipe axis, the
+        # steps' scalars replicated
+        in_specs=(P(PIPE_AXIS), [P(PIPE_AXIS) if t.dim() else P() for t in opt_state],
+                  P(None, DATA_AXIS)))
 
 
 def _expert_switch_moe() -> ProgramSpec:
@@ -430,7 +481,9 @@ def _expert_switch_moe() -> ProgramSpec:
     return ProgramSpec(
         name="expert.switch_moe",
         fn=_no_grad(lambda x, r, wi, wo: expert.expert_parallel_moe(x, r, wi, wo, group)),
-        example_args=args, arg_labels=("x", "router_w", "w_in", "w_out"), world=world)
+        example_args=args, arg_labels=("x", "router_w", "w_in", "w_out"), world=world,
+        mesh_axes={EXPERT_AXIS: world},
+        in_specs=(P(EXPERT_AXIS), P(), P(EXPERT_AXIS), P(EXPERT_AXIS)))
 
 
 def _sequence_ring_attention() -> ProgramSpec:
@@ -443,7 +496,8 @@ def _sequence_ring_attention() -> ProgramSpec:
     return ProgramSpec(
         name="sequence.ring_attention",
         fn=_no_grad(lambda q, k, v: sequence.ring_attention(q, k, v, group)),
-        example_args=qkv, arg_labels=("q", "k", "v"), world=world)
+        example_args=qkv, arg_labels=("q", "k", "v"), world=world,
+        mesh_axes={SEQ_AXIS: world}, in_specs=(P(None, SEQ_AXIS),) * 3)
 
 
 PROGRAM_BUILDERS: dict[str, Callable[[], ProgramSpec]] = {
@@ -480,9 +534,12 @@ PROGRAM_BUILDERS: dict[str, Callable[[], ProgramSpec]] = {
 
 
 def build_contracts(names: Sequence[str] | None = None, *, costs: dict | None = None,
-                    errors: list | None = None) -> dict[str, ProgramContract]:
+                    errors: list | None = None, memory: bool = False
+                    ) -> dict[str, ProgramContract]:
     """Record the registered programs in this process (its process group,
-    or none: world 1) and return their contracts. ``costs`` (a dict)
+    or none: world 1) and return their contracts, each with its layer-3
+    ``sharding`` block (``memory``: with the allocator's reading,
+    ``xla_peak_bytes``). ``costs`` (a dict)
     receives each program's :func:`~tpu_syncbn_torch.audit.contracts.weighted_cost_summary`;
     with ``errors`` (a list) an :class:`ExtractionError` is appended as
     ``(name, rule, message)`` instead of raised. Memoized through
@@ -495,7 +552,8 @@ def build_contracts(names: Sequence[str] | None = None, *, costs: dict | None = 
             out[name] = contract_cache.cached_contract(
                 spec.fn, spec.example_args, name=spec.name, world=spec.world,
                 arg_labels=spec.arg_labels, declared_donated=spec.declared_donated,
-                steps=spec.steps)
+                steps=spec.steps, mesh_axes=spec.mesh_axes, in_specs=spec.in_specs,
+                layout=spec.layout, out_specs=spec.out_specs, memory=memory)
         except ExtractionError as e:
             if errors is None:
                 raise
@@ -511,18 +569,15 @@ def build_contracts(names: Sequence[str] | None = None, *, costs: dict | None = 
 # the pinned world
 
 
-def _replica(rank: int, world: int, rdv: str, out_dir: str, names) -> None:
+def _replica(rank: int, world: int, rdv: str, out_dir: str, names,
+             memory: bool = False) -> None:
     import torch.distributed as tdist
 
     torch.set_num_threads(1)
     tdist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world,
                              rank=rank)
     try:
-        costs: dict = {}
-        errors: list = []
-        live = build_contracts(names, costs=costs, errors=errors)
-        blob = {"contracts": {n: c.to_json() for n, c in live.items()},
-                "costs": costs, "errors": errors}
+        blob = rank_blob(names, memory=memory)
         tmp = os.path.join(out_dir, f"rank{rank}.json.tmp")
         with open(tmp, "w") as f:
             json.dump(blob, f)
@@ -531,10 +586,39 @@ def _replica(rank: int, world: int, rdv: str, out_dir: str, names) -> None:
         tdist.destroy_process_group()
 
 
+#: Layer-3 fields that are each rank's own: the world reports their
+#: combination over ranks (:func:`merge_ranks`), not rank 0's.
+RANK_LOCAL_SHARDING = ("out_specs", "peak_bytes_per_device", "max_replicated_bytes",
+                       "xla_peak_bytes")
+
+
+def _rank_view(contract: dict) -> dict:
+    sharding = contract.get("sharding")
+    if sharding is None:
+        return contract
+    return {**contract, "sharding": {k: v for k, v in sharding.items()
+                                     if k not in RANK_LOCAL_SHARDING}}
+
+
+def rank_blob(names: Sequence[str] | None = None, *, memory: bool = False) -> dict:
+    """This rank's part of the pinned world, as JSON: its contracts, costs
+    and extraction errors, and each program's output placements
+    (layer 3's ``out_leaves``, which :func:`merge_ranks` combines)."""
+    costs: dict = {}
+    errors: list = []
+    live = build_contracts(names, costs=costs, errors=errors, memory=memory)
+    return {"contracts": {n: c.to_json() for n, c in live.items()},
+            "costs": costs, "errors": errors,
+            "outputs": {n: c.sharding.out_leaves for n, c in live.items()
+                        if c.sharding is not None}}
+
+
 def rank_diffs(per_rank: list[dict]) -> list[tuple[str, str, str]]:
     """``(name, rule, message)`` for every field in which a rank's contract
-    differs from rank 0's (a program rank 0 has and another lacks too)."""
+    differs from rank 0's (a program rank 0 has and another lacks too), the
+    layer-3 fields of :data:`RANK_LOCAL_SHARDING` aside."""
     out = []
+    per_rank = [{n: _rank_view(c) for n, c in r.items()} for r in per_rank]
     base = per_rank[0]
     for r, other in enumerate(per_rank[1:], start=1):
         for name in sorted(set(base) | set(other)):
@@ -554,9 +638,11 @@ def rank_diffs(per_rank: list[dict]) -> list[tuple[str, str, str]]:
 
 def pinned_world_contracts(names: Sequence[str] | None = None, *,
                            world: int = PINNED_WORLD,
-                           timeout: float = PINNED_TIMEOUT_S) -> dict:
+                           timeout: float = PINNED_TIMEOUT_S,
+                           memory: bool = False) -> dict:
     """Record the registry on ``world`` spawned gloo processes, every one
-    on the CPU. Returns ``{"contracts": {name: ProgramContract}`` (rank
+    on the CPU (``memory``: each layer-3 block with the allocator's
+    reading, ``xla_peak_bytes``; the CLI's ``--shardings``). Returns ``{"contracts": {name: ProgramContract}`` (rank
     0's), ``"costs": {name: summary}`` (rank 0's, ``flops`` the largest of
     any rank: a pipeline's first stage computes no input gradient),
     ``"errors": [(name, rule, message)]`` (extraction errors and ranks
@@ -569,7 +655,7 @@ def pinned_world_contracts(names: Sequence[str] | None = None, *,
         ctx = tmp.get_context("spawn")
         procs = [ctx.Process(target=_replica,
                              args=(r, world, os.path.join(d, "rdv"), d,
-                                   None if names is None else list(names)))
+                                   None if names is None else list(names), memory))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -590,18 +676,40 @@ def pinned_world_contracts(names: Sequence[str] | None = None, *,
         for r in range(world):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 blobs.append(json.load(f))
+    return {**merge_ranks(blobs), "seconds": time.perf_counter() - t0}
+
+
+def merge_ranks(blobs: list[dict]) -> dict:
+    """The pinned world's result from each rank's blob: rank 0's contracts
+    and costs, with ``flops`` the largest of any rank (a pipeline's first
+    stage computes no input gradient) and the layer-3 fields that are each
+    rank's own combined as JAX's SPMD program would report them: the
+    per-device peak and the largest replicated intermediate the largest of
+    any rank, the output specs over every rank
+    (:func:`~tpu_syncbn_torch.audit.sharding_audit.merge_out_leaves`);
+    ``xla_peak_bytes`` stays rank 0's. ``errors``: extraction errors and
+    ranks that disagree."""
+    from tpu_syncbn_torch.audit.sharding_audit import merge_out_leaves
+
     errors = [tuple(e) for e in blobs[0]["errors"]]
     errors += rank_diffs([b["contracts"] for b in blobs])
     costs = blobs[0]["costs"]
     for name, cost in costs.items():
         cost["flops"] = max(b["costs"].get(name, {}).get("flops", 0) for b in blobs)
-    return {
-        "contracts": {n: ProgramContract.from_json(c)
-                      for n, c in blobs[0]["contracts"].items()},
-        "costs": costs,
-        "errors": errors,
-        "seconds": time.perf_counter() - t0,
-    }
+    contracts = {}
+    for name, blob in blobs[0]["contracts"].items():
+        sharding = blob.get("sharding")
+        if sharding is not None and all(name in b["contracts"] for b in blobs):
+            ranks = [b["contracts"][name]["sharding"] for b in blobs]
+            sharding = {**sharding,
+                        "peak_bytes_per_device": max(r["peak_bytes_per_device"] for r in ranks),
+                        "max_replicated_bytes": max(r["max_replicated_bytes"] for r in ranks)}
+            outs = [b.get("outputs", {}).get(name) for b in blobs]
+            if all(o is not None for o in outs):
+                sharding["out_specs"] = merge_out_leaves(outs)
+            blob = {**blob, "sharding": sharding}
+        contracts[name] = ProgramContract.from_json(blob)
+    return {"contracts": contracts, "costs": costs, "errors": errors}
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +792,27 @@ def check_invariants(contracts: dict[str, ProgramContract]) -> list[Violation]:
               f"pipeline.train_{sched} gathers instead of ringing ({gathered}) — a "
               "stage materialized another stage's state")
 
+    # the composed DP×FSDP layout's memory claim: sharding the parameters
+    # and Adam's moments 1/fsdp has to show in the per-device peak
+    pair = ("layout.dp_fsdp.train_step", "layout.dp.train_step")
+    fs_l, dp_l = (contracts.get(n) for n in pair)
+    if (dp_l is not None and fs_l is not None
+            and dp_l.sharding is not None and fs_l.sharding is not None):
+        dp_peak = dp_l.sharding.peak_bytes_per_device
+        fs_peak = fs_l.sharding.peak_bytes_per_device
+        ratio = fs_peak / max(1, dp_peak)
+        item = PEAK_ITEMS.get(pair)
+        if fs_peak > FSDP_PEAK_RATIO * dp_peak and item is None:
+            v("contract.fsdp_peak_memory",
+              "composed DP×FSDP train step must hold per-device peak memory ≤ "
+              f"{FSDP_PEAK_RATIO}× the DP-only program, found {fs_peak} vs {dp_peak} bytes "
+              f"(ratio {ratio:.2f}) — flat param/opt shards are no longer paying for the "
+              "composition (ROADMAP C.7: the module's full parameters held between steps)")
+        elif fs_peak <= FSDP_PEAK_RATIO * dp_peak and item is not None:
+            v("contract.fsdp_peak_memory",
+              f"DP×FSDP peak ratio {ratio:.2f} is within {FSDP_PEAK_RATIO}×: ROADMAP "
+              f"{item} is repaired — take the pair out of program_audit.PEAK_ITEMS")
+
     moe = contracts.get("expert.switch_moe")
     if moe is not None and moe.collectives.get("all_to_all", 0) != 2:
         v("contract.moe_two_all_to_all",
@@ -748,6 +877,40 @@ def check_invariants(contracts: dict[str, ProgramContract]) -> list[Violation]:
     return out
 
 
+def check_sharding(contracts: dict[str, ProgramContract], *,
+                   mem_budget: int | None = None) -> list[Violation]:
+    """Layer 3's detectors, whatever the goldens pin (JAX's
+    ``check_sharding``, ``jaxpr_audit.py:987-1025``): accidental replication
+    above the threshold, implicit reshards, and with ``mem_budget`` (bytes)
+    the per-device peak, the larger of the recorded peak and the
+    allocator's reading."""
+    out: list[Violation] = []
+
+    def v(rule: str, msg: str) -> None:
+        out.append(Violation(rule=rule, message=msg, path="<recording>", line=0))
+
+    for name, c in contracts.items():
+        s = c.sharding
+        if s is None:
+            continue
+        for detail in s.replication_detail:
+            v("sharding.replication",
+              f"{name}: intermediate materialized fully replicated on every device above "
+              f"the {s.replication_threshold}-byte threshold — {detail}. Shard it, or "
+              "gather closer to its use site")
+        for detail in s.reshard_detail:
+            v("sharding.implicit_reshard",
+              f"{name}: layout change not explained by a declared collective — {detail}")
+        if mem_budget is not None:
+            peak = max(s.peak_bytes_per_device, s.xla_peak_bytes or 0)
+            if peak > mem_budget:
+                v("sharding.mem_budget",
+                  f"{name}: per-device peak {peak} B exceeds the --mem-budget contract of "
+                  f"{mem_budget} B (recorded {s.peak_bytes_per_device} B, allocator "
+                  f"{s.xla_peak_bytes} B)")
+    return out
+
+
 def check_goldens(contracts: dict[str, ProgramContract],
                   golden_dir: str) -> tuple[list[Violation], list[str]]:
     """Compare live contracts to the pinned goldens: ``(violations,
@@ -776,7 +939,19 @@ def golden_diffs(contracts: dict[str, ProgramContract],
         if not os.path.exists(path):
             out[name] = ["<new golden — no previous pin>"]
             continue
-        diffs = compare_contracts(contract, load_contract(path))
+        golden = load_contract(path)
+        diffs = compare_contracts(contract, golden)
+        # the comparison skips xla_peak_bytes when either side took no
+        # reading, but a re-pin that would erase a pinned reading is a
+        # reviewable change, not a silent one
+        if (golden.sharding is not None and golden.sharding.xla_peak_bytes is not None
+                and contract.sharding is not None
+                and contract.sharding.xla_peak_bytes is None):
+            diffs.append(
+                f"{name}: sharding.xla_peak_bytes = None, golden pins "
+                f"{golden.sharding.xla_peak_bytes} — re-pinning without --shardings would "
+                "erase the memory cross-check (add --shardings, or --force to drop it "
+                "deliberately)")
         if diffs:
             out[name] = diffs
     return out

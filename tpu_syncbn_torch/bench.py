@@ -10,7 +10,7 @@ JSON line:
      "host_load_1m", "recovery": {...}, "scan": {...},
      "collectives": {...}, "monitor": {...}, "numerics": {...},
      "autopilot": {...}, "incident": {...}, "memory": {...}, "compile": {...},
-     "serve": {...} or null, "telemetry": {...}}
+     "audit": {...}, "layout": {...}, "serve": {...} or null, "telemetry": {...}}
 
 Run on one GPU (or under ``python -m tpu_syncbn_torch.launch`` on several;
 every rank times its own steps, the master prints):
@@ -62,10 +62,23 @@ watermarks and the compile events measured on the run (``bench.py``'s
 blocks of those names): a flight recorder and a memory sampler ride the
 timed loop (one ``record_step`` a step, a sample before and after), then
 a forced manual bundle gives its dump time, size and attribution; the
-memory contract is the warm step's measured ``max_memory_allocated`` (the
-port has no audited peak) and a planted drill fires one ``mem_pressure``
+memory contract on the card is the audited per-device peak of the benched
+step (the ``audit`` block's, ``contract_source: "sharding_audit"``, as
+``bench.py``'s), the warm step's ``max_memory_allocated`` only when the
+audit block could not run, and a planted drill fires one ``mem_pressure``
 bundle on a scratch recorder; one bounded profiler capture runs through
 ``obs.profiling.serve_capture``.
+
+``audit`` (:func:`measure_audit`) is ``bench.py``'s block of that name:
+the source lint over the package and the audit's layer 3 over the benched
+trainer's own step body (``DataParallel.lowered_train_step``: placement,
+implicit reshards, replicated intermediates and the per-device peak), with
+the allocator's reading of the same application beside the peak.
+``layout`` (:func:`measure_layout`) is ``bench.py``'s too: the audit
+registry's three ``layout.*`` programs (the same Adam MLP under plain DP,
+DP×FSDP and DP×FSDP on the int8 wire) recorded on the pinned world of 8
+gloo processes on the host's CPU, in one spawn: each one's world, peak and
+wire bytes, and the two ratios.
 
 ``monitor`` (:func:`measure_monitor`) is the live-monitoring layer on the
 run's own metrics: an ephemeral ``obs.server.MonitoringServer`` on port 0
@@ -307,9 +320,11 @@ def measure_collectives(device: torch.device, *, payload_mb: float = 1.0,
       quantize and dequantize kernels included; ``gbytes_per_s`` — wire
       bytes over it; ``compression_ratio`` — fp32's wire over the mode's.
 
-    ``golden_ratio`` is null for both lossy modes: the JAX bench reads it
-    from its audit layer's pinned program contracts, which are not ported
-    (ROADMAP A.14b)."""
+    ``golden_ratio`` is each lossy mode's compression ratio as the audit's
+    pinned contracts give it (``bench.py``'s): the lossy-eligible wire bytes
+    of the ``dataparallel.compressed_fp32`` golden over the mode's
+    (``program_audit.lossy_collective_bytes``), null when a golden cannot
+    be read."""
     from tpu_syncbn_torch.parallel import collectives as coll
     from tpu_syncbn_torch.parallel.trainer import _default_group
 
@@ -356,7 +371,7 @@ def measure_collectives(device: torch.device, *, payload_mb: float = 1.0,
         "payload_mb_per_chip": payload_mb,
         "world": world,
         "modes": modes,
-        "golden_ratio": {"bf16": None, "int8": None},
+        "golden_ratio": golden_ratios(),
         "measure_s": round(time.perf_counter() - t_start, 3),
     }
 
@@ -776,16 +791,106 @@ def measure_autopilot(*, n_chips: int, device: torch.device) -> dict:
     }
 
 
+def golden_ratios() -> dict:
+    """``{"bf16", "int8"}``: fp32's lossy-eligible wire bytes over each
+    mode's, from the port's pinned ``dataparallel.compressed_*`` goldens
+    (arithmetic over the files, nothing recorded); null entries when a
+    golden cannot be read."""
+    from tpu_syncbn_torch.audit import program_audit
+    from tpu_syncbn_torch.audit.contracts import load_contract
+
+    gd = program_audit.default_golden_dir()
+    try:
+        def lossy(mode):
+            return program_audit.lossy_collective_bytes(load_contract(
+                program_audit.golden_path(gd, f"dataparallel.compressed_{mode}.train_step")))
+
+        fp32 = lossy("fp32")
+        return {m: round(fp32 / max(1, lossy(m)), 3) for m in ("bf16", "int8")}
+    except (OSError, ValueError, KeyError) as e:
+        log(f"collectives golden ratios unavailable: {e}")
+        return {"bf16": None, "int8": None}
+
+
+def measure_audit(dp, batch, device: torch.device) -> dict:
+    """The ``audit`` block (``bench.py``'s ``measure_audit``): the source lint
+    over the package (layer 2) and the audit's layer 3 over the benched
+    trainer's own step body, recorded once on its state and ``batch`` and
+    undone (``DataParallel.lowered_train_step(sharding=True)``). A healthy run
+    reads ``implicit_reshards`` and ``replicated_intermediates`` 0;
+    ``peak_bytes_per_device`` is the rank's peak live bytes over the body,
+    the memory block's contract, and ``xla_peak_bytes`` the allocator's
+    reading of the same application (``DESIGN.md`` §8 of the audit)."""
+    from tpu_syncbn_torch import audit as audit_mod
+
+    t0 = time.perf_counter()
+    lint = audit_mod.run_audit(contracts=False)
+    flow = dp.lowered_train_step(batch, sharding=True, memory=True).flow()
+    return {
+        "files_linted": lint.files_linted,
+        "lint_violations": len(lint.violations),
+        "sharding": {
+            "collectives_explained": flow.collectives_explained,
+            "implicit_reshards": flow.implicit_reshards,
+            "replicated_intermediates": flow.replicated_intermediates,
+            "max_replicated_mb": round(flow.max_replicated_bytes / 1e6, 3),
+            "peak_mb_per_device": round(flow.peak_bytes_per_device / 1e6, 3),
+            "peak_bytes_per_device": int(flow.peak_bytes_per_device),
+            "xla_peak_bytes": flow.xla_peak_bytes,
+        },
+        "audit_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+LAYOUT_KINDS = ("dp", "dp_fsdp", "dp_fsdp_int8")
+
+
+def measure_layout() -> dict:
+    """The ``layout`` block (``bench.py``'s ``measure_layout``): the same
+    Adam MLP under plain DP, DP×FSDP and DP×FSDP on the int8 wire — the
+    audit registry's ``layout.*`` programs, recorded on the pinned world of
+    ``program_audit.PINNED_WORLD`` gloo processes on the host's CPU in one
+    spawn: per kind its world, per-device peak and wire bytes a step;
+    ``fsdp_peak_ratio`` the DP×FSDP peak over DP's (the
+    ``contract.fsdp_peak_memory`` claim, ≤ 0.6 in JAX; ROADMAP C.7 records
+    the port's, printed as measured) and ``int8_wire_ratio`` DP×FSDP's wire
+    bytes over its int8 twin's."""
+    from tpu_syncbn_torch.audit import program_audit
+
+    t0 = time.perf_counter()
+    names = [f"layout.{k}.train_step" for k in LAYOUT_KINDS]
+    live = program_audit.pinned_world_contracts(names)
+    if live["errors"]:
+        raise RuntimeError(f"layout programs failed extraction: {live['errors']}")
+    per_kind = {}
+    for kind, name in zip(LAYOUT_KINDS, names):
+        c = live["contracts"][name]
+        per_kind[kind] = {"world": int(c.world),
+                          "peak_bytes_per_device": int(c.sharding.peak_bytes_per_device),
+                          "wire_bytes_per_device": int(live["costs"][name]["bytes_total"])}
+    dp, fs, q = (per_kind[k] for k in LAYOUT_KINDS)
+    return {
+        **per_kind,
+        "fsdp_peak_ratio": round(fs["peak_bytes_per_device"]
+                                 / max(dp["peak_bytes_per_device"], 1), 4),
+        "int8_wire_ratio": round(fs["wire_bytes_per_device"]
+                                 / max(q["wire_bytes_per_device"], 1), 4),
+        "layout_s": round(time.perf_counter() - t0, 3),
+    }
+
+
 def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
-                   wall_s: float) -> dict:
+                   wall_s: float, audited_peak_bytes: int | None = None) -> dict:
     """The ``memory`` block (``bench.py``'s ``measure_memory``): the sampler
     watched the run (the caching allocator's counters on the card, the
-    host's evidence on the CPU). The contract is the warm step's measured
-    ``max_memory_allocated`` (``contract_source: "warm_step_peak"``) — the
-    JAX bench uses its auditor's pinned peak, which the port does not have
-    (ROADMAP A.14b) — so ``used_frac`` says how far live memory after the
-    loop sits from one step's peak. On the CPU there is no device reading:
-    ``warm_peak_bytes``, the contract and both fractions are ``None``.
+    host's evidence on the CPU). The contract is the audited per-device
+    peak of the benched step (``audited_peak_bytes``, the ``audit`` block's:
+    ``contract_source: "sharding_audit"``, as JAX's), or where the audit
+    block could not run the warm step's measured ``max_memory_allocated``
+    (``"warm_step_peak"``), so ``used_frac`` says how far live memory after
+    the loop sits from one step's peak. On the CPU there is no device
+    reading: ``warm_peak_bytes``, the contract and both fractions are
+    ``None``.
 
     * ``sample_cost_s`` / ``sample_overhead_frac`` — one sample,
       micro-measured, against the timed loop's average step;
@@ -799,8 +904,11 @@ def measure_memory(sampler, *, warm_peak_bytes: int | None, steps: int,
     from tpu_syncbn_torch.obs import flightrec, incident as incident_mod, memwatch
     from tpu_syncbn_torch.obs import profiling, telemetry
 
-    if warm_peak_bytes:
-        sampler.set_contract(int(warm_peak_bytes), source="warm_step_peak")
+    source = None
+    if warm_peak_bytes:  # a device reading: the card's
+        source = "sharding_audit" if audited_peak_bytes else "warm_step_peak"
+        sampler.set_contract(int(audited_peak_bytes or warm_peak_bytes), source=source)
+    log(f"memory block contract source: {source}")
     reading = sampler.sample()
     repeats = 25
     t0 = time.perf_counter()
@@ -1520,7 +1628,7 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
     _sync(device)
     warm_s = time.perf_counter() - t0
 
-    # the warm step's peak (the memory block's contract) and its
+    # the warm step's peak (the memory block's fallback contract) and its
     # collectives (the incident block's)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -1618,8 +1726,18 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
             autopilot_info = None
         incident_info = measure_incident(recorder, last[0], steps=steps, wall_s=dt,
                                          flops_per_step=flops, tallies=step_tallies)
-        memory_info = measure_memory(mem_sampler, warm_peak_bytes=warm_peak,
-                                     steps=steps, wall_s=dt)
+        # the audited peak of the benched step is the memory block's
+        # contract; a failure nulls only the block (the contract falls
+        # back to the warm step's peak)
+        try:
+            audit_info = measure_audit(dp, batch, device)
+        except Exception as e:
+            log(f"audit measurement failed: {type(e).__name__}: {e}")
+            audit_info = None
+        memory_info = measure_memory(
+            mem_sampler, warm_peak_bytes=warm_peak, steps=steps, wall_s=dt,
+            audited_peak_bytes=(audit_info or {}).get("sharding", {}).get(
+                "peak_bytes_per_device"))
     finally:
         flightrec.uninstall()
         recorder.close()
@@ -1627,6 +1745,11 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
     compile_info = compile_block(warm_s)
     recovery = measure_recovery(dp)
     collectives = measure_collectives(device)
+    try:
+        layout_info = measure_layout() if runtime.is_master() else None
+    except Exception as e:  # null the block, keep the line
+        log(f"layout measurement failed: {type(e).__name__}: {e}")
+        layout_info = None
     serve_info = None
     if serve:  # opt-in: it builds its own engine on the trained state
         try:
@@ -1666,6 +1789,8 @@ def run(device: torch.device, scan: int = 1, serve: bool = False) -> dict:
         "incident": incident_info,
         "memory": memory_info,
         "compile": compile_info,
+        "audit": audit_info,
+        "layout": layout_info,
         "serve": serve_info,
         "telemetry": telemetry.snapshot(),
     }

@@ -38,7 +38,11 @@ boundaries (:func:`service_profile_request`), with a bounded wait.
 :func:`profiler_trace` is the library context manager (master-gated)
 that ``utils.metrics.profiler_trace`` deprecates into, and the ImageNet
 example's ``--profile-dir``. :func:`compile_rules` is the SLO form of the
-storm check (``obs.slo``). torch is imported lazily (capture paths only).
+storm check (``obs.slo``). :func:`allocation_peak` is the audit's
+allocator reading of one application (layer 3's ``xla_peak_bytes``): the
+caching allocator's counters on the card, the CPU allocator's events of a
+``profile_memory`` window on the CPU. torch is imported lazily (capture
+paths only).
 """
 
 from __future__ import annotations
@@ -687,5 +691,66 @@ def profiler_trace(log_dir: str, *, enabled: bool = True):
             yield
         prof.export_chrome_trace(os.path.join(
             log_dir, f"trace_h{telemetry._host_index()}_{os.getpid()}.json"))
+    finally:
+        _capture_lock.release()
+
+
+# ---------------------------------------------------------------------------
+# the audit's allocator reading
+
+
+@contextlib.contextmanager
+def allocation_peak(device=None):
+    """The most the allocator held, over the block, above what it held
+    when the block began: a dict whose ``"bytes"`` is set at exit, and
+    ``"source"``. On a CUDA ``device`` it is ``max_memory_allocated()``
+    after ``reset_peak_memory_stats()``, minus ``memory_allocated()``
+    before (the caching allocator's counters; the peak statistics are
+    reset). On the CPU it is the CPU allocator's allocation and free
+    events of a ``torch.profiler`` window with ``profile_memory=True``,
+    summed in their order (a free of a tensor made before the block
+    lowers the sum): the window shares :func:`capture`'s single-flight
+    lock (:class:`ProfilerBusy`)."""
+    import torch
+
+    dev = torch.device(device if device is not None else "cpu")
+    reading: dict = {"bytes": None, "source": None}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        yield reading
+        reading.update(bytes=int(torch.cuda.max_memory_allocated(dev) - before),
+                       source="cuda_caching_allocator")
+        return
+    from torch._C._profiler import _EventType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _capture_lock.acquire(blocking=False):
+        raise ProfilerBusy("a profiler capture is already in flight")
+    try:
+        with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+            yield reading
+        events = []
+        stack = list(prof.profiler.kineto_results.experimental_event_tree())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children)
+            f = node.extra_fields
+            if node.tag == _EventType.Allocation and f.device.type == "cpu":
+                events.append((node.start_time_ns, f.alloc_size, f.ptr))
+        # frees of blocks made before the window are not the block's: the
+        # window's own allocations, held at once
+        live: dict = {}
+        held = most = 0
+        for _, size, ptr in sorted(events):
+            if size > 0:
+                live[ptr] = size
+            elif ptr not in live:
+                continue
+            else:
+                size = -live.pop(ptr)
+            held += size
+            most = max(most, held)
+        reading.update(bytes=int(most), source="cpu_profiler")
     finally:
         _capture_lock.release()

@@ -209,7 +209,7 @@ def _differentiable_reduce_moments(s, sq, count, group):
 
     c = s.shape[0]
     payload = torch.cat([s, sq, count.reshape(-1)])
-    _tally("psum", [payload])
+    _tally("psum", [payload], group)
     total = all_reduce(payload, group=group)
     tcount = total[2 * c:]
     if count.dim() == 0:

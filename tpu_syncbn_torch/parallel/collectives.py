@@ -66,20 +66,20 @@ _capture = threading.local()
 # (partition, id(parent)) -> (this rank's group or None, parent): the
 # parent is held so its id cannot be reused while the entry lives
 _GROUPS: dict[tuple, tuple] = {}
-# callables given (op, bytes) of every tallied call, from whatever thread
+# callables given (op, bytes, group) of every tallied call, from whatever thread
 # issues it: the audit's recorders (audit.contracts.Recorder), each of which
 # keeps the calls of its own threads
 _OBSERVERS: list = []
 
 
-def _tally(op: str, tensors: Sequence[torch.Tensor]) -> None:
+def _tally(op: str, tensors: Sequence[torch.Tensor], group=None) -> None:
     """Count one call of ``op`` moving ``tensors`` (per-replica payload,
     numel × itemsize: what a ring all-reduce moves within a factor of
-    2(N−1)/N). Called at the transmission site, with the tensor that is
-    actually sent."""
+    2(N−1)/N) over ``group``. Called at the transmission site, with the
+    tensor that is actually sent."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     for observe in list(_OBSERVERS):
-        observe(op, nbytes)
+        observe(op, nbytes, group)
     with _lock:
         entry = _TALLIES.setdefault(op, [0, 0])
         entry[0] += 1
@@ -236,7 +236,7 @@ axis_index = _rank
 
 def _all_reduce(op: str, tensor: torch.Tensor, group, red) -> torch.Tensor:
     out = tensor.clone()
-    _tally(op, [out])
+    _tally(op, [out], group)
     tdist.all_reduce(out, op=red, group=group)
     return out
 
@@ -344,7 +344,7 @@ def all_gather(tensor: torch.Tensor, group, *, axis: int = 0,
         return tensor if tiled else tensor.unsqueeze(axis)
     src = tensor.contiguous()
     outs = [torch.empty_like(src) for _ in range(n)]
-    _tally("all_gather", [src])
+    _tally("all_gather", [src], group)
     tdist.all_gather(outs, src, group=group)
     return torch.cat(outs, dim=axis) if tiled else torch.stack(outs, dim=axis)
 
@@ -368,7 +368,7 @@ def reduce_scatter(tensor: torch.Tensor, group, *,
     if n == 1:
         return tensor
     x = tensor.movedim(scatter_dimension, 0).contiguous()
-    _tally("reduce_scatter", [x])
+    _tally("reduce_scatter", [x], group)
     if tdist.get_backend(group) == "nccl":
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
         tdist.reduce_scatter_tensor(out, x, group=group)
@@ -397,7 +397,7 @@ def _from_wire(out: torch.Tensor, like: torch.Tensor, host: bool) -> torch.Tenso
 def _ppermute(tensor: torch.Tensor, perm: tuple, group) -> torch.Tensor:
     me = _rank(group)
     x = tensor.contiguous()
-    _tally("ppermute", [x])
+    _tally("ppermute", [x], group)
     if world_size(group) == 1:
         return x.clone() if (me, me) in perm else torch.zeros_like(x)
     send, host = _wire_bytes(x, group)
@@ -448,7 +448,7 @@ def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     rank ``j``, and row ``i`` of the result came from rank ``i``. One
     ``all_to_all_single`` on the bytes (through the host on gloo)."""
     x = x.contiguous()
-    _tally("all_to_all", [x])
+    _tally("all_to_all", [x], group)
     if world_size(group) == 1:
         return x.clone()
     send, host = _wire_bytes(x, group)
@@ -567,7 +567,7 @@ def psum_flat_(tensors: Sequence[torch.Tensor], group, *,
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        _tally("psum_flat", [flat])
+        _tally("psum_flat", [flat], group)
         tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
         if scale != 1.0:
             flat.mul_(scale)
@@ -585,7 +585,7 @@ def broadcast_(tensors: Sequence[torch.Tensor], group, src: int = 0) -> None:
         return
     global_src = tdist.get_global_rank(group, src)
     for t in tensors:
-        _tally("broadcast", [t])
+        _tally("broadcast", [t], group)
         tdist.broadcast(t, src=global_src, group=group)
 
 

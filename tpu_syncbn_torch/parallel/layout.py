@@ -316,6 +316,30 @@ class SpecLayout:
         mine, _ = tdist.new_subgroups_by_enumeration(rows)
         return mine
 
+    def group_axes(self, group) -> tuple[str, ...] | None:
+        """The mesh axes ``group`` spans among the groups this layout
+        hands out (:meth:`group`), or ``None`` for a group it does not
+        hold: ``()`` for no group, every axis for the world group, an
+        axis for its mesh group, the axes a composed subgroup was built
+        for. Builds no group (the audit's placement pass reads it)."""
+        if group is None:
+            return ()
+        if group is tdist.group.WORLD:
+            return tuple(self.axis_sizes)
+        name = getattr(group, "group_name", None)
+
+        def same(g) -> bool:
+            return g is group or (name is not None and getattr(g, "group_name", None) == name)
+
+        if self.mesh is not None:
+            for a in self.axis_sizes:
+                if self.axis_sizes[a] > 1 and same(self.mesh.get_group(a)):
+                    return (a,)
+        for axes, g in self._groups.items():
+            if g is not None and same(g):
+                return axes
+        return None
+
     def batch_group(self):
         """The group SyncBN statistics, the loss mean and the gradient mean
         span: every batch-sharding axis (``stat_axes``)."""

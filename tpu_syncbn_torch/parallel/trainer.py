@@ -1153,13 +1153,55 @@ class DataParallel:
                 "rest": [b for b in self.model.buffers() if b is not None],
                 "opt_state": chunk.opt.state_tensors() + self._residuals()}
 
-    def lowered_train_step(self, batch):
+    def audit_mesh(self) -> tuple[dict, Any]:
+        """``(mesh axes, layout)`` the audit's placement pass reads this
+        trainer's collectives through: the layout's axes, or one ``data``
+        axis over the trainer's group when none was built."""
+        from tpu_syncbn_torch.mesh_axes import DATA_AXIS
+
+        if self._layout is not None:
+            return dict(self._layout.axis_sizes), self._layout
+        return {DATA_AXIS: self.world}, None
+
+    def _state_specs(self, chunk, batch_spec=None) -> dict:
+        """Each leaf's declared spec of :meth:`_state_groups` (and the
+        batch's, ``batch_spec``): the module's parameters and buffers and
+        the steps' scalars replicated, the flat shards and their optimizer
+        state over the shard axis, the error-feedback residual this
+        replica's own (over every batch axis)."""
+        from tpu_syncbn_torch.mesh_axes import DATA_AXIS
+        from tpu_syncbn_torch.parallel.layout import P
+
+        lay = self._layout
+        batch = lay.batch_spec if lay is not None else P(DATA_AXIS)
+        shard = P(lay.param_shard_axis) if self.zero else P()
+        shards = {id(t) for t in self._shards.values()} if self.zero else set()
+        opt = []
+        for g in self.optimizer.param_groups:
+            for p in g["params"]:
+                st = self.optimizer.state.get(p, {})
+                opt += [shard if id(p) in shards and v.dim() else P()
+                        for _, v in sorted(st.items()) if isinstance(v, torch.Tensor)]
+        if chunk.opt.first is not None:
+            opt.append(P())
+        groups = self._state_groups(chunk)
+        return {"params": [P()] * len(list(self.model.parameters())) + [shard] * len(shards),
+                "rest": [P()] * len(groups["rest"]),
+                "opt_state": opt + [batch] * len(self._residuals()),
+                **({} if batch_spec is None else {"batch": batch_spec(batch)})}
+
+    def lowered_train_step(self, batch, *, sharding: bool = False, memory: bool = False):
         """One step body recorded on this trainer's state and ``batch`` (the
         JAX trainer's ``lowered_train_step``): the body a K-step program
         captures, applied once eagerly under the audit's recorder, then
         undone. Returns an :class:`~tpu_syncbn_torch.audit.contracts.LoweredStep`
         — ``.cost_analysis()["flops"]``, ``.as_text()`` (the dispatched
-        ops) and ``.contract(name=...)``. Parameters, buffers, the
+        ops), ``.contract(name=...)`` and ``.flow()``. With ``sharding``
+        the recorder also runs the audit's layer 3 over the trainer's own
+        mesh axes and declared specs (:meth:`audit_mesh`,
+        :meth:`_state_specs`; the batch over the layout's batch axes), and
+        with ``memory`` it takes the allocator's reading of the application.
+        Parameters, buffers, the
         optimizer's state and groups, ``.grad``, the RNG, the train/eval
         flag and the collective tallies are left as they were, also when
         the body raises."""
@@ -1180,8 +1222,15 @@ class DataParallel:
             prog = self._program_body(1, False)
             prog.chunk.opt.fill(_schedule_lrs(opt, self.lr_scheduler, 1))
             groups = self._state_groups(prog.chunk)
-            with contracts.Recorder({**groups, "batch": batch}, restore=True) as rec:
-                prog.loop(batch)
+            layer3: dict = {}
+            if sharding:
+                mesh_axes, layout = self.audit_mesh()
+                layer3 = dict(mesh_axes=mesh_axes, layout=layout, memory=memory,
+                              in_specs=self._state_specs(prog.chunk, lambda b: b),
+                              declared=[k for k, v in groups.items() if v])
+            with contracts.Recorder({**groups, "batch": batch}, restore=True,
+                                    **layer3) as rec:
+                rec.note_outputs(prog.loop(batch))
         finally:
             opt.state.clear()
             opt.state.update(saved_state)
@@ -1202,13 +1251,19 @@ class DataParallel:
 
     def _build_program(self, n_steps: int, stacked: bool, batch, recorder=None):
         """The K-step program captured for batches shaped like ``batch``.
-        ``recorder`` (``state -> context manager``, the audit's
+        ``recorder`` (``(state, specs) -> context manager``, the audit's
         :class:`~tpu_syncbn_torch.audit.contracts.Recorder`) is entered
         around the captured applications, given the state groups of
-        :meth:`_state_groups` and the graph's static batch as ``batches``."""
+        :meth:`_state_groups` and the graph's static batch as ``batches``,
+        and each leaf's declared spec (:meth:`_state_specs`, the batches
+        stacked on a leading unsharded axis)."""
+        from tpu_syncbn_torch.parallel.layout import P
+
         prog = self._program_body(n_steps, stacked)
         prog.prepare(batch, recorder=None if recorder is None else (
-            lambda static: recorder({**self._state_groups(prog.chunk), "batches": static})))
+            lambda static: recorder(
+                {**self._state_groups(prog.chunk), "batches": static},
+                self._state_specs(prog.chunk, lambda b: P(None, *b)))))
         if prog.graph is not None:
             # the gradients the capture left (the module's parameters', and
             # the shards' under a sharding layout) are the graph's own
